@@ -1,9 +1,9 @@
 """bvh_tpu_torch — the PyTorch and CUDA port of ``bvh_tpu``.
 
 A second package beside the JAX one: host scene builds stay numpy, the
-trace runs on an NVIDIA card through hand-written CUDA kernels (built from
-``bvh_tpu_torch/csrc`` at first use), and every kernel has a plain PyTorch
-version that runs on the CPU. Entry points run on the card unless the
+trace and the nearest-triangle queries run on an NVIDIA card through
+hand-written CUDA kernels (built from ``bvh_tpu_torch/csrc`` at first use),
+and every kernel has a plain PyTorch version that runs on the CPU. Entry points run on the card unless the
 caller passes ``device="cpu"``. The package imports neither JAX nor
 anything of ``bvh_tpu``.
 """
@@ -12,6 +12,7 @@ from .config import DEFAULT_CONFIG, BvhConfig
 from .device import resolve_device
 from .ray import (Intersection, Ray, intersection_slice_for_aabb,
                   ray_intersects_aabb, ray_intersects_triangle)
+from .tri import closest_point_on_triangle, point_triangle_distance_squared
 
 __version__ = "0.1.0"
 
@@ -20,7 +21,9 @@ __all__ = [
     "DEFAULT_CONFIG",
     "Intersection",
     "Ray",
+    "closest_point_on_triangle",
     "intersection_slice_for_aabb",
+    "point_triangle_distance_squared",
     "ray_intersects_aabb",
     "ray_intersects_triangle",
     "resolve_device",

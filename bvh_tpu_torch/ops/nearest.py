@@ -1,0 +1,453 @@
+"""Nearest-triangle queries over a ``TightScene``: the point sort, the point
+prologue, the two walks (kernel wrappers, launch counts and plain PyTorch
+versions) and the entry point ``nearest_tight``.
+
+Counterpart of ``bvh_tpu/ops/nearest.py``. The CUDA kernels
+(``csrc/nearest.cu``) replace the TPU kernels ``_nearest_wide_body`` (the
+group walk over ``gnodes``) and ``_nearest_body`` (the entry/exit walk over
+``smem_nodes``) with their shared narrowphase ``_point_narrow``. They walk
+one point per thread; the plain versions below compute the same function,
+point by point, in lock step over a batch, and round every operation as the
+kernels do, so the two agree bit for bit on the card. See the kernel source
+for the walks' rules; the two walks order the bound refinement differently
+(the group walk fires against ``vb`` as read before the group, the
+entry/exit walk refines first), and each keeps its own order.
+
+Inputs: the tables ``gnodes [113, Gn]`` or ``smem_nodes [8, Nn]`` and
+``groups [G, 16, 128]`` float32 (see ``ops/cluster.py``), and the point
+rows ``pts [4, n]`` float32: x, y, z and d_max² (+inf without a radius).
+The TPU kernels' slab and point-matrix layouts (``_pack_points``) are not
+copied: one thread per point has no packets to pad.
+Output per point: ``d2`` float32 (the packed key's bits with the lane bits
+cleared, so up to W-1 ulps below the nearest squared distance; +inf where
+nothing lies within the radius) and ``lane_id`` int32 (cluster·W + lane,
+-1 where there is none).
+
+The narrowphase takes d1 = e1·q and d2 = e2·q with q = p' − a' directly,
+where the TPU kernel forms e1·p' − e1·a' through a matrix product; the
+port differs from the reference at rounding level.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..bvh.lbvh import morton_codes
+from ..device import resolve_device
+from ._build import load_cuda_library
+from .trace import _dev
+from .wide import (K, SENT, WIDE_DMAX, decode_keys, dfs_walk, fired_leaves,
+                   fold_slots)
+
+_INF = float("inf")
+N_ROWS = 4  # point rows: x, y, z, d_max^2
+
+# float32 operations, counted from csrc/nearest.cu:
+# per box test, d2min: 6 sub, 6 max, 3 mul, 2 add, 1 compare;
+BOX_OPS = 18
+# the refinement's d2max: 6 sub, 3 max, 3 mul, 2 add (the group walk adds
+# a NaN test; both add the min);
+D2MAX_OPS = 14
+# per (point, triangle) pair, whatever its region: q 3, d1 and d2 10, |e1|²,
+# e1·e2 and |e2|² 15, d3..d6 4, the vertex-A test 2, f = v e1 + w e2 − q
+# 12, d² 5, the key 5 (the other regions' tests and divisions add up to 24);
+PAIR_OPS = 56
+# per fired leaf: the frame centre 6, p' 3, the bound update 2;
+LEAF_OPS = 11
+# per entry/exit node visit beyond its box test: the leaf test and the
+# cursor select.
+STEP_OPS = 2
+
+wide_launches = 0  # kernel launches, counted in ``nearest_wide``
+entry_exit_launches = 0  # kernel launches, counted in ``nearest_entry_exit``
+
+
+def walk_ops(wide: bool, width: int, steps: float, fires: float) -> float:
+    """float32 operations of one point's walk with the bound refinement:
+    ``steps`` group tests (wide) or node visits (entry/exit) and ``fires``
+    narrowphased leaves."""
+    if wide:
+        step = K * (BOX_OPS + D2MAX_OPS + 2)
+    else:
+        step = BOX_OPS + STEP_OPS + D2MAX_OPS + 1
+    return steps * step + fires * (LEAF_OPS + width * PAIR_OPS)
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Builds (first call) and loads ``csrc/nearest.cu``."""
+    lib = load_cuda_library("nearest", "nearest.cu")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.nearest_wide_launch, lib.nearest_entry_exit_launch):
+        fn.restype = ci
+        fn.argtypes = [vp, ci, vp, ci, ci, vp, ci, vp, vp, vp]
+    return lib
+
+
+def _check(name: str, table, rows: int, groups, pts, width: int) -> None:
+    for nm, x in ((name, table), ("groups", groups), ("pts", pts)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{nm} must be a contiguous float32 tensor")
+        if x.device != pts.device:
+            raise ValueError(f"{nm} is on {x.device}, pts on {pts.device}")
+    if table.dim() != 2 or table.shape[0] != rows:
+        raise ValueError(f"{name} must be [{rows}, N], got {tuple(table.shape)}")
+    if groups.dim() != 3 or tuple(groups.shape[1:]) != (16, 128):
+        raise ValueError(f"groups must be [G, 16, 128], got {tuple(groups.shape)}")
+    if pts.dim() != 2 or pts.shape[0] != N_ROWS:
+        raise ValueError(f"pts must be [{N_ROWS}, n], got {tuple(pts.shape)}")
+    if width not in (16, 32, 64, 128):
+        raise ValueError(f"width must be 16/32/64/128, got {width}")
+
+
+def _launch(fn, table, groups, pts, width: int, refine: bool):
+    n = pts.shape[1]
+    d2 = torch.empty(n, dtype=torch.float32, device=pts.device)
+    lane_id = torch.empty(n, dtype=torch.int32, device=pts.device)
+    rc = fn(table.data_ptr(), table.shape[1], groups.data_ptr(), width,
+            int(refine), pts.data_ptr(), n, d2.data_ptr(), lane_id.data_ptr(),
+            torch.cuda.current_stream(pts.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nearest kernel launch failed: CUDA error {rc}")
+    return d2, lane_id
+
+
+def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
+                 width: int, depth: int, refine: bool = True):
+    """Nearest triangle of every point by the group walk: ``(d2, lane_id)``.
+
+    ``depth`` is the wide tree's group depth (``TightScene.gdepth``).
+    ``refine``: tighten the bound with the boxes' farthest corners (off for
+    masked scenes, whose boxes may hold no live triangle).
+
+    On a CPU tensor this runs the plain version; on a CUDA tensor it
+    launches the kernel.
+    """
+    global wide_launches
+    _check("gnodes", gnodes, 7 * K + 1, groups, pts, width)
+    if not 0 < depth < WIDE_DMAX:
+        raise ValueError(f"wide-tree depth {depth} outside 1..{WIDE_DMAX - 1}")
+    if pts.device.type == "cpu":
+        return nearest_wide_plain(gnodes, groups, pts, width, refine=refine)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no nearest_wide kernel for device {pts.device}")
+    out = _launch(load().nearest_wide_launch, gnodes, groups, pts, width,
+                  refine)
+    wide_launches += 1
+    return out
+
+
+def nearest_entry_exit(smem_nodes: torch.Tensor, groups: torch.Tensor,
+                       pts: torch.Tensor, width: int, refine: bool = True):
+    """Nearest triangle of every point by the entry/exit walk over
+    ``smem_nodes [8, Nn]``: ``(d2, lane_id)``, as ``nearest_wide``.
+
+    On a CPU tensor this runs the plain version; on a CUDA tensor it
+    launches the kernel.
+    """
+    global entry_exit_launches
+    _check("smem_nodes", smem_nodes, 8, groups, pts, width)
+    if pts.device.type == "cpu":
+        return nearest_entry_exit_plain(smem_nodes, groups, pts, width,
+                                        refine=refine)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no nearest_entry_exit kernel for device {pts.device}")
+    out = _launch(load().nearest_entry_exit_launch, smem_nodes, groups, pts,
+                  width, refine)
+    entry_exit_launches += 1
+    return out
+
+
+def _d2min(px, py, pz, ax, ay, az, bx, by, bz):
+    zero = torch.zeros((), dtype=torch.float32, device=px.device)
+    tx = torch.maximum(torch.maximum(ax - px, px - bx), zero)
+    ty = torch.maximum(torch.maximum(ay - py, py - by), zero)
+    tz = torch.maximum(torch.maximum(az - pz, pz - bz), zero)
+    return (tx * tx + ty * ty) + tz * tz
+
+
+def _d2max(px, py, pz, ax, ay, az, bx, by, bz):
+    mx = torch.maximum(px - ax, bx - px)
+    my = torch.maximum(py - ay, by - py)
+    mz = torch.maximum(pz - az, bz - pz)
+    return (mx * mx + my * my) + mz * mz
+
+
+def _narrow_plain(pts, tiles, W: int, r, c, ccx, ccy, ccz) -> torch.Tensor:
+    """Narrowphase of the (point r[i], cluster c[i]) pairs with frame
+    origins cc: each pair's smallest packed key over the cluster's W
+    triangles. ``tiles [G, 128, 9]``: rows a', e1, e2 lane-major."""
+    lanes = torch.arange(W, dtype=torch.int32, device=pts.device)
+    per_row = 128 // W
+    lane = (c % per_row)[:, None] * W + lanes[None, :]
+    tri = tiles[(c // per_row)[:, None], lane]  # [P, W, 9]
+    a0, a1, a2, e10, e11, e12, e20, e21, e22 = tri.unbind(-1)
+    # the point in the cluster frame, then relative to a'
+    qx = (pts[0, r] - ccx)[:, None] - a0
+    qy = (pts[1, r] - ccy)[:, None] - a1
+    qz = (pts[2, r] - ccz)[:, None] - a2
+    d1 = (e10 * qx + e11 * qy) + e12 * qz
+    d2 = (e20 * qx + e21 * qy) + e22 * qz
+    aa = (e10 * e10 + e11 * e11) + e12 * e12
+    bc = (e10 * e20 + e11 * e21) + e12 * e22
+    cc = (e20 * e20 + e21 * e21) + e22 * e22
+    d3, d4, d5, d6 = d1 - aa, d2 - bc, d1 - bc, d2 - cc
+    vc = d1 * d4 - d3 * d2
+    vb2 = d5 * d2 - d1 * d6
+    va = d3 * d6 - d5 * d4
+    # every region's candidate, selected in reverse priority (A > B > AB >
+    # C > AC > BC > face) so that the earliest region wins; the chosen one
+    # is the kernel's expression
+    denom = (va + vb2) + vc
+    v, w = vb2 / denom, vc / denom
+    t_bc = (d4 - d3) / ((d4 - d3) + (d5 - d6))
+    r_bc = (va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0)
+    v, w = torch.where(r_bc, 1.0 - t_bc, v), torch.where(r_bc, t_bc, w)
+    r_ac = (vb2 <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
+    v, w = torch.where(r_ac, 0.0, v), torch.where(r_ac, d2 / (d2 - d6), w)
+    r_c = (d6 >= 0.0) & (d5 <= d6)
+    v, w = torch.where(r_c, 0.0, v), torch.where(r_c, 1.0, w)
+    r_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
+    v, w = torch.where(r_ab, d1 / (d1 - d3), v), torch.where(r_ab, 0.0, w)
+    r_b = (d3 >= 0.0) & (d4 <= d3)
+    v, w = torch.where(r_b, 1.0, v), torch.where(r_b, 0.0, w)
+    r_a = (d1 <= 0.0) & (d2 <= 0.0)
+    v, w = torch.where(r_a, 0.0, v), torch.where(r_a, 0.0, w)
+    fx = (v * e10 + w * e20) - qx
+    fy = (v * e11 + w * e21) - qy
+    fz = (v * e12 + w * e22) - qz
+    dd = (fx * fx + fy * fy) + fz * fz
+    ok = (aa > 0.0) & (dd < _INF)
+    key = torch.where(ok, (dd.view(torch.int32) & -W) | lanes[None, :],
+                      torch.full((), SENT, dtype=torch.int32, device=pts.device))
+    return key.amin(dim=1)
+
+
+def _tiles(groups: torch.Tensor) -> torch.Tensor:
+    """``groups [G, 16, 128]`` as lane-major rows a', e1, e2: [G, 128, 9]."""
+    return groups[:, :9].permute(0, 2, 1).contiguous()
+
+
+def nearest_wide_plain(gnodes: torch.Tensor, groups: torch.Tensor,
+                       pts: torch.Tensor, width: int, refine: bool = True,
+                       counts: bool = False):
+    """The group-walk kernel's function in plain PyTorch (any device).
+
+    Returns ``(d2, lane_id)``, or with ``counts=True``
+    ``(d2, lane_id, group_tests, leaf_fires)``: per point, the groups whose
+    16 children it tested and the leaf clusters it narrowphased (int64).
+    """
+    W = width
+    dev = pts.device
+    n = pts.shape[1]
+    Gn = gnodes.shape[1]
+    box = gnodes[:7 * K].view(K, 7, Gn)
+    pay_all = box[:, 6]  # [K, Gn]
+    lmask_all = gnodes[7 * K].to(torch.int32)  # [Gn]
+    tiles = _tiles(groups)
+
+    bk = torch.full((n,), SENT, dtype=torch.int32, device=dev)
+    bc = torch.zeros(n, dtype=torch.int32, device=dev)
+    vb = pts[3].clone()
+    tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    fires = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def enter(r, g):
+        """Tests groups g (one per point r): the fired mask against vb as
+        read before the group, then the bound refinement; narrowphases the
+        fired leaves and returns the fired interior bits."""
+        bx6 = box[:, 0:6, g].unbind(1)  # 6 x [K, m]
+        p3 = (pts[0, r], pts[1, r], pts[2, r])
+        vbv = vb[r]
+        fired = _d2min(*p3, *bx6) < vbv
+        if refine:
+            d2max = _d2max(*p3, *bx6)
+            d2max = torch.where(d2max == d2max, d2max, _INF)
+            vb[r] = torch.minimum(vbv, d2max.amin(dim=0))
+        lmask = lmask_all[g]
+        m, kk, ii = fired_leaves(fired, lmask)
+        if counts:
+            tests[r] += 1
+            fires.index_add_(0, r[ii], torch.ones_like(ii))
+        if kk.numel():
+            gg = g[ii]
+            c = (-pay_all[kk, gg] - 1.0).to(torch.int64)
+            ax, ay, az, bx, by, bz = (box[kk, j, gg] for j in range(6))
+            km = _narrow_plain(pts, tiles, W, r[ii], c, (ax + bx) * 0.5,
+                               (ay + by) * 0.5, (az + bz) * 0.5)
+            fold_slots(r, ii, kk, km, c.to(torch.int32), bk, bc, vb, W,
+                       bounded=True)
+        return m & ~lmask
+
+    dfs_walk(torch.arange(n, device=dev), enter, pay_all, n)
+    d2, lane_id = decode_keys(bk, bc, W)
+    if counts:
+        return d2, lane_id, tests, fires
+    return d2, lane_id
+
+
+def nearest_entry_exit_plain(smem_nodes: torch.Tensor, groups: torch.Tensor,
+                             pts: torch.Tensor, width: int,
+                             refine: bool = True, counts: bool = False):
+    """The entry/exit kernel's function in plain PyTorch (any device).
+
+    Returns ``(d2, lane_id)``, or with ``counts=True``
+    ``(d2, lane_id, node_visits, leaf_fires)`` per point (int64).
+    """
+    W = width
+    dev = pts.device
+    n = pts.shape[1]
+    nn = smem_nodes.shape[1]
+    tiles = _tiles(groups)
+
+    bk = torch.full((n,), SENT, dtype=torch.int32, device=dev)
+    bc = torch.zeros(n, dtype=torch.int32, device=dev)
+    vb = pts[3].clone()
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
+    fires = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    cursor = torch.zeros(n, dtype=torch.int64, device=dev)
+    live = torch.arange(n if nn > 0 else 0, device=dev)
+    while live.numel():
+        ax, ay, az, bx, by, bz, entry, exit_ = smem_nodes[:, cursor[live]].unbind(0)
+        p3 = (pts[0, live], pts[1, live], pts[2, live])
+        box = (ax, ay, az, bx, by, bz)
+        d2min = _d2min(*p3, *box)
+        if refine:
+            vb[live] = torch.minimum(vb[live], _d2max(*p3, *box))
+        fired = d2min < vb[live]
+        leaf = entry < 0.0
+        narrow = fired & leaf
+        r = live[narrow]
+        if counts:
+            visits[live] += 1
+            fires[r] += 1
+        if r.numel():
+            c = (-entry[narrow] - 1.0).to(torch.int64)
+            km = _narrow_plain(pts, tiles, W, r, c,
+                               (ax[narrow] + bx[narrow]) * 0.5,
+                               (ay[narrow] + by[narrow]) * 0.5,
+                               (az[narrow] + bz[narrow]) * 0.5)
+            old = bk[r]
+            closer = km < old
+            nbk = torch.where(closer, km, old)
+            bk[r] = nbk
+            bc[r] = torch.where(closer, c.to(torch.int32), bc[r])
+            vb[r] = torch.minimum((nbk & -W).view(torch.float32), vb[r])
+        nxt = torch.where(leaf | ~fired, exit_, entry).to(torch.int64)
+        cursor[live] = nxt
+        live = live[nxt < nn]
+
+    d2, lane_id = decode_keys(bk, bc, W)
+    if counts:
+        return d2, lane_id, visits, fires
+    return d2, lane_id
+
+
+def sort_points_device(points, device=None):
+    """Morton coherence sort of a point batch on the device: ``(perm, inv)``
+    int64 (``perm`` sorts, ``inv`` un-sorts).
+
+    Keys are 30-bit Morton codes over the points' own bounds; the argsort
+    is stable. Neighbouring threads then walk similar subtrees. Per-point
+    results do not depend on the order.
+    """
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    n = pts.shape[0]
+    if n == 0:
+        e = torch.zeros(0, dtype=torch.int64, device=dev)
+        return e, e
+    key = morton_codes(pts, pts.amin(dim=0), pts.amax(dim=0))
+    perm = torch.argsort(key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=dev)
+    return perm, inv
+
+
+def point_rows(pts: torch.Tensor, d_max: torch.Tensor | None) -> torch.Tensor:
+    """The kernels' point rows [4, n]: x, y, z and d_max² (+inf when
+    ``d_max`` is None)."""
+    bound2 = (torch.full((pts.shape[0],), _INF, dtype=torch.float32,
+                         device=pts.device)
+              if d_max is None else d_max * d_max)
+    return torch.stack([pts[:, 0], pts[:, 1], pts[:, 2], bound2])
+
+
+def nearest_tight(scene, points, packet: int = 2048, d_max=None,
+                  wide: bool | None = None, sort: bool = True, device=None):
+    """Nearest triangle to each point: ``(shape_id [n] int32, distance [n]
+    float32)``, the reference's ``nearest_to`` with an optional radius.
+
+    ``shape_id`` is the global id of the nearest triangle and ``distance``
+    the square root of the kernel's squared distance. ``shape_id`` is -1
+    (distance +inf) only when ``d_max`` is given and no triangle lies
+    within it, or the scene is empty.
+
+    ``d_max``: optional scalar or [n] search radius; triangles at distance
+    >= d_max are ignored, and the radius prunes the walk from the start.
+    ``wide``: None takes the group walk exactly when the scene carries
+    ``gnodes``; False takes the entry/exit walk; the two give identical
+    results. ``sort``: Morton-sort batches of more than 128 points on the
+    device first (results come back in input order and do not depend on
+    it). ``packet`` is validated (a power of two >= 128) and kept for call
+    compatibility with the reference; it does not change the per-point
+    walk. ``device``: where to run (None: the card).
+
+    Masked scenes (the static part of an updater) turn off the bound
+    refinement: their boxes may hold no live triangle. Packed scenes raise.
+    """
+    if packet < 128 or packet & (packet - 1):
+        raise ValueError(f"packet must be a power of two >= 128, got {packet}")
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev).reshape(-1, 3)
+    r = pts.shape[0]
+    if r == 0 or scene.num_nodes == 0:
+        return (torch.full((r,), -1, dtype=torch.int32, device=dev),
+                torch.full((r,), _INF, dtype=torch.float32, device=dev))
+    if scene.packed_nodes is not None:
+        raise ValueError("nearest_tight reads f32 node tables (build with "
+                         "packed=False)")
+    if wide is None:
+        wide = scene.gnodes is not None
+    elif wide and scene.gnodes is None:
+        raise ValueError("scene built without wide tables (gnodes)")
+    dm = None
+    if d_max is not None:
+        dm = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
+        dm = dm.reshape(-1).expand(r)
+    inv = None
+    if sort and r > 128:
+        perm, inv = sort_points_device(pts, device=dev)
+        pts = pts[perm]
+        dm = None if dm is None else dm[perm]
+    rows = point_rows(pts, dm)
+    W = int(scene.width)
+    groups = _dev(scene.groups, dev)
+    if wide:
+        d2, lane_id = nearest_wide(_dev(scene.gnodes, dev), groups, rows, W,
+                                   int(scene.gdepth), refine=not scene.masked)
+    else:
+        d2, lane_id = nearest_entry_exit(_dev(scene.smem_nodes, dev), groups,
+                                         rows, W, refine=not scene.masked)
+    hit = torch.isfinite(d2)
+    if dm is not None:
+        # the key truncates d2 downward (lane bits), so the exact radius
+        # filters here, after the walk
+        hit = hit & (d2 < dm * dm)
+    tri_map = _dev(scene.tri_map, dev)
+    sid = torch.where(hit, tri_map[lane_id.clamp(0, tri_map.shape[0] - 1)
+                                   .to(torch.int64)], -1)
+    # the square root in float64, rounded once to float32: the correctly
+    # rounded root on every device (the card's float32 sqrt may sit 1 ulp
+    # off it)
+    root = torch.sqrt(torch.clamp_min(d2, 0.0).double()).float()
+    dist = torch.where(hit, root, _INF)
+    if inv is None:
+        return sid, dist
+    # un-permute as int32 bit patterns, so every distance moves exactly
+    comb = torch.stack([sid, dist.view(torch.int32)], dim=1)[inv]
+    return comb[:, 0].contiguous(), comb[:, 1].contiguous().view(torch.float32)

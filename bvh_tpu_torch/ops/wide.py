@@ -142,6 +142,98 @@ def _cross_rows(u0, u1, u2, v0, v1, v2):
     return (u1 * v2 - u2 * v1, u2 * v0 - u0 * v2, u0 * v1 - u1 * v0)
 
 
+def fired_leaves(fired: torch.Tensor, lmask: torch.Tensor):
+    """From the fired bits ``fired [K, m]`` of m group tests and the groups'
+    leaf masks ``lmask [m]``: the fired masks ``m`` (int32) and the fired
+    leaf slots ``kk`` of walkers ``ii``."""
+    kbits = torch.ones(K, dtype=torch.int32, device=fired.device) << torch.arange(
+        K, dtype=torch.int32, device=fired.device)
+    m = (fired.to(torch.int32) * kbits[:, None]).sum(0, dtype=torch.int32)
+    kk, ii = torch.nonzero((m & lmask)[None, :] & kbits[:, None], as_tuple=True)
+    return m, kk, ii
+
+
+def decode_keys(bk: torch.Tensor, bc: torch.Tensor, W: int):
+    """The kernels' outputs from the packed best keys and clusters: the
+    key's value (its bits with the lane bits cleared; +inf where there is no
+    hit) and the lane id cluster·W + lane (-1 where there is none)."""
+    value = (bk & -W).view(torch.float32)
+    lane_id = torch.where(bk < SENT, bc * W + (bk & (W - 1)),
+                          torch.full_like(bk, -1))
+    return value, lane_id
+
+
+def fold_slots(r, ii, kk, km, kc, bk, bc, vb, W: int, bounded: bool) -> None:
+    """Folds the leaf results of one group test into the walkers' state, in
+    place: walker ``r[ii]`` fired leaf slot ``kk`` with best key ``km`` in
+    cluster ``kc``. The kernels test the slots of one walker in ascending
+    order and replace the best key only when strictly smaller, so the first
+    slot holding the smallest key wins; then ``vb`` becomes the key's value
+    (``min`` with the old ``vb`` when ``bounded``)."""
+    dev = bk.device
+    m = r.numel()
+    keys = torch.full((K, m), SENT, dtype=torch.int32, device=dev)
+    keys[kk, ii] = km
+    clus = torch.zeros(K, m, dtype=torch.int32, device=dev)
+    clus[kk, ii] = kc
+    kmin = keys.amin(dim=0)
+    karange = torch.arange(K, device=dev)
+    first = torch.where(keys == kmin[None, :], karange[:, None],
+                        K).amin(dim=0).clamp(max=K - 1)
+    wc = clus.gather(0, first[None, :])[0]
+    has = torch.zeros(m, dtype=torch.bool, device=dev)
+    has[ii] = True
+    rf, kmin, wc = r[has], kmin[has], wc[has]
+    old = bk[rf]
+    closer = kmin < old
+    nbk = torch.where(closer, kmin, old)
+    bk[rf] = nbk
+    bc[rf] = torch.where(closer, wc, bc[rf])
+    nt = (nbk & -W).view(torch.float32)
+    vb[rf] = torch.minimum(nt, vb[rf]) if bounded else nt
+
+
+def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int) -> None:
+    """The group walk of the walkers ``live`` (of ``n``), in lock step.
+
+    ``enter(r, g)`` tests group ``g[i]`` for walker ``r[i]``, runs its fired
+    leaves and returns the fired interior bits. Each walker starts at group
+    0, then enters the fired interior children lowest slot first, depth
+    first, on a (group, remaining mask) stack of depth ``WIDE_DMAX``, as the
+    kernels do."""
+    dev = live.device
+    d = torch.zeros(n, dtype=torch.int64, device=dev)
+    gid = torch.zeros(n, dtype=torch.int64, device=dev)
+    mask = torch.zeros(n, dtype=torch.int32, device=dev)
+    stk_g = torch.zeros(n, WIDE_DMAX, dtype=torch.int64, device=dev)
+    stk_m = torch.zeros(n, WIDE_DMAX, dtype=torch.int32, device=dev)
+    if live.numel():
+        mask[live] = enter(live, torch.zeros_like(live))
+    while live.numel():
+        has = mask[live] != 0
+        h = live[has]
+        if h.numel():
+            mh = mask[h]
+            k = _ctz16(mh & -mh).to(torch.int64)
+            mask[h] = mh & (mh - 1)
+            child = pay_all[k, gid[h]].to(torch.int64)
+            m2 = enter(h, child)
+            push = m2 != 0
+            hp = h[push]
+            stk_g[hp, d[hp]] = gid[hp]
+            stk_m[hp, d[hp]] = mask[hp]
+            d[hp] += 1
+            gid[hp] = child[push]
+            mask[hp] = m2[push]
+        p = live[~has]
+        if p.numel():
+            d[p] -= 1
+            pa = p[d[p] >= 0]
+            gid[pa] = stk_g[pa, d[pa]]
+            mask[pa] = stk_m[pa, d[pa]]
+        live = live[d[live] >= 0]
+
+
 def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
                      rays: torch.Tensor, width: int,
                      gate: torch.Tensor | None = None, packet: int = 8192,
@@ -160,9 +252,6 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
     pay_all = box[:, 6]  # [K, Gn]
     lmask_all = gnodes[7 * K].to(torch.int32)  # [Gn]
     tiles = groups.permute(0, 2, 1)  # [G, 128, 16]
-    kbits = torch.ones(K, dtype=torch.int32, device=dev) << torch.arange(
-        K, dtype=torch.int32, device=dev)
-    karange = torch.arange(K, device=dev)
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -220,76 +309,22 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
                                            torch.maximum(u1, u2)),
                              torch.maximum(v1, v2))
         fired = (tmax >= torch.maximum(tmin, zero)) & (tmin < vb[r])
-        m = (fired.to(torch.int32) * kbits[:, None]).sum(0, dtype=torch.int32)
         lmask = lmask_all[g]
-        lm = m & lmask
-        kk, ii = torch.nonzero((lm[None, :] >> karange[:, None].to(torch.int32)) & 1,
-                               as_tuple=True)
+        m, kk, ii = fired_leaves(fired, lmask)
         if counts:
             tests[r] += 1
             fires.index_add_(0, r[ii], torch.ones_like(ii))
         if kk.numel():
             km, kc = narrow(r, g, ii, kk)
-            # the slots of one ray are tested in ascending order and a key
-            # replaces the best only when strictly smaller: the first slot
-            # holding the smallest key wins
-            keys = sent.expand(K, r.numel()).clone()
-            keys[kk, ii] = km
-            clus = torch.zeros(K, r.numel(), dtype=torch.int32, device=dev)
-            clus[kk, ii] = kc
-            kmin = keys.amin(dim=0)
-            first = torch.where(keys == kmin[None, :], karange[:, None],
-                                K).amin(dim=0).clamp(max=K - 1)
-            wc = clus.gather(0, first[None, :])[0]
-            has = torch.zeros(r.numel(), dtype=torch.bool, device=dev)
-            has[ii] = True
-            rf, kmin, wc = r[has], kmin[has], wc[has]
-            old = bk[rf]
-            closer = kmin < old
-            nbk = torch.where(closer, kmin, old)
-            bk[rf] = nbk
-            bc[rf] = torch.where(closer, wc, bc[rf])
-            nt = (nbk & -W).view(torch.float32)
-            vb[rf] = torch.minimum(nt, vb[rf]) if bounded else nt
+            fold_slots(r, ii, kk, km, kc, bk, bc, vb, W, bounded)
         return m & ~lmask
 
     live = torch.arange(n, device=dev)
     if gate is not None:
         live = live[gate[live // packet] != 0]
-    d = torch.zeros(n, dtype=torch.int64, device=dev)
-    gid = torch.zeros(n, dtype=torch.int64, device=dev)
-    mask = torch.zeros(n, dtype=torch.int32, device=dev)
-    stk_g = torch.zeros(n, WIDE_DMAX, dtype=torch.int64, device=dev)
-    stk_m = torch.zeros(n, WIDE_DMAX, dtype=torch.int32, device=dev)
-    if live.numel():
-        mask[live] = enter(live, torch.zeros_like(live))
-    while live.numel():
-        has = mask[live] != 0
-        h = live[has]
-        if h.numel():
-            mh = mask[h]
-            k = _ctz16(mh & -mh).to(torch.int64)
-            mask[h] = mh & (mh - 1)
-            child = pay_all[k, gid[h]].to(torch.int64)
-            m2 = enter(h, child)
-            push = m2 != 0
-            hp = h[push]
-            stk_g[hp, d[hp]] = gid[hp]
-            stk_m[hp, d[hp]] = mask[hp]
-            d[hp] += 1
-            gid[hp] = child[push]
-            mask[hp] = m2[push]
-        p = live[~has]
-        if p.numel():
-            d[p] -= 1
-            pa = p[d[p] >= 0]
-            gid[pa] = stk_g[pa, d[pa]]
-            mask[pa] = stk_m[pa, d[pa]]
-        live = live[d[live] >= 0]
+    dfs_walk(live, enter, pay_all, n)
 
-    t = (bk & -W).view(torch.float32)
-    lane_id = torch.where(bk < SENT, bc * W + (bk & (W - 1)),
-                          torch.full_like(bk, -1))
+    t, lane_id = decode_keys(bk, bc, W)
     if counts:
         return t, lane_id, tests, fires
     return t, lane_id

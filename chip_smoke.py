@@ -1,16 +1,20 @@
-"""Drives the PyTorch/CUDA port's closest-hit path on one NVIDIA card.
+"""Drives the PyTorch/CUDA port's closest-hit and nearest-triangle paths on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (each prints one JSON line; any failure exits nonzero before the
 final line):
 
-1. device: the card's name and power limit; builds both CUDA kernels and
-   the host scene builder from the checkout's sources, in parallel.
+1. device: the card's name and power limit; builds the three CUDA kernel
+   sources and the host scene builder from the checkout's sources, in
+   parallel.
 2. kernels vs plain: on create_n_cubes(1000) with 65,536 reference-random
-   and 65,536 aimed rays, every kernel against its plain PyTorch version on
-   the same CUDA tensors (closest, bounded and gated walks; the gate);
-   results must agree bit for bit.
+   and 65,536 aimed rays, every trace kernel against its plain PyTorch
+   version on the same CUDA tensors (closest, bounded and gated walks; the
+   gate); with 65,536 points, both nearest kernels against theirs
+   (unbounded, per-point radius, no bound refinement); results must agree
+   bit for bit.
 3. main path: the 120k-triangle scene (create_n_cubes(10000)), 2,097,152
    reference rays through make_tracer(sort="octmorton", sweep=False), the
    same with sweep=True (identical results), and 1,048,576 aimed rays with
@@ -22,7 +26,16 @@ final line):
    each leg's device time by kernel and idle share (torch.profiler); each
    kernel against its plain version on the main path's own sorted rows
    (every leg, gated and ungated; bit for bit), and both timed at those
-   shapes beside the kernel's bound; then the ``kernels`` line.
+   shapes beside the kernel's bound.
+6. nearest main path: 1,048,576 reference-random points (bench.py's
+   nearest leg) against the 120k-triangle scene through nearest_tight in
+   both walks (identical results), and 1,048,576 points near the dense
+   mesh's surface with d_max=2.0 at W=128; 4,096 sampled points of each leg
+   against brute force over all triangles.
+7. nearest timings: points/s of each leg with its device breakdown; each
+   nearest kernel against its plain version on the legs' own sorted rows
+   (bit for bit), both timed there beside the kernel's bound; then the
+   ``kernels`` line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -39,9 +52,12 @@ import time
 import numpy as np
 import torch
 
-from bvh_tpu_torch import Ray, native, ray_intersects_triangle
+from bvh_tpu_torch import (Ray, native, point_triangle_distance_squared,
+                           ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
-from bvh_tpu_torch.ops import _build, build_tight_scene, make_tracer
+from bvh_tpu_torch.ops import (_build, build_tight_scene, make_tracer,
+                               nearest_tight, sort_points_device)
+from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows, sort_rays_device
@@ -50,9 +66,11 @@ from bvh_tpu_torch.ops.trace import _dev, _ray_rows, sort_rays_device
 # HBM bandwidth
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-N_SAMPLE = 4096  # rays per leg checked against brute force
+N_SAMPLE = 4096  # rays or points per leg checked against brute force
 REPS = 7
-PLAIN_CHUNK = 1 << 23  # rays x cluster width per call of the plain group walk
+PLAIN_CHUNK = 1 << 23  # rays (points) x cluster width per plain walk call
+N_POINTS = 1 << 20  # points per nearest leg (bench.py's nearest leg)
+SURFACE_D_MAX = 2.0  # the narrow-band leg's search radius
 
 
 def emit(phase: str, **fields) -> None:
@@ -110,10 +128,12 @@ def device_breakdown(fn, e2e_ms: float) -> dict:
 def reset_counts() -> None:
     wide_mod.launches = 0
     sweep_mod.launches = 0
+    near_mod.wide_launches = 0
+    near_mod.entry_exit_launches = 0
 
 
 def build_all() -> dict:
-    """Builds the two kernel libraries and the host builder in parallel."""
+    """Builds the kernel libraries and the host builder in parallel."""
     errors = []
 
     def run(fn):
@@ -123,7 +143,8 @@ def build_all() -> dict:
             errors.append(f"{fn.__module__}: {e}")
 
     threads = [threading.Thread(target=run, args=(fn,))
-               for fn in (wide_mod.load, sweep_mod.load, native.load)]
+               for fn in (wide_mod.load, sweep_mod.load, near_mod.load,
+                          native.load)]
     t0 = time.perf_counter()
     for th in threads:
         th.start()
@@ -325,6 +346,274 @@ def trace_sync(tracer, o_dev, d_dev):
     return out
 
 
+def roofline(ops: float, nbytes: float):
+    """The least time (ms) the card could take for ``ops`` float32
+    operations and ``nbytes`` moved, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def near_kernel(kind: str, sc, rows, refine: bool = True):
+    """One launch of the nearest kernel ``kind`` ("wide" or "entry_exit")
+    over ``sc``'s tables."""
+    dev = rows.device
+    grp = _dev(sc.groups, dev)
+    if kind == "wide":
+        return near_mod.nearest_wide(_dev(sc.gnodes, dev), grp, rows,
+                                     sc.width, sc.gdepth, refine=refine)
+    return near_mod.nearest_entry_exit(_dev(sc.smem_nodes, dev), grp, rows,
+                                       sc.width, refine=refine)
+
+
+def near_plain(kind: str, sc, rows, refine: bool = True,
+               counts: bool = False):
+    """The plain version of nearest kernel ``kind`` over chunks of
+    PLAIN_CHUNK // W points (each point walks on its own), so that its
+    batched narrowphase stays within a few GB at W=128."""
+    dev = rows.device
+    grp = _dev(sc.groups, dev)
+    if kind == "wide":
+        table, fn = _dev(sc.gnodes, dev), near_mod.nearest_wide_plain
+    else:
+        table, fn = _dev(sc.smem_nodes, dev), near_mod.nearest_entry_exit_plain
+    chunk = PLAIN_CHUNK // sc.width
+    parts = [fn(table, grp, rows[:, s:s + chunk].contiguous(), sc.width,
+                refine=refine, counts=counts)
+             for s in range(0, rows.shape[1], chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def near_compare(kind: str, sc, rows, refine: bool = True):
+    """Nearest kernel ``kind`` against its plain version on the same rows:
+    (points whose d2 bits or lane ids differ, hits, largest |kernel - plain|
+    over finite d2)."""
+    dk, ik = near_kernel(kind, sc, rows, refine)
+    dp, ip = near_plain(kind, sc, rows, refine)
+    torch.cuda.synchronize()
+    differ = int(((dk.view(torch.int32) != dp.view(torch.int32))
+                  | (ik != ip)).sum())
+    fin = torch.isfinite(dk) & torch.isfinite(dp)
+    err = float((dk[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
+    return differ, int((ik >= 0).sum()), err
+
+
+def phase_nearest_kernels(dev) -> dict:
+    """Phase 2, nearest: both nearest kernels against their plain versions
+    on 65,536 sorted points of create_n_cubes(1000), half reference-random
+    and half near the triangles."""
+    a, b, c = tb.create_n_cubes(1000)
+    scene = build_tight_scene(a, b, c)
+    n = 65536
+    o = tb.create_rays(n // 2, seed=tb.seed_state_after(1007))[0]
+    rng = np.random.default_rng(5)
+    cen = (a + b + c) / 3.0
+    near = cen[rng.integers(0, len(cen), n // 2)] + rng.normal(size=(n // 2, 3))
+    pts = torch.from_numpy(np.concatenate([o, near]).astype(np.float32)).to(dev)
+    perm, _ = sort_points_device(pts, device=dev)
+    pts = pts[perm]
+    rows = near_mod.point_rows(pts, None)
+    d2, _ = near_kernel("wide", scene, rows)
+    # a per-point radius between 0 and twice the nearest distance: about
+    # half of the points find a triangle
+    u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(3),
+                   device=dev)
+    rows_b = near_mod.point_rows(pts, torch.sqrt(d2) * 2.0 * u)
+    out, err = {}, {"nearest_wide": 0.0, "nearest_tight": 0.0}
+    for case, (r, refine) in {"unbounded": (rows, True),
+                              "radius": (rows_b, True),
+                              "no_refine": (rows, False)}.items():
+        for kind, name in (("wide", "nearest_wide"),
+                           ("entry_exit", "nearest_tight")):
+            differ, hits, e = near_compare(kind, scene, r, refine)
+            err[name] = max(err[name], e)
+            out[f"{kind}/{case}"] = {"points_differ": differ, "hits": hits}
+            check(differ == 0,
+                  f"{kind}/{case}: {differ} points differ from plain")
+    return {"points": n, "triangles": int(a.shape[0]), "cases": out,
+            "max_abs_err": err}
+
+
+def brute_nearest(p, tris_dev):
+    """The smallest squared distance from each point to all triangles
+    (plain PyTorch on the card), in chunks of points."""
+    a, b, c = tris_dev
+    chunk = max(1, (1 << 22) // a.shape[0])
+    return torch.cat([point_triangle_distance_squared(
+        p[s:s + chunk, None, :], a[None], b[None], c[None]).amin(dim=1)
+        for s in range(0, p.shape[0], chunk)])
+
+
+def check_nearest_vs_brute(leg: str, pts_dev, sid, dist, tris_dev, seed: int,
+                           d_max: float | None = None) -> dict:
+    """N_SAMPLE points of a leg against brute force: |dist - bd| <= 1e-5 bd
+    + 1e-2; the returned triangle's brute squared distance equals the
+    smallest within rtol 1e-4, atol 1e-5; with ``d_max``, -1 exactly beyond
+    it and a triangle within it (outside a 1e-5 band)."""
+    idx = torch.from_numpy(np.random.default_rng(seed).choice(
+        pts_dev.shape[0], N_SAMPLE, replace=False)).to(pts_dev.device)
+    p, s, d = pts_dev[idx], sid[idx], dist[idx]
+    bd2 = brute_nearest(p, tris_dev)
+    bd = torch.sqrt(bd2)
+    if d_max is None:
+        check(bool((s >= 0).all()), f"{leg}: a point found no triangle")
+    else:
+        check(bool((s[bd >= d_max * (1 + 1e-5)] == -1).all()),
+              f"{leg}: a point beyond d_max found a triangle")
+        check(bool((s[bd < d_max * (1 - 1e-5)] >= 0).all()),
+              f"{leg}: a point within d_max found none")
+    hit = s >= 0
+    err = (d[hit] - bd[hit]).abs()
+    a, b, c = tris_dev
+    w = s[hit].to(torch.int64)
+    wd2 = point_triangle_distance_squared(p[hit], a[w], b[w], c[w])
+    res = {"leg": leg, "sampled": N_SAMPLE,
+           "max_abs_err": float(err.max()) if hit.any() else 0.0,
+           "max_rel_err": float((err / bd[hit].clamp_min(1e-6)).max())
+           if hit.any() else 0.0,
+           "hit_fraction_sampled": float(hit.float().mean())}
+    check(bool((err <= 1e-5 * bd[hit] + 1e-2).all()),
+          f"{leg}: distance off brute force by {res['max_abs_err']}")
+    check(bool(torch.isclose(wd2, bd2[hit], rtol=1e-4, atol=1e-5).all()),
+          f"{leg}: a returned triangle is not the nearest")
+    return res
+
+
+def ties_only(p, sid_a, d_a, sid_b, d_b, tris_dev) -> bool:
+    """Whether two results for the same points differ only in the tie and
+    key-truncation class: distances within rtol 1e-5 and both winners'
+    brute-force distances within 1e-5 relative."""
+    a, b, c = tris_dev
+    wa, wb = sid_a.to(torch.int64), sid_b.to(torch.int64)
+    da = torch.sqrt(point_triangle_distance_squared(p, a[wa], b[wa], c[wa]))
+    db = torch.sqrt(point_triangle_distance_squared(p, a[wb], b[wb], c[wb]))
+    return (bool(((sid_a >= 0) == (sid_b >= 0)).all())
+            and bool(torch.isclose(d_a, d_b, rtol=1e-5, atol=0).all())
+            and bool(torch.isclose(da, db, rtol=1e-5, atol=0).all()))
+
+
+def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
+                   err: dict) -> list:
+    """Phases 6 and 7: the nearest main path, its checks and timings.
+    Returns the two nearest kernels' entries of the ``kernels`` line."""
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
+    trisd_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_d)
+    pr_dev = torch.from_numpy(tb.create_rays(
+        N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)
+    rng = np.random.default_rng(4)
+    cen = (tris_d[0] + tris_d[1] + tris_d[2]) / 3.0
+    ps = (cen[rng.integers(0, len(cen), N_POINTS)]
+          + rng.normal(scale=1.0, size=(N_POINTS, 3))).astype(np.float32)
+    ps_dev = torch.from_numpy(ps).to(dev)
+    legs = {
+        "nearest_random": lambda: nearest_tight(scene, pr_dev),
+        "nearest_random_entry_exit": lambda: nearest_tight(scene, pr_dev,
+                                                           wide=False),
+        "nearest_surface_w128": lambda: nearest_tight(
+            scene_d, ps_dev, d_max=SURFACE_D_MAX),
+    }
+
+    # the nearest main path: every count is zero before and read after
+    reset_counts()
+    res = {leg: fn() for leg, fn in legs.items()}
+    torch.cuda.synchronize()
+    launches = {"nearest_wide": near_mod.wide_launches,
+                "nearest_tight": near_mod.entry_exit_launches}
+    emit("nearest_main_path_launches", **launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the nearest main path")
+
+    for leg, (sid, dist) in res.items():
+        check(sid.shape == (N_POINTS,) and dist.shape == (N_POINTS,)
+              and sid.dtype == torch.int32, f"{leg}: output shape or type")
+        hit = sid >= 0
+        check(bool((torch.isfinite(dist) == hit).all())
+              and bool((dist[hit] >= 0).all()), f"{leg}: distance values")
+    (sw, dw), (se, de) = res["nearest_random"], res["nearest_random_entry_exit"]
+    differ = (sw != se) | (dw.view(torch.int32) != de.view(torch.int32))
+    n_differ = int(differ.sum())
+    check(n_differ == 0 or ties_only(pr_dev[differ], sw[differ], dw[differ],
+                                     se[differ], de[differ], tris_dev),
+          f"the entry/exit walk differs from the group walk on {n_differ} "
+          "points outside the tie class")
+    sid_s = res["nearest_surface_w128"][0]
+    emit("nearest_main_path", triangles=[int(tris[0].shape[0]),
+                                         int(tris_d[0].shape[0])],
+         width=[int(scene.width), int(scene_d.width)], points=N_POINTS,
+         surface_d_max=SURFACE_D_MAX,
+         hit_fraction_surface=float((sid_s >= 0).float().mean()),
+         entry_exit_points_differ=n_differ,
+         brute_force=[
+             check_nearest_vs_brute("nearest_random", pr_dev, sw, dw,
+                                    tris_dev, 4),
+             check_nearest_vs_brute("nearest_random_entry_exit", pr_dev, se,
+                                    de, tris_dev, 5),
+             check_nearest_vs_brute("nearest_surface_w128", ps_dev, sid_s,
+                                    res["nearest_surface_w128"][1],
+                                    trisd_dev, 6, d_max=SURFACE_D_MAX)])
+
+    # ---- phase 7: nearest timings ---------------------------------------
+    e2e = {}
+    for leg, fn in legs.items():
+        ms = cuda_ms(fn)
+        e2e[leg] = {"ms": ms, "points_per_s": N_POINTS / (ms * 1e-3)}
+    emit("nearest_breakdown", card=card, legs={
+        leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
+    # each kernel on the legs' own sorted rows, against its plain version
+    perm_r, _ = sort_points_device(pr_dev, device=dev)
+    rows_r = near_mod.point_rows(pr_dev[perm_r], None)
+    perm_s, _ = sort_points_device(ps_dev, device=dev)
+    rows_s = near_mod.point_rows(ps_dev[perm_s], torch.full(
+        (N_POINTS,), SURFACE_D_MAX, device=dev))
+    runs = {"nearest_wide/random": ("wide", scene, rows_r),
+            "nearest_tight/random": ("entry_exit", scene, rows_r),
+            "nearest_wide/surface_w128": ("wide", scene_d, rows_s)}
+    t0 = time.perf_counter()
+    vs_plain = {}
+    for key, (kind, sc, rows) in runs.items():
+        differ, hits, e = near_compare(kind, sc, rows)
+        name = key.split("/")[0]
+        err[name] = max(err[name], e)
+        vs_plain[key] = {"points_differ": differ, "hits": hits}
+        check(differ == 0, f"{key}: {differ} points differ from plain")
+    emit("nearest_kernels_vs_plain_main_path",
+         seconds=time.perf_counter() - t0, runs=vs_plain,
+         max_abs_err={k: err[k] for k in launches})
+    kernel_ms, plain_ms, work, bounds = {}, {}, {}, {}
+    for key, (kind, sc, rows) in runs.items():
+        kernel_ms[key] = cuda_ms(lambda: near_kernel(kind, sc, rows))
+        plain_ms[key] = cuda_ms(lambda: near_plain(kind, sc, rows), reps=3,
+                                warmup=0)
+        # work per point counted by the plain version on a sample of the
+        # rows (each point's walk is independent of the others)
+        _, _, steps, fires = near_plain(kind, sc, rows[:, ::32].contiguous(),
+                                        counts=True)
+        steps_pp, fires_pp = float(steps.float().mean()), float(fires.float().mean())
+        wide = kind == "wide"
+        ops = N_POINTS * near_mod.walk_ops(wide, sc.width, steps_pp, fires_pp)
+        table = sc.gnodes if wide else sc.smem_nodes
+        nbytes = ((near_mod.N_ROWS * 4 + 8) * N_POINTS + table.nbytes
+                  + sc.groups.nbytes)
+        bms, by = roofline(ops, nbytes)
+        work[key] = {"group_tests" if wide else "node_visits": steps_pp,
+                     "leaf_fires": fires_pp}
+        bounds[key] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
+                       "bound_by": by, "ops_ms_at_issue_rate": ops / issue * 1e3}
+    emit("nearest_timings", card=card, end_to_end=e2e, kernel_ms=kernel_ms,
+         plain_ms=plain_ms, work_per_point=work, bounds=bounds)
+    return [
+        {"name": name, "route": "cuda",
+         "source": "bvh_tpu_torch/csrc/nearest.cu",
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": err[name], "ms": kernel_ms[key],
+         "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
+         "bound_by": bounds[key]["bound_by"], "library_ms": None}
+        for name, key, replaces in (
+            ("nearest_wide", "nearest_wide/random",
+             "bvh_tpu/ops/nearest.py:349"),
+            ("nearest_tight", "nearest_tight/random",
+             "bvh_tpu/ops/nearest.py:214"))]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -348,6 +637,9 @@ def main() -> None:
     t0 = time.perf_counter()
     p2 = phase_kernels(dev)
     emit("kernels_vs_plain", seconds=time.perf_counter() - t0, **p2)
+    t0 = time.perf_counter()
+    p2n = phase_nearest_kernels(dev)
+    emit("nearest_kernels_vs_plain", seconds=time.perf_counter() - t0, **p2n)
 
     # ---- phase 3: main path at full width ------------------------------
     a, b, c = tb.create_n_cubes(10000)
@@ -488,13 +780,8 @@ def main() -> None:
     sweep_ops = n * visits_pr * wide_mod.SLAB_OPS
     sweep_bytes = 7 * 4 * n + scene.smem_nodes.nbytes + 4 * (-(-n // 8192))
 
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                     else "bytes")
-
-    wb, wby = bound(wide_ops, wide_bytes)
-    sb, sby = bound(sweep_ops, sweep_bytes)
+    wb, wby = roofline(wide_ops, wide_bytes)
+    sb, sby = roofline(sweep_ops, sweep_bytes)
     # the same operations at the float32 issue rate without FMA pairing
     # (the kernels are built with -fmad=false): 128 lanes per SM per clock
     issue = fp32_issue_rate()
@@ -525,6 +812,11 @@ def main() -> None:
          "plain_ms": plain_ms["sweep_gate/random"],
          "bound_ms": sb, "bound_by": sby, "library_ms": None},
     ]
+
+    # ---- phases 6 and 7: the nearest main path and its timings ----------
+    kernels += nearest_phases(dev, card, scene, (a, b, c), scene_d,
+                              (ad_, bd_, cd_), issue,
+                              dict(p2n["max_abs_err"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

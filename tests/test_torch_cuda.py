@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
-on the same tensors (bit for bit), and the whole trace on the card against
-the CPU. Every test here needs an NVIDIA GPU and skips elsewhere; the file
+on the same tensors (bit for bit), and the whole trace and the nearest
+queries on the card against the CPU. Every test here needs an NVIDIA GPU and skips elsewhere; the file
 imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -12,7 +12,8 @@ import torch
 
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
-from bvh_tpu_torch.ops import build_tight_scene, make_tracer
+from bvh_tpu_torch.ops import build_tight_scene, make_tracer, nearest_tight
+from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
@@ -55,6 +56,66 @@ def case(request, cuda):
     rays = Ray.create(o, d, device=cuda)
     tm = torch.rand(len(o), generator=torch.Generator().manual_seed(2)) * 80
     return scene, (a, b, c), o, d, rays, tm.to(cuda)
+
+
+def _points(case, n=8192):
+    """Points near the triangles (half of them with a radius) and, on the
+    cube scenes, points in the reference's random range."""
+    scene, (a, b, c), *_ = case
+    rng = np.random.default_rng(6)
+    cen = (a + b + c) / 3.0
+    if scene.width == 128:  # the dense mesh
+        pts = cen[rng.integers(0, len(cen), n)] + rng.normal(size=(n, 3))
+        d_max = np.where(np.arange(n) % 2 == 0, 2.0, np.inf)
+    else:
+        pts = np.concatenate([
+            cen[rng.integers(0, len(cen), n // 2)]
+            + rng.normal(scale=20.0, size=(n // 2, 3)),
+            rng.uniform(-1.2e5, 1.2e5, (n // 2, 3))])
+        d_max = np.where(np.arange(n) % 2 == 0, 30.0, np.inf)
+    return pts.astype(np.float32), d_max.astype(np.float32)
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("walk", ["wide", "entry_exit"])
+def test_nearest_kernel_matches_plain(case, cuda, walk, refine):
+    scene = case[0]
+    pts, d_max = _points(case)
+    rows = near_mod.point_rows(torch.from_numpy(pts).to(cuda),
+                               torch.from_numpy(d_max).to(cuda))
+    grp = _dev(scene.groups, cuda)
+    if walk == "wide":
+        gn = _dev(scene.gnodes, cuda)
+        before = near_mod.wide_launches
+        dk, ik = near_mod.nearest_wide(gn, grp, rows, scene.width,
+                                       scene.gdepth, refine=refine)
+        assert near_mod.wide_launches == before + 1
+        dp, ip = near_mod.nearest_wide_plain(gn, grp, rows, scene.width,
+                                             refine=refine)
+    else:
+        sn = _dev(scene.smem_nodes, cuda)
+        before = near_mod.entry_exit_launches
+        dk, ik = near_mod.nearest_entry_exit(sn, grp, rows, scene.width,
+                                             refine=refine)
+        assert near_mod.entry_exit_launches == before + 1
+        dp, ip = near_mod.nearest_entry_exit_plain(sn, grp, rows, scene.width,
+                                                   refine=refine)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dk), _bits(dp))
+    assert torch.equal(ik, ip)
+    assert (ik >= 0).any() and (ik < 0).any()
+
+
+def test_nearest_on_card_matches_cpu(case, cuda):
+    scene = case[0]
+    pts, d_max = _points(case)
+    for wide in (None, False):
+        sid, dist = nearest_tight(scene, pts, d_max=d_max, wide=wide,
+                                  device=cuda)
+        sid_c, dist_c = nearest_tight(scene, pts, d_max=d_max, wide=wide,
+                                      device="cpu")
+        assert torch.equal(sid.cpu(), sid_c)
+        assert torch.equal(_bits(dist.cpu()), _bits(dist_c))
 
 
 @pytest.mark.parametrize("mode", ["closest", "bounded", "gated"])
