@@ -1,0 +1,160 @@
+// What the two closest/any-hit trace kernels share (wide_trace.cu, the group
+// walk, and tight_trace.cu, the entry/exit walk): the per-ray state, the
+// NaN-propagating min/max, the bf16-pair unpack, the slab test of a box and
+// the leaf test of a cluster. The sweep gate (sweep.cu) takes the min/max
+// and the unpack.
+//
+// The leaf test replaces the TPU kernel's bvh_tpu/ops/trace.py::
+// _narrow_cluster: Moller-Trumbore of one ray against the W triangles of
+// cluster c (rows a', e1, e2 of groups [G, 16, 128], relative to the
+// cluster's frame origin cc, at lanes (c mod 128/W)*W + j), the packed key
+// (the bits of t with the low log2(W) bits replaced by the lane, kept when
+// strictly smaller), then the update of the pruning bound vb:
+//
+//   closest: vb = the key's t;
+//   bounded: vb = min(the key's t, vb);
+//   any:     vb = -inf if the key's t < t_max, else t_max (a ray with an
+//            occluder inside its bound fires no box again).
+//
+// The four bilinear forms are regrouped around the origin in the triangle's
+// own frame, tv = o' - a' (= o - a, exact where o' and a' are): det = d.p,
+// u.det = e2.w, v.det = -e1.w, t.det = -tv.p with p = e2 x e1 and
+// w = tv x d. The TPU kernel sums terms of the size of the cluster frame (m
+// = o x d and cc x d, up to 1e5) and loses up to ~1e-3 of a unit at
+// triangle edges; this form keeps edge tests exact to float rounding of the
+// triangle's own size.
+//
+// Numerics: the kernels are built with -fmad=false, so every product rounds
+// on its own as in the plain PyTorch versions (bvh_tpu_torch/ops/wide.py,
+// ops/tight.py), and each sum keeps the written order. min/max propagate NaN
+// like torch.minimum/maximum: empty child slots hold NaN boxes and must
+// never fire (fminf would return the other operand and fire them). Payloads,
+// entry and exit pointers are float VALUES and convert with (int).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float EPS = 1.1920928955078125e-07f;  // float32 machine epsilon
+constexpr int SENT = 0x7F800000;                // +inf bits: "no hit" key
+constexpr int MODE_CLOSEST = 0;
+constexpr int MODE_BOUNDED = 1;
+constexpr int MODE_ANY = 2;
+
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xFF800000); }
+
+// One word of a bf16-packed node table: the box min in the high half (bits
+// & 0xFFFF0000), the box max in the low half (bits << 16).
+__device__ __forceinline__ void unpack_pair(float w, float& lo, float& hi) {
+  unsigned bits = (unsigned)__float_as_int(w);
+  lo = __int_as_float((int)(bits & 0xFFFF0000u));
+  hi = __int_as_float((int)(bits << 16));
+}
+
+struct RayState {
+  float oix, oiy, oiz, ix, iy, iz;  // o * inv, inv (clamped to +-1e30)
+  float dx, dy, dz, ox, oy, oz;     // d, o
+  float tmx;  // t_max
+  float vb;   // pruning bound
+  int bk;     // packed best key
+  int bc;     // best cluster
+};
+
+// ray rows: oi(3) inv(3) t_max d(3) o(3), each [n]
+__device__ __forceinline__ RayState load_ray(const float* __restrict__ rays,
+                                             int n, int i) {
+  RayState r;
+  r.oix = rays[0 * n + i]; r.oiy = rays[1 * n + i]; r.oiz = rays[2 * n + i];
+  r.ix = rays[3 * n + i]; r.iy = rays[4 * n + i]; r.iz = rays[5 * n + i];
+  r.tmx = rays[6 * n + i];
+  r.dx = rays[7 * n + i]; r.dy = rays[8 * n + i]; r.dz = rays[9 * n + i];
+  r.ox = rays[10 * n + i]; r.oy = rays[11 * n + i]; r.oz = rays[12 * n + i];
+  r.vb = r.tmx;
+  r.bk = SENT;
+  r.bc = 0;
+  return r;
+}
+
+__device__ __forceinline__ void store_ray(const RayState& r, int W, int i,
+                                          float* __restrict__ t_out,
+                                          int* __restrict__ id_out) {
+  t_out[i] = __int_as_float(r.bk & ~(W - 1));
+  id_out[i] = r.bk < SENT ? r.bc * W + (r.bk & (W - 1)) : -1;
+}
+
+__device__ __forceinline__ void store_miss(int i, float* __restrict__ t_out,
+                                           int* __restrict__ id_out) {
+  t_out[i] = __int_as_float(SENT);
+  id_out[i] = -1;
+}
+
+__device__ __forceinline__ bool slab_fires(const RayState& r, float ax,
+                                           float ay, float az, float bx,
+                                           float by, float bz) {
+  float t1 = ax * r.ix - r.oix;
+  float t2 = bx * r.ix - r.oix;
+  float u1 = ay * r.iy - r.oiy;
+  float u2 = by * r.iy - r.oiy;
+  float v1 = az * r.iz - r.oiz;
+  float v2 = bz * r.iz - r.oiz;
+  float tmin = nmax(nmax(nmin(t1, t2), nmin(u1, u2)), nmin(v1, v2));
+  float tmax = nmin(nmin(nmax(t1, t2), nmax(u1, u2)), nmax(v1, v2));
+  return (tmax >= nmax(tmin, 0.0f)) && (tmin < r.vb);
+}
+
+// Leaf test of cluster c, frame origin (ccx, ccy, ccz), against one ray.
+__device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
+                               int W, int c, float ccx, float ccy, float ccz,
+                               int mode) {
+  // the ray origin in the cluster frame
+  float opx = r.ox - ccx, opy = r.oy - ccy, opz = r.oz - ccz;
+  const int per_row = 128 / W;
+  const float* tile =
+      groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
+  int bk = r.bk;
+  for (int j = 0; j < W; ++j) {
+    float a0 = __ldg(tile + 0 * 128 + j), a1 = __ldg(tile + 1 * 128 + j);
+    float a2 = __ldg(tile + 2 * 128 + j), e10 = __ldg(tile + 3 * 128 + j);
+    float e11 = __ldg(tile + 4 * 128 + j), e12 = __ldg(tile + 5 * 128 + j);
+    float e20 = __ldg(tile + 6 * 128 + j), e21 = __ldg(tile + 7 * 128 + j);
+    float e22 = __ldg(tile + 8 * 128 + j);
+    float tvx = opx - a0, tvy = opy - a1, tvz = opz - a2;
+    float p0 = e21 * e12 - e22 * e11, p1 = e22 * e10 - e20 * e12,
+          p2 = e20 * e11 - e21 * e10;
+    float w0 = tvy * r.dz - tvz * r.dy, w1 = tvz * r.dx - tvx * r.dz,
+          w2 = tvx * r.dy - tvy * r.dx;
+    float det = (p0 * r.dx + p1 * r.dy) + p2 * r.dz;
+    float udet = (e20 * w0 + e21 * w1) + e22 * w2;
+    float vdet = -((e10 * w0 + e11 * w1) + e12 * w2);
+    float tdet = -((p0 * tvx + p1 * tvy) + p2 * tvz);
+    bool ok = !(det < EPS) && udet >= 0.0f && udet <= det && vdet >= 0.0f &&
+              (udet + vdet) <= det && tdet > EPS * det;
+    if (ok) {
+      float t = tdet * (1.0f / det);
+      int key = (__float_as_int(t) & ~(W - 1)) | j;
+      if (key < bk) {
+        bk = key;
+        r.bc = c;
+      }
+    }
+  }
+  r.bk = bk;
+  float nt = __int_as_float(bk & ~(W - 1));
+  if (mode == MODE_ANY)
+    r.vb = nt < r.tmx ? neg_inf() : r.tmx;
+  else if (mode == MODE_BOUNDED)
+    r.vb = nmin(nt, r.vb);
+  else
+    r.vb = nt;
+}
+
+}  // namespace

@@ -1,20 +1,24 @@
-// Wide (16-ary) group-walk closest-hit trace, one thread per ray.
+// Wide (16-ary) group-walk closest-hit and any-hit trace, one thread per ray.
 //
 // Replaces the TPU kernel bvh_tpu/ops/trace.py::_wide_body (built by
 // _make_wide_kernel, launched by _trace_wide_jit), with its walk engine
-// _make_mask_walk/_ctz16 and its leaf test _narrow_cluster. The TPU kernel
-// walks one shared cursor per packet of rays, keeps the node table in
-// scalar memory and runs the leaf test as a matrix product. Here each ray
-// walks on its own, which computes the same function:
+// _make_mask_walk/_ctz16 and its leaf test _narrow_cluster (shared with the
+// entry/exit kernel in trace_common.cuh). The TPU kernel walks one shared
+// cursor per packet of rays, keeps the node table in scalar memory and runs
+// the leaf test as a matrix product. Here each ray walks on its own, which
+// computes the same function:
 //
+//   * hints (optional): the leaf slots g*K+k listed for the ray's packet are
+//     narrowphased first, without a box test (-1 in the packet's first slot
+//     turns them off);
 //   * per group: slab-test all 16 children against the ray's current bound
 //     vb, giving the fired mask; narrowphase every fired leaf bit in
 //     ascending order; then visit the fired interior children lowest bit
 //     first (a DFS stack of (group, remaining mask), depth WIDE_DMAX);
-//   * leaf test: Moller-Trumbore of the ray against the cluster's W
-//     triangles (rows a', e1, e2 relative to the leaf box centre), the
-//     packed key (t with its low log2(W) bits replaced by the lane) and the
-//     vb update of the closest and bounded modes.
+//   * modes closest, bounded and any (trace_common.cuh). Once vb is -inf
+//     (an any-hit ray found its occluder) no box can fire again, so the walk
+//     ends after the group in hand: the result is bit for bit that of the
+//     full walk.
 //
 // What bounds it on an H100: the float32 operations of the slab tests and
 // the leaf tests (per ray: 16 slab tests per visited group, W triangle
@@ -24,112 +28,33 @@
 // version is the simple, exact design: no shared-memory staging, no
 // packet frustum, no persistent threads.
 //
-// Numerics: built with -fmad=false, so every product rounds on its own as
-// in the plain PyTorch version (bvh_tpu_torch/ops/wide.py), and the two
-// agree bit for bit. min/max propagate NaN like torch.minimum/maximum:
-// empty child slots hold NaN boxes and must never fire (fminf would return
-// the other operand and fire them). Payloads and the leaf mask are float
-// VALUES and convert with (int), never with a bit cast.
+// Numerics: see trace_common.cuh; the leaf mask is a float VALUE too.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "trace_common.cuh"
 
 namespace {
 
 constexpr int K = 16;          // children per group
 constexpr int WIDE_DMAX = 16;  // DFS stack depth
-constexpr float EPS = 1.1920928955078125e-07f;  // float32 machine epsilon
-constexpr int SENT = 0x7F800000;                // +inf bits: "no hit" key
-
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-struct RayState {
-  float oix, oiy, oiz, ix, iy, iz;  // o * inv, inv (clamped to +-1e30)
-  float dx, dy, dz, ox, oy, oz;  // d, o
-  float vb;   // pruning bound
-  int bk;     // packed best key
-  int bc;     // best cluster
-};
 
 struct Tables {
   const float* gnodes;  // [7K+1, Gn]
   const float* groups;  // [G, 16, 128]
   int Gn;
   int W;
-  int bounded;
+  int mode;
 };
 
-__device__ __forceinline__ bool slab_fires(const RayState& r, float ax,
-                                           float ay, float az, float bx,
-                                           float by, float bz) {
-  float t1 = ax * r.ix - r.oix;
-  float t2 = bx * r.ix - r.oix;
-  float u1 = ay * r.iy - r.oiy;
-  float u2 = by * r.iy - r.oiy;
-  float v1 = az * r.iz - r.oiz;
-  float v2 = bz * r.iz - r.oiz;
-  float tmin = nmax(nmax(nmin(t1, t2), nmin(u1, u2)), nmin(v1, v2));
-  float tmax = nmin(nmin(nmax(t1, t2), nmax(u1, u2)), nmax(v1, v2));
-  return (tmax >= nmax(tmin, 0.0f)) && (tmin < r.vb);
-}
-
-// Leaf test of cluster c (box of slot k in group g) against one ray.
-__device__ void narrow(RayState& r, const Tables& tb, int g, int k) {
+// Leaf test of the cluster in slot k of group g.
+__device__ void narrow_slot(RayState& r, const Tables& tb, int g, int k) {
   const float* col = tb.gnodes + g;
   const int Gn = tb.Gn;
   float ax = __ldg(col + (7 * k + 0) * Gn), ay = __ldg(col + (7 * k + 1) * Gn);
   float az = __ldg(col + (7 * k + 2) * Gn), bx = __ldg(col + (7 * k + 3) * Gn);
   float by = __ldg(col + (7 * k + 4) * Gn), bz = __ldg(col + (7 * k + 5) * Gn);
   int c = (int)(-__ldg(col + (7 * k + 6) * Gn) - 1.0f);
-  float ccx = (ax + bx) * 0.5f, ccy = (ay + by) * 0.5f, ccz = (az + bz) * 0.5f;
-  // the ray origin in the cluster frame
-  float opx = r.ox - ccx, opy = r.oy - ccy, opz = r.oz - ccz;
-
-  const int W = tb.W;
-  const int per_row = 128 / W;
-  const float* tile = tb.groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
-  int bk = r.bk;
-  for (int j = 0; j < W; ++j) {
-    float a0 = __ldg(tile + 0 * 128 + j), a1 = __ldg(tile + 1 * 128 + j);
-    float a2 = __ldg(tile + 2 * 128 + j), e10 = __ldg(tile + 3 * 128 + j);
-    float e11 = __ldg(tile + 4 * 128 + j), e12 = __ldg(tile + 5 * 128 + j);
-    float e20 = __ldg(tile + 6 * 128 + j), e21 = __ldg(tile + 7 * 128 + j);
-    float e22 = __ldg(tile + 8 * 128 + j);
-    // The TPU kernel's four bilinear forms, regrouped around the origin in
-    // the triangle's own frame, tv = o' - a' (= o - a, exact where o' and
-    // a' are): det = d.p, u.det = e2.w, v.det = -e1.w, t.det = -tv.p with
-    // p = e2 x e1 and w = tv x d. The TPU kernel sums terms of the size of
-    // the cluster frame (up to 1e4 at W=64 on the sparse scenes) and loses
-    // up to ~1e-3 of a unit at triangle edges; this form keeps edge tests
-    // exact to float rounding of the triangle's own size.
-    float tvx = opx - a0, tvy = opy - a1, tvz = opz - a2;
-    float p0 = e21 * e12 - e22 * e11, p1 = e22 * e10 - e20 * e12,
-          p2 = e20 * e11 - e21 * e10;
-    float w0 = tvy * r.dz - tvz * r.dy, w1 = tvz * r.dx - tvx * r.dz,
-          w2 = tvx * r.dy - tvy * r.dx;
-    float det = (p0 * r.dx + p1 * r.dy) + p2 * r.dz;
-    float udet = (e20 * w0 + e21 * w1) + e22 * w2;
-    float vdet = -((e10 * w0 + e11 * w1) + e12 * w2);
-    float tdet = -((p0 * tvx + p1 * tvy) + p2 * tvz);
-    bool ok = !(det < EPS) && udet >= 0.0f && udet <= det && vdet >= 0.0f &&
-              (udet + vdet) <= det && tdet > EPS * det;
-    if (ok) {
-      float t = tdet * (1.0f / det);
-      int key = (__float_as_int(t) & ~(W - 1)) | j;
-      if (key < bk) {
-        bk = key;
-        r.bc = c;
-      }
-    }
-  }
-  r.bk = bk;
-  float nt = __int_as_float(bk & ~(W - 1));
-  r.vb = tb.bounded ? nmin(nt, r.vb) : nt;
+  narrow_cluster(r, tb.groups, tb.W, c, (ax + bx) * 0.5f, (ay + by) * 0.5f,
+                 (az + bz) * 0.5f, tb.mode);
 }
 
 // Tests group g; narrowphases its fired leaves; returns the fired
@@ -150,39 +75,36 @@ __device__ int enter(RayState& r, const Tables& tb, int g) {
   while (lm) {
     int k = __ffs(lm) - 1;
     lm &= lm - 1;
-    narrow(r, tb, g, k);
+    narrow_slot(r, tb, g, k);
   }
   return m & ~lmask;
 }
 
 __global__ void wide_trace_kernel(Tables tb, const float* __restrict__ rays,
-                                  int n, const int* __restrict__ gate,
+                                  int n, const int* __restrict__ hints,
+                                  int n_hints, const int* __restrict__ gate,
                                   int packet, float* __restrict__ t_out,
                                   int* __restrict__ id_out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int W = tb.W;
   if (gate != nullptr && gate[i / packet] == 0) {
-    t_out[i] = __int_as_float(SENT);
-    id_out[i] = -1;
+    store_miss(i, t_out, id_out);
     return;
   }
-  // ray rows: oi(3) inv(3) t_max d(3) o(3), each [n]
-  RayState r;
-  r.oix = rays[0 * n + i]; r.oiy = rays[1 * n + i]; r.oiz = rays[2 * n + i];
-  r.ix = rays[3 * n + i]; r.iy = rays[4 * n + i]; r.iz = rays[5 * n + i];
-  r.vb = rays[6 * n + i];
-  r.dx = rays[7 * n + i]; r.dy = rays[8 * n + i]; r.dz = rays[9 * n + i];
-  r.ox = rays[10 * n + i]; r.oy = rays[11 * n + i]; r.oz = rays[12 * n + i];
-  r.bk = SENT;
-  r.bc = 0;
+  RayState r = load_ray(rays, n, i);
+  if (hints != nullptr) {
+    const int* h = hints + (size_t)(i / packet) * n_hints;
+    if (h[0] >= 0)
+      for (int j = 0; j < n_hints; ++j)
+        narrow_slot(r, tb, h[j] >> 4, h[j] & (K - 1));
+  }
 
   int stk_g[WIDE_DMAX];
   int stk_m[WIDE_DMAX];
   int d = 0;
   int gid = 0;
   int mask = enter(r, tb, 0);
-  while (true) {
+  while (!(r.vb == neg_inf())) {
     if (mask == 0) {
       if (d == 0) break;
       --d;
@@ -202,23 +124,22 @@ __global__ void wide_trace_kernel(Tables tb, const float* __restrict__ rays,
       mask = m2;
     }
   }
-  bool hit = r.bk < SENT;
-  t_out[i] = __int_as_float(r.bk & ~(W - 1));
-  id_out[i] = hit ? r.bc * W + (r.bk & (W - 1)) : -1;
+  store_ray(r, tb.W, i, t_out, id_out);
 }
 
 }  // namespace
 
 extern "C" int wide_trace_launch(const float* gnodes, int Gn,
                                  const float* groups, int width,
-                                 const float* rays, int n, const int* gate,
-                                 int packet, int bounded, float* t_out,
-                                 int* id_out, void* stream) {
+                                 const float* rays, int n, const int* hints,
+                                 int n_hints, const int* gate, int packet,
+                                 int mode, float* t_out, int* id_out,
+                                 void* stream) {
   if (n <= 0) return 0;
-  Tables tb{gnodes, groups, Gn, width, bounded};
+  Tables tb{gnodes, groups, Gn, width, mode};
   const int block = 128;
   const int grid = (n + block - 1) / block;
   wide_trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      tb, rays, n, gate, packet, t_out, id_out);
+      tb, rays, n, hints, n_hints, gate, packet, t_out, id_out);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,8 @@ def load() -> ctypes.CDLL:
     sigs = {
         "bvh_build_sah": (ctypes.c_int, [_FP, _FP, _I64, _FP, _FP, _IP, _IP,
                                          _IP, _IP, _IP, _I32]),
+        "bvh_build_sah_hint": (ctypes.c_int, [_FP, _FP, _I64, _FP, _FP, _IP,
+                                              _IP, _IP, _IP, _IP, _I32, _I32]),
         "bvh_tri_aabbs": (ctypes.c_int, [_FP, _FP, _FP, _I64, _FP, _FP]),
         "bvh_collapse": (ctypes.c_int, [_FP, _I64, _I32, _FP, _LP]),
         "bvh_build_sah_clusters": (ctypes.c_int64, [_FP, _FP, _I64, _I32, _FP,
@@ -40,6 +42,9 @@ def load() -> ctypes.CDLL:
                                              _I32, _FP, _FP, _IP]),
         "bvh_build_wide": (ctypes.c_int64, [_FP, _I64, _I64, _I32, _FP, _I64,
                                             _IP, _IP]),
+        "bvh_cut_tight": (ctypes.c_int64, [_IP, _IP, _I64, _I32, _IP]),
+        "bvh_pack_tight": (ctypes.c_int, [_FP, _FP, _FP, _IP, _IP, _IP, _IP,
+                                          _I64, _I32, _FP, _FP, _IP]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -56,9 +61,16 @@ def _ptr(arr: np.ndarray, typ):
     return arr.ctypes.data_as(typ)
 
 
-def build_sah_native(shape_min, shape_max):
-    """Exact SAH build over [n, 3] boxes (all host cores); same outputs as
-    ``bvh.sah_build.build_sah``."""
+def build_sah_native(shape_min, shape_max, cluster_hint: int = 0):
+    """SAH build over [n, 3] boxes (all host cores).
+
+    With ``cluster_hint`` 0 the build is exact: the same outputs as
+    ``bvh.sah_build.build_sah``. With ``cluster_hint`` > 0, subtrees of at
+    most that many shapes are split at the median instead: every cut of
+    the tree into clusters of at most ``cluster_hint`` shapes keeps its
+    cluster sets and bounds, only the leaf order inside a cluster changes.
+    Only the tight-scene build, which dissolves everything below its
+    cluster cut, passes it."""
     smin, smax = _f32(shape_min), _f32(shape_max)
     n, d = smin.shape
     if d != 3:
@@ -68,10 +80,13 @@ def build_sah_native(shape_min, shape_max):
     amax = np.empty((total, 3), np.float32)
     entry, exit_, shape, parent = (np.empty(total, np.int32) for _ in range(4))
     s2n = np.empty(n, np.int32)
-    rc = load().bvh_build_sah(
-        _ptr(smin, _FP), _ptr(smax, _FP), n, _ptr(amin, _FP), _ptr(amax, _FP),
-        _ptr(entry, _IP), _ptr(exit_, _IP), _ptr(shape, _IP),
-        _ptr(parent, _IP), _ptr(s2n, _IP), 0)
+    args = (_ptr(smin, _FP), _ptr(smax, _FP), n, _ptr(amin, _FP),
+            _ptr(amax, _FP), _ptr(entry, _IP), _ptr(exit_, _IP),
+            _ptr(shape, _IP), _ptr(parent, _IP), _ptr(s2n, _IP), 0)
+    if cluster_hint > 0:
+        rc = load().bvh_build_sah_hint(*args, cluster_hint)
+    else:
+        rc = load().bvh_build_sah(*args)
     if rc != 0:
         raise RuntimeError(f"native SAH build failed with code {rc}")
     return FlatBvh(amin, amax, entry, exit_, shape, parent), s2n
@@ -151,3 +166,34 @@ def collapse_native(nodes: np.ndarray, K: int) -> np.ndarray:
     if rc != 0:
         raise RuntimeError(f"native collapse failed with code {rc}")
     return np.ascontiguousarray(out[:, : out_nn.value])
+
+
+def cut_tight_native(entry, exit_, leaf_size: int) -> np.ndarray:
+    """Cluster cut of a DFS entry/exit tree: the root node of every maximal
+    subtree of at most ``leaf_size`` shapes, in DFS order (int32 [C]);
+    identical to ``ops.cluster.cut_clusters``'s roots."""
+    entry = np.ascontiguousarray(entry, np.int32)
+    exit_ = np.ascontiguousarray(exit_, np.int32)
+    total = entry.shape[0]
+    roots = np.empty((total + 1) // 2, np.int32)
+    C = load().bvh_cut_tight(_ptr(entry, _IP), _ptr(exit_, _IP), total,
+                             leaf_size, _ptr(roots, _IP))
+    if C < 0:
+        raise RuntimeError(f"native cluster cut failed with code {C}")
+    return roots[:C].copy()
+
+
+def pack_tight_native(a, b, c, shape, entry, exit_, roots, W: int, cc,
+                      groups, tri_map) -> None:
+    """Writes the cluster-relative group rows and the lane map of the
+    clusters rooted at ``roots`` of a full DFS tree into the caller's
+    zero-filled ``groups`` and -1-filled ``tri_map``."""
+    a, b, c, cc = _f32(a), _f32(b), _f32(c), _f32(cc)
+    shape, entry, exit_, roots = (np.ascontiguousarray(x, np.int32)
+                                  for x in (shape, entry, exit_, roots))
+    rc = load().bvh_pack_tight(
+        _ptr(a, _FP), _ptr(b, _FP), _ptr(c, _FP), _ptr(shape, _IP),
+        _ptr(entry, _IP), _ptr(exit_, _IP), _ptr(roots, _IP), roots.shape[0],
+        W, _ptr(cc, _FP), _ptr(groups, _FP), _ptr(tri_map, _IP))
+    if rc != 0:
+        raise RuntimeError(f"native pack failed with code {rc} (cluster overflow?)")

@@ -54,11 +54,14 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(name: str, sources: list[Path], cmd: list[str]) -> Path:
+def build_library(name: str, sources: list[Path], cmd: list[str],
+                  headers: list[Path] = ()) -> Path:
     """Compiles ``sources`` with ``cmd`` (compiler and flags, no output
-    flag) into ``_build/lib<name>-<hash>.so`` unless it already exists."""
+    flag) into ``_build/lib<name>-<hash>.so`` unless it already exists.
+    ``headers`` are hashed with the sources but not passed to the
+    compiler."""
     h = hashlib.sha256(" ".join(cmd[1:]).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -80,8 +83,10 @@ def build_library(name: str, sources: list[Path], cmd: list[str]) -> Path:
 
 
 def load_cuda_library(name: str, source: str) -> ctypes.CDLL:
-    """Builds (if needed) and loads one ``csrc/*.cu`` kernel library."""
-    path = build_library(name, [CUDA_SRC_DIR / source], [_nvcc()] + NVCC_FLAGS)
+    """Builds (if needed) and loads one ``csrc/*.cu`` kernel library (every
+    ``csrc/*.cuh`` counts as its header)."""
+    path = build_library(name, [CUDA_SRC_DIR / source], [_nvcc()] + NVCC_FLAGS,
+                         headers=sorted(CUDA_SRC_DIR.glob("*.cuh")))
     return ctypes.CDLL(str(path))
 
 

@@ -12,8 +12,10 @@ Leaves are SAH-cut clusters of at most ``W`` (16/32/64/128) triangles, stored
 relative to the leaf box's centre as rows a', e1, e2 of ``groups
 [G, 16, 128]``, cluster ``c`` at lanes ``(c mod 128/W)·W + j``. The upper
 tree over the cluster boxes ships twice: as the entry/exit table
-``smem_nodes [8, Nn]`` (walked by the sweep gate) and as the 16-ary wide
-table ``gnodes [113, Gn]`` (walked by the group-walk trace).
+``smem_nodes [8, Nn]`` (walked by the sweep gate and the entry/exit trace)
+and as the 16-ary wide table ``gnodes [113, Gn]`` (walked by the group-walk
+trace). Options add the bf16-pair table ``packed_nodes [5, Nn]``, the
+bilinear forms ``bgroups`` and the coarse sweep table ``sweep_nodes``.
 """
 
 from __future__ import annotations
@@ -35,9 +37,7 @@ TIGHT_VERSION = 3  # newest ``__tight_version__`` of a saved scene understood he
 class TightScene(NamedTuple):
     """Host tables of a scene for the tight-cluster trace (numpy).
 
-    Same fields as the reference's ``TightScene``; ``bgroups``,
-    ``sweep_nodes`` and ``packed_nodes`` are only ever set on a scene carried
-    over from the JAX package (``scene_from_arrays``).
+    Same fields as the reference's ``TightScene``.
     """
 
     smem_nodes: np.ndarray  # [8, Nn] f32: amin(3), amax(3), entry, exit
@@ -46,7 +46,7 @@ class TightScene(NamedTuple):
     num_clusters: int
     num_nodes: int
     width: int = TIGHT  # triangles per cluster
-    bgroups: np.ndarray | None = None  # precomputed bilinear forms
+    bgroups: np.ndarray | None = None  # [Gb, 16, row_w] bilinear forms (bmat)
     sweep_nodes: np.ndarray | None = None  # [8, Ns] coarse gate-sweep table
     packed_nodes: np.ndarray | None = None  # [5, Nn] bf16-pair node table
     gnodes: np.ndarray | None = None  # [7K+1, Gn] wide-tree table
@@ -309,52 +309,80 @@ def build_tight_scene(
     the same path. ``collapse`` is the arity of the entry/exit table (None
     keeps it binary). ``wide=False`` skips the group-walk table.
 
+    ``packed``: also ship the node table as bf16 pairs
+    (``pack_node_table_bf16``, 20 B a node against 32 in the budget); the
+    group rows are then stored against the packed table's raw float value
+    of the box rows as the cluster frame, and the scene has no wide table.
+    ``bmat``: also precompute the leaf test's bilinear forms
+    (``bilinear_blocks``) into ``bgroups``; the port's kernels carry them but
+    evaluate the leaf test from ``groups`` (see ``ops/tight.py``).
+    ``sweep_cut``: also build a coarse entry/exit table ``sweep_nodes`` over
+    boxes of at most ``sweep_cut`` triangles for the sweep gate.
+
     Tie class (as in the reference): the two build paths may order lanes
     differently inside a cluster, so rays whose two best hits agree within
     the key truncation may report a different, equally valid ``shape_id``.
     """
-    if bmat:
-        raise NotImplementedError(
-            "bmat=True is not ported yet (ROADMAP queue 1 item 4)")
-    if packed:
-        raise NotImplementedError(
-            "packed=True is not ported yet (ROADMAP queue 1 item 4)")
-    if sweep_cut:
-        raise NotImplementedError(
-            "sweep_cut is not ported yet (ROADMAP queue 1 item 4)")
     if config is None:
         config = DEFAULT_CONFIG
     if use_native:
         from ..native import (build_sah_clusters_native, build_sah_native,
-                              pack_clusters_native, tri_aabbs_native)
+                              cut_tight_native, pack_clusters_native,
+                              pack_tight_native, tri_aabbs_native)
     a = np.ascontiguousarray(a, np.float32)
     b = np.ascontiguousarray(b, np.float32)
     c = np.ascontiguousarray(c, np.float32)
     n = a.shape[0]
     if n == 0:
         raise ValueError("empty scene")
+    bmat = bool(bmat)
     auto = leaf_size is None
     if auto:
         leaf_size = TIGHT if n <= (300_000 if collapse else 160_000) else 32
     if leaf_size not in (16, 32, 64, 128):
         raise ValueError("leaf_size must be 16/32/64/128")
     mn, mx = tri_aabbs_native(a, b, c) if use_native else tri_aabbs(a, b, c)
-    # the numpy path cuts one full SAH tree; the native path builds straight
-    # to the cluster cut (bit-identical cluster sets, bounds and lane order
-    # to its own hinted full build + cut)
-    flat = None if use_native else build_sah(mn, mx, config)[0]
+    # the native pack reads the cluster cut straight from the tree; the
+    # numpy pack (and the bmat tables) need the leaf -> cluster map
+    native_pack = use_native and not bmat
+    # the fast path builds straight to the cluster cut (bit-identical
+    # cluster sets, bounds and lane order to its own hinted full build +
+    # cut); a second cut (sweep_cut), the packed frame or the numpy pack
+    # need the full tree
+    fast = native_pack and not sweep_cut and not packed
+    flat = None
+    if not fast:
+        if use_native:
+            # below the cluster cut the tree is dissolved by the pack, so
+            # the native builder median-splits there (same cluster sets and
+            # bounds, median lane order)
+            flat, _ = build_sah_native(mn, mx, cluster_hint=leaf_size)
+        else:
+            flat, _ = build_sah(mn, mx, config)
 
     while True:
-        if use_native:
+        if fast:
             cl_min, cl_max, tri_order, cl_off = build_sah_clusters_native(
                 mn, mx, leaf_size)
             C = cl_min.shape[0]
         else:
-            roots, leaves, cluster_of_leaf = cut_clusters(flat, leaf_size)
+            if native_pack:
+                roots = cut_tight_native(flat.entry, flat.exit, leaf_size)
+            else:
+                roots, leaves, cluster_of_leaf = cut_clusters(flat, leaf_size)
             C = roots.shape[0]
             cl_min = np.asarray(flat.aabb_min)[roots]
             cl_max = np.asarray(flat.aabb_max)[roots]
-        cc = ((cl_min + cl_max) * 0.5).astype(np.float32)
+        if packed:
+            # the packed walk's frame origin is the raw float value of the
+            # packed box rows at the leaf column (about the bf16 min corner)
+            lo0 = _bf16_round_down(cl_min)
+            hi0 = _bf16_round_up(cl_max)
+            w = ((lo0.view(np.int32) & np.int32(~0xFFFF))
+                 | ((hi0.view(np.int32) >> 16) & np.int32(0xFFFF)))
+            cc = w.astype(np.int32).view(np.float32).astype(np.float32)
+        else:
+            cc = ((cl_min + cl_max) * 0.5).astype(np.float32)
 
         # upper BVH over the cluster boxes
         if use_native:
@@ -368,16 +396,18 @@ def build_tight_scene(
         nn = smem_nodes.shape[1]
         # the reference's scalar-memory budget, checked on the padded table
         nn_pad = _bucket(nn, 256)
-        over = nn_pad * 32 > 660_000
+        node_bytes = 20 if packed else 32
+        over = nn_pad * node_bytes > 660_000
         if over and not auto:
             raise ValueError(
                 f"leaf_size={leaf_size} puts {nn_pad} (padded) upper nodes "
-                f"({nn_pad * 32} B) over the ~660KB node-table budget; use a "
-                "larger leaf_size or leaf_size=None (auto)")
+                f"({nn_pad * node_bytes} B) over the ~660KB node-table "
+                "budget; use a larger leaf_size or leaf_size=None (auto)")
         if over and leaf_size >= 128:
             raise ValueError(
                 f"scene needs {nn_pad} (padded) upper nodes even at "
-                f"leaf_size=128 ({nn_pad * 32} B > ~660KB node-table budget)")
+                f"leaf_size=128 ({nn_pad * node_bytes} B > ~660KB node-table "
+                "budget)")
         if not over:
             break
         leaf_size *= 2
@@ -385,27 +415,38 @@ def build_tight_scene(
     smem_nodes = _pad_node_table(
         smem_nodes, target=_bucket(int(smem_nodes.shape[1]), 256))
 
-    # wide table; dropped (as in the reference) past group depth 14 or the
-    # node-table budget
+    # wide table; packed scenes have none, and it is dropped (as in the
+    # reference) past group depth 14 or the node-table budget
     gnodes = gslot = None
     gdepth = 0
-    if wide:
+    if wide and not packed:
         gnodes, gslot, gdepth = build_wide_table(smem_binary, C,
                                                  use_native=use_native)
         if gdepth > 14 or gnodes.shape[0] * gnodes.shape[1] * 4 > 660_000:
             gnodes = gslot = None
             gdepth = 0
 
+    sweep_nodes = None
+    if sweep_cut:
+        sweep_nodes = _sweep_table(flat, sweep_cut, config, use_native,
+                                   collapse)
+
     W = leaf_size
     group = 128 // W
     G = _bucket((C + group - 1) // group, 16)
 
-    if use_native:
+    if native_pack:
         groups = np.zeros((G, 16, 128), np.float32)
         tri_map_pad = np.full(G * 128, -1, np.int32)
-        pack_clusters_native(a, b, c, tri_order, cl_off, W, cc, groups,
-                             tri_map_pad)
+        if fast:
+            pack_clusters_native(a, b, c, tri_order, cl_off, W, cc, groups,
+                                 tri_map_pad)
+        else:
+            pack_tight_native(a, b, c, flat.shape, flat.entry, flat.exit,
+                              roots, W, cc, groups, tri_map_pad)
+        pn = pack_node_table_bf16(smem_nodes) if packed else None
         return TightScene(smem_nodes, groups, tri_map_pad, C, nn, W,
+                          sweep_nodes=sweep_nodes, packed_nodes=pn,
                           gnodes=gnodes, gslot=gslot, gdepth=gdepth)
 
     shape_ids = np.asarray(flat.shape)[leaves]  # tri id per tree leaf, DFS order
@@ -432,8 +473,135 @@ def build_tight_scene(
 
     tri_map_pad = np.full(G * group * W, -1, np.int32)
     tri_map_pad[: C * W] = tri_map
-    return TightScene(smem_nodes, groups, tri_map_pad, C, nn, W,
-                      gnodes=gnodes, gslot=gslot, gdepth=gdepth)
+
+    bgroups = None
+    if bmat:
+        blocks = bilinear_blocks(av.astype(np.float64), e1.astype(np.float64),
+                                 e2.astype(np.float64)).astype(np.float32)
+        # clusters padded to the group multiple
+        C_pad = G * group
+        if C_pad > C:
+            blocks = np.concatenate(
+                [blocks, np.zeros(((C_pad - C) * W, 4, 16), np.float32)])
+        bgroups = pack_bgroups(blocks, C_pad, W)
+    pn = pack_node_table_bf16(smem_nodes) if packed else None
+    return TightScene(smem_nodes, groups, tri_map_pad, C, nn, W, bgroups,
+                      sweep_nodes, pn, gnodes, gslot, gdepth)
+
+
+def _sweep_table(flat, sweep_cut: int, config, use_native: bool,
+                 collapse: int | None) -> np.ndarray:
+    """The sweep gate's coarse entry/exit table: the upper tree over the
+    boxes of the full tree cut at ``sweep_cut`` shapes, leaves marked -1
+    (a fire marker without a payload), collapsed and padded like
+    ``smem_nodes``. A miss in it proves a miss in the full table."""
+    if use_native:
+        from ..native import build_sah_native, cut_tight_native
+
+        s_roots = cut_tight_native(flat.entry, flat.exit, sweep_cut)
+    else:
+        s_roots, _, _ = cut_clusters(flat, sweep_cut)
+    s_min = np.asarray(flat.aabb_min)[s_roots]
+    s_max = np.asarray(flat.aabb_max)[s_roots]
+    if use_native:
+        s_up, _ = build_sah_native(s_min, s_max)
+    else:
+        s_up, _ = build_sah(s_min, s_max, config)
+    tab = _node_table(s_up)
+    tab[6][np.asarray(s_up.entry) < 0] = -1.0
+    if collapse:
+        tab = collapse_upper(tab, collapse, use_native)
+    return _pad_node_table(tab, target=_bucket(int(tab.shape[1]), 64))
+
+
+def bilinear_blocks(av, e1, e2):
+    """Per-triangle Moller-Trumbore bilinear forms [n, 4, 16] (block, row):
+    the (det, u, v, t) rows whose product with the reference kernel's ray
+    vector [d, m - cc x d, o - cc, 1, 0...] gives det, u·det, v·det and
+    t·det, from the cluster-relative a' and the edges."""
+    p = np.cross(e2, e1)
+    q = np.cross(e2, av)
+    r = np.cross(e1, av)
+    nrm = np.cross(e1, e2)
+    an = (av * nrm).sum(axis=1)[..., None]
+    z3 = np.zeros_like(p)
+    z1 = np.zeros_like(an)
+    z7 = np.concatenate([z3, z3, z1], axis=1)
+    det = np.concatenate([p, z3, z7, z3], axis=1)
+    u = np.concatenate([-q, e2, z7, z3], axis=1)
+    v = np.concatenate([r, -e1, z7, z3], axis=1)
+    t = np.concatenate([z3, z3, nrm, -an, z3, z3], axis=1)
+    return np.stack([det, u, v, t], axis=1)
+
+
+def pack_bgroups(blocks, C: int, W: int):
+    """Packs [C·W, 4, 16] bilinear blocks into rows [Gb, 16, row_w]: per
+    cluster a [16, 4W] matrix (column block·W + triangle), ``128 // 4W``
+    clusters to a 128-lane row (2 at W=16, else one cluster a row)."""
+    b = blocks.reshape(C, W, 4, 16).transpose(0, 2, 1, 3).reshape(C, 4 * W, 16)
+    per_row = max(128 // (4 * W), 1)
+    row_w = 4 * W * per_row
+    Gb = -(-C // per_row)
+    pad = Gb * per_row - C
+    if pad:
+        b = np.concatenate([b, np.zeros((pad, 4 * W, 16), b.dtype)], axis=0)
+    return (b.reshape(Gb, per_row, 4 * W, 16).transpose(0, 3, 1, 2)
+            .reshape(Gb, 16, row_w))
+
+
+def _bf16_round_down(x: np.ndarray) -> np.ndarray:
+    """Largest bf16 <= x (directed rounding; f32 in and out)."""
+    x = np.asarray(x, np.float32)
+    t = x.view(np.int32) & np.int32(~0xFFFF)
+    need = t.view(np.float32) > x
+    # one bf16 step toward -inf in raw f32 bit space
+    down = np.where(t > 0, t - 0x10000,
+                    np.where(t == 0, np.int32(np.uint32(0x80010000)),
+                             t + np.int32(0x10000))).astype(np.int32)
+    return np.where(need, down, t).astype(np.int32).view(np.float32)
+
+
+def _bf16_round_up(x: np.ndarray) -> np.ndarray:
+    """Smallest bf16 >= x (directed rounding; f32 in and out)."""
+    x = np.asarray(x, np.float32)
+    t = x.view(np.int32) & np.int32(~0xFFFF)
+    need = t.view(np.float32) < x
+    neg0 = np.int32(np.uint32(0x80000000))
+    up = np.where(t >= 0, t + 0x10000,
+                  np.where(t == neg0, np.int32(0x00010000),
+                           t - np.int32(0x10000))).astype(np.int32)
+    return np.where(need, up, t).astype(np.int32).view(np.float32)
+
+
+def pack_node_table_bf16(smem_nodes: np.ndarray) -> np.ndarray:
+    """[8, Nn] float32 node table -> [5, Nn]: rows 0-2 hold each axis's
+    (min, max) as two bf16 halves of one float32 word (min in the high
+    half), rounded outward so a walk over the packed table visits a
+    superset of the nodes; rows 3-4 are entry and exit unchanged."""
+    nn = smem_nodes.shape[1]
+    out = np.zeros((5, nn), np.float32)
+    for axis in range(3):
+        lo = _bf16_round_down(smem_nodes[axis])
+        hi = _bf16_round_up(smem_nodes[3 + axis])
+        word = ((lo.view(np.int32) & np.int32(~0xFFFF))
+                | ((hi.view(np.int32) >> 16) & np.int32(0xFFFF)))
+        out[axis] = word.astype(np.int32).view(np.float32)
+    out[3] = smem_nodes[6]
+    out[4] = smem_nodes[7]
+    return out
+
+
+def unpack_node_table_bf16(packed: np.ndarray) -> np.ndarray:
+    """The [8, Nn] layout of a packed table (boxes at bf16 resolution)."""
+    nn = packed.shape[1]
+    out = np.zeros((8, nn), np.float32)
+    for axis in range(3):
+        bits = packed[axis].view(np.int32)
+        out[axis] = (bits & np.int32(~0xFFFF)).view(np.float32)
+        out[3 + axis] = (bits << 16).view(np.float32)
+    out[6] = packed[3]
+    out[7] = packed[4]
+    return out
 
 
 _INT_FIELDS = ("num_clusters", "num_nodes", "width", "gdepth")

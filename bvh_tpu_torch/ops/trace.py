@@ -1,11 +1,14 @@
-"""Closest-hit trace over a ``TightScene``: the coherence sort, the ray
-prologue, the sweep gate, the wide group walk and the epilogue.
+"""Closest-hit and any-hit traces over a ``TightScene``: the coherence sort,
+the ray prologue, the sweep gate, the two walks and the epilogue.
 
-Counterpart of ``sort_rays_device``, ``trace_closest_hit_tight`` and
-``make_tracer`` in ``bvh_tpu/ops/trace.py``, on the wide (``gnodes``) walk.
-The TPU layouts of the reference's ray prologue (slab and lmat tiles) are
-not copied: the kernels read flat ray rows (``ops/wide.py``). The rules
-are the reference's Pallas-path rules:
+Counterpart of ``sort_rays_device``, ``trace_closest_hit_tight``,
+``trace_any_hit_tight`` and ``make_tracer`` in ``bvh_tpu/ops/trace.py``.
+The walk is chosen by the reference's rule (``_traces_wide``): the group
+walk (``ops/wide.py``) where the scene has a wide table and neither packed
+nodes nor bmat forms, else the entry/exit walk (``ops/tight.py``). The TPU
+layouts of the reference's ray prologue (slab and lmat tiles) are not
+copied: the kernels read flat ray rows (``ops/wide.py``). The rules are the
+reference's Pallas-path rules:
 
 * inverse directions are clamped to ±1e30, so a ray lying in a box's face
   plane counts as touching it;
@@ -29,7 +32,8 @@ from ..bvh.traverse import HitRecord
 from ..device import resolve_device
 from ..ray import Ray, ray_intersects_triangle
 from .sweep import sweep_gate
-from .wide import wide_trace
+from .tight import tight_trace
+from .wide import K, wide_trace
 
 _INF = float("inf")
 
@@ -46,7 +50,7 @@ def _dev(arr, device: torch.device):
     if ent is not None and ent[0]() is arr:
         return ent[1]
     ten = torch.as_tensor(np.ascontiguousarray(arr)).to(device)
-    ref = weakref.ref(arr, lambda _r, k=key: _DEVICE_TABLE_CACHE.pop(k, None))
+    ref = weakref.ref(arr, lambda _r, k=key, c=_DEVICE_TABLE_CACHE: c.pop(k, None))
     _DEVICE_TABLE_CACHE[key] = (ref, ten)
     return ten
 
@@ -99,35 +103,115 @@ def _ray_rows(rays: Ray, tm: torch.Tensor) -> torch.Tensor:
                         *d.unbind(1), *o.unbind(1)])
 
 
-def _check_scene(scene) -> None:
-    if getattr(scene, "packed_nodes", None) is not None:
-        raise NotImplementedError(
-            "bf16-packed scenes are not ported yet (ROADMAP queue 1 item 4)")
-    if getattr(scene, "bgroups", None) is not None:
-        raise NotImplementedError(
-            "bmat scenes are not ported yet (ROADMAP queue 1 item 4)")
-    if getattr(scene, "gnodes", None) is None:
-        raise NotImplementedError(
-            "scenes without the wide table (gnodes) need the entry/exit "
-            "kernel, which is not ported yet (ROADMAP queue 2 item 3)")
+def _traces_wide(scene) -> bool:
+    """Whether the scene's default walk is the group walk: it has a wide
+    table and neither packed nodes nor bmat forms (the reference's rule,
+    which also fixes the hint format: leaf slot ids g·K+k for the group
+    walk, node-table ids for the entry/exit walk)."""
+    return (getattr(scene, "gnodes", None) is not None
+            and getattr(scene, "bgroups", None) is None
+            and getattr(scene, "packed_nodes", None) is None)
+
+
+def _choose_walk(scene, wide: bool | None) -> bool:
+    """The walk a call takes: the scene's default for ``wide=None``; the
+    group walk for True, which needs an f32 wide scene; else entry/exit."""
+    if wide is None:
+        return _traces_wide(scene)
+    if wide and not _traces_wide(scene):
+        if getattr(scene, "gnodes", None) is None:
+            raise ValueError("scene built without wide tables (gnodes)")
+        raise ValueError("the group walk reads f32 tables and the default "
+                         "leaf test (not a packed or bmat scene)")
+    return bool(wide)
+
+
+def _entry_exit_table(scene):
+    """The entry/exit table a walk over ``scene`` reads, and whether it is
+    the bf16-packed one."""
+    pn = getattr(scene, "packed_nodes", None)
+    return (scene.smem_nodes, False) if pn is None else (pn, True)
+
+
+def _check_packet(packet: int) -> None:
+    if packet < 128 or packet & (packet - 1):
+        raise ValueError(f"packet must be a power of two >= 128, got {packet}")
+
+
+def _hints(scene, hints, wide: bool, n: int, packet: int, dev):
+    """``hints`` as an int32 [p, n_hints] tensor on ``dev`` (None for no
+    hints), checked against the walk's format: leaf slot ids of the wide
+    table, or leaf ids of the node table. Packets whose first slot is -1
+    are not checked (their hints are off)."""
+    if hints is None:
+        return None
+    h = np.asarray(hints.cpu() if torch.is_tensor(hints) else hints)
+    p = -(-n // packet)
+    if h.ndim != 2 or h.shape[0] != p:
+        raise ValueError(f"hints must be [{p}, n_hints], got {h.shape}")
+    if h.shape[1] == 0:
+        return None
+    h = h.astype(np.int64)
+    on = h[h[:, 0] >= 0]
+    if wide:
+        pay = scene.gnodes[6:7 * K:7]  # [K, Gn] payloads; leaves < 0
+        ok = (on >= 0) & (on < pay.size)
+        ok[ok] &= pay[on[ok] & (K - 1), on[ok] >> 4] < 0
+        what = "leaf slot ids g*K+k of the wide table"
+    else:
+        table, packed = _entry_exit_table(scene)
+        entry = table[3 if packed else 6]
+        ok = (on >= 0) & (on < entry.shape[0])
+        ok[ok] &= entry[on[ok]] < 0
+        what = "leaf ids of the node table"
+    if not ok.all():
+        raise ValueError(f"hints must be {what} (or -1 in a packet's first "
+                         "slot)")
+    return torch.as_tensor(h, dtype=torch.int32).to(dev).contiguous()
+
+
+def _pre_gate(pre_gate, n: int, packet: int, dev):
+    if pre_gate is None:
+        return None
+    p = -(-n // packet)
+    g = torch.as_tensor(pre_gate, device=dev).reshape(-1)
+    if g.shape[0] != p:
+        raise ValueError(f"pre_gate must have {p} entries, got {g.shape[0]}")
+    return (g != 0).to(torch.int32).contiguous()
+
+
+def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
+          wide: bool, hints=None, pre_gate=None):
+    """The gate (sweep and pre-gate) and the walk over the ray rows:
+    ``(t, lane_id)``."""
+    dev = rows.device
+    table, packed = _entry_exit_table(scene)
+    gate = pre_gate
+    if sweep:
+        swn = scene.sweep_nodes
+        if swn is not None:
+            gate = sweep_gate(_dev(swn, dev), rows, packet, pre_gate=pre_gate)
+        else:
+            gate = sweep_gate(_dev(table, dev), rows, packet, packed=packed,
+                              pre_gate=pre_gate)
+    if wide:
+        return wide_trace(_dev(scene.gnodes, dev), _dev(scene.groups, dev),
+                          rows, width=int(scene.width),
+                          depth=int(scene.gdepth), gate=gate, packet=packet,
+                          bounded=bounded, mode=mode, hints=hints)
+    return tight_trace(_dev(table, dev), _dev(scene.groups, dev), rows,
+                       width=int(scene.width), packed=packed, gate=gate,
+                       packet=packet, bounded=bounded, mode=mode, hints=hints)
 
 
 def _trace(scene, rays_s: Ray, tris9, packet: int, sweep: bool, tm,
-           bounded: bool) -> HitRecord:
-    """The trace on sorted rays ``rays_s``; ``tm`` is the per-ray t_max in
-    the same order (+inf when unbounded); ``tris9`` an optional [n_tris, 9]
-    vertex table for the exact winner recompute."""
+           bounded: bool, wide: bool, hints=None, pre_gate=None) -> HitRecord:
+    """The closest-hit trace on sorted rays ``rays_s``; ``tm`` is the per-ray
+    t_max in the same order (+inf when unbounded); ``tris9`` an optional
+    [n_tris, 9] vertex table for the exact winner recompute."""
     dev = rays_s.origin.device
-    rows = _ray_rows(rays_s, tm)
-    gate = None
-    if sweep:
-        swn = scene.sweep_nodes if scene.sweep_nodes is not None \
-            else scene.smem_nodes
-        gate = sweep_gate(_dev(swn, dev), rows, packet)
-    t, lane_id = wide_trace(_dev(scene.gnodes, dev), _dev(scene.groups, dev),
-                            rows, width=int(scene.width),
-                            depth=int(scene.gdepth), gate=gate, packet=packet,
-                            bounded=bounded)
+    t, lane_id = _walk(scene, _ray_rows(rays_s, tm), packet, sweep, bounded,
+                       "closest", wide, hints, pre_gate)
     if bounded:
         # a leaf hit at t >= t_max (the slab test prunes boxes, not
         # triangles) is a miss
@@ -153,6 +237,23 @@ def _tris9(tris, device) -> torch.Tensor:
     return torch.cat([ta, tb, tc], dim=1)
 
 
+def _prepare(rays: Ray, t_max, perm, dev):
+    """The rays on ``dev``, sorted by ``perm`` if given, and the per-ray
+    t_max in the same order (+inf when None)."""
+    rays = Ray(*(x.to(dev) for x in rays))
+    r = rays.origin.shape[0]
+    if t_max is None:
+        tm = torch.full((r,), _INF, dtype=torch.float32, device=dev)
+    else:
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+        tm = tm.reshape(-1).expand(r).contiguous()
+    if perm is not None:
+        perm = torch.as_tensor(perm, device=dev).to(torch.int64)
+        rays = rays.take(perm)
+        tm = tm[perm]
+    return rays, tm
+
+
 def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
                             hints=None, t_max=None, sweep: bool = False,
                             wide: bool | None = None, pre_gate=None,
@@ -164,41 +265,71 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
     ``t_max``: scalar or [n] per-ray bound (hits at t >= t_max are misses;
     the bound prunes from the start). ``sweep``: run the sweep gate first
     and skip packets of ``packet`` rays that cannot hit (same results).
-    ``perm``: [n] coherence-sort permutation over UNSORTED ``rays`` (and a
-    per-ray ``t_max``); outputs come back in sorted order, as if the caller
-    had passed sorted rays. ``device``: where to run (None: the card).
+    ``wide``: None takes the scene's default walk (``_traces_wide``), True
+    the group walk, False the entry/exit walk; the results are the same up
+    to the near-tie class. ``hints``: optional [ceil(n / packet), k] leaf
+    ids per packet in the default walk's format (wide: leaf slot ids g·K+k;
+    entry/exit: node-table ids), narrowphased first to seed the bound; -1 in
+    a packet's first slot turns its hints off. ``pre_gate``: optional
+    [ceil(n / packet)] gate; packets where it is 0 are reported as misses
+    without a walk (and skip the sweep). ``perm``: [n] coherence-sort
+    permutation over UNSORTED ``rays`` (and a per-ray ``t_max``); outputs
+    come back in sorted order, as if the caller had passed sorted rays.
+    ``device``: where to run (None: the card).
 
-    ``hints``, ``pre_gate``, ``start_g`` and ``wide=False`` are not ported
-    yet and raise ``NotImplementedError``.
+    ``start_g`` (the subtree-entry planner's input) is not ported yet and
+    raises ``NotImplementedError``.
     """
-    if hints is not None or pre_gate is not None or start_g is not None:
+    if start_g is not None:
         raise NotImplementedError(
-            "hints=, pre_gate= and start_g= are not ported yet (ROADMAP "
-            "queue 1 item 4)")
-    if wide is False:
-        raise NotImplementedError(
-            "wide=False needs the entry/exit kernel, which is not ported yet "
-            "(ROADMAP queue 2 item 3)")
-    _check_scene(scene)
-    if packet < 128 or packet & (packet - 1):
-        raise ValueError(f"packet must be a power of two >= 128, got {packet}")
+            "start_g= is not ported yet (ROADMAP queue 1 item 10)")
+    _check_packet(packet)
+    walk_wide = _choose_walk(scene, wide)
     dev = resolve_device(device)
-    rays = Ray(*(x.to(dev) for x in rays))
     r = rays.origin.shape[0]
     if r == 0:
         z = torch.zeros(0, dtype=torch.float32, device=dev)
         return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
-    if t_max is None:
-        tm = torch.full((r,), _INF, dtype=torch.float32, device=dev)
-    else:
-        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
-        tm = tm.reshape(-1).expand(r).contiguous()
-    if perm is not None:
-        perm = torch.as_tensor(perm, device=dev).to(torch.int64)
-        rays = rays.take(perm)
-        tm = tm[perm]
+    hints_t = _hints(scene, hints, _traces_wide(scene), r, packet, dev)
+    if hints_t is not None and walk_wide != _traces_wide(scene):
+        # the hint format is the default walk's
+        raise ValueError("hints follow the scene's default walk; do not "
+                         "override wide= with hints")
+    pg = _pre_gate(pre_gate, r, packet, dev)
+    rays, tm = _prepare(rays, t_max, perm, dev)
     tris9 = None if tris is None else _tris9(tris, dev)
-    return _trace(scene, rays, tris9, packet, sweep, tm, t_max is not None)
+    return _trace(scene, rays, tris9, packet, sweep, tm, t_max is not None,
+                  walk_wide, hints_t, pg)
+
+
+def trace_any_hit_tight(scene, rays: Ray, t_max=None, packet: int = 2048,
+                        sweep: bool = False, wide: bool | None = None,
+                        pre_gate=None, perm=None,
+                        device=None) -> torch.Tensor:
+    """Occlusion: bool [n], True where the ray hits some triangle at
+    t < t_max (any triangle at all when ``t_max`` is None).
+
+    The shadow-ray query. A ray stops pruning, and its walk ends, at its
+    first hit inside the bound. ``t_max``: scalar or [n] per-ray bound (the
+    distance to the light for shadow rays); the packed key truncates t by up
+    to width-1 ulps, so an occluder within that band of ``t_max`` may count
+    as inside it. ``sweep``, ``wide``, ``pre_gate``, ``perm`` and
+    ``device`` as in ``trace_closest_hit_tight``; with ``perm`` the result
+    comes back in sorted order.
+    """
+    _check_packet(packet)
+    walk_wide = _choose_walk(scene, wide)
+    dev = resolve_device(device)
+    r = rays.origin.shape[0]
+    if r == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    pg = _pre_gate(pre_gate, r, packet, dev)
+    rays, tm = _prepare(rays, t_max, perm, dev)
+    t, _ = _walk(scene, _ray_rows(rays, tm), packet, sweep, t_max is not None,
+                 "any", walk_wide, pre_gate=pg)
+    if t_max is None:
+        return torch.isfinite(t)
+    return t < tm
 
 
 def make_tracer(scene, packet: int = 8192, sweep: bool = True,
@@ -206,7 +337,7 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
                 plan: str | None = None, device=None):
     """The whole closest-hit pipeline over a fixed scene as one callable:
     raw (origins, directions) in, ``HitRecord`` in the callers' ray order
-    out.
+    out. The scene's default walk serves every scene the build makes.
 
     ``sort``: "octant", "morton" or "octmorton" coherence sort inside the
     call, or None when the rays are already coherent (camera tiles).
@@ -217,16 +348,15 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
     if plan is not None:
         raise NotImplementedError(
             "plan= is not ported yet (ROADMAP queue 1 item 10)")
-    _check_scene(scene)
-    if packet < 128 or packet & (packet - 1):
-        raise ValueError(f"packet must be a power of two >= 128, got {packet}")
+    _check_packet(packet)
     if sort not in (None, "octant", "morton", "octmorton"):
         raise ValueError(f"unknown sort mode {sort!r}")
     dev = resolve_device(device)
-    for table in (scene.gnodes, scene.groups, scene.tri_map,
-                  scene.sweep_nodes if scene.sweep_nodes is not None
-                  else scene.smem_nodes):
-        _dev(table, dev)  # copy the tables to the device once
+    wide = _traces_wide(scene)
+    table, _ = _entry_exit_table(scene)
+    for t in (scene.gnodes if wide else table, scene.groups, scene.tri_map,
+              scene.sweep_nodes if scene.sweep_nodes is not None else table):
+        _dev(t, dev)  # copy the tables to the device once
     tris9 = None if tris is None else _tris9(tris, dev)
 
     def tracer(origins, directions) -> HitRecord:
@@ -243,7 +373,7 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
             od = torch.cat([o, d], dim=1)[perm]
             rays_s = Ray.create(od[:, 0:3], od[:, 3:6], device=dev)
         tm = torch.full((o.shape[0],), _INF, dtype=torch.float32, device=dev)
-        out = _trace(scene, rays_s, tris9, packet, sweep, tm, False)
+        out = _trace(scene, rays_s, tris9, packet, sweep, tm, False, wide)
         if sort is None:
             return out
         # un-permute as int32 bit patterns, so every t, u, v moves exactly

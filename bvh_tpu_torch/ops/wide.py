@@ -1,19 +1,22 @@
-"""Wide (16-ary) group-walk closest-hit trace: the kernel's wrapper, its
-launch count and its plain PyTorch version.
+"""Wide (16-ary) group-walk closest-hit and any-hit trace: the kernel's
+wrapper, its launch count and its plain PyTorch version, and the leaf test
+and key folding that the entry/exit walk (``ops/tight.py``) shares.
 
 Replaces the TPU kernel ``bvh_tpu/ops/trace.py::_wide_body`` (with
 ``_make_mask_walk``, ``_ctz16`` and the leaf test ``_narrow_cluster``). The
-CUDA kernel (``csrc/wide_trace.cu``) walks one ray per thread; the plain
-version below computes the same function, ray by ray, in lock step over a
-batch, and rounds every operation as the kernel does, so the two agree bit
-for bit on the card.
+CUDA kernel (``csrc/wide_trace.cu``, leaf test in ``csrc/trace_common.cuh``)
+walks one ray per thread; the plain version below computes the same
+function, ray by ray, in lock step over a batch, and rounds every operation
+as the kernel does, so the two agree bit for bit on the card.
 
-Per ray: test group 0's 16 children against the bound ``vb`` (``t_max``,
-+inf when unbounded); narrowphase the fired leaf children in ascending slot
-order; then enter the fired interior children lowest slot first, depth
-first. A leaf narrowphase keeps the smallest packed key (the bits of ``t``
-with the low log2(W) bits replaced by the lane) and sets ``vb`` to the key's
-``t`` (closest) or to ``min(t, vb)`` (bounded).
+Per ray: narrowphase the hinted leaf slots of its packet, if any; test group
+0's 16 children against the bound ``vb`` (``t_max``, +inf when unbounded);
+narrowphase the fired leaf children in ascending slot order; then enter the
+fired interior children lowest slot first, depth first. A leaf narrowphase
+keeps the smallest packed key (the bits of ``t`` with the low log2(W) bits
+replaced by the lane) and sets ``vb`` to the key's ``t`` (closest), to
+``min(t, vb)`` (bounded), or to -inf once ``t < t_max`` and ``t_max``
+otherwise (any: the ray is occluded and fires no box again).
 
 Inputs: ``gnodes [113, Gn]`` and ``groups [G, 16, 128]`` float32 (see
 ``ops/cluster.py``) and the ray rows ``rays [13, n]`` float32:
@@ -43,6 +46,7 @@ from ._build import load_cuda_library
 K = 16  # children per group
 WIDE_DMAX = 16  # per-ray DFS stack depth
 SENT = 0x7F800000  # +inf bits: the "no hit" key
+_INF = float("inf")
 _EPS = float(torch.finfo(torch.float32).eps)
 
 # float32 operations per slab test of a child or of a sweep node (6 mul,
@@ -56,7 +60,10 @@ TRI_OPS = 53
 LEAF_OPS = 9
 N_ROWS = 13  # ray rows: o*inv (3), inv (3), t_max, d (3), o (3)
 
+MODES = {"closest": 0, "any": 2}  # the kernels' mode codes (1: bounded)
+
 launches = 0  # kernel launches, counted in ``wide_trace``
+any_launches = 0  # of those, the launches in any-hit mode
 
 
 @functools.cache
@@ -65,12 +72,38 @@ def load() -> ctypes.CDLL:
     lib = load_cuda_library("wide_trace", "wide_trace.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wide_trace_launch.restype = ci
-    lib.wide_trace_launch.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, ci,
-                                      vp, vp, vp]
+    lib.wide_trace_launch.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci,
+                                      ci, vp, vp, vp]
     return lib
 
 
-def _check(gnodes, groups, rays, width, depth, gate, packet):
+def mode_code(mode: str, bounded: bool) -> int:
+    """The kernels' mode code: 0 closest, 1 bounded closest, 2 any."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be 'closest' or 'any', got {mode!r}")
+    return MODES[mode] or int(bool(bounded))
+
+
+def check_options(rays: torch.Tensor, gate, hints, packet: int) -> None:
+    """Checks the per-packet inputs of a trace kernel: ``gate`` int32 [p]
+    and ``hints`` int32 [p, n_hints] for p = ceil(n / packet)."""
+    if packet < 128 or packet & (packet - 1):
+        raise ValueError(f"packet must be a power of two >= 128, got {packet}")
+    p = -(-rays.shape[1] // packet)
+    if gate is not None and (
+            gate.dtype != torch.int32 or tuple(gate.shape) != (p,)
+            or gate.device != rays.device or not gate.is_contiguous()):
+        raise ValueError(f"gate must be a contiguous int32 [{p}] tensor "
+                         f"on {rays.device}")
+    if hints is not None and (
+            hints.dtype != torch.int32 or hints.dim() != 2
+            or hints.shape[0] != p or hints.shape[1] < 1
+            or hints.device != rays.device or not hints.is_contiguous()):
+        raise ValueError(f"hints must be a contiguous int32 [{p}, n_hints] "
+                         f"tensor on {rays.device}")
+
+
+def _check(gnodes, groups, rays, width, depth, gate, hints, packet):
     for name, x in (("gnodes", gnodes), ("groups", groups), ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
@@ -86,34 +119,35 @@ def _check(gnodes, groups, rays, width, depth, gate, packet):
         raise ValueError(f"width must be 16/32/64/128, got {width}")
     if not 0 < depth < WIDE_DMAX:
         raise ValueError(f"wide-tree depth {depth} outside 1..{WIDE_DMAX - 1}")
-    if gate is not None:
-        if packet < 128 or packet & (packet - 1):
-            raise ValueError(f"packet must be a power of two >= 128, got {packet}")
-        p = -(-rays.shape[1] // packet)
-        if (gate.dtype != torch.int32 or tuple(gate.shape) != (p,)
-                or gate.device != rays.device or not gate.is_contiguous()):
-            raise ValueError(f"gate must be a contiguous int32 [{p}] tensor "
-                             f"on {rays.device}")
+    check_options(rays, gate, hints, packet)
 
 
 def wide_trace(gnodes: torch.Tensor, groups: torch.Tensor, rays: torch.Tensor,
                width: int, depth: int, gate: torch.Tensor | None = None,
-               packet: int = 8192, bounded: bool = False):
-    """Closest hit of every ray: ``(t, lane_id)``.
+               packet: int = 8192, bounded: bool = False,
+               mode: str = "closest", hints: torch.Tensor | None = None):
+    """Closest or any hit of every ray: ``(t, lane_id)``.
 
     ``depth`` is the wide tree's group depth (``TightScene.gdepth``).
     ``gate``: optional int32 [ceil(n / packet)]; rays of a packet whose gate
     is 0 are reported as misses without a walk. ``bounded``: the ``t_max``
-    row is a real bound (keep ``vb <= t_max``).
+    row is a real bound (keep ``vb <= t_max``). ``mode="any"``: a ray stops
+    pruning, and the kernel ends its walk, once it has a hit below its
+    ``t_max``; its ``t`` is then some hit's, not the closest. ``hints``:
+    optional int32 [ceil(n / packet), n_hints] leaf slot ids g·K+k
+    narrowphased first for the rays of each packet; -1 in a packet's first
+    slot turns them off, and every other slot must then hold a leaf slot.
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the kernel.
     """
-    global launches
-    _check(gnodes, groups, rays, width, depth, gate, packet)
+    global launches, any_launches
+    _check(gnodes, groups, rays, width, depth, gate, hints, packet)
+    code = mode_code(mode, bounded)
     if rays.device.type == "cpu":
         return wide_trace_plain(gnodes, groups, rays, width, gate=gate,
-                                packet=packet, bounded=bounded)
+                                packet=packet, bounded=bounded, mode=mode,
+                                hints=hints)
     if rays.device.type != "cuda":
         raise ValueError(f"no wide_trace kernel for device {rays.device}")
     n = rays.shape[1]
@@ -121,12 +155,14 @@ def wide_trace(gnodes: torch.Tensor, groups: torch.Tensor, rays: torch.Tensor,
     lane_id = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = load().wide_trace_launch(
         gnodes.data_ptr(), gnodes.shape[1], groups.data_ptr(), width,
-        rays.data_ptr(), n, 0 if gate is None else gate.data_ptr(), packet,
-        int(bounded), t.data_ptr(), lane_id.data_ptr(),
-        torch.cuda.current_stream(rays.device).cuda_stream)
+        rays.data_ptr(), n, 0 if hints is None else hints.data_ptr(),
+        0 if hints is None else hints.shape[1],
+        0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),
+        lane_id.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_trace kernel launch failed: CUDA error {rc}")
     launches += 1
+    any_launches += code == 2
     return t, lane_id
 
 
@@ -140,6 +176,61 @@ def _ctz16(low: torch.Tensor) -> torch.Tensor:
 
 def _cross_rows(u0, u1, u2, v0, v1, v2):
     return (u1 * v2 - u2 * v1, u2 * v0 - u0 * v2, u0 * v1 - u1 * v0)
+
+
+def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
+                r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz):
+    """Leaf tests of the (ray ``r[i]``, cluster ``c[i]``) pairs with frame
+    origins ``cc``: each pair's smallest packed key over the cluster's W
+    triangles. ``tiles`` is ``groups`` as [G, 128, 16] (lane-major)."""
+    dev = rays.device
+    lanes = torch.arange(W, dtype=torch.int32, device=dev)
+    per_row = 128 // W
+    dx, dy, dz, ox, oy, oz = (rays[j, r] for j in range(7, 13))
+    # the ray origin in the cluster frame
+    opx, opy, opz = (x[:, None] for x in (ox - ccx, oy - ccy, oz - ccz))
+    dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
+    lane = (c % per_row)[:, None] * W + lanes[None, :]
+    tri = tiles[(c // per_row)[:, None], lane]  # [P, W, 16]
+    a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(9))
+    # the bilinear forms around tv = o' - a' (see csrc/trace_common.cuh)
+    tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
+    p0, p1, p2 = _cross_rows(e20, e21, e22, e10, e11, e12)  # e2 x e1
+    w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
+    det = (p0 * dx + p1 * dy) + p2 * dz
+    udet = (e20 * w0 + e21 * w1) + e22 * w2
+    vdet = -((e10 * w0 + e11 * w1) + e12 * w2)
+    tdet = -((p0 * tvx + p1 * tvy) + p2 * tvz)
+    ok = (~(det < _EPS) & (udet >= 0.0) & (udet <= det) & (vdet >= 0.0)
+          & (udet + vdet <= det) & (tdet > _EPS * det))
+    t = tdet * (1.0 / det)
+    sent = torch.full((), SENT, dtype=torch.int32, device=dev)
+    key = torch.where(ok, (t.view(torch.int32) & -W) | lanes[None, :], sent)
+    return key.amin(dim=1)
+
+
+def new_bound(nt: torch.Tensor, vb: torch.Tensor, tmx: torch.Tensor | None,
+              bounded: bool) -> torch.Tensor:
+    """The bound after a leaf test whose best key has the value ``nt``:
+    -inf below ``tmx`` and ``tmx`` above it where ``tmx`` (the rays' t_max,
+    any mode) is given, else ``min(nt, vb)`` when ``bounded``, else ``nt``."""
+    if tmx is not None:
+        return torch.where(nt < tmx, -_INF, tmx)
+    return torch.minimum(nt, vb) if bounded else nt
+
+
+def fold_keys(r, km, kc, bk, bc, vb, W: int, bounded: bool, tmx=None) -> None:
+    """Folds one leaf result per walker into the state, in place: walker
+    ``r[i]`` found best key ``km[i]`` in cluster ``kc[i]`` (``r`` holds no
+    walker twice). The best key is replaced only when strictly smaller;
+    then ``vb`` is updated as ``new_bound`` says."""
+    old = bk[r]
+    closer = km < old
+    nbk = torch.where(closer, km, old)
+    bk[r] = nbk
+    bc[r] = torch.where(closer, kc, bc[r])
+    vb[r] = new_bound((nbk & -W).view(torch.float32), vb[r],
+                      None if tmx is None else tmx[r], bounded)
 
 
 def fired_leaves(fired: torch.Tensor, lmask: torch.Tensor):
@@ -163,13 +254,15 @@ def decode_keys(bk: torch.Tensor, bc: torch.Tensor, W: int):
     return value, lane_id
 
 
-def fold_slots(r, ii, kk, km, kc, bk, bc, vb, W: int, bounded: bool) -> None:
+def fold_slots(r, ii, kk, km, kc, bk, bc, vb, W: int, bounded: bool,
+               tmx=None) -> None:
     """Folds the leaf results of one group test into the walkers' state, in
     place: walker ``r[ii]`` fired leaf slot ``kk`` with best key ``km`` in
     cluster ``kc``. The kernels test the slots of one walker in ascending
     order and replace the best key only when strictly smaller, so the first
-    slot holding the smallest key wins; then ``vb`` becomes the key's value
-    (``min`` with the old ``vb`` when ``bounded``)."""
+    slot holding the smallest key wins; then ``vb`` is updated once, as
+    ``new_bound`` says (the leaf test does not read ``vb``, and the update
+    after the last slot equals the kernels' update after every slot)."""
     dev = bk.device
     m = r.numel()
     keys = torch.full((K, m), SENT, dtype=torch.int32, device=dev)
@@ -183,24 +276,19 @@ def fold_slots(r, ii, kk, km, kc, bk, bc, vb, W: int, bounded: bool) -> None:
     wc = clus.gather(0, first[None, :])[0]
     has = torch.zeros(m, dtype=torch.bool, device=dev)
     has[ii] = True
-    rf, kmin, wc = r[has], kmin[has], wc[has]
-    old = bk[rf]
-    closer = kmin < old
-    nbk = torch.where(closer, kmin, old)
-    bk[rf] = nbk
-    bc[rf] = torch.where(closer, wc, bc[rf])
-    nt = (nbk & -W).view(torch.float32)
-    vb[rf] = torch.minimum(nt, vb[rf]) if bounded else nt
+    fold_keys(r[has], kmin[has], wc[has], bk, bc, vb, W, bounded, tmx)
 
 
-def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int) -> None:
+def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int,
+             done=None) -> None:
     """The group walk of the walkers ``live`` (of ``n``), in lock step.
 
     ``enter(r, g)`` tests group ``g[i]`` for walker ``r[i]``, runs its fired
     leaves and returns the fired interior bits. Each walker starts at group
     0, then enters the fired interior children lowest slot first, depth
     first, on a (group, remaining mask) stack of depth ``WIDE_DMAX``, as the
-    kernels do."""
+    kernels do. ``done(r)``: optional; after the root, a walker for which it
+    is True leaves the walk before its next step, as the kernels end it."""
     dev = live.device
     d = torch.zeros(n, dtype=torch.int64, device=dev)
     gid = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -210,6 +298,10 @@ def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int) -> None:
     if live.numel():
         mask[live] = enter(live, torch.zeros_like(live))
     while live.numel():
+        if done is not None:
+            live = live[~done(live)]
+            if not live.numel():
+                break
         has = mask[live] != 0
         h = live[has]
         if h.numel():
@@ -234,15 +326,31 @@ def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int) -> None:
         live = live[d[live] >= 0]
 
 
+def run_hints(live: torch.Tensor, hints: torch.Tensor | None, packet: int,
+              narrow_hint) -> None:
+    """Runs ``narrow_hint(r, h)`` for every hint slot ``h`` of the walkers
+    ``r`` of ``live`` whose packet's first hint is not -1, slot by slot."""
+    if hints is None or not live.numel():
+        return
+    pkt = live // packet
+    r = live[hints[pkt, 0] >= 0]
+    for j in range(hints.shape[1]):
+        if r.numel():
+            narrow_hint(r, hints[r // packet, j].to(torch.int64))
+
+
 def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
                      rays: torch.Tensor, width: int,
                      gate: torch.Tensor | None = None, packet: int = 8192,
-                     bounded: bool = False, counts: bool = False):
+                     bounded: bool = False, counts: bool = False,
+                     mode: str = "closest",
+                     hints: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch (any device).
 
     Returns ``(t, lane_id)``, or with ``counts=True``
     ``(t, lane_id, group_tests, leaf_fires)``: per ray, the groups whose 16
-    children it tested and the leaf clusters it narrowphased (int64).
+    children it tested and the leaf clusters it narrowphased in the walk
+    (int64; hinted leaves are not counted).
     """
     W = width
     dev = rays.device
@@ -252,10 +360,8 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
     pay_all = box[:, 6]  # [K, Gn]
     lmask_all = gnodes[7 * K].to(torch.int32)  # [Gn]
     tiles = groups.permute(0, 2, 1)  # [G, 128, 16]
-    lanes = torch.arange(W, dtype=torch.int32, device=dev)
-    per_row = 128 // W
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    sent = torch.full((), SENT, dtype=torch.int32, device=dev)
+    tmx = rays[6] if mode_code(mode, bounded) == 2 else None
 
     bk = torch.full((n,), SENT, dtype=torch.int32, device=dev)
     bc = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -263,33 +369,18 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
     fires = torch.zeros(n, dtype=torch.int64, device=dev)
 
-    def narrow(r, g, ii, kk):
-        """Leaf tests of the fired (ray r[ii], slot kk of group g[ii]) pairs;
-        returns each pair's best key and cluster."""
-        rr, gg = r[ii], g[ii]
+    def narrow(rr, gg, kk):
+        """Leaf tests of rays rr against the clusters in slots kk of groups
+        gg: each pair's best key and cluster."""
         c = (-pay_all[kk, gg] - 1.0).to(torch.int64)
         ax, ay, az, bx, by, bz = (box[kk, j, gg] for j in range(6))
-        ccx, ccy, ccz = (ax + bx) * 0.5, (ay + by) * 0.5, (az + bz) * 0.5
-        dx, dy, dz, ox, oy, oz = (rays[j, rr] for j in range(7, 13))
-        # the ray origin in the cluster frame
-        opx, opy, opz = (x[:, None] for x in (ox - ccx, oy - ccy, oz - ccz))
-        dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
-        lane = (c % per_row)[:, None] * W + lanes[None, :]
-        tri = tiles[(c // per_row)[:, None], lane]  # [P, W, 16]
-        a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(9))
-        # the bilinear forms around tv = o' - a' (see csrc/wide_trace.cu)
-        tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
-        p0, p1, p2 = _cross_rows(e20, e21, e22, e10, e11, e12)  # e2 x e1
-        w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
-        det = (p0 * dx + p1 * dy) + p2 * dz
-        udet = (e20 * w0 + e21 * w1) + e22 * w2
-        vdet = -((e10 * w0 + e11 * w1) + e12 * w2)
-        tdet = -((p0 * tvx + p1 * tvy) + p2 * tvz)
-        ok = (~(det < _EPS) & (udet >= 0.0) & (udet <= det) & (vdet >= 0.0)
-              & (udet + vdet <= det) & (tdet > _EPS * det))
-        t = tdet * (1.0 / det)
-        key = torch.where(ok, (t.view(torch.int32) & -W) | lanes[None, :], sent)
-        return key.amin(dim=1), c.to(torch.int32)
+        km = narrow_keys(rays, tiles, W, rr, c, (ax + bx) * 0.5,
+                         (ay + by) * 0.5, (az + bz) * 0.5)
+        return km, c.to(torch.int32)
+
+    def narrow_hint(r, slot):
+        km, kc = narrow(r, slot >> 4, slot & (K - 1))
+        fold_keys(r, km, kc, bk, bc, vb, W, bounded, tmx)
 
     def enter(r, g):
         """Tests groups g (one per ray r), narrowphases the fired leaves and
@@ -315,14 +406,17 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
             tests[r] += 1
             fires.index_add_(0, r[ii], torch.ones_like(ii))
         if kk.numel():
-            km, kc = narrow(r, g, ii, kk)
-            fold_slots(r, ii, kk, km, kc, bk, bc, vb, W, bounded)
+            km, kc = narrow(r[ii], g[ii], kk)
+            fold_slots(r, ii, kk, km, kc, bk, bc, vb, W, bounded, tmx)
         return m & ~lmask
 
     live = torch.arange(n, device=dev)
     if gate is not None:
         live = live[gate[live // packet] != 0]
-    dfs_walk(live, enter, pay_all, n)
+    run_hints(live, hints, packet, narrow_hint)
+    # an any-hit ray whose bound is -inf fires no box again
+    done = None if tmx is None else (lambda r: vb[r] == -_INF)
+    dfs_walk(live, enter, pay_all, n, done)
 
     t, lane_id = decode_keys(bk, bc, W)
     if counts:

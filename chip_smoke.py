@@ -34,8 +34,26 @@ final line):
    against brute force over all triangles.
 7. nearest timings: points/s of each leg with its device breakdown; each
    nearest kernel against its plain version on the legs' own sorted rows
-   (bit for bit), both timed there beside the kernel's bound; then the
+   (bit for bit), both timed there beside the kernel's bound.
+8. pathtrace (bench.py's pathtrace leg): the path tracer over the dense
+   mesh, 1024x1024 camera in 32x32 tiles, bounces=2, packet=1024, seed 0;
+   colours finite and non-negative; 4,096 sampled shadow rays of the first
+   wave against brute-force occlusion within t_max; that wave's sweep gate
+   and the group walk's any mode, gated by it, against their plain versions
+   on the wave's full rows; rays/s as bench.py counts them, with the device
+   breakdown.
+9. entry/exit legs on the 120k scene: the aimed rays through make_tracer on
+   a wide=False build (equal to the aimed leg) and on a packed=True build
+   (brute-force bounds), and trace_any_hit_tight with t_max at 1.2x (and
+   0.8x) each ray's hit distance on the wide and the wide=False scene;
+   the sweep gate (plain and packed table) and the entry/exit kernel, gated
+   by it as the aimed legs run it, against their plain versions on the
+   legs' own sorted rows, timed there beside the kernel's bound; then the
    ``kernels`` line.
+
+Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
+hinted, packed), the group walk's any mode and hints, and the sweep on a
+packed table and with a pre-gate against their plain versions.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -56,11 +74,14 @@ from bvh_tpu_torch import (Ray, native, point_triangle_distance_squared,
                            ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import (_build, build_tight_scene, make_tracer,
-                               nearest_tight, sort_points_device)
+                               nearest_tight, sort_points_device,
+                               trace_any_hit_tight, trace_closest_hit_tight)
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
+from bvh_tpu_torch.ops import tight as tight_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows, sort_rays_device
+from bvh_tpu_torch.render import hit_frames, make_pathtracer, shadow_rays
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth
@@ -127,7 +148,10 @@ def device_breakdown(fn, e2e_ms: float) -> dict:
 
 def reset_counts() -> None:
     wide_mod.launches = 0
+    wide_mod.any_launches = 0
     sweep_mod.launches = 0
+    tight_mod.launches = 0
+    tight_mod.any_launches = 0
     near_mod.wide_launches = 0
     near_mod.entry_exit_launches = 0
 
@@ -144,7 +168,7 @@ def build_all() -> dict:
 
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (wide_mod.load, sweep_mod.load, near_mod.load,
-                          native.load)]
+                          tight_mod.load, native.load)]
     t0 = time.perf_counter()
     for th in threads:
         th.start()
@@ -273,20 +297,150 @@ def phase_kernels(dev) -> dict:
             "rays": n, "triangles": int(a.shape[0])}
 
 
-def wide_plain_chunked(gn, grp, rows, width: int, gate=None,
-                       packet: int = 8192):
-    """``wide_trace_plain`` over chunks of PLAIN_CHUNK // width rays (each
-    ray walks on its own; chunks are whole packets), so that its batched
-    leaf tests stay within a few GB at W=128."""
-    chunk = PLAIN_CHUNK // width
-    ts, ids = [], []
+def random_hints(ids, p: int, k: int, seed: int):
+    """[p, k] int32 hints drawn from the valid ids ``ids``; every fourth
+    packet's hints are off (-1 in its first slot)."""
+    h = np.random.default_rng(seed).choice(np.asarray(ids), size=(p, k))
+    h = h.astype(np.int32)
+    h[::4, 0] = -1
+    return h
+
+
+def same_bits(t_k, i_k, t_p, i_p) -> int:
+    """Rays whose t bits or lane ids differ between kernel and plain."""
+    return int(((t_k.view(torch.int32) != t_p.view(torch.int32))
+                | (i_k != i_p)).sum())
+
+
+def finite_err(t_k, t_p) -> float:
+    fin = torch.isfinite(t_k) & torch.isfinite(t_p)
+    return float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+
+
+def phase_trace_modes(dev, n: int = 65536) -> dict:
+    """Phase 2, slice 3: the entry/exit kernel (closest, bounded, any,
+    gated, hinted; f32 and packed tables), the group walk's any mode and
+    hints, and the sweep on a packed table and with a pre-gate, each against
+    its plain version on 65,536 sorted random and aimed rays of
+    create_n_cubes(1000). Results must agree bit for bit."""
+    a, b, c = tb.create_n_cubes(1000)
+    scene = build_tight_scene(a, b, c)
+    scene_p = build_tight_scene(a, b, c, packed=True)
+    grp = _dev(scene.groups, dev)
+    grp_p = _dev(scene_p.groups, dev)
+    gn = _dev(scene.gnodes, dev)
+    sn, pn = _dev(scene.smem_nodes, dev), _dev(scene_p.packed_nodes, dev)
+    packet = 1024
+    p = n // packet
+    o, d = tb.create_rays(n, seed=tb.seed_state_after(1000))
+    ao, ad = tb.aimed_rays(a, n)
+    leaves = np.nonzero(scene.smem_nodes[6] < 0)[0]
+    leaves_p = np.nonzero(scene_p.packed_nodes[3] < 0)[0]
+    out, err = {}, {"tight_trace": 0.0, "wide_trace": 0.0, "sweep_gate": 0.0}
+    for leg, (lo, ld, mode) in {"random": (o, d, "octmorton"),
+                                "aimed": (ao, ad, "morton")}.items():
+        perm, _ = sort_rays_device(lo, ld, mode=mode, device=dev)
+        rays = Ray.create(lo, ld, device=dev).take(perm)
+        inf = torch.full((n,), float("inf"), device=dev)
+        t_max = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev) * 60.0
+        rows, rows_b = _ray_rows(rays, inf), _ray_rows(rays, t_max)
+        pre = torch.from_numpy(np.resize(np.array([1, 1, 0], np.int32), p)).to(dev)
+        res = {}
+        # the sweep on the packed table and with a pre-gate
+        for name, (table, packed, pg) in {
+                "sweep_packed": (pn, True, None),
+                "sweep_pre_gate": (sn, False, pre),
+                "sweep_packed_pre_gate": (pn, True, pre)}.items():
+            for rr in (rows, rows_b):
+                g_k = sweep_mod.sweep_gate(table, rr, packet, packed=packed,
+                                           pre_gate=pg)
+                g_p = sweep_mod.sweep_gate_plain(table, rr, packet,
+                                                 packed=packed, pre_gate=pg)
+                torch.cuda.synchronize()
+                bad = int((g_k != g_p).sum())
+                err["sweep_gate"] = max(err["sweep_gate"],
+                                        float((g_k - g_p).abs().max()))
+                res[f"{name}_mismatch"] = res.get(f"{name}_mismatch", 0) + bad
+                check(bad == 0, f"{leg}/{name}: sweep gate differs from plain")
+        gate = sweep_mod.sweep_gate(sn, rows, packet)
+        gate_p = sweep_mod.sweep_gate(pn, rows, packet, packed=True)
+        hints = torch.from_numpy(random_hints(leaves, p, 4, 1)).to(dev)
+        hints_p = torch.from_numpy(random_hints(leaves_p, p, 4, 2)).to(dev)
+        hints_w = torch.from_numpy(random_hints(scene.gslot, p, 4, 3)).to(dev)
+        tight_cases = {
+            "closest": (sn, grp, False, rows, {}),
+            "bounded": (sn, grp, False, rows_b, {"bounded": True}),
+            "any": (sn, grp, False, rows, {"mode": "any"}),
+            "any_bounded": (sn, grp, False, rows_b,
+                            {"mode": "any", "bounded": True}),
+            "gated": (sn, grp, False, rows, {"gate": gate}),
+            "hinted": (sn, grp, False, rows, {"hints": hints}),
+            "packed": (pn, grp_p, True, rows, {}),
+            "packed_any_bounded": (pn, grp_p, True, rows_b,
+                                   {"mode": "any", "bounded": True}),
+            "packed_gated_hinted": (pn, grp_p, True, rows,
+                                    {"gate": gate_p, "hints": hints_p}),
+        }
+        for name, (table, gr, packed, rr, kw) in tight_cases.items():
+            tk, ik = tight_mod.tight_trace(table, gr, rr, scene.width,
+                                           packed=packed, packet=packet, **kw)
+            tp, ip = tight_mod.tight_trace_plain(table, gr, rr, scene.width,
+                                                 packed=packed, packet=packet,
+                                                 **kw)
+            torch.cuda.synchronize()
+            differ = same_bits(tk, ik, tp, ip)
+            err["tight_trace"] = max(err["tight_trace"], finite_err(tk, tp))
+            res[f"tight_{name}_rays_differ"] = differ
+            res[f"tight_{name}_hits"] = int((ik >= 0).sum())
+            check(differ == 0,
+                  f"{leg}/tight {name}: {differ} rays differ from plain")
+        wide_cases = {
+            "any": (rows, {"mode": "any"}),
+            "any_bounded": (rows_b, {"mode": "any", "bounded": True}),
+            "hinted": (rows, {"hints": hints_w}),
+            "any_gated": (rows, {"mode": "any", "gate": gate}),
+        }
+        for name, (rr, kw) in wide_cases.items():
+            tk, ik = wide_mod.wide_trace(gn, grp, rr, scene.width,
+                                         scene.gdepth, packet=packet, **kw)
+            tp, ip = wide_mod.wide_trace_plain(gn, grp, rr, scene.width,
+                                               packet=packet, **kw)
+            torch.cuda.synchronize()
+            differ = same_bits(tk, ik, tp, ip)
+            err["wide_trace"] = max(err["wide_trace"], finite_err(tk, tp))
+            res[f"wide_{name}_rays_differ"] = differ
+            res[f"wide_{name}_hits"] = int((ik >= 0).sum())
+            check(differ == 0,
+                  f"{leg}/wide {name}: {differ} rays differ from plain")
+        out[leg] = res
+    return {"legs": out, "max_abs_err": err, "rays": n,
+            "triangles": int(a.shape[0])}
+
+
+def plain_chunked(plain, tables: tuple, rows, width: int, gate=None,
+                  packet: int = 8192, **kw):
+    """A trace walk's plain version, ``plain(*tables, rows, width, ...)``,
+    over chunks of PLAIN_CHUNK // width rays (each ray walks on its own;
+    chunks are whole packets), so that its batched leaf tests stay within a
+    few GB at W=128. ``kw``: the mode options."""
+    chunk = max(PLAIN_CHUNK // width, packet)
+    parts = []
     for s in range(0, rows.shape[1], chunk):
         g = None if gate is None else gate[s // packet:(s + chunk) // packet]
-        t, i = wide_mod.wide_trace_plain(gn, grp, rows[:, s:s + chunk], width,
-                                         gate=g, packet=packet)
-        ts.append(t)
-        ids.append(i)
-    return torch.cat(ts), torch.cat(ids)
+        parts.append(plain(*tables, rows[:, s:s + chunk].contiguous(), width,
+                           gate=g, packet=packet, **kw))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def wide_plain_chunked(gn, grp, rows, width: int, **kw):
+    return plain_chunked(wide_mod.wide_trace_plain, (gn, grp), rows, width,
+                         **kw)
+
+
+def tight_plain_chunked(table, grp, rows, width: int, **kw):
+    return plain_chunked(tight_mod.tight_trace_plain, (table, grp), rows,
+                         width, **kw)
 
 
 def compare_main_shapes(kernel_rows: dict, gated_scene, err: dict):
@@ -614,6 +768,321 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
              "bvh_tpu/ops/nearest.py:214"))]
 
 
+def walk_bound(n: int, width: int, steps: float, fires: float, wide: bool,
+               nbytes: float):
+    """Operations of ``n`` rays' trace walks (``steps`` group tests or node
+    visits and ``fires`` narrowphased leaves per ray) and the least time
+    for them and ``nbytes``."""
+    step = (wide_mod.K * wide_mod.SLAB_OPS if wide
+            else wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
+    ops = n * (steps * step + fires * (wide_mod.LEAF_OPS
+                                       + width * wide_mod.TRI_OPS))
+    bms, by = roofline(ops, nbytes)
+    return {"ops": ops, "bytes": nbytes, "bound_ms": bms, "bound_by": by}
+
+
+def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
+                    issue: float, err: dict) -> dict:
+    """Phase 8: bench.py's pathtrace leg through make_pathtracer, its checks
+    and timings. Returns the any-mode group walk's entry of the
+    ``kernels`` line."""
+    side = int(round(oc_dev.shape[0] ** 0.5))
+    bounces, packet = 2, 1024
+    light = (40.0, 80.0, -40.0)
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_np)
+    t0 = time.perf_counter()
+    tracer = make_pathtracer(scene_d, tris_np, bounces=bounces, packet=packet,
+                             light_pos=light, light_power=20000.0, device=dev)
+    setup_s = time.perf_counter() - t0
+
+    def frame():
+        return tracer(oc_dev, dc_dev, torch.Generator(device=dev).manual_seed(0))
+
+    # the path tracer's main path: every count is zero before and read after
+    reset_counts()
+    col = frame()
+    torch.cuda.synchronize()
+    launches = {"wide_trace": wide_mod.launches,
+                "wide_trace_any": wide_mod.any_launches,
+                "sweep_gate": sweep_mod.launches}
+    emit("pathtrace_launches", **launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the pathtrace path")
+    check(col.shape == (side * side, 3), "pathtrace colour shape")
+    check(bool(torch.isfinite(col).all()) and bool((col >= 0).all()),
+          "pathtrace colours must be finite and non-negative")
+
+    # the first wave's shadow rays, as the path tracer makes them
+    v9 = torch.cat(tris_dev, dim=1)
+    hit = trace_closest_hit_tight(scene_d, Ray.create(oc_dev, dc_dev),
+                                  tris=tris_dev, packet=packet, device=dev)
+    found, p, nrm = hit_frames(hit, oc_dev, dc_dev, v9)
+    lp = torch.tensor(light, dtype=torch.float32, device=dev)
+    sh_o, wl, dist_l = shadow_rays(p, nrm, found, lp)
+    tmax = dist_l * 0.999
+    sh_rays = Ray.create(sh_o, wl)
+    occl = trace_any_hit_tight(scene_d, sh_rays, t_max=tmax, packet=packet,
+                               sweep=True, device=dev)
+    # the any-mode kernel against its plain version on the wave's full rows
+    rows = _ray_rows(sh_rays, tmax)
+    gn, grp = _dev(scene_d.gnodes, dev), _dev(scene_d.groups, dev)
+    W = scene_d.width
+    # the wave's sweep gate (trace_any_hit_tight's sweep=True) against its
+    # plain version, then the any-mode walk gated by it as the wave runs it
+    sn = _dev(scene_d.smem_nodes, dev)
+    g_k = sweep_mod.sweep_gate(sn, rows, packet)
+    g_p = sweep_mod.sweep_gate_plain(sn, rows, packet)
+    gates_differ = int((g_k != g_p).sum())
+    check(gates_differ == 0, f"pathtrace shadow wave: {gates_differ} sweep "
+          "gates differ from plain")
+    kw = dict(packet=packet, bounded=True, mode="any", gate=g_k)
+    tk, ik = wide_mod.wide_trace(gn, grp, rows, W, scene_d.gdepth, **kw)
+    tp, ip = wide_plain_chunked(gn, grp, rows, W, **kw)
+    torch.cuda.synchronize()
+    differ = same_bits(tk, ik, tp, ip)
+    err["wide_trace_any"] = max(err["wide_trace"], finite_err(tk, tp))
+    check(differ == 0, f"pathtrace shadow wave: {differ} rays differ from plain")
+    check(bool(((tk < tmax) == occl).all()),
+          "trace_any_hit_tight disagrees with the any-mode kernel")
+    # 4,096 sampled live shadow rays against brute-force occlusion
+    live = torch.nonzero(found).flatten().cpu().numpy()
+    idx = torch.from_numpy(np.random.default_rng(8).choice(
+        live, N_SAMPLE, replace=False)).to(dev)
+    t_bf = brute_force(sh_o[idx], wl[idx], tris_dev)
+    occ_bf = t_bf < tmax[idx]
+    # an occluder within the key truncation of t_max may fall either side
+    band = (t_bf - tmax[idx]).abs() <= 2 * W * 2.0 ** -23 * tmax[idx]
+    mism = occ_bf != occl[idx]
+    n_mism, n_band = int(mism.sum()), int((mism & band).sum())
+    check(n_mism == n_band, f"pathtrace shadow rays: {n_mism - n_band} of "
+          f"{N_SAMPLE} sampled rays disagree with brute-force occlusion")
+    emit("pathtrace", triangles=int(tris_np[0].shape[0]), width=int(W),
+         pixels=side * side, bounces=bounces, packet=packet,
+         setup_s=setup_s, colour_mean=[float(x) for x in col.mean(dim=0)],
+         colour_max=float(col.max()),
+         first_wave={"hit_fraction": float(found.float().mean()),
+                     "occluded_fraction_of_hits": float(
+                         (occl & found).float().sum() / found.float().sum()),
+                     "kernel_vs_plain_rays_differ": differ,
+                     "sweep_gate_vs_plain": {"gates_differ": gates_differ,
+                                             "gates_open": int(g_k.sum()),
+                                             "gates": g_k.numel()},
+                     "brute_force": {"sampled": N_SAMPLE,
+                                     "mismatches": n_mism,
+                                     "in_t_max_band": n_band,
+                                     "agreement": 1.0 - n_mism / N_SAMPLE}})
+
+    ms = cuda_ms(frame, reps=5)
+    rays = side * side * 2 * (bounces + 1)
+    bd = device_breakdown(frame, ms)
+    kms = cuda_ms(lambda: wide_mod.wide_trace(gn, grp, rows, W, scene_d.gdepth,
+                                              **kw))
+    pms = cuda_ms(lambda: wide_plain_chunked(gn, grp, rows, W, **kw), reps=3,
+                  warmup=0)
+    # work per ray on every 32nd ray: sample ray j lies in packet
+    # 32j // packet, so the gate applies to it at packet // 32
+    _, _, tests, fires = wide_mod.wide_trace_plain(
+        gn, grp, rows[:, ::32].contiguous(), W, counts=True,
+        **{**kw, "packet": packet // 32})
+    tests_pr, fires_pr = float(tests.float().mean()), float(fires.float().mean())
+    n = rows.shape[1]
+    b = walk_bound(n, W, tests_pr, fires_pr, True,
+                   wide_mod.N_ROWS * 4 * n + scene_d.gnodes.nbytes
+                   + scene_d.groups.nbytes + 8 * n)
+    emit("pathtrace_timings", card=card, ms=ms, rays_per_s=rays / (ms * 1e-3),
+         rays_counted=rays, breakdown=bd,
+         wide_trace_any={"ms": kms, "plain_ms": pms, "group_tests": tests_pr,
+                         "leaf_fires": fires_pr,
+                         "ops_ms_at_issue_rate": b["ops"] / issue * 1e3, **b})
+    return {"name": "wide_trace_any", "route": "cuda",
+            "source": "bvh_tpu_torch/csrc/wide_trace.cu",
+            "replaces": "bvh_tpu/ops/trace.py:1178",
+            "launches": launches["wide_trace_any"],
+            "max_abs_err": err["wide_trace_any"], "ms": kms, "plain_ms": pms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None}
+
+
+def classify_differences(h_a, h_b, W: int) -> tuple[list, int]:
+    """Rays whose t bits or shape ids differ between two traces of the same
+    rays, each classed "near-tie" (exact t within one key step, 2W ulps) or
+    "grazing-edge" (t within 3e-3, PARITY.md); returns the list and the
+    count outside both classes."""
+    t_a, t_b = h_a.t.cpu().numpy(), h_b.t.cpu().numpy()
+    s_a, s_b = h_a.shape_id.cpu().numpy(), h_b.shape_id.cpu().numpy()
+    idx = np.nonzero((t_a.view(np.int32) != t_b.view(np.int32)) | (s_a != s_b))[0]
+    check(len(idx) <= 10000, f"{len(idx)} rays differ between the two walks")
+    out, outside = [], 0
+    for i in idx.tolist():
+        ta, tb_ = float(t_a[i]), float(t_b[i])
+        both = np.isfinite(ta) and np.isfinite(tb_)
+        rel = abs(ta - tb_) / max(abs(ta), 1e-30) if both else np.inf
+        cls = ("near-tie" if rel <= 2 * W * 2.0 ** -23 else
+               "grazing-edge" if rel <= 3e-3 else "outside")
+        outside += cls == "outside"
+        out.append({"ray": i, "t": [ta, tb_],
+                    "shape_id": [int(s_a[i]), int(s_b[i])], "class": cls})
+    return out, outside
+
+
+def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
+                     h_aim, issue: float, err: dict) -> dict:
+    """Phase 9: the entry/exit legs on the 120k scene (wide=False and
+    packed=True builds through make_tracer; any hit on the wide and the
+    wide=False scene), their checks and timings. Returns the entry/exit
+    kernel's entry of the ``kernels`` line."""
+    a, b, c = tris_np
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_np)
+    n = ao.shape[0]
+    t0 = time.perf_counter()
+    scene_nw = build_tight_scene(a, b, c, wide=False)
+    t1 = time.perf_counter()
+    scene_pk = build_tight_scene(a, b, c, packed=True)
+    build_s = {"wide_false": t1 - t0, "packed": time.perf_counter() - t1}
+    check(scene_nw.gnodes is None and scene_pk.packed_nodes is not None
+          and scene_pk.gnodes is None, "entry/exit scene layouts")
+    tr_nw = make_tracer(scene_nw, packet=8192, sort="morton", tris=tris_np)
+    tr_pk = make_tracer(scene_pk, packet=8192, sort="morton", tris=tris_np)
+    perm, inv = sort_rays_device(ao_dev, ad_dev, mode="morton")
+    t_hit = h_aim.t
+
+    def shadow(sc, factor):
+        return trace_any_hit_tight(sc, Ray.create(ao_dev, ad_dev),
+                                   t_max=t_hit * factor, packet=8192,
+                                   perm=perm)[inv]
+
+    legs = {
+        "aimed_entry_exit": lambda: tr_nw(ao_dev, ad_dev),
+        "aimed_packed": lambda: tr_pk(ao_dev, ad_dev),
+        "shadow_aimed": lambda: shadow(scene_w, 1.2),
+        "shadow_aimed_entry_exit": lambda: shadow(scene_nw, 1.2),
+    }
+    # the entry/exit main path: every count is zero before and read after
+    reset_counts()
+    res = {leg: fn() for leg, fn in legs.items()}
+    torch.cuda.synchronize()
+    launches = {"tight_trace": tight_mod.launches,
+                "tight_trace_any": tight_mod.any_launches,
+                "wide_trace_any": wide_mod.any_launches,
+                "sweep_gate": sweep_mod.launches}
+    emit("entry_exit_launches", **launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the entry/exit path")
+    s08 = [shadow(scene_w, 0.8), shadow(scene_nw, 0.8)]
+
+    diffs, outside = classify_differences(h_aim, res["aimed_entry_exit"],
+                                          scene_nw.width)
+    check(outside == 0, f"aimed_entry_exit differs from the wide aimed leg on "
+          f"{outside} rays outside the near-tie and grazing-edge classes")
+    h_pk = res["aimed_packed"]
+    hit_pk = float(torch.isfinite(h_pk.t).float().mean())
+    check(hit_pk >= 0.999, f"aimed_packed hit fraction {hit_pk} < 0.999")
+    bf_pk = check_vs_brute("aimed_packed", ao, ad, h_pk.t.cpu().numpy(),
+                           tris_dev, 7)
+    s_w, s_nw = res["shadow_aimed"], res["shadow_aimed_entry_exit"]
+    check(s_w.dtype == torch.bool and s_w.shape == (n,), "shadow output")
+    check(bool((s_w == s_nw).all()),
+          "shadow_aimed differs between the wide and the wide=False scene")
+    check(not bool(s08[0].any()) and not bool(s08[1].any()),
+          "a shadow ray is occluded below 0.8x its closest hit")
+    idx = np.random.default_rng(9).choice(n, N_SAMPLE, replace=False)
+    idx_d = torch.from_numpy(idx).to(dev)
+    occ_bf = brute_force(ao[idx], ad[idx], tris_dev) < t_hit[idx_d] * 1.2
+    sh_mism = int((occ_bf != s_w[idx_d]).sum())
+    check(sh_mism == 0, f"shadow_aimed: {sh_mism} sampled rays disagree with "
+          "brute-force occlusion")
+    emit("entry_exit", triangles=int(a.shape[0]), rays=n, build_s=build_s,
+         nodes=int(scene_nw.smem_nodes.shape[1]),
+         aimed_entry_exit={"rays_differ_from_wide": len(diffs),
+                           "differences": diffs[:64]},
+         aimed_packed={"hit_fraction": hit_pk, "brute_force": bf_pk},
+         shadow_aimed={"occluded_fraction": float(s_w.float().mean()),
+                       "wide_equals_entry_exit": True,
+                       "all_clear_at_0_8": True,
+                       "brute_force": {"sampled": N_SAMPLE,
+                                       "mismatches": sh_mism}})
+
+    e2e = {}
+    for leg, fn in legs.items():
+        ms = cuda_ms(fn)
+        e2e[leg] = {"ms": ms, "rays_per_s": n / (ms * 1e-3)}
+    emit("entry_exit_breakdown", card=card, legs={
+        leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
+
+    # the kernel on the legs' own sorted rows, against its plain version
+    rays_s = Ray.create(ao_dev, ad_dev).take(perm)
+    inf = torch.full((n,), float("inf"), device=dev)
+    rows = _ray_rows(rays_s, inf)
+    rows_sh = _ray_rows(rays_s, (t_hit * 1.2)[perm])
+    W = scene_nw.width
+    t0 = time.perf_counter()
+    # the sweep gate of each aimed leg (make_tracer's sweep=True), on the
+    # leg's own rows and table, against its plain version
+    gates, vs_plain = {}, {}
+    for leg, table, packed in (
+            ("aimed_entry_exit", scene_nw.smem_nodes, False),
+            ("aimed_packed", scene_pk.packed_nodes, True)):
+        tab = _dev(table, dev)
+        g_k = sweep_mod.sweep_gate(tab, rows, 8192, packed=packed)
+        g_p = sweep_mod.sweep_gate_plain(tab, rows, 8192, packed=packed)
+        bad = int((g_k != g_p).sum())
+        vs_plain[f"sweep_gate/{leg}"] = {"gates_differ": bad,
+                                         "gates_open": int(g_k.sum()),
+                                         "gates": g_k.numel()}
+        check(bad == 0, f"{leg}: {bad} sweep gates differ from plain")
+        gates[leg] = g_k
+    runs = {
+        "aimed_entry_exit": (scene_nw.smem_nodes, scene_nw.groups, rows,
+                             {"gate": gates["aimed_entry_exit"]}),
+        "aimed_packed": (scene_pk.packed_nodes, scene_pk.groups, rows,
+                         {"packed": True, "gate": gates["aimed_packed"]}),
+        "shadow_aimed_entry_exit": (scene_nw.smem_nodes, scene_nw.groups,
+                                    rows_sh, {"mode": "any", "bounded": True}),
+    }
+    kernel_ms, plain_ms, work = {}, {}, {}
+    err["tight_trace"] = err.get("tight_trace", 0.0)
+    for leg, (table, groups, rr, kw) in runs.items():
+        tab, grp = _dev(table, dev), _dev(groups, dev)
+        tk, ik = tight_mod.tight_trace(tab, grp, rr, W, packet=8192, **kw)
+        tp, ip = tight_plain_chunked(tab, grp, rr, W, **kw)
+        torch.cuda.synchronize()
+        differ = same_bits(tk, ik, tp, ip)
+        err["tight_trace"] = max(err["tight_trace"], finite_err(tk, tp))
+        vs_plain[leg] = {"rays_differ": differ, "hits": int((ik >= 0).sum())}
+        check(differ == 0, f"{leg}: {differ} rays differ from plain")
+    vs_s = time.perf_counter() - t0
+    bounds = {}
+    for leg, (table, groups, rr, kw) in runs.items():
+        tab, grp = _dev(table, dev), _dev(groups, dev)
+        kernel_ms[leg] = cuda_ms(lambda: tight_mod.tight_trace(
+            tab, grp, rr, W, packet=8192, **kw))
+        plain_ms[leg] = cuda_ms(lambda: tight_plain_chunked(tab, grp, rr, W,
+                                                            **kw),
+                                reps=3, warmup=0)
+        # every 32nd ray; its gate applies at packet 8192 // 32
+        _, _, visits, fires = tight_mod.tight_trace_plain(
+            tab, grp, rr[:, ::32].contiguous(), W, counts=True,
+            packet=8192 // 32, **kw)
+        v_pr, f_pr = float(visits.float().mean()), float(fires.float().mean())
+        work[leg] = {"node_visits": v_pr, "leaf_fires": f_pr}
+        b = walk_bound(n, W, v_pr, f_pr, False,
+                       wide_mod.N_ROWS * 4 * n + table.nbytes + groups.nbytes
+                       + 8 * n)
+        bounds[leg] = {**b, "ops_ms_at_issue_rate": b["ops"] / issue * 1e3}
+    emit("entry_exit_timings", card=card, end_to_end=e2e,
+         kernels_vs_plain={"seconds": vs_s, "runs": vs_plain},
+         kernel_ms=kernel_ms, plain_ms=plain_ms, work_per_ray=work,
+         bounds=bounds)
+    key = "aimed_entry_exit"
+    return {"name": "tight_trace", "route": "cuda",
+            "source": "bvh_tpu_torch/csrc/tight_trace.cu",
+            "replaces": "bvh_tpu/ops/trace.py:650",
+            "launches": launches["tight_trace"],
+            "max_abs_err": err["tight_trace"], "ms": kernel_ms[key],
+            "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
+            "bound_by": bounds[key]["bound_by"], "library_ms": None}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -640,6 +1109,9 @@ def main() -> None:
     t0 = time.perf_counter()
     p2n = phase_nearest_kernels(dev)
     emit("nearest_kernels_vs_plain", seconds=time.perf_counter() - t0, **p2n)
+    t0 = time.perf_counter()
+    p2t = phase_trace_modes(dev)
+    emit("trace_modes_vs_plain", seconds=time.perf_counter() - t0, **p2t)
 
     # ---- phase 3: main path at full width ------------------------------
     a, b, c = tb.create_n_cubes(10000)
@@ -817,6 +1289,13 @@ def main() -> None:
     kernels += nearest_phases(dev, card, scene, (a, b, c), scene_d,
                               (ad_, bd_, cd_), issue,
                               dict(p2n["max_abs_err"]))
+
+    # ---- phases 8 and 9: the path tracer and the entry/exit legs --------
+    err3 = dict(p2t["max_abs_err"])
+    kernels.append(pathtrace_phase(dev, card, scene_d, (ad_, bd_, cd_),
+                                   oc_dev, dc_dev, issue, err3))
+    kernels.append(entry_exit_phase(dev, card, scene, (a, b, c), ao, ad,
+                                    ao_dev, ad_dev, h_aim, issue, err3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
-on the same tensors (bit for bit), and the whole trace and the nearest
-queries on the card against the CPU. Every test here needs an NVIDIA GPU and skips elsewhere; the file
+on the same tensors (bit for bit), and the whole traces (closest hit on
+both walks, any hit) and the nearest queries on the card against the CPU. Every test here needs an NVIDIA GPU and skips elsewhere; the file
 imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -12,9 +12,11 @@ import torch
 
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
-from bvh_tpu_torch.ops import build_tight_scene, make_tracer, nearest_tight
+from bvh_tpu_torch.ops import (build_tight_scene, make_tracer, nearest_tight,
+                               trace_any_hit_tight)
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
+from bvh_tpu_torch.ops import tight as tight_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 
@@ -178,3 +180,117 @@ def test_wrapper_refuses_mixed_devices(case, cuda):
         wide_mod.wide_trace(_dev(scene.gnodes, cuda), _dev(scene.groups, cuda),
                             rows, scene.width, scene.gdepth,
                             gate=torch.ones(64, dtype=torch.int32), packet=128)
+
+
+def _hints(ids, p, k=4, seed=0):
+    """Random valid hints [p, k] drawn from ``ids``; the first packet's are
+    off (-1 in its first slot)."""
+    rng = np.random.default_rng(seed)
+    h = rng.choice(np.asarray(ids), size=(p, k)).astype(np.int32)
+    h[0, 0] = -1
+    return h
+
+
+@pytest.mark.parametrize("mode", ["closest", "bounded", "any", "any_bounded",
+                                  "gated", "hinted", "packed", "packed_any"])
+def test_tight_kernel_matches_plain(case, cuda, mode):
+    scene, tris, _, _, rays, tm = case
+    inf = torch.full_like(tm, float("inf"))
+    bounded = mode in ("bounded", "any_bounded", "packed_any")
+    rows = _ray_rows(rays, tm if bounded else inf)
+    packed = mode.startswith("packed")
+    if packed:
+        scene = build_tight_scene(*tris, leaf_size=scene.width, packed=True)
+    table = _dev(scene.packed_nodes if packed else scene.smem_nodes, cuda)
+    grp = _dev(scene.groups, cuda)
+    packet = 256
+    p = -(-rows.shape[1] // packet)
+    kw = dict(packed=packed, packet=packet, bounded=bounded,
+              mode="any" if "any" in mode else "closest")
+    if mode == "gated":
+        kw["gate"] = sweep_mod.sweep_gate(table, rows, packet)
+    if mode == "hinted":
+        leaves = np.nonzero(scene.smem_nodes[6] < 0)[0]
+        kw["hints"] = torch.from_numpy(_hints(leaves, p)).to(cuda)
+    before = tight_mod.launches
+    tk, ik = tight_mod.tight_trace(table, grp, rows, scene.width, **kw)
+    assert tight_mod.launches == before + 1
+    tp, ip = tight_mod.tight_trace_plain(table, grp, rows, scene.width, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    assert (ik >= 0).any()
+
+
+@pytest.mark.parametrize("mode", ["any", "any_bounded", "hinted"])
+def test_wide_kernel_any_and_hints_match_plain(case, cuda, mode):
+    scene, _, _, _, rays, tm = case
+    bounded = mode == "any_bounded"
+    rows = _ray_rows(rays, tm if bounded else torch.full_like(tm, np.inf))
+    gn, grp = _dev(scene.gnodes, cuda), _dev(scene.groups, cuda)
+    packet = 256
+    kw = dict(packet=packet, bounded=bounded,
+              mode="closest" if mode == "hinted" else "any")
+    if mode == "hinted":
+        p = -(-rows.shape[1] // packet)
+        kw["hints"] = torch.from_numpy(_hints(scene.gslot, p)).to(cuda)
+    before = wide_mod.launches
+    tk, ik = wide_mod.wide_trace(gn, grp, rows, scene.width, scene.gdepth, **kw)
+    assert wide_mod.launches == before + 1
+    tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    assert (ik >= 0).any()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_sweep_packed_and_pre_gate_match_plain(case, cuda, packed):
+    scene, tris, _, _, rays, tm = case
+    if packed:
+        scene = build_tight_scene(*tris, leaf_size=scene.width, packed=True)
+    table = _dev(scene.packed_nodes if packed else scene.smem_nodes, cuda)
+    rows = _ray_rows(rays, tm)
+    packet = 128
+    p = -(-rows.shape[1] // packet)
+    pre = torch.from_numpy(np.resize(np.array([1, 0, 1], np.int32), p)).to(cuda)
+    for pre_gate in (None, pre):
+        gk = sweep_mod.sweep_gate(table, rows, packet, packed=packed,
+                                  pre_gate=pre_gate)
+        gp = sweep_mod.sweep_gate_plain(table, rows, packet, packed=packed,
+                                        pre_gate=pre_gate)
+        torch.cuda.synchronize()
+        assert torch.equal(gk, gp)
+        if pre_gate is not None:
+            assert not bool((gk & (1 - pre)).any())
+
+
+@pytest.mark.parametrize("wide", [None, False])
+def test_any_hit_on_card_matches_cpu(case, cuda, wide):
+    scene, _, o, d, _, tm = case
+    for t_max in (None, tm.cpu().numpy()):
+        got = trace_any_hit_tight(scene, Ray.create(o, d, device=cuda),
+                                  t_max=t_max, packet=512, wide=wide,
+                                  sweep=True, device=cuda)
+        ref = trace_any_hit_tight(scene, Ray.create(o, d, device="cpu"),
+                                  t_max=t_max, packet=512, wide=wide,
+                                  sweep=True, device="cpu")
+        # the two devices may normalize a direction 1 ulp apart
+        assert (got.cpu() != ref).float().mean() < 1e-3
+        assert ref.any() and not ref.all()
+
+
+@pytest.mark.parametrize("kwargs", [{"wide": False}, {"packed": True}])
+def test_entry_exit_tracer_on_card_matches_cpu(case, cuda, kwargs):
+    _, tris, o, d, _, _ = case
+    scene = build_tight_scene(*tris, leaf_size=case[0].width, **kwargs)
+    got = make_tracer(scene, packet=512, sort="morton", tris=tris,
+                      device=cuda)(o, d)
+    ref = make_tracer(scene, packet=512, sort="morton", tris=tris,
+                      device="cpu")(o, d)
+    hit = torch.isfinite(ref.t)
+    assert torch.equal(torch.isfinite(got.t).cpu(), hit)
+    same = got.shape_id.cpu() == ref.shape_id
+    assert same.float().mean() > 0.999
+    torch.testing.assert_close(got.t.cpu()[hit & same], ref.t[hit & same],
+                               rtol=1e-6, atol=0)

@@ -98,9 +98,15 @@ def test_collapse_native_and_numpy_equal(cubes):
 @pytest.mark.parametrize("kwargs", [{"packed": True}, {"bmat": True},
                                     {"sweep_cut": 64}])
 def test_unported_options_raise(cubes, kwargs):
+    """The options that raised before the entry/exit walk was ported now
+    build their extra table, array-equal to the reference's."""
     a, b, c = cubes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_tight_scene(a, b, c, **kwargs)
+    st = build_tight_scene(a, b, c, **kwargs)
+    extra = {"packed": "packed_nodes", "bmat": "bgroups",
+             "sweep_cut": "sweep_nodes"}[next(iter(kwargs))]
+    assert getattr(st, extra) is not None
+    assert (st.gnodes is None) == ("packed" in kwargs)
+    _assert_scene_equal(build_j(a, b, c, **kwargs), st)
 
 
 def test_scene_from_asdict(cubes):

@@ -1,0 +1,444 @@
+"""The port's entry/exit walk, packed/bmat/sweep_cut scene builds, any-hit
+traces, hints and pre-gates against bvh_tpu (Pallas in interpret mode), on
+create_n_cubes(40) with reference-random, aimed and near rays.
+
+Tolerances:
+
+* Scene builds: every TightScene field array-equal (``equal_nan`` for the
+  NaN-padded wide table).
+* Entry/exit walk vs the reference's ``trace_closest_hit_tight(wide=False)``
+  with its reciprocal made exact (``exact_reciprocal``): hit masks equal; t
+  bits equal wherever the shape ids agree, except on at most 1% of the hits
+  where the two packages' t·det forms (the reference sums them from
+  m = o×d) round t across one key step, W ulps; ids differ on at most 1% of
+  the hits, and only where the two raw distances agree within
+  ``GRAZING_RTOL`` (the near-tie and grazing-edge classes, PARITY.md: the
+  reference's forms may take a ray across a shared edge into the adjacent
+  triangle). The port's two walks agree with each other bit for bit.
+* Packed scenes: the reference's packed test's tolerances
+  (tests/test_tight_kernel.py:309-345).
+* bmat scenes: t within rtol 1e-5 with equal ids (the reference's own bmat
+  test, tests/test_tight_kernel.py:259-283); the port evaluates the leaf
+  test from ``groups`` on bmat scenes, so it equals the default scene's
+  trace bit for bit.
+* Any hit: equal to the port's closest hit below t_max except on rays whose
+  nearest hit lies within ``GRAZING_RTOL`` of t_max, and to the reference's
+  ``trace_any_hit_tight`` except where it lies within ``GRAZING_RTOL`` plus
+  the reference's approximate reciprocal (2^-8) of t_max.
+* Hints and pre-gates change no result bit outside the gated packets.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import bvh_tpu
+from bvh_tpu.ops import cluster as cluster_j
+from bvh_tpu.ops.cluster import build_tight_scene as build_j
+from bvh_tpu.ops.trace import _pack_rays_tight, _sweep_tight, compute_seed_hints
+from bvh_tpu.ops.trace import make_tracer as make_tracer_j
+from bvh_tpu.ops.trace import trace_any_hit_tight as any_j
+from bvh_tpu.ops.trace import trace_closest_hit_tight as trace_j
+from bvh_tpu_torch import Ray, ray_intersects_triangle
+from bvh_tpu_torch import testbase as tb
+from bvh_tpu_torch.ops import cluster as cluster_t
+from bvh_tpu_torch.ops import (build_tight_scene, make_tracer,
+                               sort_rays_device, trace_any_hit_tight,
+                               trace_closest_hit_tight)
+from bvh_tpu_torch.ops import sweep as sweep_mod
+from bvh_tpu_torch.ops import tight as tight_mod
+from bvh_tpu_torch.ops.trace import _dev, _ray_rows
+
+CPU = torch.device("cpu")
+N_CUBES = 40
+PACKET = 512
+GRAZING_RTOL = 3e-3
+
+
+@pytest.fixture(scope="module")
+def world():
+    a, b, c = tb.create_n_cubes(N_CUBES)
+    o1, d1 = tb.create_rays(256, seed=tb.seed_state_after(N_CUBES))
+    o2, d2 = tb.aimed_rays(a, 512, seed=3)
+    rng = np.random.default_rng(7)
+    centers = (a + b + c) / np.float32(3)
+    o3 = (centers[rng.integers(0, len(a), 256)]
+          + rng.uniform(-20, 20, (256, 3))).astype(np.float32)
+    d3 = rng.normal(size=(256, 3)).astype(np.float32)
+    return (a, b, c), np.concatenate([o1, o2, o3]), np.concatenate([d1, d2, d3])
+
+
+@pytest.fixture
+def exact_reciprocal(monkeypatch):
+    """The reference's approximate reciprocal (bfloat16 in interpret mode)
+    made exact for one test; compiled traces are dropped before and after."""
+    jax.clear_caches()
+    monkeypatch.setattr(pl, "reciprocal", lambda x, approx=False: 1.0 / x)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+def _assert_scene_equal(sj, st):
+    assert st._fields == sj._fields
+    for name in sj._fields:
+        x, y = getattr(sj, name), getattr(st, name)
+        if x is None or y is None:
+            assert x is None and y is None, name
+        elif isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            assert np.array_equal(x, y, equal_nan=(name == "gnodes")), name
+        else:
+            assert x == y, name
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+def assert_tie_class(ref, got, W):
+    """``ref``/``got``: (t, shape_id) numpy pairs. Hit masks equal; where
+    the ids agree, t bits equal but on at most 1% of the hits, which may
+    sit one key step (W ulps) apart; ids differ on at most 1% of the hits,
+    each with t within ``GRAZING_RTOL``."""
+    (t_r, s_r), (t_g, s_g) = ref, got
+    hit = np.isfinite(t_r)
+    assert (np.isfinite(t_g) == hit).all()
+    assert ((s_r >= 0) == hit).all() and ((s_g >= 0) == hit).all()
+    same = hit & (s_r == s_g)
+    step = np.abs(_bits(t_r)[same].astype(np.int64) - _bits(t_g)[same])
+    assert (step <= W).all() and (step != 0).sum() <= max(2, hit.sum() // 100)
+    diff = hit & (s_r != s_g)
+    assert diff.sum() <= max(8, hit.sum() // 100)
+    np.testing.assert_allclose(t_g[diff], t_r[diff], rtol=GRAZING_RTOL)
+
+
+# ---- scene builds -----------------------------------------------------------
+
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("kwargs", [
+    {"packed": True}, {"bmat": True}, {"sweep_cut": 32},
+    {"packed": True, "sweep_cut": 64, "leaf_size": 32},
+    {"bmat": True, "wide": False, "leaf_size": 64}])
+def test_build_options_equal(world, use_native, kwargs):
+    tris = world[0]
+    sj = build_j(*tris, use_native=use_native, **kwargs)
+    st = build_tight_scene(*tris, use_native=use_native, **kwargs)
+    _assert_scene_equal(sj, st)
+
+
+def test_bf16_helpers_equal():
+    x = np.array([0.0, -0.0, 1.0, -1.0, 1.00390625, -3.3e-3, 1.2e5, -7.7e4,
+                  1e30, -1e30, 1e-40, -1e-40, 65504.1, np.pi], np.float32)
+    x = np.concatenate([x, np.random.default_rng(0).normal(
+        scale=1e4, size=200).astype(np.float32)])
+    for fn in ("_bf16_round_down", "_bf16_round_up"):
+        assert np.array_equal(getattr(cluster_t, fn)(x).view(np.int32),
+                              getattr(cluster_j, fn)(x).view(np.int32)), fn
+    table = np.stack([x[:64], x[64:128], x[128:192], x[:64] + 5, x[64:128] + 5,
+                      x[128:192] + 5, np.arange(64.0), np.arange(64.0)])
+    table = table.astype(np.float32)
+    pj = cluster_j.pack_node_table_bf16(table)
+    pt = cluster_t.pack_node_table_bf16(table)
+    assert np.array_equal(pj.view(np.int32), pt.view(np.int32))
+    assert np.array_equal(cluster_j.unpack_node_table_bf16(pj),
+                          cluster_t.unpack_node_table_bf16(pt))
+    unpacked = sweep_mod.unpack_nodes(torch.from_numpy(pt)).numpy()
+    assert np.array_equal(unpacked[[0, 1, 2, 3, 4, 5, 6, 7]],
+                          cluster_t.unpack_node_table_bf16(pt))
+
+
+@pytest.mark.parametrize("W", [16, 32, 64, 128])
+def test_bilinear_tables_equal(W):
+    rng = np.random.default_rng(W)
+    C = 5
+    av, e1, e2 = (rng.normal(size=(C * W, 3)) for _ in range(3))
+    bj = cluster_j.bilinear_blocks(av, e1, e2)
+    bt = cluster_t.bilinear_blocks(av, e1, e2)
+    assert np.array_equal(bj, bt)
+    assert np.array_equal(cluster_j.pack_bgroups(bj, C, W),
+                          cluster_t.pack_bgroups(bt, C, W))
+
+
+# ---- the entry/exit walk ----------------------------------------------------
+
+@pytest.mark.parametrize("W", [16, 32])
+def test_entry_exit_walk_matches_reference(world, W, exact_reciprocal):
+    tris, o, d = world
+    sj = build_j(*tris, leaf_size=W, wide=False)
+    st = build_tight_scene(*tris, leaf_size=W, wide=False)
+    hj = trace_j(sj, bvh_tpu.Ray.create(o, d), interpret=True, packet=PACKET)
+    before = tight_mod.launches
+    ht = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU),
+                                 packet=PACKET, device=CPU)
+    assert tight_mod.launches == before  # the CPU runs the plain version
+    got = (ht.t.numpy(), ht.shape_id.numpy())
+    assert_tie_class((np.asarray(hj.t), np.asarray(hj.shape_id)), got, W)
+    assert 0.4 < np.isfinite(got[0]).mean() < 0.9
+    # the group walk over the same tree gives the same bits
+    hw = trace_closest_hit_tight(build_tight_scene(*tris, leaf_size=W),
+                                 Ray.create(o, d, device=CPU), packet=PACKET,
+                                 wide=True, device=CPU)
+    assert np.array_equal(_bits(hw.t), _bits(got[0]))
+    assert np.array_equal(hw.shape_id.numpy(), got[1])
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_packed_scene_traces_correctly(use_native):
+    """The reference's packed test (tests/test_tight_kernel.py:309-345) on
+    the port, and the port against the reference's packed trace."""
+    a, b, c = tb.create_n_cubes(50)
+    s32 = build_tight_scene(a, b, c, use_native=use_native)
+    sp = build_tight_scene(a, b, c, use_native=use_native, packed=True)
+    assert sp.packed_nodes.shape[0] == 5 and sp.gnodes is None
+    centers = a.reshape(-1, 12, 3).mean(axis=1)
+    n = 1024
+    idx = np.resize(np.arange(len(centers)), n)
+    rng = np.random.default_rng(7)
+    offs = rng.normal(size=(n, 3)).astype(np.float32)
+    offs /= np.linalg.norm(offs, axis=1, keepdims=True)
+    o = (centers[idx] + offs * 40.0).astype(np.float32)
+    d = (centers[idx] + 0.15 - o).astype(np.float32)
+    flip = rng.random(n) < 0.3
+    d[flip] = offs[flip]
+    rays = Ray.create(o, d, device=CPU)
+    got = trace_closest_hit_tight(sp, rays, packet=128, device=CPU)
+    tg = got.t.numpy()
+    a_, b_, c_ = (torch.from_numpy(x)[None] for x in (a, b, c))
+    tw = ray_intersects_triangle(Ray(*(x[:, None] for x in rays)), a_, b_,
+                                 c_).distance.amin(dim=1).numpy()
+    assert (np.isfinite(tg) == np.isfinite(tw)).all()
+    both = np.isfinite(tg)
+    np.testing.assert_allclose(tg[both], tw[both], rtol=5e-3)
+    assert (np.abs(tg[both] / tw[both] - 1) < 3e-3).mean() > 0.97
+    got2 = trace_closest_hit_tight(sp, rays, packet=128, sweep=True,
+                                   device=CPU)
+    assert np.array_equal(_bits(got2.t), _bits(tg))
+    ref = trace_closest_hit_tight(s32, rays, packet=128, device=CPU)
+    same = ref.shape_id.numpy() == got.shape_id.numpy()
+    assert same.mean() > 0.9
+    np.testing.assert_allclose(tg[both & same], ref.t.numpy()[both & same],
+                               rtol=2e-4)
+    # the reference's packed trace: the same masks, ids up to the tie class
+    sj = build_j(a, b, c, use_native=use_native, packed=True)
+    hj = trace_j(sj, bvh_tpu.Ray.create(o, d), packet=128, interpret=True)
+    hit = np.isfinite(np.asarray(hj.t))
+    assert (hit == both).all()
+    assert (np.asarray(hj.shape_id) != got.shape_id.numpy()).sum() <= max(
+        8, hit.sum() // 100)
+
+
+@pytest.mark.parametrize("leaf", [16, 32])
+def test_bmat_scene_matches_default(leaf, exact_reciprocal):
+    """The reference's bmat test (tests/test_tight_kernel.py:259-283) on the
+    port: the bmat trace against the default scene's at t rtol 1e-5 with
+    equal ids (here bit for bit); and against the reference's bmat trace up
+    to its tie class."""
+    a, b, c = tb.create_n_cubes(30)
+    sc_def = build_tight_scene(a, b, c, leaf_size=leaf, use_native=False)
+    sc_bm = build_tight_scene(a, b, c, leaf_size=leaf, use_native=False,
+                              bmat=True)
+    assert sc_bm.bgroups is not None and sc_def.bgroups is None
+    centers = a.reshape(-1, 12, 3).mean(axis=1)
+    n = 512
+    idx = np.resize(np.arange(len(centers)), n)
+    rng = np.random.default_rng(5)
+    offs = rng.normal(size=(n, 3)).astype(np.float32)
+    offs /= np.linalg.norm(offs, axis=1, keepdims=True)
+    o = (centers[idx] + offs * 30.0).astype(np.float32)
+    d = (centers[idx] + 0.19 - o).astype(np.float32)
+    rays = Ray.create(o, d, device=CPU)
+    got = trace_closest_hit_tight(sc_bm, rays, packet=128, device=CPU)
+    want = trace_closest_hit_tight(sc_def, rays, packet=128, device=CPU)
+    assert (got.shape_id == want.shape_id).all()
+    assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+    ref = trace_j(build_j(a, b, c, leaf_size=leaf, use_native=False,
+                          bmat=True), bvh_tpu.Ray.create(o, d), packet=128,
+                  interpret=True)
+    assert np.isfinite(got.t.numpy()).mean() > 0.9
+    assert_tie_class((np.asarray(ref.t), np.asarray(ref.shape_id)),
+                     (got.t.numpy(), got.shape_id.numpy()), leaf)
+
+
+def test_tight_kernel_wrapper(world):
+    tris, o, d = world
+    st = build_tight_scene(*tris, packed=True, sweep_cut=64)
+    rows = _ray_rows(Ray.create(o, d, device=CPU), torch.full((len(o),), np.inf))
+    pn, sn = _dev(st.packed_nodes, CPU), _dev(st.smem_nodes, CPU)
+    grp = _dev(st.groups, CPU)
+    t0, i0 = tight_mod.tight_trace(pn, grp, rows, st.width, packed=True)
+    t1, i1, visits, fires = tight_mod.tight_trace_plain(
+        pn, grp, rows, st.width, packed=True, counts=True)
+    assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
+    assert torch.equal(i0, i1)
+    assert (visits >= 1).all() and (fires <= visits).all() and fires.sum() > 0
+    with pytest.raises(ValueError, match=r"\[5, Nn\]"):
+        tight_mod.tight_trace(sn, grp, rows, st.width, packed=True)
+    with pytest.raises(ValueError, match=r"\[8, Nn\]"):
+        tight_mod.tight_trace(pn, grp, rows, st.width)
+    with pytest.raises(ValueError, match="mode"):
+        tight_mod.tight_trace(sn, grp, rows, st.width, mode="nearest")
+    with pytest.raises(ValueError, match="hints"):
+        tight_mod.tight_trace(sn, grp, rows, st.width, packet=PACKET,
+                              hints=torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="width"):
+        tight_mod.tight_trace(sn, grp, rows, 8)
+    # a wide=True override needs an f32 wide scene
+    rays = Ray.create(o, d, device=CPU)
+    with pytest.raises(ValueError, match="gnodes"):
+        trace_closest_hit_tight(st, rays, wide=True, device=CPU)
+    with pytest.raises(ValueError, match="bmat"):
+        trace_any_hit_tight(build_tight_scene(*tris, bmat=True), rays,
+                            wide=True, device=CPU)
+
+
+# ---- any hit ----------------------------------------------------------------
+
+@pytest.mark.parametrize("walk", ["wide", "entry_exit", "packed"])
+@pytest.mark.parametrize("bound", ["none", "scalar", "per_ray", "per_ray_perm"])
+def test_any_hit_matches_reference(world, walk, bound):
+    tris, o, d = world
+    kw = {"wide": {}, "entry_exit": {"wide": False},
+          "packed": {"packed": True}}[walk]
+    sj, st = build_j(*tris, **kw), build_tight_scene(*tris, **kw)
+    n = len(o)
+    t_max = {"none": None, "scalar": np.float32(45.0)}.get(
+        bound, np.random.default_rng(8).uniform(5, 80, n).astype(np.float32))
+    perm = None
+    if bound == "per_ray_perm":
+        perm, _ = sort_rays_device(o, d, mode="morton", device=CPU)
+    ref = np.asarray(any_j(sj, bvh_tpu.Ray.create(o, d), t_max=t_max,
+                           packet=PACKET, interpret=True,
+                           perm=None if perm is None
+                           else np.asarray(perm, np.int32)))
+    got = trace_any_hit_tight(st, Ray.create(o, d, device=CPU), t_max=t_max,
+                              packet=PACKET, perm=perm, device=CPU)
+    assert got.dtype == torch.bool and got.shape == (n,)
+    got = got.numpy()
+    assert 0 < got.sum() < n
+    # the closest hit decides the occlusion, up to the key truncation
+    hc = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU), tris=tris,
+                                 perm=perm, device=CPU)
+    tc = hc.t.numpy()
+    tm = np.broadcast_to(np.inf if t_max is None else t_max, (n,))
+    if perm is not None:
+        tm = tm[perm.numpy()]
+    gap = np.abs(tc - np.where(np.isfinite(tm), tm, 0.0))  # |t - t_max|
+    near = np.isfinite(tm) & (gap <= GRAZING_RTOL * tm)
+    assert near.sum() <= 4
+    assert np.array_equal(got[~near], (tc < tm)[~near])
+    # the reference's t carries its approximate reciprocal (2^-8 relative
+    # in interpret mode)
+    band = np.isfinite(tm) & (gap <= (GRAZING_RTOL + 2**-8) * tm)
+    assert band.sum() <= 8
+    assert np.array_equal(ref[~band], got[~band])
+
+
+@pytest.mark.parametrize("walk", ["wide", "entry_exit"])
+def test_any_hit_sweep_and_pre_gate(world, walk):
+    tris, o, d = world
+    st = build_tight_scene(*tris, wide=walk == "wide")
+    rays = Ray.create(o, d, device=CPU)
+    base = trace_any_hit_tight(st, rays, t_max=60.0, packet=128, device=CPU)
+    swept = trace_any_hit_tight(st, rays, t_max=60.0, packet=128, sweep=True,
+                                device=CPU)
+    assert torch.equal(base, swept)
+    pg = np.random.default_rng(2).integers(0, 2, len(o) // 128)
+    gated = trace_any_hit_tight(st, rays, t_max=60.0, packet=128,
+                                pre_gate=pg, sweep=True, device=CPU)
+    on = torch.from_numpy(np.repeat(pg, 128) != 0)
+    assert torch.equal(gated, base & on)
+
+
+# ---- hints and pre-gates ----------------------------------------------------
+
+@pytest.mark.parametrize("kwargs", [{}, {"wide": False}, {"packed": True}])
+def test_reference_seed_hints_change_nothing(world, kwargs):
+    tris, o, d = world
+    sj, st = build_j(*tris, **kwargs), build_tight_scene(*tris, **kwargs)
+    packet = 512
+    hints = compute_seed_hints(sj, bvh_tpu.Ray.create(o, d), packet=packet,
+                               sample_stride=32, k_hints=8, interpret=True)
+    hints = np.array(hints)
+    assert (hints[:, 0] >= 0).any()
+    hints[0] = -1  # the first packet without hints
+    rays = Ray.create(o, d, device=CPU)
+    plain = trace_closest_hit_tight(st, rays, tris=tris, packet=packet,
+                                    device=CPU)
+    seeded = trace_closest_hit_tight(st, rays, tris=tris, packet=packet,
+                                     hints=hints, device=CPU)
+    assert torch.equal(plain.t.view(torch.int32), seeded.t.view(torch.int32))
+    assert torch.equal(plain.shape_id, seeded.shape_id)
+    if not kwargs:
+        with pytest.raises(ValueError, match="default walk"):
+            trace_closest_hit_tight(st, rays, packet=packet, hints=hints,
+                                    wide=False, device=CPU)
+
+
+@pytest.mark.parametrize("walk", ["wide", "entry_exit"])
+@pytest.mark.parametrize("sweep", [False, True])
+def test_pre_gate_matches_reference(world, walk, sweep):
+    tris, o, d = world
+    kw = {} if walk == "wide" else {"wide": False}
+    sj, st = build_j(*tris, **kw), build_tight_scene(*tris, **kw)
+    p = len(o) // PACKET
+    pg = np.array([1, 0, 1, 0][:p], np.int32)
+    ref = trace_j(sj, bvh_tpu.Ray.create(o, d), packet=PACKET, sweep=sweep,
+                  pre_gate=jnp.asarray(pg), interpret=True)
+    got = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU),
+                                  packet=PACKET, sweep=sweep, pre_gate=pg,
+                                  device=CPU)
+    free = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU),
+                                   packet=PACKET, device=CPU)
+    on = np.repeat(pg, PACKET) != 0
+    assert np.array_equal(np.isfinite(got.t.numpy()),
+                          np.isfinite(free.t.numpy()) & on)
+    assert np.array_equal(_bits(got.t)[on], _bits(free.t)[on])
+    assert np.array_equal(np.isfinite(np.asarray(ref.t)),
+                          np.isfinite(got.t.numpy()))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("pre", [False, True])
+def test_sweep_matches_reference(world, packed, pre):
+    tris, o, d = world
+    n, packet = len(o), 128
+    t_max = np.random.default_rng(4).uniform(0, 100, n).astype(np.float32)
+    sj = build_j(*tris, packed=packed)
+    st = build_tight_scene(*tris, packed=packed)
+    _, _, slab, _ = _pack_rays_tight(bvh_tpu.Ray.create(o, d), packet, t_max)
+    pg = np.resize(np.array([1, 1, 0], np.int32), n // packet) if pre else None
+    table_j = sj.packed_nodes if packed else sj.smem_nodes
+    fired = _sweep_tight(jnp.asarray(table_j), slab,
+                         num_nodes=int(table_j.shape[1]), interpret=True,
+                         packet=packet, packed=packed,
+                         pre_gate=None if pg is None else jnp.asarray(pg))
+    gate_j = (np.asarray(fired)[:, 0, 0] > 0).astype(np.int32)
+    rows = _ray_rows(Ray.create(o, d, device=CPU), torch.from_numpy(t_max))
+    table_t = st.packed_nodes if packed else st.smem_nodes
+    gate_t = sweep_mod.sweep_gate(
+        _dev(table_t, CPU), rows, packet, packed=packed,
+        pre_gate=None if pg is None else torch.from_numpy(pg))
+    assert np.array_equal(gate_j, gate_t.numpy())
+    assert 0 < gate_j.sum() < len(gate_j)
+
+
+# ---- make_tracer on scenes without a wide table -----------------------------
+
+@pytest.mark.parametrize("kwargs", [{"wide": False}, {"packed": True}])
+def test_make_tracer_matches_reference(world, kwargs, exact_reciprocal):
+    tris, o, d = world
+    sj, st = build_j(*tris, **kwargs), build_tight_scene(*tris, **kwargs)
+    ref = make_tracer_j(sj, packet=PACKET, sort="morton", interpret=True)(o, d)
+    got = make_tracer(st, packet=PACKET, sort="morton", device=CPU)(o, d)
+    assert_tie_class((np.asarray(ref.t), np.asarray(ref.shape_id)),
+                     (got.t.numpy(), got.shape_id.numpy()), st.width)
+    # the sweep gate and the sort change no bit
+    got2 = make_tracer(st, packet=128, sweep=False, sort=None,
+                       device=CPU)(o, d)
+    assert torch.equal(got.t.view(torch.int32), got2.t.view(torch.int32))
+    assert torch.equal(got.shape_id, got2.shape_id)

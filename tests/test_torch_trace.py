@@ -182,13 +182,18 @@ def test_empty_and_unported(world):
     empty = make_tracer(st, device=CPU)(o[:0], d[:0])
     assert empty.t.shape == (0,) and empty.shape_id.dtype == torch.int32
     rays = Ray.create(o, d, device=CPU)
-    for kw in ({"hints": np.zeros((1, 1), np.int32)}, {"pre_gate": np.ones(1)},
-               {"start_g": np.zeros(1)}, {"wide": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trace_closest_hit_tight(st, rays, device=CPU, **kw)
+    p = -(-len(o) // 2048)
+    # hints, pre_gate, wide=False and scenes without gnodes are ported
+    for kw in ({"hints": np.full((p, 1), -1, np.int32)},
+               {"pre_gate": np.ones(p)}, {"wide": False}):
+        trace_closest_hit_tight(st, rays, device=CPU, **kw)
+    trace_closest_hit_tight(st._replace(gnodes=None), rays, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_closest_hit_tight(st._replace(gnodes=None), rays, device=CPU)
+        trace_closest_hit_tight(st, rays, device=CPU, start_g=np.zeros(p))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_tracer(st, plan="key", device=CPU)
     with pytest.raises(ValueError, match="packet"):
         make_tracer(st, packet=1000, device=CPU)
+    with pytest.raises(ValueError, match="hints"):
+        trace_closest_hit_tight(st, rays, device=CPU,
+                                hints=np.zeros((1, 1), np.int32))
