@@ -1,9 +1,10 @@
 """bvh_tpu_torch — the PyTorch and CUDA port of ``bvh_tpu``.
 
 A second package beside the JAX one: host scene builds stay numpy, the
-closest-hit and any-hit traces, the path tracer (``render.py``) and the
-nearest-triangle queries run on an NVIDIA card through hand-written CUDA
-kernels (built from ``bvh_tpu_torch/csrc`` at first use),
+closest-hit, any-hit and k-closest traces (tight, chained and legacy
+cluster scenes), the path tracer (``render.py``) and the nearest-triangle
+queries run on an NVIDIA card through hand-written CUDA kernels (built
+from ``bvh_tpu_torch/csrc`` at first use),
 and every kernel has a plain PyTorch version that runs on the CPU. Entry points run on the card unless the
 caller passes ``device="cpu"``. The package imports neither JAX nor
 anything of ``bvh_tpu``.

@@ -2,7 +2,8 @@
 // walk, and tight_trace.cu, the entry/exit walk): the per-ray state, the
 // NaN-propagating min/max, the bf16-pair unpack, the slab test of a box and
 // the leaf test of a cluster. The sweep gate (sweep.cu) takes the min/max
-// and the unpack.
+// and the unpack; the legacy cluster trace (cluster_trace.cu) the min/max
+// and the leaf test's key minimum (tile_min_key).
 //
 // The leaf test replaces the TPU kernel's bvh_tpu/ops/trace.py::
 // _narrow_cluster: Moller-Trumbore of one ray against the W triangles of
@@ -111,16 +112,15 @@ __device__ __forceinline__ bool slab_fires(const RayState& r, float ax,
   return (tmax >= nmax(tmin, 0.0f)) && (tmin < r.vb);
 }
 
-// Leaf test of cluster c, frame origin (ccx, ccy, ccz), against one ray.
-__device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
-                               int W, int c, float ccx, float ccy, float ccz,
-                               int mode) {
-  // the ray origin in the cluster frame
-  float opx = r.ox - ccx, opy = r.oy - ccy, opz = r.oz - ccz;
-  const int per_row = 128 / W;
-  const float* tile =
-      groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
-  int bk = r.bk;
+// The smallest packed key of one ray over the W triangles whose rows a', e1,
+// e2 start at tile (triangle j at tile[row * 128 + j]), with the ray origin
+// (opx, opy, opz) in the cluster frame; sent where no key is below it. The
+// legacy cluster kernel (cluster_trace.cu) calls it at W = 128.
+__device__ __forceinline__ int tile_min_key(const float* __restrict__ tile,
+                                            int W, float opx, float opy,
+                                            float opz, float dx, float dy,
+                                            float dz, int sent) {
+  int bk = sent;
   for (int j = 0; j < W; ++j) {
     float a0 = __ldg(tile + 0 * 128 + j), a1 = __ldg(tile + 1 * 128 + j);
     float a2 = __ldg(tile + 2 * 128 + j), e10 = __ldg(tile + 3 * 128 + j);
@@ -130,9 +130,9 @@ __device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
     float tvx = opx - a0, tvy = opy - a1, tvz = opz - a2;
     float p0 = e21 * e12 - e22 * e11, p1 = e22 * e10 - e20 * e12,
           p2 = e20 * e11 - e21 * e10;
-    float w0 = tvy * r.dz - tvz * r.dy, w1 = tvz * r.dx - tvx * r.dz,
-          w2 = tvx * r.dy - tvy * r.dx;
-    float det = (p0 * r.dx + p1 * r.dy) + p2 * r.dz;
+    float w0 = tvy * dz - tvz * dy, w1 = tvz * dx - tvx * dz,
+          w2 = tvx * dy - tvy * dx;
+    float det = (p0 * dx + p1 * dy) + p2 * dz;
     float udet = (e20 * w0 + e21 * w1) + e22 * w2;
     float vdet = -((e10 * w0 + e11 * w1) + e12 * w2);
     float tdet = -((p0 * tvx + p1 * tvy) + p2 * tvz);
@@ -141,14 +141,28 @@ __device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
     if (ok) {
       float t = tdet * (1.0f / det);
       int key = (__float_as_int(t) & ~(W - 1)) | j;
-      if (key < bk) {
-        bk = key;
-        r.bc = c;
-      }
+      if (key < bk) bk = key;
     }
   }
-  r.bk = bk;
-  float nt = __int_as_float(bk & ~(W - 1));
+  return bk;
+}
+
+// Leaf test of cluster c, frame origin (ccx, ccy, ccz), against one ray: the
+// cluster's smallest key replaces the ray's best key only when strictly
+// smaller, then the bound is updated.
+__device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
+                               int W, int c, float ccx, float ccy, float ccz,
+                               int mode) {
+  const int per_row = 128 / W;
+  const float* tile =
+      groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
+  int km = tile_min_key(tile, W, r.ox - ccx, r.oy - ccy, r.oz - ccz, r.dx,
+                        r.dy, r.dz, SENT);
+  if (km < r.bk) {
+    r.bk = km;
+    r.bc = c;
+  }
+  float nt = __int_as_float(r.bk & ~(W - 1));
   if (mode == MODE_ANY)
     r.vb = nt < r.tmx ? neg_inf() : r.tmx;
   else if (mode == MODE_BOUNDED)

@@ -1,26 +1,41 @@
-"""The port's trace and nearest-triangle paths: host scene tables, the
-coherence sorts, and the hand-written CUDA kernels (group walk, entry/exit
-walk, sweep gate, the two nearest walks) with their plain PyTorch
-versions."""
+"""The port's trace and nearest-triangle paths: host scene tables (tight,
+legacy cluster and chained scenes), the coherence sorts, and the
+hand-written CUDA kernels (group walk, entry/exit walk, sweep gate, legacy
+cluster walk, the two nearest walks) with their plain PyTorch versions.
+The legacy walk's wrapper is ``ops.cluster_trace.cluster_trace``: the
+module keeps the name, so the package does not re-export the function."""
 
-from .cluster import (TightScene, build_tight_scene, build_wide_table,
+from .cluster import (ChainedScene, ClusterScene, TightScene,
+                      build_chained_scene, build_cluster_scene,
+                      build_tight_scene, build_wide_table,
+                      chained_scene_from_parts, cluster_scene_from_arrays,
                       collapse_upper, pack_node_table_bf16, scene_from_arrays,
                       unpack_node_table_bf16)
-from .nearest import (nearest_entry_exit, nearest_entry_exit_plain,
-                      nearest_tight, nearest_wide, nearest_wide_plain,
-                      sort_points_device)
+from .nearest import (nearest_chained, nearest_entry_exit,
+                      nearest_entry_exit_plain, nearest_tight, nearest_wide,
+                      nearest_wide_plain, sort_points_device)
+from .ordered import trace_k_closest, trace_k_closest_chained
 from .sweep import sweep_gate, sweep_gate_plain
 from .tight import tight_trace, tight_trace_plain
-from .trace import (make_tracer, sort_rays_device, trace_any_hit_tight,
+from .trace import (make_tracer, sort_rays, sort_rays_device,
+                    trace_any_hit_chained, trace_any_hit_tight,
+                    trace_closest_hit, trace_closest_hit_chained,
                     trace_closest_hit_tight)
 from .wide import wide_trace, wide_trace_plain
 
 __all__ = [
+    "ChainedScene",
+    "ClusterScene",
     "TightScene",
+    "build_chained_scene",
+    "build_cluster_scene",
     "build_tight_scene",
     "build_wide_table",
+    "chained_scene_from_parts",
+    "cluster_scene_from_arrays",
     "collapse_upper",
     "make_tracer",
+    "nearest_chained",
     "nearest_entry_exit",
     "nearest_entry_exit_plain",
     "nearest_tight",
@@ -29,13 +44,19 @@ __all__ = [
     "pack_node_table_bf16",
     "scene_from_arrays",
     "sort_points_device",
+    "sort_rays",
     "sort_rays_device",
     "sweep_gate",
     "sweep_gate_plain",
     "tight_trace",
     "tight_trace_plain",
+    "trace_any_hit_chained",
     "trace_any_hit_tight",
+    "trace_closest_hit",
+    "trace_closest_hit_chained",
     "trace_closest_hit_tight",
+    "trace_k_closest",
+    "trace_k_closest_chained",
     "unpack_node_table_bf16",
     "wide_trace",
     "wide_trace_plain",

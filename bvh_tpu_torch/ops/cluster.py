@@ -1,12 +1,15 @@
-"""Host scene build for the wide closest-hit trace (numpy tables).
+"""Host scene builds (numpy tables): tight scenes, legacy cluster scenes and
+chained scenes.
 
-Counterpart of ``bvh_tpu/ops/cluster.py`` (``TightScene`` and
-``build_tight_scene`` with their helpers). The tables come out array-equal
-to the reference's, for the native and the numpy build alike, because the
-trace kernels are held against the reference on the same tables. Several
-rules below are limits of the TPU the reference was written for (the
-~660 KB scalar-memory budget that widens leaves, the group-stack depth that
-drops the wide table); they are kept so that the tables stay equal.
+Counterpart of ``bvh_tpu/ops/cluster.py`` (``TightScene``,
+``build_tight_scene``, ``ClusterScene``, ``build_cluster_scene``,
+``ChainedScene`` and ``build_chained_scene`` with their helpers). The
+tables come out array-equal to the reference's, for the native and the
+numpy build alike, because the trace kernels are held against the reference
+on the same tables. Several rules below are limits of the TPU the reference
+was written for (the ~660 KB scalar-memory budget that widens leaves, the
+group-stack depth that drops the wide table, the parts of a chained scene);
+they are kept so that the tables stay equal.
 
 Leaves are SAH-cut clusters of at most ``W`` (16/32/64/128) triangles, stored
 relative to the leaf box's centre as rows a', e1, e2 of ``groups
@@ -30,8 +33,10 @@ from ..config import DEFAULT_CONFIG
 from ..testbase import tri_aabbs
 
 TIGHT = 16  # default triangles per cluster
+CLUSTER = 128  # triangles per legacy (ClusterScene) cluster
 WIDE_K = 16  # children per wide-tree group (bits of the fired mask)
 TIGHT_VERSION = 3  # newest ``__tight_version__`` of a saved scene understood here
+CLUSTER_VERSION = 1  # newest ``__version__`` of a saved ClusterScene understood here
 
 
 class TightScene(NamedTuple):
@@ -57,6 +62,106 @@ class TightScene(NamedTuple):
     @property
     def num_tris(self) -> int:
         return int((self.tri_map >= 0).sum())
+
+
+class ClusterScene(NamedTuple):
+    """Host tables of a scene for the legacy 128-triangle cluster trace
+    (numpy). Same fields as the reference's ``ClusterScene``."""
+
+    smem_nodes: np.ndarray  # [8, Nc] f32: amin(3), amax(3), entry, exit
+    smem_cc: np.ndarray  # [4, C] f32 cluster box centres (row 3 unused)
+    tris_rel: np.ndarray  # [C, 16, 128] f32 rows: a'(3) e1(3) e2(3) pad(7)
+    tri_map: np.ndarray  # [C * 128] i32 lane -> original triangle id (-1 pad)
+    num_clusters: int
+    num_nodes: int
+    relative: bool = True  # triangle rows stored relative to the box centre
+
+    @property
+    def num_tris(self) -> int:
+        return int((self.tri_map >= 0).sum())
+
+
+def _morton10(x: np.ndarray) -> np.ndarray:
+    """Spreads the low 10 bits of ``x`` three apart (uint32)."""
+    v = x.astype(np.uint32)
+    v = (v | (v << 16)) & np.uint32(0x030000FF)
+    v = (v | (v << 8)) & np.uint32(0x0300F00F)
+    v = (v | (v << 4)) & np.uint32(0x030C30C3)
+    v = (v | (v << 2)) & np.uint32(0x09249249)
+    return v
+
+
+def _morton_order(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """Triangle ids in the Morton order of their centroids on a 1024³ grid
+    over the centroids' bounds (stable argsort)."""
+    centroid = (a + b + c) / np.float32(3.0)
+    lo = centroid.min(axis=0)
+    hi = centroid.max(axis=0)
+    q = (centroid - lo) / np.maximum(hi - lo, 1e-30)
+    grid = np.clip((q * 1024.0).astype(np.int64), 0, 1023).astype(np.uint32)
+    codes = ((_morton10(grid[:, 0]).astype(np.uint64) << np.uint64(2))
+             | (_morton10(grid[:, 1]).astype(np.uint64) << np.uint64(1))
+             | _morton10(grid[:, 2]).astype(np.uint64))
+    return np.argsort(codes, kind="stable")
+
+
+def build_cluster_scene(a: np.ndarray, b: np.ndarray, c: np.ndarray,
+                        relative: bool = True) -> ClusterScene:
+    """Host prep of the legacy scene: Morton-sort the triangles, cut the
+    order into clusters of 128, build the SAH tree over the cluster boxes.
+
+    ``relative=False`` stores the triangle rows in the global frame (no
+    per-cluster origin; loses precision at 1e5 coordinates). Padding lanes
+    of the last cluster are degenerate (e1 = e2 = 0), so they never hit.
+    """
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    c = np.asarray(c, np.float32)
+    n = a.shape[0]
+    if n == 0:
+        raise ValueError("empty scene")
+    order = _morton_order(a, b, c)
+
+    pad = (-n) % CLUSTER
+    n_pad = n + pad
+    a_s = np.full((n_pad, 3), 1.0e30, np.float32)
+    b_s = np.full((n_pad, 3), 1.0e30, np.float32)
+    c_s = np.full((n_pad, 3), 1.0e30, np.float32)
+    a_s[:n], b_s[:n], c_s[:n] = a[order], b[order], c[order]
+
+    C = n_pad // CLUSTER
+    # cluster boxes over the real triangles only
+    mn, mx = tri_aabbs(a_s[:n], b_s[:n], c_s[:n])
+    mn_pad = np.full((n_pad, 3), np.inf, np.float32)
+    mx_pad = np.full((n_pad, 3), -np.inf, np.float32)
+    mn_pad[:n], mx_pad[:n] = mn, mx
+    cl_min = mn_pad.reshape(C, CLUSTER, 3).min(axis=1)
+    cl_max = mx_pad.reshape(C, CLUSTER, 3).max(axis=1)
+    cc = ((cl_min + cl_max) * 0.5).astype(np.float32)
+
+    # the tree over the cluster boxes; leaves encode -(cluster+1) in entry
+    flat, _ = build_sah(cl_min, cl_max)
+    smem_nodes = _node_table(flat)
+    smem_cc = np.zeros((4, C), np.float32)
+    smem_cc[0:3] = cc.T
+
+    ccl = np.repeat(cc, CLUSTER, axis=0) if relative else np.float32(0.0)
+    a_rel = a_s - ccl
+    e1 = b_s - a_s
+    e2 = c_s - a_s
+    if pad:
+        a_rel[n:] = 0.0
+        e1[n:] = 0.0
+        e2[n:] = 0.0
+    tris_rel = np.zeros((C, 16, CLUSTER), np.float32)
+    tris_rel[:, 0:3] = a_rel.reshape(C, CLUSTER, 3).transpose(0, 2, 1)
+    tris_rel[:, 3:6] = e1.reshape(C, CLUSTER, 3).transpose(0, 2, 1)
+    tris_rel[:, 6:9] = e2.reshape(C, CLUSTER, 3).transpose(0, 2, 1)
+
+    tri_map = np.full(n_pad, -1, np.int32)
+    tri_map[:n] = order.astype(np.int32)
+    return ClusterScene(smem_nodes, smem_cc, tris_rel, tri_map, C,
+                        flat.num_nodes, relative)
 
 
 def cut_clusters(flat, leaf_size: int = TIGHT):
@@ -634,3 +739,160 @@ def scene_from_arrays(fields) -> TightScene:
         else:
             out[name] = np.asarray(val)
     return TightScene(**out)
+
+
+def cluster_scene_from_arrays(fields) -> ClusterScene:
+    """A ``ClusterScene`` from a mapping of numpy arrays and ints under its
+    field names: the ``_asdict()`` of a scene the JAX package built, or the
+    npz its ``save_cluster_scene`` writes (``np.load(path)``).
+
+    0-d arrays become ints (``relative`` a bool); ``__version__`` is
+    checked, then dropped.
+    """
+    f = dict(fields)
+    version = f.pop("__version__", None)
+    if version is not None and int(version) > CLUSTER_VERSION:
+        raise ValueError(f"cluster scene version {int(version)} is newer "
+                         f"than supported ({CLUSTER_VERSION})")
+    unknown = set(f) - set(ClusterScene._fields)
+    if unknown:
+        raise ValueError(f"not ClusterScene fields: {sorted(unknown)}")
+    out = {}
+    for name, val in f.items():
+        if name in ("num_clusters", "num_nodes"):
+            out[name] = int(np.asarray(val))
+        elif name == "relative":
+            out[name] = bool(np.asarray(val))
+        else:
+            out[name] = np.asarray(val)
+    return ClusterScene(**out)
+
+
+# ---- chained scenes ---------------------------------------------------------
+
+class ChainedScene(NamedTuple):
+    """A scene as Morton-ordered parts, each a full ``TightScene``, traced
+    in turn with each ray's best hit so far bounding the next part.
+
+    The reference cut big scenes into parts because one node table had to
+    fit the TPU's scalar memory; the port keeps the parts as an input so
+    that it gives the reference's results on every scene it builds.
+    """
+
+    parts: tuple  # TightScene per part
+    orig_ids: tuple  # [i] int32 per part: part-local triangle id -> global id
+
+
+def _pad_wide_table(gnodes: np.ndarray, target: int) -> np.ndarray:
+    """Pads a wide table to ``target`` columns with unreachable groups: NaN
+    boxes (never fire) and empty-slot payloads."""
+    Gn = gnodes.shape[1]
+    if target < Gn:
+        raise ValueError(f"pad target {target} below the table width {Gn}")
+    if target == Gn:
+        return gnodes
+    K = gnodes.shape[0] // 7
+    pad = np.full((gnodes.shape[0], target - Gn), np.nan, np.float32)
+    pad[6:7 * K:7, :] = -1.0
+    pad[7 * K:, :] = 0.0
+    return np.concatenate([gnodes, pad], axis=1)
+
+
+def _repad_tight(s: TightScene, nn_t: int, G_t: int, Gn_t: int = 0) -> TightScene:
+    """Pads a part's tables to the chain's common (node, group-row, wide)
+    widths. Padding a padded node table is safe: the old pad block's
+    entry/exit point at the first new pad column, which walks off the end.
+    ``num_nodes`` keeps the logical count."""
+    sn = s.smem_nodes
+    if sn.shape[1] < nn_t:
+        sn = _pad_node_table(sn, target=nn_t)
+    g, tm = s.groups, s.tri_map
+    if g.shape[0] < G_t:
+        g = np.concatenate(
+            [g, np.zeros((G_t - g.shape[0], 16, 128), np.float32)], axis=0)
+        tm = np.concatenate(
+            [tm, np.full((G_t - s.groups.shape[0]) * 128, -1, np.int32)])
+    # the bf16 table is packed again only when the node table grew
+    if s.packed_nodes is not None and sn is not s.smem_nodes:
+        pn = pack_node_table_bf16(sn)
+    else:
+        pn = s.packed_nodes
+    bg = s.bgroups
+    if bg is not None:
+        W = int(s.width)
+        Gb_t = _bucket(G_t * (128 // W) // max(128 // (4 * W), 1), 1)
+        if bg.shape[0] < Gb_t:
+            bg = np.concatenate(
+                [bg, np.zeros((Gb_t - bg.shape[0],) + bg.shape[1:],
+                              np.float32)], axis=0)
+    gn = s.gnodes
+    if gn is not None and Gn_t and gn.shape[1] < Gn_t:
+        gn = _pad_wide_table(gn, Gn_t)
+    if (sn is s.smem_nodes and g is s.groups and bg is s.bgroups
+            and gn is s.gnodes):
+        return s
+    return s._replace(smem_nodes=sn, groups=g, tri_map=tm, packed_nodes=pn,
+                      bgroups=bg, gnodes=gn)
+
+
+def build_chained_scene(a, b, c, max_part: int | None = None,
+                        leaf_size: int | None = None, config=None,
+                        use_native: bool = True, collapse: int | None = 16,
+                        bmat: bool | None = None,
+                        packed: bool = False) -> ChainedScene:
+    """Partition and per-part build of a scene as a ``ChainedScene``.
+
+    Parts are equal slices of the triangles' Morton order (spatially
+    compact), at most ``max_part`` triangles each (default 200,000, or
+    400,000 with ``packed``), each built by ``build_tight_scene`` with the
+    other options. A chain whose parts' automatic leaf widths diverge is
+    rebuilt at the widest; then every part is padded to the largest node,
+    group-row and wide table, and the wide tables are dropped from every
+    part unless all parts have one.
+    """
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    c = np.asarray(c, np.float32)
+    n = a.shape[0]
+    if n == 0:
+        raise ValueError("empty scene")
+    if max_part is None:
+        max_part = 400_000 if packed else 200_000
+    opts = dict(config=config, use_native=use_native, collapse=collapse,
+                bmat=bmat, packed=packed)
+    k = -(-n // max_part)
+    if k == 1:
+        scene = build_tight_scene(a, b, c, leaf_size=leaf_size, **opts)
+        return ChainedScene((scene,), (np.arange(n, dtype=np.int32),))
+
+    order = _morton_order(a, b, c)
+    bounds = np.linspace(0, n, k + 1).astype(np.int64)
+    ids = [order[bounds[i]:bounds[i + 1]].astype(np.int32) for i in range(k)]
+    parts = [build_tight_scene(a[s], b[s], c[s], leaf_size=leaf_size, **opts)
+             for s in ids]
+    widths = {int(p.width) for p in parts}
+    if len(widths) > 1:
+        w_max = max(widths)
+        parts = [p if int(p.width) == w_max else
+                 build_tight_scene(a[s], b[s], c[s], leaf_size=w_max, **opts)
+                 for p, s in zip(parts, ids)]
+    nn_t = max(int(p.smem_nodes.shape[1]) for p in parts)
+    G_t = max(int(p.groups.shape[0]) for p in parts)
+    if all(p.gnodes is not None for p in parts):
+        Gn_t = max(int(p.gnodes.shape[1]) for p in parts)
+    else:
+        Gn_t = 0
+        parts = [p._replace(gnodes=None, gslot=None, gdepth=0) for p in parts]
+    parts = [_repad_tight(p, nn_t, G_t, Gn_t) for p in parts]
+    return ChainedScene(tuple(parts), tuple(ids))
+
+
+def chained_scene_from_parts(parts, orig_ids) -> ChainedScene:
+    """A ``ChainedScene`` from per-part mappings as ``scene_from_arrays``
+    takes them (each part's ``_asdict()`` of a scene the JAX package built)
+    and the per-part global id arrays."""
+    parts = tuple(scene_from_arrays(p) for p in parts)
+    ids = tuple(np.asarray(i, np.int32) for i in orig_ids)
+    if len(parts) != len(ids):
+        raise ValueError(f"{len(parts)} parts but {len(ids)} id arrays")
+    return ChainedScene(parts, ids)

@@ -38,7 +38,7 @@ import torch
 from ..bvh.lbvh import morton_codes
 from ..device import resolve_device
 from ._build import load_cuda_library
-from .trace import _dev
+from .trace import _chain_ids, _check_packet, _dev
 from .wide import (K, SENT, WIDE_DMAX, decode_keys, dfs_walk, fired_leaves,
                    fold_slots)
 
@@ -450,4 +450,52 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
         return sid, dist
     # un-permute as int32 bit patterns, so every distance moves exactly
     comb = torch.stack([sid, dist.view(torch.int32)], dim=1)[inv]
+    return comb[:, 0].contiguous(), comb[:, 1].contiguous().view(torch.float32)
+
+
+def nearest_chained(chained, points, packet: int = 2048, d_max=None,
+                    sort: bool = True, device=None):
+    """Nearest triangle over a ``ChainedScene``: ``(shape_id [n] int32,
+    distance [n] float32)`` with global triangle ids, the contract of
+    ``nearest_tight``.
+
+    The batch is sorted once (``sort``, more than 128 points), then the
+    parts run in turn, each point's best distance so far the next part's
+    radius; a part's triangle replaces the best only when strictly closer,
+    so ties go to the earlier part. The carried radius is the winner's
+    distance from its truncated key, so a later part's triangle within that
+    truncation of the best may be left out (the key-truncation class). Ids
+    are mapped once at the end, and the un-permute moves int32 bit
+    patterns.
+    """
+    _check_packet(packet)
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev).reshape(-1, 3)
+    r = pts.shape[0]
+    if r == 0:
+        return (torch.full((0,), -1, dtype=torch.int32, device=dev),
+                torch.full((0,), _INF, dtype=torch.float32, device=dev))
+    if d_max is None:
+        best_d = torch.full((r,), _INF, dtype=torch.float32, device=dev)
+    else:
+        best_d = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
+        best_d = best_d.reshape(-1).expand(r).contiguous()
+    inv = None
+    if sort and r > 128:
+        perm, inv = sort_points_device(pts, device=dev)
+        pts, best_d = pts[perm], best_d[perm]
+    best_loc = torch.zeros(r, dtype=torch.int64, device=dev)  # 0: the -1 slot
+    off = 1
+    for part, ids in zip(chained.parts, chained.orig_ids):
+        sid, dist = nearest_tight(part, pts, packet=packet, d_max=best_d,
+                                  sort=False, device=dev)
+        closer = (sid >= 0) & (dist < best_d)
+        best_d = torch.where(closer, dist, best_d)
+        best_loc = torch.where(closer, sid.to(torch.int64) + off, best_loc)
+        off += int(ids.shape[0])
+    best_id = _chain_ids(chained, dev)[best_loc]
+    best_d = torch.where(best_id >= 0, best_d, _INF)
+    if inv is None:
+        return best_id, best_d
+    comb = torch.stack([best_id, best_d.view(torch.int32)], dim=1)[inv]
     return comb[:, 0].contiguous(), comb[:, 1].contiguous().view(torch.float32)

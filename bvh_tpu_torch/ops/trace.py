@@ -1,8 +1,12 @@
-"""Closest-hit and any-hit traces over a ``TightScene``: the coherence sort,
-the ray prologue, the sweep gate, the two walks and the epilogue.
+"""Closest-hit and any-hit traces over a ``TightScene``, a ``ChainedScene``
+and a legacy ``ClusterScene``: the coherence sorts, the ray prologue, the
+gates, the walks and the epilogue.
 
 Counterpart of ``sort_rays_device``, ``trace_closest_hit_tight``,
-``trace_any_hit_tight`` and ``make_tracer`` in ``bvh_tpu/ops/trace.py``.
+``trace_any_hit_tight``, ``make_tracer``, ``trace_closest_hit_chained``,
+``trace_any_hit_chained``, ``sort_rays`` and ``trace_closest_hit`` in
+``bvh_tpu/ops/trace.py``. The legacy trace has its own walk and rules
+(``ops/cluster_trace.py``); what follows is about the others.
 The walk is chosen by the reference's rule (``_traces_wide``): the group
 walk (``ops/wide.py``) where the scene has a wide table and neither packed
 nodes nor bmat forms, else the entry/exit walk (``ops/tight.py``). The TPU
@@ -31,6 +35,8 @@ from ..bvh.lbvh import morton_codes
 from ..bvh.traverse import HitRecord
 from ..device import resolve_device
 from ..ray import Ray, ray_intersects_triangle
+from .cluster_trace import cluster_trace
+from .cluster_trace import ray_rows as cluster_ray_rows
 from .sweep import sweep_gate
 from .tight import tight_trace
 from .wide import K, wide_trace
@@ -204,31 +210,42 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
                        packet=packet, bounded=bounded, mode=mode, hints=hints)
 
 
-def _trace(scene, rays_s: Ray, tris9, packet: int, sweep: bool, tm,
-           bounded: bool, wide: bool, hints=None, pre_gate=None) -> HitRecord:
-    """The closest-hit trace on sorted rays ``rays_s``; ``tm`` is the per-ray
-    t_max in the same order (+inf when unbounded); ``tris9`` an optional
-    [n_tris, 9] vertex table for the exact winner recompute."""
-    dev = rays_s.origin.device
-    t, lane_id = _walk(scene, _ray_rows(rays_s, tm), packet, sweep, bounded,
-                       "closest", wide, hints, pre_gate)
-    if bounded:
-        # a leaf hit at t >= t_max (the slab test prunes boxes, not
-        # triangles) is a miss
-        t = torch.where(t < tm, t, _INF)
-    hit = torch.isfinite(t)
-    tri_map = _dev(scene.tri_map, dev)
-    sid = torch.where(hit, tri_map[lane_id.clamp(0, tri_map.shape[0] - 1)
-                                   .to(torch.int64)], -1)
+def _shape_ids(scene, t, lane_id):
+    """Triangle ids of the hits (finite ``t``) through ``scene.tri_map``;
+    -1 on a miss."""
+    tri_map = _dev(scene.tri_map, t.device)
+    return torch.where(torch.isfinite(t),
+                       tri_map[lane_id.clamp(0, tri_map.shape[0] - 1)
+                               .to(torch.int64)], -1)
+
+
+def _finish(rays_s: Ray, tris9, t, sid) -> HitRecord:
+    """The ``HitRecord`` of raw hits ``(t, sid)``; with ``tris9`` (an
+    [n_tris, 9] vertex table) the winners' exact (u, v, t) recomputed."""
     if tris9 is None:
         zero = torch.zeros_like(t)
         return HitRecord(t, zero, zero, sid)
+    hit = torch.isfinite(t)
     g9 = tris9[sid.clamp_min(0).to(torch.int64)]
     inter = ray_intersects_triangle(rays_s, g9[:, 0:3], g9[:, 3:6], g9[:, 6:9])
     u = torch.where(hit, inter.u, 0.0)
     v = torch.where(hit, inter.v, 0.0)
     t = torch.where(hit & torch.isfinite(inter.distance), inter.distance, t)
     return HitRecord(t, u, v, sid)
+
+
+def _trace(scene, rays_s: Ray, tris9, packet: int, sweep: bool, tm,
+           bounded: bool, wide: bool, hints=None, pre_gate=None) -> HitRecord:
+    """The closest-hit trace on sorted rays ``rays_s``; ``tm`` is the per-ray
+    t_max in the same order (+inf when unbounded); ``tris9`` an optional
+    [n_tris, 9] vertex table for the exact winner recompute."""
+    t, lane_id = _walk(scene, _ray_rows(rays_s, tm), packet, sweep, bounded,
+                       "closest", wide, hints, pre_gate)
+    if bounded:
+        # a leaf hit at t >= t_max (the slab test prunes boxes, not
+        # triangles) is a miss
+        t = torch.where(t < tm, t, _INF)
+    return _finish(rays_s, tris9, t, _shape_ids(scene, t, lane_id))
 
 
 def _tris9(tris, device) -> torch.Tensor:
@@ -389,3 +406,175 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
                          comb[:, 1].contiguous())
 
     return tracer
+
+
+# ---- the legacy ClusterScene trace ------------------------------------------
+
+def sort_rays(origins, directions):
+    """Coherence sort on the host (numpy): direction octant, then origin
+    cell on a 64³ grid over the origins' bounds. Returns ``(perm, inv)``
+    int64 numpy permutations (``perm`` sorts, ``inv`` un-sorts)."""
+    o = np.asarray(origins)
+    d = np.asarray(directions)
+    octant = ((d[:, 0] > 0).astype(np.int64) << 2
+              | (d[:, 1] > 0).astype(np.int64) << 1
+              | (d[:, 2] > 0).astype(np.int64))
+    lo = o.min(axis=0)
+    hi = o.max(axis=0)
+    q = ((o - lo) / np.maximum(hi - lo, 1e-30) * 63.0).astype(np.int64)
+    key = (octant << 18) | (q[:, 0] << 12) | (q[:, 1] << 6) | q[:, 2]
+    perm = np.argsort(key, kind="stable")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return perm, inv
+
+
+def trace_closest_hit(scene, rays: Ray, tris=None, packet: int = 1024,
+                      precision=None, skip_narrow: bool = False,
+                      device=None) -> HitRecord:
+    """Closest hit against a legacy ``ClusterScene``:
+    ``HitRecord(t, u, v, shape_id)``.
+
+    The walk is ``ops/cluster_trace.py``'s (the slab test with the
+    unclamped inverse direction, so a ray in a box's face plane misses that
+    box). ``tris=(a, b, c)``: recompute the exact (u, v, t) of each winner;
+    without it ``t`` is the packed key's value, up to 127 ulps below the
+    hit. ``skip_narrow``: the broadphase-only walk, every ray a miss.
+    ``packet`` (a multiple of 128) and ``precision`` are taken for call
+    compatibility with the reference, whose packet kernel runs its leaf test
+    as a matrix product at that precision; they change nothing in the
+    port's per-ray float32 walk. ``device``: where to run (None: the card).
+    """
+    if packet <= 0 or packet % 128:
+        raise ValueError(f"packet must be a positive multiple of 128, got {packet}")
+    dev = resolve_device(device)
+    r = rays.origin.shape[0]
+    if r == 0:
+        z = torch.zeros(0, dtype=torch.float32, device=dev)
+        return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
+    rays = Ray(*(x.to(dev) for x in rays))
+    t, lane_id = cluster_trace(_dev(scene.smem_nodes, dev),
+                               _dev(scene.smem_cc, dev),
+                               _dev(scene.tris_rel, dev),
+                               cluster_ray_rows(rays),
+                               relative=bool(scene.relative),
+                               skip_narrow=skip_narrow)
+    tris9 = None if tris is None else _tris9(tris, dev)
+    return _finish(rays, tris9, t, _shape_ids(scene, t, lane_id))
+
+
+# ---- chained scenes ---------------------------------------------------------
+
+def _part_root_gate(rows, root, bound, packet: int) -> torch.Tensor:
+    """int32 [ceil(n / packet)] gate of one chained part: 1 where some ray
+    of the packet hits the part's root box ``root`` (amin, amax) closer than
+    its ``bound``. Reads ray rows 0-5 (o·inv and inv, clamped) as the
+    kernels do; a partial last packet looks only at its real rays."""
+    n = rows.shape[1]
+    oix, oiy, oiz, ix, iy, iz = rows[0:6]
+    ax, ay, az, bx, by, bz = root
+    t1 = ax * ix - oix
+    t2 = bx * ix - oix
+    u1 = ay * iy - oiy
+    u2 = by * iy - oiy
+    v1 = az * iz - oiz
+    v2 = bz * iz - oiz
+    tmin = torch.maximum(torch.maximum(torch.minimum(t1, t2),
+                                       torch.minimum(u1, u2)),
+                         torch.minimum(v1, v2))
+    tmax = torch.minimum(torch.minimum(torch.maximum(t1, t2),
+                                       torch.maximum(u1, u2)),
+                         torch.maximum(v1, v2))
+    zero = torch.zeros((), dtype=torch.float32, device=rows.device)
+    fired = (tmax >= torch.maximum(tmin, zero)) & (tmin < bound)
+    p = -(-n // packet)
+    padded = torch.zeros(p * packet, dtype=torch.bool, device=rows.device)
+    padded[:n] = fired
+    return padded.view(p, packet).any(dim=1).to(torch.int32)
+
+
+def _chain_ids(chained, dev) -> torch.Tensor:
+    """The parts' global triangle ids concatenated behind a -1 in slot 0."""
+    return torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev)]
+                     + [_dev(i, dev).to(torch.int32) for i in chained.orig_ids])
+
+
+def trace_closest_hit_chained(chained, rays: Ray, tris=None, packet: int = 2048,
+                              precision=None, t_max=None, sweep: bool = True,
+                              perm=None, device=None) -> HitRecord:
+    """Closest hit against a ``ChainedScene``: ``HitRecord(t, u, v,
+    shape_id)`` with global triangle ids.
+
+    The parts run in turn, each with the per-ray best raw t so far as its
+    bound (bounded mode), gated per packet by the part's root box
+    (``_part_root_gate``) and, with ``sweep``, the sweep gate. A part's hit
+    replaces the best only when strictly closer, so a tie goes to the
+    earlier part. Ids are mapped once at the end. ``tris``, ``t_max``,
+    ``perm`` and ``device`` as in ``trace_closest_hit_tight``; ``precision``
+    is taken for call compatibility and changes nothing.
+
+    The grazing-edge class (the adjacent triangle of an edge wins, t within
+    0.3%) can double at part boundaries, where the two triangles of an edge
+    lie in different parts; pass ``tris`` for the exact t of the winner.
+    """
+    _check_packet(packet)
+    dev = resolve_device(device)
+    r = rays.origin.shape[0]
+    if r == 0:
+        z = torch.zeros(0, dtype=torch.float32, device=dev)
+        return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
+    rays_s, tm = _prepare(rays, t_max, perm, dev)
+    rows = _ray_rows(rays_s, tm)  # row 6 is each part's bound
+    # the per-ray best raw t, each part's bound: +inf where t_max is not
+    # finite, then only ever a finite hit t
+    best_t = torch.where(torch.isfinite(tm), tm, _INF)
+    best_loc = torch.zeros(r, dtype=torch.int64, device=dev)  # 0: the -1 slot
+    off = 1
+    for part, ids in zip(chained.parts, chained.orig_ids):
+        rows[6] = best_t
+        gate = _part_root_gate(rows, _dev(part.smem_nodes, dev)[:6, 0], best_t,
+                               packet)
+        t, lane_id = _walk(part, rows, packet, sweep, True, "closest",
+                           _traces_wide(part), pre_gate=gate)
+        t = torch.where(t < best_t, t, _INF)
+        sid = _shape_ids(part, t, lane_id)
+        closer = torch.isfinite(t) & (t < best_t)
+        best_t = torch.where(closer, t, best_t)
+        best_loc = torch.where(closer, sid.to(torch.int64) + off, best_loc)
+        off += int(np.shape(ids)[0])
+    best_id = _chain_ids(chained, dev)[best_loc]
+    if t_max is not None:
+        best_t = torch.where(best_t < tm, best_t, _INF)
+        best_id = torch.where(torch.isfinite(best_t), best_id, -1)
+    tris9 = None if tris is None else _tris9(tris, dev)
+    return _finish(rays_s, tris9, best_t, best_id)
+
+
+def trace_any_hit_chained(chained, rays: Ray, t_max=None, packet: int = 2048,
+                          precision=None, sweep: bool = True, perm=None,
+                          device=None) -> torch.Tensor:
+    """Occlusion over a ``ChainedScene``: bool [n], True where the ray hits
+    some triangle at t < t_max (any triangle when ``t_max`` is None).
+
+    The parts run in turn; an occluded ray's bound drops to 0 for the later
+    parts, whose root gate then closes its packet once all of its rays are
+    occluded. Options as in ``trace_any_hit_tight``; ``precision`` is taken
+    for call compatibility and changes nothing.
+    """
+    _check_packet(packet)
+    dev = resolve_device(device)
+    r = rays.origin.shape[0]
+    if r == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    rays_s, tm0 = _prepare(rays, t_max, perm, dev)
+    rows = _ray_rows(rays_s, tm0)  # row 6 is each part's bound
+    occ = torch.zeros(r, dtype=torch.bool, device=dev)
+    for part in chained.parts:
+        tm = torch.where(occ, 0.0, tm0)
+        rows[6] = tm
+        gate = _part_root_gate(rows, _dev(part.smem_nodes, dev)[:6, 0], tm,
+                               packet)
+        t, _ = _walk(part, rows, packet, sweep, True, "any", _traces_wide(part),
+                     pre_gate=gate)
+        occ = occ | (t < tm)
+    return occ

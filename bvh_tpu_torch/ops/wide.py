@@ -179,14 +179,17 @@ def _cross_rows(u0, u1, u2, v0, v1, v2):
 
 
 def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
-                r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz):
+                r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz,
+                sent: int = SENT, row0: int = 7):
     """Leaf tests of the (ray ``r[i]``, cluster ``c[i]``) pairs with frame
     origins ``cc``: each pair's smallest packed key over the cluster's W
-    triangles. ``tiles`` is ``groups`` as [G, 128, 16] (lane-major)."""
+    triangles, ``sent`` where none is below it. ``tiles`` is ``groups`` as
+    [G, 128, 16] (lane-major); rows ``row0`` to ``row0 + 5`` of ``rays``
+    hold d (3) and o (3)."""
     dev = rays.device
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
-    dx, dy, dz, ox, oy, oz = (rays[j, r] for j in range(7, 13))
+    dx, dy, dz, ox, oy, oz = (rays[j, r] for j in range(row0, row0 + 6))
     # the ray origin in the cluster frame
     opx, opy, opz = (x[:, None] for x in (ox - ccx, oy - ccy, oz - ccz))
     dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
@@ -204,9 +207,9 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     ok = (~(det < _EPS) & (udet >= 0.0) & (udet <= det) & (vdet >= 0.0)
           & (udet + vdet <= det) & (tdet > _EPS * det))
     t = tdet * (1.0 / det)
-    sent = torch.full((), SENT, dtype=torch.int32, device=dev)
+    sent = torch.full((), sent, dtype=torch.int32, device=dev)
     key = torch.where(ok, (t.view(torch.int32) & -W) | lanes[None, :], sent)
-    return key.amin(dim=1)
+    return torch.minimum(key.amin(dim=1), sent)
 
 
 def new_bound(nt: torch.Tensor, vb: torch.Tensor, tmx: torch.Tensor | None,

@@ -83,7 +83,18 @@ def intersection_slice_for_aabb(ray: Ray, aabb_min, aabb_max):
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.cross(a, b, dim=-1)
+    """a × b over the last axis; each product and difference is its own
+    rounded op, so no device fuses them into an FMA."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b over the last axis, summed (x + y) + z on every device."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
 def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
@@ -96,7 +107,7 @@ def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
     a_to_b = b - a
     a_to_c = c - a
     u_vec = _cross(ray.direction, a_to_c)
-    det = torch.sum(a_to_b * u_vec, dim=-1)
+    det = _dot(a_to_b, u_vec)
 
     cull = det < _EPS32
     # culled lanes never use inv_det's value; the guard keeps inf*0 NaNs
@@ -104,14 +115,14 @@ def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
     inv_det = 1.0 / torch.where(cull, torch.ones_like(det), det)
 
     a_to_origin = ray.origin - a
-    u = torch.sum(a_to_origin * u_vec, dim=-1) * inv_det
+    u = _dot(a_to_origin, u_vec) * inv_det
     u_bad = (u < 0.0) | (u > 1.0)
 
     v_vec = _cross(a_to_origin, a_to_b)
-    v = torch.sum(ray.direction * v_vec, dim=-1) * inv_det
+    v = _dot(ray.direction, v_vec) * inv_det
     v_bad = (v < 0.0) | (u + v > 1.0)
 
-    dist = torch.sum(a_to_c * v_vec, dim=-1) * inv_det
+    dist = _dot(a_to_c, v_vec) * inv_det
     miss = cull | u_bad | v_bad | (dist <= _EPS32)
     distance = torch.where(miss, torch.full_like(dist, float("inf")), dist)
     zero = torch.zeros_like(u)

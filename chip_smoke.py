@@ -1,12 +1,13 @@
-"""Drives the PyTorch/CUDA port's closest-hit and nearest-triangle paths on
-one NVIDIA card.
+"""Drives the PyTorch/CUDA port's closest-hit, any-hit, k-closest and
+nearest-triangle paths (tight, legacy cluster and chained scenes) on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (each prints one JSON line; any failure exits nonzero before the
 final line):
 
-1. device: the card's name and power limit; builds the three CUDA kernel
+1. device: the card's name and power limit; builds the five CUDA kernel
    sources and the host scene builder from the checkout's sources, in
    parallel.
 2. kernels vs plain: on create_n_cubes(1000) with 65,536 reference-random
@@ -48,12 +49,28 @@ final line):
    0.8x) each ray's hit distance on the wide and the wide=False scene;
    the sweep gate (plain and packed table) and the entry/exit kernel, gated
    by it as the aimed legs run it, against their plain versions on the
-   legs' own sorted rows, timed there beside the kernel's bound; then the
-   ``kernels`` line.
+   legs' own sorted rows, timed there beside the kernel's bound.
+10. legacy: build_cluster_scene over the 120k scene; legacy_random (the
+   2,097,152 reference rays) and legacy_aimed (the 1,048,576 aimed rays,
+   exact recompute) through trace_closest_hit, each sorted with sort_rays;
+   brute-force bounds; legacy_aimed equal to the aimed leg of phase 3
+   outside the near-tie and grazing-edge classes; the cluster kernel
+   against its plain version on
+   each leg's rows (bit for bit), both timed there beside the kernel's
+   bound.
+11. chained, the slice's main path at full size: bench.py's sparse_1m leg
+   (1,008,000 triangles in 11 parts, 2,097,152 rays), the aimed rays on the
+   same chain (closest with the exact recompute; any hit at 1.2x and 0.8x
+   each ray's hit), nearest_chained on 1,048,576 points, and k=4 closest
+   hits on the 120k scene and on the chain; brute-force bounds, the parts'
+   root gates, every kernel launch of the first four legs against its
+   plain version on that launch's own inputs (bit for bit), timings and
+   device breakdowns; then the ``kernels`` line.
 
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
-hinted, packed), the group walk's any mode and hints, and the sweep on a
-packed table and with a pre-gate against their plain versions.
+hinted, packed), the group walk's any mode and hints, the sweep on a
+packed table and with a pre-gate, and the legacy cluster kernel (relative,
+global frame, broadphase only) against their plain versions.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -73,12 +90,19 @@ import torch
 from bvh_tpu_torch import (Ray, native, point_triangle_distance_squared,
                            ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
-from bvh_tpu_torch.ops import (_build, build_tight_scene, make_tracer,
-                               nearest_tight, sort_points_device,
-                               trace_any_hit_tight, trace_closest_hit_tight)
+from bvh_tpu_torch.ops import (_build, build_chained_scene,
+                               build_cluster_scene, build_tight_scene,
+                               make_tracer, nearest_chained, nearest_tight,
+                               sort_points_device, sort_rays,
+                               trace_any_hit_chained, trace_any_hit_tight,
+                               trace_closest_hit, trace_closest_hit_chained,
+                               trace_closest_hit_tight, trace_k_closest,
+                               trace_k_closest_chained)
+from bvh_tpu_torch.ops import cluster_trace as ct_mod
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
+from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows, sort_rays_device
 from bvh_tpu_torch.render import hit_frames, make_pathtracer, shadow_rays
@@ -92,6 +116,9 @@ REPS = 7
 PLAIN_CHUNK = 1 << 23  # rays (points) x cluster width per plain walk call
 N_POINTS = 1 << 20  # points per nearest leg (bench.py's nearest leg)
 SURFACE_D_MAX = 2.0  # the narrow-band leg's search radius
+LEGACY_PLAIN_CHUNK = 1 << 18  # rays per call of the plain legacy walk
+CRACK_BAND = 3e-3  # barycentric distance from an edge of the crack class:
+# 2^-9 of a unit on two axes, over a unit triangle
 
 
 def emit(phase: str, **fields) -> None:
@@ -124,25 +151,54 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, e2e_ms: float) -> dict:
+def port_launches() -> int:
+    """Launches of the port's kernels so far, over every wrapper's count."""
+    return (wide_mod.launches + sweep_mod.launches + tight_mod.launches
+            + near_mod.wide_launches + near_mod.entry_exit_launches
+            + ct_mod.launches)
+
+
+def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler, device
     events only) and the idle share of the call's unprofiled time
-    ``e2e_ms``: the share in which no kernel ran."""
+    ``e2e_ms``: the share in which no kernel ran.
+
+    The profiler has dropped some of the port's kernels from a trace (a
+    whole call's events once; a single 104 ms launch another time), so a
+    profile counts only if it holds one event for every launch the port's
+    wrappers counted during it (their names start with "(anonymous
+    namespace)::"). Up to ``attempts`` profiles are taken; where none is
+    whole, the leg's device time is "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        before = port_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        made = port_launches() - before
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        seen = sum(e.count for e in events
+                   if e.key.startswith("(anonymous namespace)::"))
+        if seen == made and events:
+            break
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:90])
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   for e in events), reverse=True)
+    if seen != made or not events:
+        return {"kernels_ms": "not measured", "e2e_ms": e2e_ms,
+                "idle_share": "not measured", "profiles": attempt,
+                "port_launches": made, "port_events": seen,
+                "top": [{"ms": ms, "calls": n, "name": k}
+                        for ms, n, k in rows[:8]]}
     busy = sum(r[0] for r in rows)
     return {"kernels_ms": busy, "e2e_ms": e2e_ms,
-            "idle_share": 1.0 - busy / e2e_ms if busy else None,
+            "idle_share": 1.0 - busy / e2e_ms, "profiles": attempt,
+            "port_launches": made,
             "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:8]]}
 
 
@@ -154,6 +210,7 @@ def reset_counts() -> None:
     tight_mod.any_launches = 0
     near_mod.wide_launches = 0
     near_mod.entry_exit_launches = 0
+    ct_mod.launches = 0
 
 
 def build_all() -> dict:
@@ -168,7 +225,7 @@ def build_all() -> dict:
 
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (wide_mod.load, sweep_mod.load, near_mod.load,
-                          tight_mod.load, native.load)]
+                          tight_mod.load, ct_mod.load, native.load)]
     t0 = time.perf_counter()
     for th in threads:
         th.start()
@@ -199,16 +256,23 @@ def camera_rays(eye, look_at, up, fov_deg, width, height):
             dirs.astype(np.float32))
 
 
-def brute_force(o, d, tris_dev, chunk: int = 64):
-    """Closest t of every ray over all triangles (plain PyTorch on the card)."""
+def brute_hits(o, d, tris_dev, k: int, chunk: int = 64):
+    """The ``k`` smallest hit distances of every ray over all triangles,
+    ascending (+inf padded): the front-facing hits (plain PyTorch on the
+    card)."""
     a, b, c = tris_dev
     rays = Ray.create(o, d)
     out = []
     for s in range(0, rays.origin.shape[0], chunk):
         r = Ray(*(x[s:s + chunk, None, :] for x in rays))
         dist = ray_intersects_triangle(r, a[None], b[None], c[None]).distance
-        out.append(dist.amin(dim=1))
+        out.append(dist.topk(k, dim=1, largest=False).values)
     return torch.cat(out)
+
+
+def brute_force(o, d, tris_dev):
+    """Closest t of every ray over all triangles."""
+    return brute_hits(o, d, tris_dev, 1)[:, 0]
 
 
 def check_vs_brute(leg: str, o, d, t_trace, tris_dev, seed: int) -> dict:
@@ -903,11 +967,13 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
             "library_ms": None}
 
 
-def classify_differences(h_a, h_b, W: int) -> tuple[list, int]:
+def classify_differences(h_a, h_b, W: int, crack=None) -> tuple[list, int]:
     """Rays whose t bits or shape ids differ between two traces of the same
-    rays, each classed "near-tie" (exact t within one key step, 2W ulps) or
-    "grazing-edge" (t within 3e-3, PARITY.md); returns the list and the
-    count outside both classes."""
+    rays, each classed "near-tie" (exact t within one key step, 2W ulps),
+    "grazing-edge" (t within 3e-3, PARITY.md) or, where ``crack`` (bool per
+    ray) is True and one trace misses, "crack" (the grazing-edge class
+    through a crack at an edge); returns the list and the count outside
+    every class."""
     t_a, t_b = h_a.t.cpu().numpy(), h_b.t.cpu().numpy()
     s_a, s_b = h_a.shape_id.cpu().numpy(), h_b.shape_id.cpu().numpy()
     idx = np.nonzero((t_a.view(np.int32) != t_b.view(np.int32)) | (s_a != s_b))[0]
@@ -918,7 +984,8 @@ def classify_differences(h_a, h_b, W: int) -> tuple[list, int]:
         both = np.isfinite(ta) and np.isfinite(tb_)
         rel = abs(ta - tb_) / max(abs(ta), 1e-30) if both else np.inf
         cls = ("near-tie" if rel <= 2 * W * 2.0 ** -23 else
-               "grazing-edge" if rel <= 3e-3 else "outside")
+               "grazing-edge" if rel <= 3e-3 else
+               "crack" if crack is not None and crack[i] else "outside")
         outside += cls == "outside"
         out.append({"ray": i, "t": [ta, tb_],
                     "shape_id": [int(s_a[i]), int(s_b[i])], "class": cls})
@@ -1051,6 +1118,24 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
         vs_plain[leg] = {"rays_differ": differ, "hits": int((ik >= 0).sum())}
         check(differ == 0, f"{leg}: {differ} rays differ from plain")
     vs_s = time.perf_counter() - t0
+    # the sweep gate on each aimed leg's table, timed on the leg's rows
+    sweep_ms, sweep_plain_ms, sweep_bounds = {}, {}, {}
+    for leg, table, packed in (
+            ("aimed_entry_exit", scene_nw.smem_nodes, False),
+            ("aimed_packed", scene_pk.packed_nodes, True)):
+        tab = _dev(table, dev)
+        sweep_ms[leg] = cuda_ms(lambda: sweep_mod.sweep_gate(
+            tab, rows, 8192, packed=packed))
+        sweep_plain_ms[leg] = cuda_ms(lambda: sweep_mod.sweep_gate_plain(
+            tab, rows, 8192, packed=packed), reps=3, warmup=0)
+        _, sv = sweep_mod.sweep_gate_plain(tab, rows[:, ::32].contiguous(),
+                                           8192 // 32, packed=packed,
+                                           counts=True)
+        sv_pr = float(sv.float().mean())
+        bms, by = roofline(n * sv_pr * wide_mod.SLAB_OPS,
+                           7 * 4 * n + table.nbytes + 4 * (-(-n // 8192)))
+        sweep_bounds[leg] = {"node_tests": sv_pr, "bound_ms": bms,
+                             "bound_by": by}
     bounds = {}
     for leg, (table, groups, rr, kw) in runs.items():
         tab, grp = _dev(table, dev), _dev(groups, dev)
@@ -1072,7 +1157,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     emit("entry_exit_timings", card=card, end_to_end=e2e,
          kernels_vs_plain={"seconds": vs_s, "runs": vs_plain},
          kernel_ms=kernel_ms, plain_ms=plain_ms, work_per_ray=work,
-         bounds=bounds)
+         bounds=bounds, sweep_gate={"ms": sweep_ms, "plain_ms": sweep_plain_ms,
+                                    "bounds": sweep_bounds})
     key = "aimed_entry_exit"
     return {"name": "tight_trace", "route": "cuda",
             "source": "bvh_tpu_torch/csrc/tight_trace.cu",
@@ -1081,6 +1167,498 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
             "max_abs_err": err["tight_trace"], "ms": kernel_ms[key],
             "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
             "bound_by": bounds[key]["bound_by"], "library_ms": None}
+
+
+def phase_legacy_kernels(dev, n: int = 65536) -> dict:
+    """Phase 2, slice 4: the legacy cluster kernel against its plain version
+    on 65,536 random and 65,536 aimed rays of create_n_cubes(1000), each
+    sorted with sort_rays, on the relative and the global-frame scene and
+    broadphase only (skip_narrow). Results must agree bit for bit."""
+    a, b, c = tb.create_n_cubes(1000)
+    scenes = {rel: build_cluster_scene(a, b, c, relative=rel)
+              for rel in (True, False)}
+    o, d = tb.create_rays(n, seed=tb.seed_state_after(1000))
+    ao, ad = tb.aimed_rays(a, n)
+    out, err = {}, 0.0
+    for leg, (lo, ld) in {"random": (o, d), "aimed": (ao, ad)}.items():
+        perm, _ = sort_rays(lo, ld)
+        rows = ct_mod.ray_rows(Ray.create(lo[perm], ld[perm], device=dev))
+        res = {}
+        for case, (rel, skip) in {"relative": (True, False),
+                                  "global": (False, False),
+                                  "skip_narrow": (True, True)}.items():
+            sc = scenes[rel]
+            tables = legacy_tables(sc, dev)
+            tk, ik = ct_mod.cluster_trace(*tables, rows, relative=rel,
+                                          skip_narrow=skip)
+            tp, ip = ct_mod.cluster_trace_plain(*tables, rows, relative=rel,
+                                                skip_narrow=skip)
+            torch.cuda.synchronize()
+            differ = same_bits(tk, ik, tp, ip)
+            err = max(err, finite_err(tk, tp))
+            res[f"{case}_rays_differ"] = differ
+            res[f"{case}_hits"] = int((ik >= 0).sum())
+            check(differ == 0, f"legacy {leg}/{case}: {differ} rays differ "
+                  "from plain")
+        check(res["skip_narrow_hits"] == 0, "skip_narrow reported a hit")
+        out[leg] = res
+    return {"legs": out, "max_abs_err": {"cluster_trace": err}, "rays": n,
+            "triangles": int(a.shape[0]),
+            "clusters": int(scenes[True].num_clusters)}
+
+
+def legacy_tables(sc, dev):
+    """A ClusterScene's tables on ``dev``: (smem_nodes, smem_cc, tris_rel)."""
+    return (_dev(sc.smem_nodes, dev), _dev(sc.smem_cc, dev),
+            _dev(sc.tris_rel, dev))
+
+
+def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
+                 err: dict) -> dict:
+    """Phase 10: the legacy ClusterScene path at full size (the 120k
+    scene, relative frame): legacy_random (the 2,097,152 reference rays)
+    and legacy_aimed (the 1,048,576 aimed rays with the exact recompute),
+    each sorted on the host with sort_rays; brute-force checks, legacy_aimed
+    against the group walk's aimed leg ``h_aim`` (equal outside the
+    near-tie and grazing-edge classes), timings, and the kernel against its
+    plain version on each leg's sorted rows. Returns the kernel's entry of
+    the ``kernels`` line."""
+    a, b, c = tris_np
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_np)
+    t0 = time.perf_counter()
+    scene = build_cluster_scene(a, b, c)
+    build_s = time.perf_counter() - t0
+    sort_s, sorted_np, rays_dev, unsort = {}, {}, {}, {}
+    for leg, (lo, ld) in {"legacy_random": (o, d),
+                          "legacy_aimed": (ao, ad)}.items():
+        t0 = time.perf_counter()
+        perm, unsort[leg] = sort_rays(lo, ld)
+        sort_s[leg] = time.perf_counter() - t0
+        sorted_np[leg] = (lo[perm], ld[perm])
+        rays_dev[leg] = tuple(torch.from_numpy(x).to(dev)
+                              for x in sorted_np[leg])
+    legs = {
+        "legacy_random": lambda: trace_closest_hit(
+            scene, Ray.create(*rays_dev["legacy_random"])),
+        "legacy_aimed": lambda: trace_closest_hit(
+            scene, Ray.create(*rays_dev["legacy_aimed"]), tris=tris_dev),
+    }
+    # the legacy path: every count is zero before and read after
+    reset_counts()
+    res = {leg: fn() for leg, fn in legs.items()}
+    torch.cuda.synchronize()
+    launches = {"cluster_trace": ct_mod.launches}
+    emit("legacy_launches", **launches)
+    check(launches["cluster_trace"] > 0,
+          "cluster_trace was never launched on the legacy path")
+    bf = []
+    for seed, (leg, h) in enumerate(res.items(), start=10):
+        n = sorted_np[leg][0].shape[0]
+        check(h.t.shape == (n,) and h.shape_id.shape == (n,), f"{leg} shape")
+        check(bool(((h.shape_id >= 0) == torch.isfinite(h.t)).all())
+              and bool((h.t[torch.isfinite(h.t)] > 0).all()),
+              f"{leg}: t values or shape ids")
+        bf.append(check_vs_brute(leg, *sorted_np[leg], h.t.cpu().numpy(),
+                                 tris_dev, seed))
+    hit_aim = float(torch.isfinite(res["legacy_aimed"].t).float().mean())
+    check(hit_aim >= 0.999, f"legacy_aimed hit fraction {hit_aim} < 0.999")
+    # both aimed legs recompute the winner's exact t, so rays with the same
+    # winner agree bit for bit; a near tie is one legacy key step (W=128).
+    # The legacy walk takes the origin relative to a Morton cluster's
+    # centre, up to ~4e4 units away, which rounds it by up to 2^-9 of a
+    # unit an axis: a ray that one walk hits within CRACK_BAND
+    # (barycentric, on unit cubes) of an edge can run through that edge in
+    # the other's frame, where both triangles' edge tests may round outside
+    # (tests/test_torch_legacy.py::test_crack_ray_at_a_cube_edge)
+    back = torch.from_numpy(unsort["legacy_aimed"]).to(dev)
+    h_leg = res["legacy_aimed"]
+    h_leg = h_leg._replace(**{f: getattr(h_leg, f)[back]
+                              for f in ("t", "u", "v", "shape_id")})
+
+    def edge(h):
+        """Barycentric distance of each hit from its triangle's nearest
+        edge (+inf on a miss)."""
+        w = torch.minimum(torch.minimum(h.u, h.v), 1.0 - h.u - h.v)
+        return torch.where(torch.isfinite(h.t), w, float("inf"))
+
+    edge_d = torch.minimum(edge(h_aim), edge(h_leg))
+    one_hits = torch.isfinite(h_aim.t) != torch.isfinite(h_leg.t)
+    crack = (one_hits & (edge_d <= CRACK_BAND)).cpu().numpy()
+    diffs, outside = classify_differences(h_aim, h_leg, ct_mod.CW, crack)
+    check(outside == 0, f"legacy_aimed differs from the aimed leg on "
+          f"{outside} rays outside the near-tie and grazing-edge classes")
+    emit("legacy", triangles=int(a.shape[0]), build_s=build_s,
+         sort_s=sort_s, clusters=int(scene.num_clusters),
+         nodes=int(scene.num_nodes),
+         aimed_vs_group_walk={
+             "rays_differ": len(diffs),
+             "classes": {k: sum(x["class"] == k for x in diffs)
+                         for k in ("near-tie", "grazing-edge", "crack")},
+             "one_hits_edge_distance": [float(x) for x in edge_d[one_hits]],
+             "differences": diffs[:32],
+             "crack_rays": [{**x, "o": ao[x["ray"]].tolist(),
+                             "d": ad[x["ray"]].tolist(),
+                             "edge_distance": float(edge_d[x["ray"]])}
+                            for x in diffs if x["class"] == "crack"]},
+         hit_fraction={leg: float(torch.isfinite(h.t).float().mean())
+                       for leg, h in res.items()},
+         brute_force=bf)
+
+    e2e = {}
+    for leg, fn in legs.items():
+        ms = cuda_ms(fn)
+        e2e[leg] = {"ms": ms, "rays_per_s": rays_dev[leg][0].shape[0]
+                    / (ms * 1e-3)}
+    emit("legacy_breakdown", card=card, legs={
+        leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
+
+    # the kernel against its plain version on each leg's own sorted rows
+    # (the plain walk in chunks of LEGACY_PLAIN_CHUNK rays, so that its
+    # batched leaf tests stay within a few GB), both timed there beside the
+    # kernel's bound
+    tables = legacy_tables(scene, dev)
+
+    def plain(rows, counts=False):
+        parts = [ct_mod.cluster_trace_plain(
+            *tables, rows[:, s:s + LEGACY_PLAIN_CHUNK].contiguous(),
+            counts=counts) for s in range(0, rows.shape[1], LEGACY_PLAIN_CHUNK)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    kernel_ms, plain_ms, work, bounds, vs_plain = {}, {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for leg in legs:
+        rows = ct_mod.ray_rows(Ray.create(*rays_dev[leg]))
+        n = rows.shape[1]
+        tk, ik = ct_mod.cluster_trace(*tables, rows)
+        tp, ip, visits, fires = plain(rows, counts=True)
+        torch.cuda.synchronize()
+        differ = same_bits(tk, ik, tp, ip)
+        err["cluster_trace"] = max(err["cluster_trace"], finite_err(tk, tp))
+        vs_plain[leg] = {"rays": n, "rays_differ": differ,
+                         "hits": int((ik >= 0).sum())}
+        check(differ == 0, f"{leg}: {differ} rays differ from plain")
+        kernel_ms[leg] = cuda_ms(lambda: ct_mod.cluster_trace(*tables, rows))
+        plain_ms[leg] = cuda_ms(lambda: plain(rows), reps=3, warmup=0)
+        v_pr, f_pr = float(visits.float().mean()), float(fires.float().mean())
+        work[leg] = {"node_visits": v_pr, "leaf_fires": f_pr,
+                     "triangle_tests": f_pr * ct_mod.CW}
+        ops = n * (v_pr * (wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
+                   + f_pr * (ct_mod.LEAF_OPS + ct_mod.CW * wide_mod.TRI_OPS))
+        nbytes = (ct_mod.N_ROWS * 4 * n + scene.smem_nodes.nbytes
+                  + scene.smem_cc.nbytes + scene.tris_rel.nbytes + 8 * n)
+        bms, by = roofline(ops, nbytes)
+        bounds[leg] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
+                       "bound_by": by, "ops_ms_at_issue_rate": ops / issue * 1e3}
+    emit("legacy_timings", card=card, end_to_end=e2e,
+         kernels_vs_plain={"seconds": time.perf_counter() - t0,
+                           "runs": vs_plain},
+         kernel_ms=kernel_ms, plain_ms=plain_ms, work_per_ray=work,
+         bounds=bounds)
+    key = "legacy_random"
+    return {"name": "cluster_trace", "route": "cuda",
+            "source": "bvh_tpu_torch/csrc/cluster_trace.cu",
+            "replaces": "bvh_tpu/ops/trace.py:116",
+            "launches": launches["cluster_trace"],
+            "max_abs_err": err["cluster_trace"], "ms": kernel_ms[key],
+            "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
+            "bound_by": bounds[key]["bound_by"], "library_ms": None}
+
+
+def check_k_closest(leg: str, o, d, t_k, tris_dev, seed: int) -> dict:
+    """N_SAMPLE rays of a k-closest leg against brute force: in every slot,
+    the brute-force front-facing hits outside the peel-epsilon merge class
+    (a hit within 2e-4 relative plus 2e-6 of the one before it merges,
+    ops/ordered.py); each slot's t within PERF.md's 2e-4 relative; at most
+    one hit fewer than brute force on a ray (the reference's own bound,
+    tests/test_k_closest.py) and 0.1% of the sampled slots in all; rows
+    ascending."""
+    k = t_k.shape[1]
+    idx = np.random.default_rng(seed).choice(len(o), N_SAMPLE, replace=False)
+    bt = brute_hits(o[idx], d[idx], tris_dev, k + 4).cpu().numpy()
+    got = t_k[idx]
+    worst, short, slots = 0.0, 0, 0
+    for i in range(N_SAMPLE):
+        keep = []
+        for tv in bt[i][np.isfinite(bt[i])]:
+            if not keep or tv > keep[-1] * (1 + 2e-4) + 2e-6:
+                keep.append(tv)
+        want = np.asarray(keep[:k], np.float32)
+        g = got[i][np.isfinite(got[i])]
+        check(bool((np.diff(g) > 0).all()), f"{leg}: ray {idx[i]} not ascending")
+        check(len(g) >= min(len(want), k) - 1,
+              f"{leg}: ray {idx[i]} misses hits {want} (got {g})")
+        short += max(min(len(want), k) - len(g), 0)
+        m = min(len(g), len(want))
+        slots += m
+        if m:
+            worst = max(worst, float(np.max(np.abs(g[:m] - want[:m])
+                                            / want[:m])))
+    res = {"leg": leg, "sampled": N_SAMPLE, "k": k, "slots_checked": slots,
+           "slots_short": short, "max_rel_t_err": worst,
+           "rays_with_2plus": int((np.isfinite(got).sum(axis=1) > 1).sum())}
+    check(short <= N_SAMPLE // 1000, f"{leg}: {short} slots missing")
+    check(worst <= 2e-4, f"{leg}: max rel t err {worst} > 2e-4")
+    return res
+
+
+# the kernel wrappers the chained queries launch on parts with wide tables,
+# and the parts' root gate, each as (the module that calls it, its name)
+CHAIN_CALLS = ((trace_mod, "wide_trace"), (trace_mod, "sweep_gate"),
+               (near_mod, "nearest_wide"), (trace_mod, "_part_root_gate"))
+
+
+def recorded(fn, targets=CHAIN_CALLS):
+    """Runs ``fn()`` with every function ``(module, name)`` of ``targets``
+    replaced by one that calls it and keeps a copy of each call's inputs
+    and output (the chain overwrites its ray rows' bound row between
+    parts). Returns ``fn()``'s result and {name: [(args, kwargs, out)]}."""
+    calls = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def copy(x):
+        if isinstance(x, tuple):
+            return tuple(copy(y) for y in x)
+        return x.clone() if torch.is_tensor(x) else x
+
+    def wrap(name, orig):
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            calls[name].append((copy(args), {k: copy(v) for k, v in kw.items()},
+                                copy(out)))
+            return out
+        return call
+
+    try:
+        for mod, name, orig in saved:
+            setattr(mod, name, wrap(name, orig))
+        res = fn()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    return res, calls
+
+
+def plain_of(name: str, args: tuple, kw: dict) -> tuple:
+    """The plain version of kernel wrapper ``name`` on one recorded call's
+    inputs, the group walks chunked as ``plain_chunked`` and
+    ``near_plain`` chunk them."""
+    if name == "sweep_gate":
+        return (sweep_mod.sweep_gate_plain(*args, **kw),)
+    if name == "wide_trace":
+        kw = dict(kw)
+        width = kw.pop("width")
+        del kw["depth"]
+        check(kw["hints"] is None, "hinted chained walk")
+        return plain_chunked(wide_mod.wide_trace_plain, args[:2], args[2],
+                             width, **kw)
+    gnodes, grp, pts, width = args[:4]
+    chunk = PLAIN_CHUNK // width
+    parts = [near_mod.nearest_wide_plain(gnodes, grp,
+                                         pts[:, s:s + chunk].contiguous(),
+                                         width, **kw)
+             for s in range(0, pts.shape[1], chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def compare_recorded(leg: str, calls: dict, err: dict) -> dict:
+    """Every kernel launch recorded on a chained leg against its plain
+    version on the same card tensors: t or d² bits, lane ids and gates must
+    be equal. Returns per kernel the launches, the elements compared, and
+    how many differ; raises ``err`` to the largest |kernel - plain|."""
+    out = {}
+    for name, recs in calls.items():
+        if name == "_part_root_gate" or not recs:
+            continue
+        n, differ = 0, 0
+        for args, kw, got in recs:
+            # the name of the kernel's entry in the kernels line
+            key = "wide_trace_any" if kw.get("mode") == "any" else name
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain_of(name, args, kw)
+            torch.cuda.synchronize()
+            bad = torch.zeros(got[0].shape, dtype=torch.bool,
+                              device=got[0].device)
+            for x, y in zip(got, want):
+                bad |= ((x.view(torch.int32) != y.view(torch.int32))
+                        if x.is_floating_point() else x != y)
+            n += bad.numel()
+            differ += int(bad.sum())
+            err[key] = max(err.get(key, 0.0),
+                           finite_err(got[0].float(), want[0].float()))
+        out[name] = {"launches": len(recs), "compared": n, "differ": differ}
+        check(differ == 0, f"{leg}/{name}: {differ} of {n} elements differ "
+              "from plain")
+    return out
+
+
+def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
+                  max_part: int = 100_000, n_rand: int = 2 << 20,
+                  n_aim: int = 1 << 20, n_points: int = N_POINTS) -> dict:
+    """Phase 11: chained scenes, the slice's main path at full size:
+    bench.py's sparse_1m leg (create_n_cubes(84000), 1,008,000 triangles,
+    build_chained_scene(max_part=100_000), 2,097,152 rays, octmorton sort,
+    packet 8192, sweep off), the aimed rays on the same chain (closest with
+    the exact recompute, and any hit at 1.2x and 0.8x each ray's hit), the
+    nearest query on 1,048,576 points, and k=4 closest hits on the 120k
+    wide scene and on the chain. Brute-force checks, the kernels against
+    their plain versions on the launches of the first four legs, and
+    timings. Returns the largest |kernel - plain| by kernel."""
+    a, b, c = tb.create_n_cubes(n_cubes)
+    t0 = time.perf_counter()
+    ch = build_chained_scene(a, b, c, max_part=max_part)
+    build_s = time.perf_counter() - t0
+    n_parts = -(-a.shape[0] // max_part)
+    check(len(ch.parts) == n_parts, f"{len(ch.parts)} parts, not {n_parts}")
+    # every part walks its wide table (the launches recorded below)
+    check(all(p.gnodes is not None for p in ch.parts), "a part has no gnodes")
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in (a, b, c))
+    o, d = tb.create_rays(n_rand, seed=tb.seed_state_after(n_cubes))
+    ao, ad = tb.aimed_rays(a, n_aim)
+    pts = tb.create_rays(n_points, seed=tb.seed_state_after(n_cubes + 7))[0]
+    o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    ao_dev, ad_dev = torch.from_numpy(ao).to(dev), torch.from_numpy(ad).to(dev)
+    pts_dev = torch.from_numpy(pts).to(dev)
+    # the 120k scene's aimed rays for its k-closest leg, and both aimed
+    # sets morton-sorted once
+    wo, wd = tb.aimed_rays(tris_w[0], n_aim)
+    wo_dev, wd_dev = torch.from_numpy(wo).to(dev), torch.from_numpy(wd).to(dev)
+    perm_a, inv_a = sort_rays_device(ao_dev, ad_dev, mode="morton")
+    perm_w, _ = sort_rays_device(wo_dev, wd_dev, mode="morton")
+    tris_w_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_w)
+
+    def sparse_1m():
+        perm, inv = sort_rays_device(o_dev, d_dev, mode="octmorton")
+        od = torch.cat([o_dev, d_dev], dim=1)[perm]
+        out = trace_closest_hit_chained(ch, Ray.create(od[:, 0:3], od[:, 3:6]),
+                                        packet=8192, sweep=False)
+        return out.t[inv], out.shape_id[inv]
+
+    def aimed():
+        h = trace_closest_hit_chained(ch, Ray.create(ao_dev, ad_dev),
+                                      tris=tris_dev, packet=8192, perm=perm_a)
+        return h.t[inv_a], h.shape_id[inv_a]
+
+    t_hit = {}
+
+    def shadow(factor):
+        return trace_any_hit_chained(ch, Ray.create(ao_dev, ad_dev),
+                                     t_max=t_hit["aimed"] * factor,
+                                     packet=8192, perm=perm_a)[inv_a]
+
+    legs = {
+        "sparse_1m": sparse_1m,
+        "chained_aimed": aimed,
+        "chained_shadow": lambda: shadow(1.2),
+        "nearest_chained": lambda: nearest_chained(ch, pts_dev),
+        "k_closest_120k": lambda: trace_k_closest(
+            scene_w, Ray.create(wo_dev[perm_w], wd_dev[perm_w]), k=4,
+            packet=8192, tris=tris_w_dev),
+        "k_closest_chained": lambda: trace_k_closest_chained(
+            ch, Ray.create(ao_dev[perm_a], ad_dev[perm_a]), k=4,
+            packet=8192, tris=tris_dev),
+    }
+    # the chained path: every count is zero before and read after. The
+    # launches of the four chained legs are recorded (inputs copied), to be
+    # held against the plain versions below
+    reset_counts()
+    res, calls = {}, {}
+    for leg, fn in legs.items():
+        if leg.startswith("k_closest"):
+            res[leg] = fn()
+        else:
+            res[leg], calls[leg] = recorded(fn)
+        if leg == "chained_aimed":
+            t_hit["aimed"] = res[leg][0]
+    torch.cuda.synchronize()
+    launches = {"wide_trace": wide_mod.launches,
+                "wide_trace_any": wide_mod.any_launches,
+                "sweep_gate": sweep_mod.launches,
+                "nearest_wide": near_mod.wide_launches}
+    emit("chained_launches", **launches)
+    for k_, v in launches.items():
+        check(v > 0, f"{k_} was never launched on the chained path")
+
+    # checks against brute force over all 1,008,000 triangles (k_closest_120k
+    # over the 120k scene's)
+    t_s, sid_s = res["sparse_1m"]
+    t_a, sid_a = res["chained_aimed"]
+    for leg, (t, sid) in (("sparse_1m", (t_s, sid_s)),
+                          ("chained_aimed", (t_a, sid_a))):
+        check(bool(((sid >= 0) == torch.isfinite(t)).all()),
+              f"{leg}: shape ids disagree with hits")
+    hit_a = torch.isfinite(t_a)
+    check(float(hit_a.float().mean()) >= 0.999, "chained_aimed hit fraction")
+    bf = [check_vs_brute("sparse_1m", o, d, t_s.cpu().numpy(), tris_dev, 20),
+          check_vs_brute("chained_aimed", ao, ad, t_a.cpu().numpy(),
+                         tris_dev, 21)]
+    occ12 = res["chained_shadow"]
+    occ08 = shadow(0.8)
+    check(bool(occ12[hit_a].all()), "chained_shadow: a ray is clear below "
+          "1.2x its closest hit")
+    # an occluder within the key truncation (2W ulps) of t_max may count
+    tm08 = t_a * 0.8
+    band = torch.zeros_like(occ08)
+    if occ08.any():
+        idx = torch.nonzero(occ08).flatten()
+        t_bf = brute_force(ao_dev[idx], ad_dev[idx], tris_dev)
+        band[idx] = (t_bf - tm08[idx]).abs() <= 32 * 2.0 ** -23 * tm08[idx]
+    n_08 = int((occ08 & ~band).sum())
+    check(n_08 == 0, f"chained_shadow: {n_08} rays occluded below 0.8x "
+          "their closest hit")
+    sid_n, dist_n = res["nearest_chained"]
+    bf.append(check_nearest_vs_brute("nearest_chained", pts_dev, sid_n,
+                                     dist_n, tris_dev, 22))
+    bf.append(check_k_closest("k_closest_120k", wo[perm_w.cpu().numpy()],
+                              wd[perm_w.cpu().numpy()],
+                              res["k_closest_120k"][0].cpu().numpy(),
+                              tris_w_dev, 23))
+    bf.append(check_k_closest("k_closest_chained", ao[perm_a.cpu().numpy()],
+                              ad[perm_a.cpu().numpy()],
+                              res["k_closest_chained"][0].cpu().numpy(),
+                              tris_dev, 24))
+    # every kernel launch of the four chained legs against its plain version
+    # on the launch's own inputs: the rows with each part's carried bound,
+    # the root gates as pre-gates, the padded part tables
+    t0 = time.perf_counter()
+    err = {}
+    vs_plain = {leg: compare_recorded(leg, c, err) for leg, c in calls.items()}
+    emit("chained_kernels_vs_plain", seconds=time.perf_counter() - t0,
+         legs=vs_plain, max_abs_err=err)
+    # the parts' root gates: packets gated off per part
+    gates = {}
+    for leg in ("sparse_1m", "chained_aimed", "chained_shadow"):
+        g = torch.stack([out for _, _, out in calls[leg]["_part_root_gate"]])
+        check(g.shape[0] == len(ch.parts), f"{leg}: {g.shape[0]} root gates")
+        gates[leg] = {"packets": int(g.shape[1]),
+                      "parts_gated_off_per_packet": float(
+                          (g == 0).sum(dim=0).float().mean()),
+                      "open_per_part": [int(x) for x in g.sum(dim=1)]}
+    emit("chained", triangles=int(a.shape[0]), parts=len(ch.parts),
+         part_triangles=[int(i.shape[0]) for i in ch.orig_ids],
+         width=int(ch.parts[0].width), build_s=build_s,
+         rays_random=n_rand, rays_aimed=n_aim, points=n_points,
+         hit_fraction={"sparse_1m": float(torch.isfinite(t_s).float().mean()),
+                       "chained_aimed": float(hit_a.float().mean())},
+         shadow={"occluded_at_1_2": float(occ12.float().mean()),
+                 "occluded_at_0_8": int(occ08.sum()),
+                 "in_t_max_band": int(band.sum())},
+         k_closest_hits_per_ray={
+             leg: float(res[leg][2].float().mean())
+             for leg in ("k_closest_120k", "k_closest_chained")},
+         root_gates=gates, brute_force=bf)
+
+    e2e = {}
+    for leg, fn in legs.items():
+        reps = 3 if leg.startswith("k_closest") else REPS
+        ms = cuda_ms(fn, reps=reps, warmup=1)
+        count = n_points if leg == "nearest_chained" else (
+            n_rand if leg == "sparse_1m" else n_aim)
+        e2e[leg] = {"ms": ms, ("points_per_s" if leg == "nearest_chained"
+                               else "rays_per_s"): count / (ms * 1e-3)}
+    emit("chained_timings", card=card, end_to_end=e2e)
+    emit("chained_breakdown", card=card, legs={
+        leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
+    return err
 
 
 def main() -> None:
@@ -1112,6 +1690,9 @@ def main() -> None:
     t0 = time.perf_counter()
     p2t = phase_trace_modes(dev)
     emit("trace_modes_vs_plain", seconds=time.perf_counter() - t0, **p2t)
+    t0 = time.perf_counter()
+    p2l = phase_legacy_kernels(dev)
+    emit("legacy_kernel_vs_plain", seconds=time.perf_counter() - t0, **p2l)
 
     # ---- phase 3: main path at full width ------------------------------
     a, b, c = tb.create_n_cubes(10000)
@@ -1296,6 +1877,13 @@ def main() -> None:
                                    oc_dev, dc_dev, issue, err3))
     kernels.append(entry_exit_phase(dev, card, scene, (a, b, c), ao, ad,
                                     ao_dev, ad_dev, h_aim, issue, err3))
+
+    # ---- phases 10 and 11: the legacy path and chained scenes -----------
+    kernels.append(legacy_phase(dev, card, (a, b, c), o, d, ao, ad, h_aim,
+                                issue, dict(p2l["max_abs_err"])))
+    chain_err = chained_phase(dev, card, scene, (a, b, c))
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
 on the same tensors (bit for bit), and the whole traces (closest hit on
-both walks, any hit) and the nearest queries on the card against the CPU. Every test here needs an NVIDIA GPU and skips elsewhere; the file
-imports no JAX, so it runs where JAX is not installed:
+both walks, any hit, the legacy cluster trace, chained scenes, k-closest)
+and the nearest queries on the card against the CPU. Every test here needs
+an NVIDIA GPU and skips elsewhere; the file imports no JAX, so it runs
+where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
@@ -12,8 +14,13 @@ import torch
 
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
-from bvh_tpu_torch.ops import (build_tight_scene, make_tracer, nearest_tight,
-                               trace_any_hit_tight)
+from bvh_tpu_torch.ops import (build_chained_scene, build_cluster_scene,
+                               build_tight_scene, make_tracer,
+                               nearest_chained, nearest_tight, sort_rays,
+                               trace_any_hit_chained, trace_any_hit_tight,
+                               trace_closest_hit, trace_closest_hit_chained,
+                               trace_k_closest, trace_k_closest_chained)
+from bvh_tpu_torch.ops import cluster_trace as ct_mod
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
@@ -38,6 +45,22 @@ def _rays(a, n=8192, seed=0):
 
 def _bits(x):
     return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def _to(rays, dev):
+    """The same ray tensors on ``dev`` (each device would normalize the
+    directions itself, the card's square root 1 ulp off on some)."""
+    return Ray(*(x.to(dev) for x in rays))
+
+
+def _equal(got, ref):
+    """A query's result on the card equals the CPU's on the same inputs bit
+    for bit: every field of a record or tuple, or the one tensor."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for x, y in zip(got, ref):
+        assert torch.equal(_bits(x.cpu()), _bits(y))
 
 
 @pytest.fixture(scope="module", params=["cubes_w16", "cubes_w64", "mesh_w128"])
@@ -294,3 +317,139 @@ def test_entry_exit_tracer_on_card_matches_cpu(case, cuda, kwargs):
     assert same.float().mean() > 0.999
     torch.testing.assert_close(got.t.cpu()[hit & same], ref.t[hit & same],
                                rtol=1e-6, atol=0)
+
+
+# ---- the legacy cluster trace ----------------------------------------------
+
+@pytest.fixture(scope="module")
+def legacy(cuda):
+    a, b, c = tb.create_n_cubes(500)
+    o, d = _rays(a)
+    perm, _ = sort_rays(o, d)
+    return (a, b, c), o[perm], d[perm]
+
+
+@pytest.mark.parametrize("mode", ["relative", "global", "skip_narrow"])
+def test_cluster_kernel_matches_plain(legacy, cuda, mode):
+    tris, o, d = legacy
+    scene = build_cluster_scene(*tris, relative=mode != "global")
+    rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
+    tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
+              _dev(scene.tris_rel, cuda))
+    kw = dict(relative=scene.relative, skip_narrow=mode == "skip_narrow")
+    before = ct_mod.launches
+    tk, ik = ct_mod.cluster_trace(*tables, rows, **kw)
+    assert ct_mod.launches == before + 1
+    tp, ip = ct_mod.cluster_trace_plain(*tables, rows, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    assert (ik >= 0).any() != (mode == "skip_narrow")
+
+
+@pytest.mark.parametrize("relative", [True, False])
+def test_legacy_trace_on_card_matches_cpu(legacy, cuda, relative):
+    tris, o, d = legacy
+    scene = build_cluster_scene(*tris, relative=relative)
+    rays = Ray.create(o, d, device="cpu")
+    for kw in ({}, {"tris": tris}):
+        got = trace_closest_hit(scene, _to(rays, cuda), device=cuda, **kw)
+        ref = trace_closest_hit(scene, rays, device="cpu", **kw)
+        assert torch.isfinite(ref.t).any()
+        _equal(got, ref)
+
+
+# ---- chained scenes and k-closest ------------------------------------------
+
+@pytest.fixture(scope="module")
+def chained(cuda):
+    a, b, c = tb.create_n_cubes(400)
+    o, d = _rays(a, n=4096)
+    return (a, b, c), build_chained_scene(a, b, c, max_part=1500), o, d
+
+
+@pytest.mark.parametrize("case", ["closest", "t_max_perm_tris", "packed"])
+def test_closest_chained_on_card_matches_cpu(chained, cuda, case):
+    tris, ch, o, d = chained
+    if case == "packed":
+        ch = build_chained_scene(*tris, max_part=1500, packed=True)
+    kw = {}
+    if case == "t_max_perm_tris":
+        t_max = np.random.default_rng(4).uniform(20, 80, len(o))
+        perm = np.argsort(o[:, 0], kind="stable")
+        kw = dict(t_max=t_max.astype(np.float32), perm=perm, tris=tris)
+    rays = Ray.create(o, d, device="cpu")
+    before = (wide_mod.launches, tight_mod.launches)
+    got = trace_closest_hit_chained(ch, _to(rays, cuda), packet=512,
+                                    device=cuda, **kw)
+    assert (wide_mod.launches, tight_mod.launches) != before
+    ref = trace_closest_hit_chained(ch, rays, packet=512, device="cpu", **kw)
+    assert torch.isfinite(ref.t).any()
+    _equal(got, ref)
+
+
+def test_any_chained_on_card_matches_cpu(chained, cuda):
+    _, ch, o, d = chained
+    rays = Ray.create(o, d, device="cpu")
+    # the aimed rays hit at about 49.5, the random ones rarely within 60
+    for t_max in (None, np.full(len(o), 60.0, np.float32)):
+        got = trace_any_hit_chained(ch, _to(rays, cuda), t_max=t_max,
+                                    packet=512, device=cuda)
+        ref = trace_any_hit_chained(ch, rays, t_max=t_max, packet=512,
+                                    device="cpu")
+        assert ref.any() and not ref.all()
+        _equal(got, ref)
+
+
+def test_nearest_chained_on_card_matches_cpu(chained, cuda):
+    tris, ch, _, _ = chained
+    rng = np.random.default_rng(6)
+    cen = (tris[0] + tris[1] + tris[2]) / 3.0
+    pts = (cen[rng.integers(0, len(cen), 4096)]
+           + rng.normal(scale=20.0, size=(4096, 3))).astype(np.float32)
+    before = near_mod.wide_launches
+    sid, dist = nearest_chained(ch, pts, device=cuda)
+    assert near_mod.wide_launches == before + len(ch.parts)
+    sid_c, dist_c = nearest_chained(ch, pts, device="cpu")
+    assert torch.equal(sid.cpu(), sid_c)
+    assert torch.equal(_bits(dist.cpu()), _bits(dist_c))
+
+
+def test_k_closest_on_card_matches_cpu(chained, cuda):
+    tris, ch, o, d = chained
+    scene = build_tight_scene(*tris)
+    rays = Ray.create(o, d, device="cpu")
+    for fn, sc in ((trace_k_closest, scene), (trace_k_closest_chained, ch)):
+        got = fn(sc, _to(rays, cuda), k=3, packet=512, tris=tris, device=cuda)
+        ref = fn(sc, rays, k=3, packet=512, tris=tris, device="cpu")
+        assert (ref[2] > 0).any()
+        _equal(got, ref)
+
+
+def test_k_closest_stacked_on_card_matches_cpu(cuda):
+    """Rays along a stack of cubes cross several front faces, so every slot
+    of the peel is exercised (the aimed rays above find one hit each)."""
+    rng = np.random.default_rng(71)
+    a, b, c = (x.copy() for x in tb.create_n_cubes(60))
+    for i in range(60):
+        sl = slice(12 * i, 12 * (i + 1))
+        ctr = (a[sl] + b[sl] + c[sl]).mean(axis=0) / 3.0
+        new = np.array([rng.uniform(-1.5, 1.5), rng.uniform(-1.5, 1.5),
+                        8.0 * i], np.float32)
+        for arr in (a, b, c):
+            arr[sl] += new - ctr
+    n = 2048
+    o = np.concatenate([rng.uniform(-1, 1, (n, 2)), np.full((n, 1), -30.0)],
+                       axis=1).astype(np.float32)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = 1.0
+    d[:, :2] = rng.normal(scale=0.01, size=(n, 2))
+    tris = (a, b, c)
+    rays = Ray.create(o, d, device="cpu")
+    for fn, sc in ((trace_k_closest, build_tight_scene(*tris)),
+                   (trace_k_closest_chained,
+                    build_chained_scene(*tris, max_part=300))):
+        got = fn(sc, _to(rays, cuda), k=5, packet=256, tris=tris, device=cuda)
+        ref = fn(sc, rays, k=5, packet=256, tris=tris, device="cpu")
+        assert (ref[2] > 2).float().mean() > 0.2
+        _equal(got, ref)

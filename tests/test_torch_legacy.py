@@ -1,0 +1,283 @@
+"""The port's legacy ClusterScene path (build_cluster_scene, sort_rays,
+trace_closest_hit and the plain legacy walk) against bvh_tpu (Pallas in
+interpret mode), on tests/test_trace_kernel.py's scene: create_n_cubes(30),
+360 triangles in 3 clusters, 2,048 aimed rays from 1,000 units away, plus
+rays that miss.
+
+Tolerances:
+
+* Scene builds and ray sorts: array-equal.
+* Trace vs the reference's ``trace_closest_hit``: hit masks equal; shape
+  ids equal outside the near-tie class (the two raw t within one key step,
+  2^-16 relative); raw t within the key truncation (2^-16 relative) with
+  the reference's reciprocal made exact (``exact_reciprocal``), and within
+  2^-8 as shipped (the reference's approximate reciprocal is bfloat16 in
+  interpret mode). The per-ray walk would differ from the packet kernel
+  also in the grazing-edge and face-plane classes; these rays are aimed
+  away from edges and face planes, so neither occurs here.
+* With ``tris``: t and u within 1e-4 of the brute-force oracle, as the
+  reference's own test (tests/test_trace_kernel.py) holds it.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import bvh_tpu
+from bvh_tpu.bvh.traverse import brute_force_closest_hit
+from bvh_tpu.io.serialize import save_cluster_scene
+from bvh_tpu.ops.cluster import build_cluster_scene as build_j
+from bvh_tpu.ops.trace import sort_rays as sort_j
+from bvh_tpu.ops.trace import trace_closest_hit as trace_j
+from bvh_tpu_torch import Ray, ray_intersects_triangle
+from bvh_tpu_torch import testbase as tb
+from bvh_tpu_torch.ops import (build_cluster_scene, cluster_scene_from_arrays,
+                               sort_rays, trace_closest_hit)
+from bvh_tpu_torch.ops import cluster_trace as ct_mod
+from bvh_tpu_torch.ops.trace import _dev
+
+CPU = torch.device("cpu")
+KEY_STEP = 2.0 ** -16  # one step of the 7-bit key truncation, relative
+
+
+@pytest.fixture(scope="module")
+def world():
+    a, b, c = tb.create_n_cubes(30)
+    centers = a.reshape(-1, 12, 3).mean(axis=1)
+    idx = np.resize(np.arange(30), 2048)
+    orig = (centers[idx] + np.array([800.0, 400.0, -600.0], np.float32))
+    aim = centers[idx] + np.array([0.11, 0.07, -0.13], np.float32)
+    o_miss = np.full((64, 3), 500000.0, np.float32)
+    d_miss = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (64, 1))
+    o = np.concatenate([orig, o_miss]).astype(np.float32)
+    d = np.concatenate([aim - orig, d_miss]).astype(np.float32)
+    return (a, b, c), o, d
+
+
+@pytest.fixture
+def exact_reciprocal(monkeypatch):
+    """The reference's approximate reciprocal (bfloat16 in interpret mode)
+    made exact for one test; compiled traces are dropped before and after."""
+    jax.clear_caches()
+    monkeypatch.setattr(pl, "reciprocal", lambda x, approx=False: 1.0 / x)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+def _assert_scene_equal(sj, st):
+    assert st._fields == sj._fields
+    for name in sj._fields:
+        x, y = getattr(sj, name), getattr(st, name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            assert np.array_equal(x, y), name
+        else:
+            assert x == y, name
+
+
+def _rel(x, y):
+    return np.abs(x - y) / np.abs(y)
+
+
+# ---- scene build and sort ---------------------------------------------------
+
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("n_cubes", [30, 53])  # 360 and 636 triangles
+def test_build_cluster_scene_equal(relative, n_cubes):
+    a, b, c = tb.create_n_cubes(n_cubes, seed=n_cubes)
+    assert a.shape[0] % 128  # the last cluster has padding lanes
+    sj = build_j(a, b, c, relative=relative)
+    st = build_cluster_scene(a, b, c, relative=relative)
+    _assert_scene_equal(sj, st)
+    assert st.num_tris == a.shape[0]
+
+
+def test_cluster_scene_from_reference(tmp_path):
+    a, b, c = tb.create_n_cubes(20)
+    sj = build_j(a, b, c)
+    _assert_scene_equal(sj, cluster_scene_from_arrays(sj._asdict()))
+    path = tmp_path / "scene.npz"
+    save_cluster_scene(str(path), sj)
+    with np.load(path) as z:
+        _assert_scene_equal(sj, cluster_scene_from_arrays(z))
+    with pytest.raises(ValueError, match="newer"):
+        cluster_scene_from_arrays({**sj._asdict(), "__version__": 2})
+    with pytest.raises(ValueError, match="not ClusterScene fields"):
+        cluster_scene_from_arrays({**sj._asdict(), "groups": 0})
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sort_rays_equal(seed):
+    o, d = tb.create_rays(3000, seed=tb.seed_state_after(77 + seed))
+    if seed:
+        d[::7, 1] = 0.0  # directions on an octant boundary
+    pj, ij = sort_j(o, d)
+    pt, it = sort_rays(o, d)
+    assert np.array_equal(pj, pt) and np.array_equal(ij, it)
+    assert np.array_equal(pt[it], np.arange(len(o)))
+
+
+# ---- the trace ----------------------------------------------------------------
+
+def _check_against_reference(ht, hj, t_tol):
+    tr, sr = np.asarray(hj.t), np.asarray(hj.shape_id)
+    tp, sp = ht.t.numpy(), ht.shape_id.numpy()
+    hit = np.isfinite(tr)
+    assert np.array_equal(np.isfinite(tp), hit)
+    assert np.array_equal(sp >= 0, hit) and np.array_equal(sr >= 0, hit)
+    assert (_rel(tp[hit], tr[hit]) <= t_tol).all()
+    # ids differ only in the near-tie class
+    diff = hit & (sp != sr)
+    assert (_rel(tp[diff], tr[diff]) <= KEY_STEP).all()
+    return hit
+
+
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("n", [2112, 1000])  # 1000: not a packet multiple
+def test_trace_matches_reference(world, relative, n, exact_reciprocal):
+    tris, o, d = world
+    o, d = o[-n:], d[-n:]  # the misses are the last 64 rays
+    sj = build_j(*tris, relative=relative)
+    st = build_cluster_scene(*tris, relative=relative)
+    hj = trace_j(sj, bvh_tpu.Ray.create(jnp.asarray(o), jnp.asarray(d)),
+                 interpret=True)
+    before = ct_mod.launches
+    ht = trace_closest_hit(st, Ray.create(o, d, device=CPU), device=CPU)
+    assert ct_mod.launches == before  # the CPU runs the plain version
+    hit = _check_against_reference(ht, hj, KEY_STEP)
+    assert 0.9 < hit.mean() < 1.0
+    assert (ht.shape_id.numpy()[hit] == np.asarray(hj.shape_id)[hit]).mean() > 0.99
+
+
+def test_trace_matches_reference_as_shipped(world):
+    tris, o, d = world
+    hj = trace_j(build_j(*tris), bvh_tpu.Ray.create(jnp.asarray(o),
+                                                    jnp.asarray(d)),
+                 interpret=True)
+    ht = trace_closest_hit(build_cluster_scene(*tris),
+                           Ray.create(o, d, device=CPU), device=CPU)
+    _check_against_reference(ht, hj, 2.0 ** -8)
+
+
+@pytest.mark.parametrize("relative", [True, False])
+def test_trace_with_tris_matches_brute_force(world, relative):
+    tris, o, d = world
+    st = build_cluster_scene(*tris, relative=relative)
+    got = trace_closest_hit(st, Ray.create(o, d, device=CPU), tris=tris,
+                            packet=512, device=CPU)
+    rays_j = bvh_tpu.Ray.create(jnp.asarray(o), jnp.asarray(d))
+    want = brute_force_closest_hit(rays_j, *(jnp.asarray(x) for x in tris))
+    tg, tw = got.t.numpy(), np.asarray(want.t)
+    assert np.array_equal(np.isfinite(tg), np.isfinite(tw))
+    both = np.isfinite(tg)
+    np.testing.assert_allclose(tg[both], tw[both], rtol=1e-4)
+    assert (got.shape_id.numpy()[both] == np.asarray(want.shape_id)[both]).all()
+    np.testing.assert_allclose(got.u.numpy()[both], np.asarray(want.u)[both],
+                               atol=1e-4)
+    # the reference's recompute on its own winners gives the same record
+    ref = trace_j(build_j(*tris, relative=relative), rays_j,
+                  tris=tuple(jnp.asarray(x) for x in tris), interpret=True)
+    np.testing.assert_allclose(tg[both], np.asarray(ref.t)[both], rtol=1e-6)
+
+
+def test_skip_narrow_and_wrapper(world):
+    tris, o, d = world
+    st = build_cluster_scene(*tris)
+    rays = Ray.create(o, d, device=CPU)
+    sk = trace_closest_hit(st, rays, skip_narrow=True, device=CPU)
+    assert not torch.isfinite(sk.t).any() and (sk.shape_id == -1).all()
+    ref = trace_j(build_j(*tris), bvh_tpu.Ray.create(jnp.asarray(o),
+                                                     jnp.asarray(d)),
+                  interpret=True, skip_narrow=True)
+    assert not np.isfinite(np.asarray(ref.t)).any()
+    # the wrapper on CPU tensors is the plain version, with the walk's counts
+    nodes, cc = _dev(st.smem_nodes, CPU), _dev(st.smem_cc, CPU)
+    tris_rel = _dev(st.tris_rel, CPU)
+    rows = ct_mod.ray_rows(rays)
+    t0, i0 = ct_mod.cluster_trace(nodes, cc, tris_rel, rows)
+    t1, i1, visits, fires = ct_mod.cluster_trace_plain(nodes, cc, tris_rel,
+                                                       rows, counts=True)
+    assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
+    assert torch.equal(i0, i1)
+    assert (visits >= 1).all() and (fires <= visits).all() and fires.sum() > 0
+    _, _, v_skip, f_skip = ct_mod.cluster_trace_plain(
+        nodes, cc, tris_rel, rows, skip_narrow=True, counts=True)
+    # without leaf tests no bound shrinks, so the walk visits no fewer nodes
+    assert (v_skip >= visits).all() and (f_skip >= fires).all()
+    with pytest.raises(ValueError, match=r"rays must be \[9, n\]"):
+        ct_mod.cluster_trace(nodes, cc, tris_rel, rows[:8].contiguous())
+    with pytest.raises(ValueError, match="smem_cc"):
+        ct_mod.cluster_trace(nodes, cc[:, :1].contiguous(), tris_rel, rows)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        trace_closest_hit(st, rays, packet=200, device=CPU)
+
+
+def test_face_plane_ray_misses_the_box():
+    """A ray lying in a box's face plane gives 0·inf = NaN in the legacy
+    slab test, and NaN never fires (the reference's packet kernel can still
+    hit through another ray of the packet: the face-plane class)."""
+    a, b, c = tb.create_n_cubes(1)
+    st = build_cluster_scene(a, b, c)
+    ctr = (a + b + c).mean(axis=0) / 3.0
+    box_lo = st.smem_nodes[0:3, 0]
+    # in the plane x = box min, heading +y at the cube's middle height
+    o = np.array([[box_lo[0], ctr[1] - 5.0, ctr[2]]], np.float32)
+    d = np.array([[0.0, 1.0, 0.0]], np.float32)
+    ht = trace_closest_hit(st, Ray.create(o, d, device=CPU), device=CPU)
+    assert not torch.isfinite(ht.t).any()
+    # moved off the plane into the cube, the same ray hits
+    o[0, 0] += 0.25
+    ht = trace_closest_hit(st, Ray.create(o, d, device=CPU), device=CPU)
+    assert torch.isfinite(ht.t).all()
+
+
+def test_crack_ray_at_a_cube_edge(exact_reciprocal):
+    """The one ray of bench.py's aimed set on the 120k scene
+    (create_n_cubes(10000), aimed_rays(a, 2**20), ray 805001) that the
+    legacy walk misses while brute force hits: triangle 91993, 2^-9
+    (barycentric) inside the edge it shares with 92002 on a unit cube.
+
+    The cluster frame rounds the origin: o - cc lies ~3.9e4 from the
+    cluster centre, where float32 keeps 2^-8 of a unit, and its z moves by
+    2^-9, which puts the ray through that shared edge. There the float32
+    edge tests of both triangles round to outside, so the per-ray walk
+    falls through (the crack class). The reference's forms round the same
+    table differently and report 92002 at a t within 1e-5 of the true
+    hit: the grazing-edge class."""
+    a, b, c = tb.create_n_cubes(10000)
+    ray = 805001
+    ao, ad = tb.aimed_rays(a, 1 << 20)
+    o, d = ao[ray:ray + 1], ad[ray:ray + 1]
+    st = build_cluster_scene(a, b, c)
+    rays = Ray.create(o, d, device=CPU)
+    tris = tuple(torch.from_numpy(x)[None] for x in (a, b, c))
+    brute = ray_intersects_triangle(Ray(*(x[:, None] for x in rays)), *tris)
+    k = int(brute.distance[0].argmin())
+    t_true = float(brute.distance[0, k])
+    w = 1.0 - float(brute.u[0, k]) - float(brute.v[0, k])
+    assert k == 91993 and 0.0 < w < 3e-3
+    # the stored rows, with the origin as the frame rounds it, put the ray
+    # on the edge of both triangles (float64 on the stored values)
+    cl = int(np.nonzero(st.tri_map == k)[0][0]) // 128
+    o_rel = (rays.origin[0].numpy() - st.smem_cc[:3, cl]).astype(np.float64)
+    dd = rays.direction[0].numpy().astype(np.float64)
+    for tid in (91993, 92002):
+        lane = int(np.nonzero(st.tri_map == tid)[0][0])
+        assert lane // 128 == cl
+        rows = st.tris_rel[cl, :9, lane % 128].astype(np.float64)
+        ap, e1, e2 = rows[0:3], rows[3:6], rows[6:9]
+        tv = o_rel - ap
+        p, q = np.cross(dd, e2), np.cross(tv, e1)
+        det = p @ e1
+        assert abs(1.0 - (tv @ p) / det - (dd @ q) / det) < 1e-6
+    ht = trace_closest_hit(st, rays, device=CPU)
+    assert not torch.isfinite(ht.t).any() and int(ht.shape_id[0]) == -1
+    hj = trace_j(build_j(a, b, c), bvh_tpu.Ray.create(jnp.asarray(o),
+                                                      jnp.asarray(d)),
+                 interpret=True)
+    assert int(hj.shape_id[0]) == 92002
+    assert abs(float(hj.t[0]) - t_true) <= 1e-5 * t_true
