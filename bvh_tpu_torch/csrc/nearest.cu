@@ -1,15 +1,15 @@
-// Nearest triangle to each point, one thread per point: the group walk over
-// the wide table and the entry/exit walk over the node table, sharing one
-// point-triangle narrowphase.
+// Nearest triangle to each point: the group walk over the wide table, a warp
+// of 32 points at a time, and the entry/exit walk over the node table, one
+// thread per point, each with its own form of one point-triangle test.
 //
 // Replaces the TPU kernels bvh_tpu/ops/nearest.py::_nearest_wide_body
 // (launched by _nearest_wide) and ::_nearest_body (launched by
 // _nearest_tight), with their shared narrowphase _point_narrow. The TPU
 // kernels walk one shared cursor per packet of points and run the
-// narrowphase as one [8, 14W] x [8, P] matrix product. Here each point
-// walks on its own with its state in registers (the point, the bound vb,
-// the packed best key bk and the best cluster bc), which computes the same
-// function:
+// narrowphase as one [8, 14W] x [8, P] matrix product. Here each point has
+// its own walk state (the point, the bound vb, the packed best key bk and
+// the best cluster bc), which computes the plain versions' function
+// (bvh_tpu_torch/ops/nearest.py):
 //
 //   * group walk: per group, the 16 children's squared box distances d2min
 //     against vb AS READ BEFORE the group give the fired mask; only then,
@@ -36,20 +36,35 @@
 // cancellation across the cluster frame. Results differ from the
 // reference only at rounding level.
 //
-// What bounds it on an H100: the float32 operations of the box tests (16
-// per visited group, 18 or 34 operations each) and of the narrowphase (W
-// cascades per fired leaf). The tables (a few MB) stay in L2. Threads of a
-// warp diverge where their points walk different subtrees or land in
-// different regions of a triangle; the caller's Morton sort keeps
-// neighbouring points on similar paths. This first version is the simple,
-// exact design: no shared-memory staging, no packet walk.
+// What bounds the group walk on an H100: float32 operations, 16 box tests
+// of 34 operations per entered group and a 41-operation cascade per (point,
+// triangle) of a fired leaf, besides |e1|^2, e1.e2 and |e2|^2 (15 a
+// triangle, whatever the number of points); the tables (a few MB) stay in
+// L2. One thread
+// per point lost most of the card to divergence: a lane looped over its own
+// fired leaves while the others waited, its cascade branched seven ways,
+// and each lane recomputed |e1|^2, e1.e2 and |e2|^2 of every triangle.
+//
+// The warp schedule (nearest_wide_kernel). Morton-sorted points of a warp
+// walk nearly the same groups, so the warp steps through the union of its
+// points' groups in DFS order, one group a step, and tests its 16 children
+// for the lanes entering it from broadcast loads. A fired leaf slot is then
+// narrowphased by the whole warp for the lanes that fired it: the cluster's
+// triangles are loaded once, coalesced, with their triangle-only terms,
+// min(W, 32) lanes serve one point (two points a pass at W = 16, four
+// triangles a lane at W = 128), and the key minimum is a warp reduction.
+// The cascade (pair_key) picks its region without branches and divides only
+// where the region needs it, so the warp skips a division no lane needs.
+// Every lane folds its own leaves in ascending slot order, so the result is
+// the plain version's bit for bit. All 32 lanes stay in the loop until
+// every walk is done.
 //
 // Numerics: built with -fmad=false and IEEE division, every sum written in
 // one fixed order, so the kernels agree bit for bit with their plain
-// PyTorch versions (bvh_tpu_torch/ops/nearest.py). min/max propagate NaN
-// like torch.minimum/maximum: empty child slots hold NaN boxes and must
-// never fire (fmaxf(NaN, 0) would return 0 and fire them). Payloads, entry
-// and exit are float VALUES and convert with (int), never with a bit cast.
+// PyTorch versions. min/max propagate NaN like torch.minimum/maximum: empty
+// child slots hold NaN boxes and must never fire (fmaxf(NaN, 0) would
+// return 0 and fire them). Payloads, entry and exit are float VALUES and
+// convert with (int), never with a bit cast.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,6 +74,7 @@ namespace {
 constexpr int K = 16;          // children per group
 constexpr int WIDE_DMAX = 16;  // DFS stack depth
 constexpr int SENT = 0x7F800000;  // +inf bits: the "no hit" key
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float nmin(float a, float b) {
   return (a < b || a != a) ? a : b;
@@ -74,7 +90,91 @@ struct Point {
   int bc;    // best cluster
 };
 
-// Narrowphase of cluster c (frame origin cc) against one point.
+// One triangle of a cluster: rows a', e1, e2 and the terms that depend only
+// on the triangle, |e1|^2, e1.e2 and |e2|^2.
+struct NTri {
+  float a0, a1, a2, e10, e11, e12, e20, e21, e22, aa, ab, bb;
+};
+
+__device__ __forceinline__ NTri load_ntri(const float* __restrict__ tile,
+                                          int j) {
+  NTri t;
+  t.a0 = __ldg(tile + 0 * 128 + j);
+  t.a1 = __ldg(tile + 1 * 128 + j);
+  t.a2 = __ldg(tile + 2 * 128 + j);
+  t.e10 = __ldg(tile + 3 * 128 + j);
+  t.e11 = __ldg(tile + 4 * 128 + j);
+  t.e12 = __ldg(tile + 5 * 128 + j);
+  t.e20 = __ldg(tile + 6 * 128 + j);
+  t.e21 = __ldg(tile + 7 * 128 + j);
+  t.e22 = __ldg(tile + 8 * 128 + j);
+  t.aa = (t.e10 * t.e10 + t.e11 * t.e11) + t.e12 * t.e12;
+  t.ab = (t.e10 * t.e20 + t.e11 * t.e21) + t.e12 * t.e22;
+  t.bb = (t.e20 * t.e20 + t.e21 * t.e21) + t.e22 * t.e22;
+  return t;
+}
+
+// The packed key of the point (opx, opy, opz), in the cluster frame, against
+// triangle j of a W-wide cluster; SENT where |e1|^2 = 0 or d^2 is not below
+// +inf. Ericson's region cascade with the region chosen without branches:
+// every region test is evaluated and the first that holds wins (priority
+// A > B > AB > C > AC > BC > face). Only the two divisions branch: q1 (v on
+// edge AB or the face) and q2 (w on edge AC, edge BC or the face) are
+// computed where the region needs them, so a warp whose lanes all land at
+// vertices skips both. v and w are the values the plain version's
+// torch.where chain selects, bit for bit.
+template <int W>
+__device__ __forceinline__ int pair_key(const NTri& t, int j, float opx,
+                                        float opy, float opz) {
+  const float inf = __int_as_float(SENT);
+  float qx = opx - t.a0, qy = opy - t.a1, qz = opz - t.a2;
+  float d1 = (t.e10 * qx + t.e11 * qy) + t.e12 * qz;
+  float d2 = (t.e20 * qx + t.e21 * qy) + t.e22 * qz;
+  float d3 = d1 - t.aa, d4 = d2 - t.ab, d5 = d1 - t.ab, d6 = d2 - t.bb;
+  float vc = d1 * d4 - d3 * d2;
+  float vb2 = d5 * d2 - d1 * d6;
+  float va = d3 * d6 - d5 * d4;
+  float d43 = d4 - d3, d56 = d5 - d6;
+  // 0 A, 1 B, 2 AB, 3 C, 4 AC, 5 BC, 6 face
+  const int reg = (d1 <= 0.0f && d2 <= 0.0f)                    ? 0
+                  : (d3 >= 0.0f && d4 <= d3)                    ? 1
+                  : (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f)    ? 2
+                  : (d6 >= 0.0f && d5 <= d6)                    ? 3
+                  : (vb2 <= 0.0f && d2 >= 0.0f && d6 <= 0.0f)   ? 4
+                  : (va <= 0.0f && d43 >= 0.0f && d56 >= 0.0f)  ? 5
+                                                                : 6;
+  const float denom = (va + vb2) + vc;
+  float q1 = 0.0f, q2 = 0.0f;
+  if (reg == 2 || reg == 6)
+    q1 = (reg == 2 ? d1 : vb2) / (reg == 2 ? d1 - d3 : denom);
+  if (reg >= 4)
+    q2 = (reg == 4 ? d2 : reg == 5 ? d43 : vc) /
+         (reg == 4 ? d2 - d6 : reg == 5 ? d43 + d56 : denom);
+  float v = reg == 1 ? 1.0f : reg == 2 || reg == 6 ? q1 : reg == 5 ? 1.0f - q2
+                                                                    : 0.0f;
+  float w = reg == 3 ? 1.0f : reg >= 4 ? q2 : 0.0f;
+  float fx = (v * t.e10 + w * t.e20) - qx;
+  float fy = (v * t.e11 + w * t.e21) - qy;
+  float fz = (v * t.e12 + w * t.e22) - qz;
+  float dd = (fx * fx + fy * fy) + fz * fz;
+  return (t.aa > 0.0f && dd < inf) ? ((__float_as_int(dd) & ~(W - 1)) | j)
+                                   : SENT;
+}
+
+// Folds the smallest key km of cluster c into the point: replaced only when
+// strictly smaller, then vb = min(the best key's d^2, vb).
+__device__ __forceinline__ void fold(Point& p, int km, int c, int W) {
+  if (km < p.bk) {
+    p.bk = km;
+    p.bc = c;
+  }
+  p.vb = nmin(__int_as_float(p.bk & ~(W - 1)), p.vb);
+}
+
+// Narrowphase of cluster c (frame origin cc) against one point, one thread
+// (the entry/exit walk): pair_key's cascade with branches, so that a thread
+// computes only its own region's terms (with pair_key's form this walk ran
+// about 30% slower on an H100).
 __device__ void point_narrow(Point& p, const float* __restrict__ groups,
                              int W, int c, float ccx, float ccy, float ccz) {
   const float inf = __int_as_float(SENT);
@@ -188,84 +288,176 @@ struct WideTables {
   const float* gnodes;  // [7K+1, Gn]
   const float* groups;  // [G, 16, 128]
   int Gn;
-  int W;
   int refine;
 };
 
-// Tests group g: fired mask against vb as read before the group, then the
-// bound refinement; narrowphases the fired leaves; returns the fired
-// interior bits.
-__device__ int enter(Point& p, const WideTables& tb, int g) {
-  const float inf = __int_as_float(SENT);
-  const float* col = tb.gnodes + g;
-  const int Gn = tb.Gn;
-  const float vbv = p.vb;
-  float ref = vbv;
-  int m = 0;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float* ch = col + 7 * k * Gn;
-    float ax = __ldg(ch), ay = __ldg(ch + Gn), az = __ldg(ch + 2 * Gn);
-    float bx = __ldg(ch + 3 * Gn), by = __ldg(ch + 4 * Gn),
-          bz = __ldg(ch + 5 * Gn);
-    if (tb.refine) {
-      float d2max = box_d2max(p, ax, ay, az, bx, by, bz);
-      ref = nmin(ref, d2max == d2max ? d2max : inf);
+// Narrowphase of cluster c (frame origin cc) against the points of the lanes
+// in F, the whole warp together: SPAN = min(W, 32) lanes per point, each
+// holding W / SPAN of the cluster's triangles (loaded once, coalesced, with
+// their |e1|^2, e1.e2 and |e2|^2), 32 / SPAN points a pass. A point's key
+// minimum is taken over its SPAN lanes; its own lane folds it.
+template <int W>
+__device__ __forceinline__ void warp_narrow(Point& p, unsigned F,
+                                            const float* __restrict__ groups,
+                                            int c, float ccx, float ccy,
+                                            float ccz, int lane) {
+  constexpr int SPAN = W < 32 ? W : 32;  // lanes per point
+  constexpr int TPL = W / SPAN;          // triangles per lane
+  constexpr int PPP = 32 / SPAN;         // points per pass (1 or 2)
+  const int per_row = 128 / W;
+  const float* tile =
+      groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
+  const int j0 = lane % SPAN;
+  NTri tr[TPL];
+#pragma unroll
+  for (int s = 0; s < TPL; ++s) tr[s] = load_ntri(tile, j0 + SPAN * s);
+  // this lane's point in the cluster frame, read by the lanes serving it
+  const float opx = p.px - ccx, opy = p.py - ccy, opz = p.pz - ccz;
+  while (F) {
+    const int f0 = __ffs(F) - 1;
+    F &= F - 1;
+    int f1 = -1;
+    if (PPP == 2 && F) {
+      f1 = __ffs(F) - 1;
+      F &= F - 1;
     }
-    if (box_d2min(p, ax, ay, az, bx, by, bz) < vbv) m |= 1 << k;
+    // this lane serves point f0 (first half) or f1 (second half, f0's again
+    // when there is no second point: its result is dropped)
+    const int src = (lane >= SPAN && f1 >= 0) ? f1 : f0;
+    const float Ox = __shfl_sync(FULL, opx, src),
+                Oy = __shfl_sync(FULL, opy, src),
+                Oz = __shfl_sync(FULL, opz, src);
+    int k = SENT;
+#pragma unroll
+    for (int s = 0; s < TPL; ++s) {
+      int key = pair_key<W>(tr[s], j0 + SPAN * s, Ox, Oy, Oz);
+      k = key < k ? key : k;
+    }
+    if (SPAN == 32) {
+      k = __reduce_min_sync(FULL, k);
+    } else {
+#pragma unroll
+      for (int off = SPAN / 2; off > 0; off >>= 1) {
+        int o = __shfl_xor_sync(FULL, k, off);
+        k = o < k ? o : k;
+      }
+    }
+    const int k0 = __shfl_sync(FULL, k, 0);
+    const int k1 = __shfl_sync(FULL, k, PPP == 2 ? SPAN : 0);
+    if (lane == f0) fold(p, k0, c, W);
+    if (lane == f1) fold(p, k1, c, W);
   }
-  if (tb.refine) p.vb = ref;
-  int lmask = (int)__ldg(col + 7 * K * Gn);
-  int lm = m & lmask;
-  while (lm) {
-    int k = __ffs(lm) - 1;
-    lm &= lm - 1;
-    const float* ch = col + 7 * k * Gn;
-    float ax = __ldg(ch), ay = __ldg(ch + Gn), az = __ldg(ch + 2 * Gn);
-    float bx = __ldg(ch + 3 * Gn), by = __ldg(ch + 4 * Gn),
-          bz = __ldg(ch + 5 * Gn);
-    int c = (int)(-__ldg(ch + 6 * Gn) - 1.0f);
-    point_narrow(p, tb.groups, tb.W, c, (ax + bx) * 0.5f, (ay + by) * 0.5f,
-                 (az + bz) * 0.5f);
-  }
-  return m & ~lmask;
 }
 
-__global__ void nearest_wide_kernel(WideTables tb,
-                                    const float* __restrict__ pts, int n,
-                                    float* __restrict__ d2_out,
-                                    int* __restrict__ id_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point p = load_point(pts, n, i);
+// The group walk, a warp of 32 points at a time. Each lane keeps its own
+// DFS stack, bound, best key and best cluster, and enters groups in its own
+// order (the plain walk's); a lane's next group carries a key that orders
+// groups as a DFS visits them (its path from the root, 4 bits a level from
+// the top, then its depth). Each step the warp takes the smallest key: the
+// lanes whose next group it is test its 16 children from broadcast loads,
+// the others wait, so the warp steps through the union of its points'
+// groups once, in DFS order. Then the fired leaf slots of those lanes,
+// lowest first: for each, the lanes that fired it narrowphase its cluster
+// together (warp_narrow).
+template <int W>
+__global__ void __launch_bounds__(128)
+    nearest_wide_kernel(WideTables tb, const float* __restrict__ pts, int n,
+                        float* __restrict__ d2_out, int* __restrict__ id_out) {
+  const float inf = __int_as_float(SENT);
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = i < n;
+  Point p = {0.0f, 0.0f, 0.0f, 0.0f, SENT, 0};
+  if (valid) p = load_point(pts, n, i);
+  const int Gn = tb.Gn;
   int stk_g[WIDE_DMAX];
   int stk_m[WIDE_DMAX];
-  int d = 0;
-  int gid = 0;
-  int mask = enter(p, tb, 0);
+  int d = 0, gid = 0, mask = 0;
+  // the next group to enter, -1 when done, and its DFS-order key (path
+  // nibbles of levels 0..13 in bits 63..8, depth in bits 3..0; the root is
+  // 0, a done lane ~0)
+  int ng = valid ? 0 : -1;
+  unsigned long long key = valid ? 0ull : ~0ull;
   while (true) {
-    if (mask == 0) {
-      if (d == 0) break;
-      --d;
-      gid = stk_g[d];
-      mask = stk_m[d];
-      continue;
+    const unsigned khi = (unsigned)(key >> 32), klo = (unsigned)key;
+    const unsigned mhi = __reduce_min_sync(FULL, khi);
+    const unsigned mlo = __reduce_min_sync(FULL, khi == mhi ? klo : ~0u);
+    if (mhi == ~0u && mlo == ~0u) break;
+    const bool here = khi == mhi && klo == mlo;
+    const int g = __shfl_sync(FULL, ng, __ffs(__ballot_sync(FULL, here)) - 1);
+    // the 16 children: fired against vb as read before the group, then
+    // the refinement
+    const float* col = tb.gnodes + g;
+    const float vbv = p.vb;
+    float ref = vbv;
+    int m = 0;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float* ch = col + 7 * k * Gn;
+      float ax = __ldg(ch), ay = __ldg(ch + Gn), az = __ldg(ch + 2 * Gn);
+      float bx = __ldg(ch + 3 * Gn), by = __ldg(ch + 4 * Gn),
+            bz = __ldg(ch + 5 * Gn);
+      if (tb.refine) {
+        float d2max = box_d2max(p, ax, ay, az, bx, by, bz);
+        ref = nmin(ref, d2max == d2max ? d2max : inf);
+      }
+      if (box_d2min(p, ax, ay, az, bx, by, bz) < vbv) m |= 1 << k;
     }
-    int k = __ffs(mask) - 1;
-    mask &= mask - 1;
-    int child = (int)__ldg(tb.gnodes + (7 * k + 6) * tb.Gn + gid);
-    int m2 = enter(p, tb, child);
-    if (m2 != 0) {
-      stk_g[d] = gid;
-      stk_m[d] = mask;
-      ++d;
-      gid = child;
-      mask = m2;
+    if (!here) m = 0;
+    if (here && tb.refine) p.vb = ref;
+    const int lmask = (int)__ldg(col + 7 * K * Gn);
+    const int lm = m & lmask;
+    for (unsigned todo = __reduce_or_sync(FULL, (unsigned)lm); todo;
+         todo &= todo - 1) {
+      const int k = __ffs(todo) - 1;
+      const unsigned F = __ballot_sync(FULL, (lm >> k) & 1);
+      const float* ch = col + 7 * k * Gn;
+      float ax = __ldg(ch), ay = __ldg(ch + Gn), az = __ldg(ch + 2 * Gn);
+      float bx = __ldg(ch + 3 * Gn), by = __ldg(ch + 4 * Gn),
+            bz = __ldg(ch + 5 * Gn);
+      int c = (int)(-__ldg(ch + 6 * Gn) - 1.0f);
+      warp_narrow<W>(p, F, tb.groups, c, (ax + bx) * 0.5f, (ay + by) * 0.5f,
+                     (az + bz) * 0.5f, lane);
+    }
+    if (here) {
+      // descend into g if it has fired interior children, then find the
+      // lane's next group: the lowest remaining fired child of the deepest
+      // group that has one
+      const int m2 = m & ~lmask;
+      if (key == 0) {  // the root
+        mask = m2;
+      } else if (m2) {
+        stk_g[d] = gid;
+        stk_m[d] = mask;
+        ++d;
+        gid = g;
+        mask = m2;
+      }
+      const unsigned long long path = key & ~0xFull;
+      ng = -1;
+      key = ~0ull;
+      while (true) {
+        if (mask == 0) {
+          if (d == 0) break;
+          --d;
+          gid = stk_g[d];
+          mask = stk_m[d];
+          continue;
+        }
+        const int k = __ffs(mask) - 1;
+        mask &= mask - 1;
+        ng = (int)__ldg(tb.gnodes + (7 * k + 6) * Gn + gid);
+        const unsigned long long keep = d ? ~0ull << (64 - 4 * d) : 0ull;
+        key = (path & keep) | ((unsigned long long)k << (60 - 4 * d)) |
+              (unsigned long long)(d + 1);
+        break;
+      }
     }
   }
-  store_point(p, tb.W, i, d2_out, id_out);
+  if (valid) store_point(p, W, i, d2_out, id_out);
 }
 
+// The entry/exit walk, one thread per point.
 __global__ void nearest_entry_exit_kernel(const float* __restrict__ nodes,
                                           int Nn,
                                           const float* __restrict__ groups,
@@ -296,6 +488,15 @@ __global__ void nearest_entry_exit_kernel(const float* __restrict__ nodes,
   store_point(p, W, i, d2_out, id_out);
 }
 
+template <int W>
+int launch_wide(const WideTables& tb, const float* pts, int n, float* d2_out,
+                int* id_out, cudaStream_t stream) {
+  const int block = 128;
+  nearest_wide_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
+      tb, pts, n, d2_out, id_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int nearest_wide_launch(const float* gnodes, int Gn,
@@ -303,12 +504,15 @@ extern "C" int nearest_wide_launch(const float* gnodes, int Gn,
                                    const float* pts, int n, float* d2_out,
                                    int* id_out, void* stream) {
   if (n <= 0) return 0;
-  WideTables tb{gnodes, groups, Gn, width, refine};
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  nearest_wide_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      tb, pts, n, d2_out, id_out);
-  return (int)cudaGetLastError();
+  WideTables tb{gnodes, groups, Gn, refine};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (width) {
+    case 16: return launch_wide<16>(tb, pts, n, d2_out, id_out, st);
+    case 32: return launch_wide<32>(tb, pts, n, d2_out, id_out, st);
+    case 64: return launch_wide<64>(tb, pts, n, d2_out, id_out, st);
+    case 128: return launch_wide<128>(tb, pts, n, d2_out, id_out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int nearest_entry_exit_launch(const float* nodes, int Nn,

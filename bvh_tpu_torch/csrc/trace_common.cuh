@@ -3,7 +3,7 @@
 // NaN-propagating min/max, the bf16-pair unpack, the slab test of a box and
 // the leaf test of a cluster. The sweep gate (sweep.cu) takes the min/max
 // and the unpack; the legacy cluster trace (cluster_trace.cu) the min/max
-// and the leaf test's key minimum (tile_min_key).
+// and the triangle test (load_tri, tri_key).
 //
 // The leaf test replaces the TPU kernel's bvh_tpu/ops/trace.py::
 // _narrow_cluster: Moller-Trumbore of one ray against the W triangles of
@@ -112,37 +112,63 @@ __device__ __forceinline__ bool slab_fires(const RayState& r, float ax,
   return (tmax >= nmax(tmin, 0.0f)) && (tmin < r.vb);
 }
 
+// One triangle of a cluster: rows a', e1, e2 (triangle j at tile[row * 128
+// + j]) and p = e2 x e1.
+struct Tri {
+  float a0, a1, a2, e10, e11, e12, e20, e21, e22, p0, p1, p2;
+};
+
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ tile,
+                                        int j) {
+  Tri t;
+  t.a0 = __ldg(tile + 0 * 128 + j);
+  t.a1 = __ldg(tile + 1 * 128 + j);
+  t.a2 = __ldg(tile + 2 * 128 + j);
+  t.e10 = __ldg(tile + 3 * 128 + j);
+  t.e11 = __ldg(tile + 4 * 128 + j);
+  t.e12 = __ldg(tile + 5 * 128 + j);
+  t.e20 = __ldg(tile + 6 * 128 + j);
+  t.e21 = __ldg(tile + 7 * 128 + j);
+  t.e22 = __ldg(tile + 8 * 128 + j);
+  t.p0 = t.e21 * t.e12 - t.e22 * t.e11;
+  t.p1 = t.e22 * t.e10 - t.e20 * t.e12;
+  t.p2 = t.e20 * t.e11 - t.e21 * t.e10;
+  return t;
+}
+
+// The packed key of one ray, direction d and origin tv = o' - a' in the
+// triangle's frame, against triangle t at lane j of a W-wide cluster; sent
+// where it misses. The reciprocal of det is taken only where the test
+// passes, so a warp whose lanes all miss skips it.
+__device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
+                                       float tvz, float dx, float dy, float dz,
+                                       int W, int j, int sent) {
+  float w0 = tvy * dz - tvz * dy, w1 = tvz * dx - tvx * dz,
+        w2 = tvx * dy - tvy * dx;
+  float det = (t.p0 * dx + t.p1 * dy) + t.p2 * dz;
+  float udet = (t.e20 * w0 + t.e21 * w1) + t.e22 * w2;
+  float vdet = -((t.e10 * w0 + t.e11 * w1) + t.e12 * w2);
+  float tdet = -((t.p0 * tvx + t.p1 * tvy) + t.p2 * tvz);
+  bool ok = !(det < EPS) && udet >= 0.0f && udet <= det && vdet >= 0.0f &&
+            (udet + vdet) <= det && tdet > EPS * det;
+  int key = sent;
+  if (ok) key = (__float_as_int(tdet * (1.0f / det)) & ~(W - 1)) | j;
+  return key;
+}
+
 // The smallest packed key of one ray over the W triangles whose rows a', e1,
-// e2 start at tile (triangle j at tile[row * 128 + j]), with the ray origin
-// (opx, opy, opz) in the cluster frame; sent where no key is below it. The
-// legacy cluster kernel (cluster_trace.cu) calls it at W = 128.
+// e2 start at tile, with the ray origin (opx, opy, opz) in the cluster
+// frame; SENT where no key is below it.
 __device__ __forceinline__ int tile_min_key(const float* __restrict__ tile,
                                             int W, float opx, float opy,
                                             float opz, float dx, float dy,
-                                            float dz, int sent) {
-  int bk = sent;
+                                            float dz) {
+  int bk = SENT;
   for (int j = 0; j < W; ++j) {
-    float a0 = __ldg(tile + 0 * 128 + j), a1 = __ldg(tile + 1 * 128 + j);
-    float a2 = __ldg(tile + 2 * 128 + j), e10 = __ldg(tile + 3 * 128 + j);
-    float e11 = __ldg(tile + 4 * 128 + j), e12 = __ldg(tile + 5 * 128 + j);
-    float e20 = __ldg(tile + 6 * 128 + j), e21 = __ldg(tile + 7 * 128 + j);
-    float e22 = __ldg(tile + 8 * 128 + j);
-    float tvx = opx - a0, tvy = opy - a1, tvz = opz - a2;
-    float p0 = e21 * e12 - e22 * e11, p1 = e22 * e10 - e20 * e12,
-          p2 = e20 * e11 - e21 * e10;
-    float w0 = tvy * dz - tvz * dy, w1 = tvz * dx - tvx * dz,
-          w2 = tvx * dy - tvy * dx;
-    float det = (p0 * dx + p1 * dy) + p2 * dz;
-    float udet = (e20 * w0 + e21 * w1) + e22 * w2;
-    float vdet = -((e10 * w0 + e11 * w1) + e12 * w2);
-    float tdet = -((p0 * tvx + p1 * tvy) + p2 * tvz);
-    bool ok = !(det < EPS) && udet >= 0.0f && udet <= det && vdet >= 0.0f &&
-              (udet + vdet) <= det && tdet > EPS * det;
-    if (ok) {
-      float t = tdet * (1.0f / det);
-      int key = (__float_as_int(t) & ~(W - 1)) | j;
-      if (key < bk) bk = key;
-    }
+    Tri t = load_tri(tile, j);
+    int key = tri_key(t, opx - t.a0, opy - t.a1, opz - t.a2, dx, dy, dz, W, j,
+                      SENT);
+    if (key < bk) bk = key;
   }
   return bk;
 }
@@ -157,7 +183,7 @@ __device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
   const float* tile =
       groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
   int km = tile_min_key(tile, W, r.ox - ccx, r.oy - ccy, r.oz - ccz, r.dx,
-                        r.dy, r.dz, SENT);
+                        r.dy, r.dz);
   if (km < r.bk) {
     r.bk = km;
     r.bc = c;

@@ -5,11 +5,12 @@ Replaces the TPU kernel ``bvh_tpu/ops/trace.py::_kernel_body`` (built by
 ``_make_kernel``, launched by ``_trace``). The TPU kernel walks one shared
 cursor per packet and tests a fired leaf's 128 triangles against every ray
 of the packet on the matrix unit. The CUDA kernel
-(``csrc/cluster_trace.cu``, leaf test ``tile_min_key`` in
-``csrc/trace_common.cuh``) walks one ray per thread in the same DFS order;
-the plain version below computes the same function, ray by ray, in lock
-step over a batch, and rounds every operation as the kernel does, so the
-two agree bit for bit on the card.
+(``csrc/cluster_trace.cu``) walks each ray on its own cursor in the same DFS
+order, a warp of 32 rays at a time: the warp steps through the union of its
+rays' nodes in table order, and the rays that fire a leaf share its 128
+triangles, four a lane. The plain version below computes the same function,
+ray by ray, in lock step over a batch, and rounds every operation as the
+kernel does, so the two agree bit for bit on the card.
 
 Per ray: a cursor starts at 0 and runs while it is below the table's width
 ``Nc``. Each node's box is slab-tested as ``(a - o) * inv`` with the
@@ -23,6 +24,16 @@ replaced by the lane) and its t replaces the ray's best only when strictly
 smaller, so a tie goes to the cluster visited first. The legacy "no hit"
 key is 0x7F000000, not the other kernels' 0x7F800000: a t >= 2^127 counts
 as no hit.
+
+The origin in the cluster frame is kept as a float pair: ``hi = o - cc``
+rounded and ``lo`` its exact rounding error (``two_diff``), and each
+triangle test forms ``tv = (hi - a') + lo``. A Morton cluster's centre lies
+up to ~4e4 units from the origin, where float32 keeps 2^-8 of a unit, so
+``o - cc`` alone can move a ray onto the edge two triangles share, and
+both edge tests then round outside (the crack class). The table's own
+``a' = a - cc`` is rounded the same way, so two triangles that share an
+edge may still be stored 2^-8 apart; the walk cannot close that crack
+(ROADMAP queue 3).
 
 Where the per-ray walk differs from the TPU kernel's packet walk: the TPU
 kernel narrowphases every ray of a packet at a leaf that any of its rays
@@ -52,20 +63,37 @@ from .wide import narrow_keys
 CW = 128  # triangles per cluster
 LEGACY_SENT = 0x7F000000  # the legacy kernel's "no hit" key
 N_ROWS = 9  # ray rows: inv (3, unclamped), d (3), o (3)
-# float32 operations per fired leaf beyond its 128 triangle tests
-# (``wide.TRI_OPS`` each): the ray origin moved to the cluster frame (3) and
-# the fold's two compares; a node visit costs ``wide.SLAB_OPS`` plus
-# ``tight.STEP_OPS``, as in the entry/exit walk
-LEAF_OPS = 5
+# float32 operations per (ray, triangle) test: ``wide.TRI_OPS`` and the
+# three adds of lo into tv (p = e2 x e1 is ``wide.TRI_ONCE_OPS``, once a
+# triangle)
+TRI_OPS = 47
+# per fired leaf beyond its 128 triangle tests: the origin's float pair
+# (``two_diff``, 6 an axis) and the fold's two compares; a node visit costs
+# ``wide.SLAB_OPS`` plus ``tight.STEP_OPS``, as in the entry/exit walk
+LEAF_OPS = 20
 _INF = float("inf")
 
 launches = 0  # kernel launches, counted in ``cluster_trace``
 
 
+def two_diff(o, cc):
+    """``o - cc`` as a float pair ``(hi, lo)``: ``hi`` the rounded
+    difference and ``lo`` its rounding error, so that ``hi + lo == o - cc``
+    exactly (Knuth's TwoSum of ``o`` and ``-cc``; the kernel's order)."""
+    hi = o - cc
+    bv = hi - o
+    av = hi - bv
+    return hi, (o - av) - (cc + bv)
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Builds (first call) and loads ``csrc/cluster_trace.cu``."""
-    lib = load_cuda_library("cluster_trace", "cluster_trace.cu")
+    return bind(load_cuda_library("cluster_trace", "cluster_trace.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a build of ``cluster_trace.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.cluster_trace_launch.restype = ci
     lib.cluster_trace_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci,
@@ -177,11 +205,14 @@ def cluster_trace_plain(nodes: torch.Tensor, cc: torch.Tensor,
             r = live[hit_leaf]
             c = (-entry[hit_leaf] - 1.0).to(torch.int64)
             if relative:
-                ccx, ccy, ccz = cc[0, c], cc[1, c], cc[2, c]
+                ccs = (cc[0, c], cc[1, c], cc[2, c])
             else:
-                ccx = ccy = ccz = zero
-            km = narrow_keys(rays, tiles, CW, r, c, ccx, ccy, ccz,
-                             sent=LEGACY_SENT, row0=3)
+                ccs = (zero, zero, zero)
+            # the origin in the cluster frame as a float pair: o - cc
+            # rounded, and its rounding error lo
+            lo = tuple(two_diff(rays[6 + j, r], ccs[j])[1] for j in range(3))
+            km = narrow_keys(rays, tiles, CW, r, c, *ccs, sent=LEGACY_SENT,
+                             row0=3, lo=lo)
             tc = (km & -CW).view(torch.float32)
             closer = (km < LEGACY_SENT) & (tc < best[r])
             best[r] = torch.where(closer, tc, best[r])

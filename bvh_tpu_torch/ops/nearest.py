@@ -5,13 +5,16 @@ versions) and the entry point ``nearest_tight``.
 Counterpart of ``bvh_tpu/ops/nearest.py``. The CUDA kernels
 (``csrc/nearest.cu``) replace the TPU kernels ``_nearest_wide_body`` (the
 group walk over ``gnodes``) and ``_nearest_body`` (the entry/exit walk over
-``smem_nodes``) with their shared narrowphase ``_point_narrow``. They walk
-one point per thread; the plain versions below compute the same function,
-point by point, in lock step over a batch, and round every operation as the
-kernels do, so the two agree bit for bit on the card. See the kernel source
-for the walks' rules; the two walks order the bound refinement differently
-(the group walk fires against ``vb`` as read before the group, the
-entry/exit walk refines first), and each keeps its own order.
+``smem_nodes``) with their shared narrowphase ``_point_narrow``. The group
+walk runs a warp of 32 points together (one group order for the warp, each
+fired leaf narrowphased by the lanes that fired it together), the
+entry/exit walk one point per thread; the plain versions below compute the
+same function, point by point, in lock step over a batch, and round every
+operation as the kernels do, so the two agree bit for bit on the card. See
+the kernel source for the walks' rules; the two walks order the bound
+refinement differently (the group walk fires against ``vb`` as read before
+the group, the entry/exit walk refines first), and each keeps its own
+order.
 
 Inputs: the tables ``gnodes [113, Gn]`` or ``smem_nodes [8, Nn]`` and
 ``groups [G, 16, 128]`` float32 (see ``ops/cluster.py``), and the point
@@ -51,10 +54,16 @@ BOX_OPS = 18
 # the refinement's d2max: 6 sub, 3 max, 3 mul, 2 add (the group walk adds
 # a NaN test; both add the min);
 D2MAX_OPS = 14
-# per (point, triangle) pair, whatever its region: q 3, d1 and d2 10, |e1|²,
-# e1·e2 and |e2|² 15, d3..d6 4, the vertex-A test 2, f = v e1 + w e2 − q
-# 12, d² 5, the key 5 (the other regions' tests and divisions add up to 24);
-PAIR_OPS = 56
+# per (point, triangle) pair, whatever its region: q 3, d1 and d2 10,
+# d3..d6 4, the vertex-A test 2, f = v e1 + w e2 − q 12, d² 5, the key 5
+# (the other regions' tests and divisions add up to 24; the group walk's
+# kernel evaluates every region test, and a division where a lane of the
+# warp needs it);
+PAIR_OPS = 41
+# per triangle, whatever the number of points tested against it: |e1|²,
+# e1·e2 and |e2|² (a bound charges them once for every triangle of the
+# scene);
+TRI_ONCE_OPS = 15
 # per fired leaf: the frame centre 6, p' 3, the bound update 2;
 LEAF_OPS = 11
 # per entry/exit node visit beyond its box test: the leaf test and the
@@ -79,7 +88,11 @@ def walk_ops(wide: bool, width: int, steps: float, fires: float) -> float:
 @functools.cache
 def load() -> ctypes.CDLL:
     """Builds (first call) and loads ``csrc/nearest.cu``."""
-    lib = load_cuda_library("nearest", "nearest.cu")
+    return bind(load_cuda_library("nearest", "nearest.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a build of ``nearest.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.nearest_wide_launch, lib.nearest_entry_exit_launch):
         fn.restype = ci

@@ -50,13 +50,15 @@ _INF = float("inf")
 _EPS = float(torch.finfo(torch.float32).eps)
 
 # float32 operations per slab test of a child or of a sweep node (6 mul,
-# 6 sub, 10 min/max, 1 max with 0, 2 compares) and per triangle test (tv 3,
-# two cross
-# products 18, the four forms 4 x 5 + 2 negations, 6 hit compares and 2
-# adds/muls for the bounds, reciprocal and product 2); and per fired leaf
-# the ray origin moved to the cluster frame (centre 6, o' 3)
+# 6 sub, 10 min/max, 1 max with 0, 2 compares); per (ray, triangle) test
+# (tv 3, w = tv x d 9, the four forms 4 x 5 + 2 negations, 6 hit compares
+# and 2 adds/muls for the bounds, reciprocal and product 2); per triangle,
+# whatever the number of rays tested against it, p = e2 x e1 (9: a bound
+# charges it once for every triangle of the scene); and per fired leaf the
+# ray origin moved to the cluster frame (centre 6, o' 3)
 SLAB_OPS = 25
-TRI_OPS = 53
+TRI_OPS = 44
+TRI_ONCE_OPS = 9
 LEAF_OPS = 9
 N_ROWS = 13  # ray rows: o*inv (3), inv (3), t_max, d (3), o (3)
 
@@ -180,12 +182,15 @@ def _cross_rows(u0, u1, u2, v0, v1, v2):
 
 def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
                 r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz,
-                sent: int = SENT, row0: int = 7):
+                sent: int = SENT, row0: int = 7, lo=None):
     """Leaf tests of the (ray ``r[i]``, cluster ``c[i]``) pairs with frame
     origins ``cc``: each pair's smallest packed key over the cluster's W
     triangles, ``sent`` where none is below it. ``tiles`` is ``groups`` as
     [G, 128, 16] (lane-major); rows ``row0`` to ``row0 + 5`` of ``rays``
-    hold d (3) and o (3)."""
+    hold d (3) and o (3).
+
+    ``lo``: optional ``(lox, loy, loz)``, the rounding error of each pair's
+    ``o - cc`` (``cluster_trace.two_diff``); then ``tv = (o' - a') + lo``."""
     dev = rays.device
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
@@ -198,6 +203,9 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(9))
     # the bilinear forms around tv = o' - a' (see csrc/trace_common.cuh)
     tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
+    if lo is not None:
+        lox, loy, loz = (x[:, None] for x in lo)
+        tvx, tvy, tvz = tvx + lox, tvy + loy, tvz + loz
     p0, p1, p2 = _cross_rows(e20, e21, e22, e10, e11, e12)  # e2 x e1
     w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
     det = (p0 * dx + p1 * dy) + p2 * dz

@@ -54,10 +54,9 @@ final line):
    2,097,152 reference rays) and legacy_aimed (the 1,048,576 aimed rays,
    exact recompute) through trace_closest_hit, each sorted with sort_rays;
    brute-force bounds; legacy_aimed equal to the aimed leg of phase 3
-   outside the near-tie and grazing-edge classes; the cluster kernel
-   against its plain version on
-   each leg's rows (bit for bit), both timed there beside the kernel's
-   bound.
+   outside the near-tie, grazing-edge and crack classes (each counted);
+   the cluster kernel against its plain version on each leg's rows (bit
+   for bit), both timed there beside the kernel's bound.
 11. chained, the slice's main path at full size: bench.py's sparse_1m leg
    (1,008,000 triangles in 11 parts, 2,097,152 rays), the aimed rays on the
    same chain (closest with the exact recompute; any hit at 1.2x and 0.8x
@@ -70,7 +69,10 @@ final line):
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
 hinted, packed), the group walk's any mode and hints, the sweep on a
 packed table and with a pre-gate, and the legacy cluster kernel (relative,
-global frame, broadphase only) against their plain versions.
+global frame, broadphase only) against their plain versions. The two
+kernels that run a warp of rays or points together, the legacy cluster
+walk and the nearest group walk, are also held there on unsorted rows,
+where a warp's lanes diverge the most.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -151,6 +153,18 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# the port's CUDA kernels, as the profiler names them (after "void " for a
+# templated one): "(anonymous namespace)::<name>(...)"
+PORT_KERNELS = ("wide_trace_kernel", "sweep_kernel", "tight_trace_kernel",
+                "cluster_trace_kernel", "nearest_wide_kernel",
+                "nearest_entry_exit_kernel")
+
+
+def is_port_kernel(key: str) -> bool:
+    name = key.removeprefix("void ").removeprefix("(anonymous namespace)::")
+    return name.split("(")[0].split("<")[0] in PORT_KERNELS
+
+
 def port_launches() -> int:
     """Launches of the port's kernels so far, over every wrapper's count."""
     return (wide_mod.launches + sweep_mod.launches + tight_mod.launches
@@ -166,9 +180,9 @@ def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
     The profiler has dropped some of the port's kernels from a trace (a
     whole call's events once; a single 104 ms launch another time), so a
     profile counts only if it holds one event for every launch the port's
-    wrappers counted during it (their names start with "(anonymous
-    namespace)::"). Up to ``attempts`` profiles are taken; where none is
-    whole, the leg's device time is "not measured"."""
+    wrappers counted during it (``is_port_kernel``). Up to ``attempts``
+    profiles are taken; where none is whole, the leg's device time is "not
+    measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,8 +197,7 @@ def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
         made = port_launches() - before
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        seen = sum(e.count for e in events
-                   if e.key.startswith("(anonymous namespace)::"))
+        seen = sum(e.count for e in events if is_port_kernel(e.key))
         if seen == made and events:
             break
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:90])
@@ -617,8 +630,8 @@ def near_compare(kind: str, sc, rows, refine: bool = True):
 
 def phase_nearest_kernels(dev) -> dict:
     """Phase 2, nearest: both nearest kernels against their plain versions
-    on 65,536 sorted points of create_n_cubes(1000), half reference-random
-    and half near the triangles."""
+    on 65,536 points of create_n_cubes(1000), half reference-random and
+    half near the triangles, sorted and unsorted."""
     a, b, c = tb.create_n_cubes(1000)
     scene = build_tight_scene(a, b, c)
     n = 65536
@@ -626,9 +639,9 @@ def phase_nearest_kernels(dev) -> dict:
     rng = np.random.default_rng(5)
     cen = (a + b + c) / 3.0
     near = cen[rng.integers(0, len(cen), n // 2)] + rng.normal(size=(n // 2, 3))
-    pts = torch.from_numpy(np.concatenate([o, near]).astype(np.float32)).to(dev)
-    perm, _ = sort_points_device(pts, device=dev)
-    pts = pts[perm]
+    pts_u = torch.from_numpy(np.concatenate([o, near]).astype(np.float32)).to(dev)
+    perm, _ = sort_points_device(pts_u, device=dev)
+    pts = pts_u[perm]
     rows = near_mod.point_rows(pts, None)
     d2, _ = near_kernel("wide", scene, rows)
     # a per-point radius between 0 and twice the nearest distance: about
@@ -637,9 +650,12 @@ def phase_nearest_kernels(dev) -> dict:
                    device=dev)
     rows_b = near_mod.point_rows(pts, torch.sqrt(d2) * 2.0 * u)
     out, err = {}, {"nearest_wide": 0.0, "nearest_tight": 0.0}
-    for case, (r, refine) in {"unbounded": (rows, True),
-                              "radius": (rows_b, True),
-                              "no_refine": (rows, False)}.items():
+    shuffle = torch.from_numpy(np.random.default_rng(12).permutation(n)).to(dev)
+    for case, (r, refine) in {
+            "unbounded": (rows, True), "radius": (rows_b, True),
+            "no_refine": (rows, False),
+            "unsorted": (near_mod.point_rows(pts_u, None), True),
+            "unsorted_radius": (rows_b[:, shuffle].contiguous(), True)}.items():
         for kind, name in (("wide", "nearest_wide"),
                            ("entry_exit", "nearest_tight")):
             differ, hits, e = near_compare(kind, scene, r, refine)
@@ -709,19 +725,38 @@ def ties_only(p, sid_a, d_a, sid_b, d_b, tris_dev) -> bool:
             and bool(torch.isclose(da, db, rtol=1e-5, atol=0).all()))
 
 
+def nearest_points(tris_d, dev):
+    """The nearest legs' points on the card: bench.py's N_POINTS random
+    points, and N_POINTS points scattered (normal, scale 1) about the
+    centroids of the dense mesh ``tris_d``."""
+    pr = torch.from_numpy(tb.create_rays(
+        N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)
+    rng = np.random.default_rng(4)
+    cen = (tris_d[0] + tris_d[1] + tris_d[2]) / 3.0
+    ps = (cen[rng.integers(0, len(cen), N_POINTS)]
+          + rng.normal(scale=1.0, size=(N_POINTS, 3))).astype(np.float32)
+    return pr, torch.from_numpy(ps).to(dev)
+
+
+def nearest_rows(pr_dev, ps_dev):
+    """The point rows the nearest kernels take on the two legs, sorted as
+    ``nearest_tight`` sorts them: the random points without a radius, the
+    surface points with d_max = SURFACE_D_MAX."""
+    dev = pr_dev.device
+    perm_r, _ = sort_points_device(pr_dev, device=dev)
+    perm_s, _ = sort_points_device(ps_dev, device=dev)
+    return (near_mod.point_rows(pr_dev[perm_r], None),
+            near_mod.point_rows(ps_dev[perm_s], torch.full(
+                (ps_dev.shape[0],), SURFACE_D_MAX, device=dev)))
+
+
 def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
                    err: dict) -> list:
     """Phases 6 and 7: the nearest main path, its checks and timings.
     Returns the two nearest kernels' entries of the ``kernels`` line."""
     tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
     trisd_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_d)
-    pr_dev = torch.from_numpy(tb.create_rays(
-        N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)
-    rng = np.random.default_rng(4)
-    cen = (tris_d[0] + tris_d[1] + tris_d[2]) / 3.0
-    ps = (cen[rng.integers(0, len(cen), N_POINTS)]
-          + rng.normal(scale=1.0, size=(N_POINTS, 3))).astype(np.float32)
-    ps_dev = torch.from_numpy(ps).to(dev)
+    pr_dev, ps_dev = nearest_points(tris_d, dev)
     legs = {
         "nearest_random": lambda: nearest_tight(scene, pr_dev),
         "nearest_random_entry_exit": lambda: nearest_tight(scene, pr_dev,
@@ -777,14 +812,11 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
     emit("nearest_breakdown", card=card, legs={
         leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
     # each kernel on the legs' own sorted rows, against its plain version
-    perm_r, _ = sort_points_device(pr_dev, device=dev)
-    rows_r = near_mod.point_rows(pr_dev[perm_r], None)
-    perm_s, _ = sort_points_device(ps_dev, device=dev)
-    rows_s = near_mod.point_rows(ps_dev[perm_s], torch.full(
-        (N_POINTS,), SURFACE_D_MAX, device=dev))
+    rows_r, rows_s = nearest_rows(pr_dev, ps_dev)
     runs = {"nearest_wide/random": ("wide", scene, rows_r),
             "nearest_tight/random": ("entry_exit", scene, rows_r),
             "nearest_wide/surface_w128": ("wide", scene_d, rows_s)}
+    n_tris = {"random": len(tris[0]), "surface_w128": len(tris_d[0])}
     t0 = time.perf_counter()
     vs_plain = {}
     for key, (kind, sc, rows) in runs.items():
@@ -807,7 +839,8 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
                                         counts=True)
         steps_pp, fires_pp = float(steps.float().mean()), float(fires.float().mean())
         wide = kind == "wide"
-        ops = N_POINTS * near_mod.walk_ops(wide, sc.width, steps_pp, fires_pp)
+        ops = (N_POINTS * near_mod.walk_ops(wide, sc.width, steps_pp, fires_pp)
+               + n_tris[key.split("/")[1]] * near_mod.TRI_ONCE_OPS)
         table = sc.gnodes if wide else sc.smem_nodes
         nbytes = ((near_mod.N_ROWS * 4 + 8) * N_POINTS + table.nbytes
                   + sc.groups.nbytes)
@@ -832,15 +865,23 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
              "bvh_tpu/ops/nearest.py:214"))]
 
 
+def main_rays(a):
+    """The ray legs of the 120k scene (first vertices ``a``), numpy:
+    bench.py's 2,097,152 random rays and its 1,048,576 aimed rays."""
+    o, d = tb.create_rays(2 << 20, seed=tb.seed_state_after(10000))
+    return (o, d, *tb.aimed_rays(a, 1 << 20))
+
+
 def walk_bound(n: int, width: int, steps: float, fires: float, wide: bool,
-               nbytes: float):
+               nbytes: float, n_tris: int):
     """Operations of ``n`` rays' trace walks (``steps`` group tests or node
-    visits and ``fires`` narrowphased leaves per ray) and the least time
-    for them and ``nbytes``."""
+    visits and ``fires`` narrowphased leaves per ray) over a scene of
+    ``n_tris`` triangles, and the least time for them and ``nbytes``."""
     step = (wide_mod.K * wide_mod.SLAB_OPS if wide
             else wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
-    ops = n * (steps * step + fires * (wide_mod.LEAF_OPS
-                                       + width * wide_mod.TRI_OPS))
+    ops = (n * (steps * step + fires * (wide_mod.LEAF_OPS
+                                        + width * wide_mod.TRI_OPS))
+           + n_tris * wide_mod.TRI_ONCE_OPS)
     bms, by = roofline(ops, nbytes)
     return {"ops": ops, "bytes": nbytes, "bound_ms": bms, "bound_by": by}
 
@@ -952,7 +993,7 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     n = rows.shape[1]
     b = walk_bound(n, W, tests_pr, fires_pr, True,
                    wide_mod.N_ROWS * 4 * n + scene_d.gnodes.nbytes
-                   + scene_d.groups.nbytes + 8 * n)
+                   + scene_d.groups.nbytes + 8 * n, len(tris_np[0]))
     emit("pathtrace_timings", card=card, ms=ms, rays_per_s=rays / (ms * 1e-3),
          rays_counted=rays, breakdown=bd,
          wide_trace_any={"ms": kms, "plain_ms": pms, "group_tests": tests_pr,
@@ -1152,7 +1193,7 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
         work[leg] = {"node_visits": v_pr, "leaf_fires": f_pr}
         b = walk_bound(n, W, v_pr, f_pr, False,
                        wide_mod.N_ROWS * 4 * n + table.nbytes + groups.nbytes
-                       + 8 * n)
+                       + 8 * n, len(tris_np[0]))
         bounds[leg] = {**b, "ops_ms_at_issue_rate": b["ops"] / issue * 1e3}
     emit("entry_exit_timings", card=card, end_to_end=e2e,
          kernels_vs_plain={"seconds": vs_s, "runs": vs_plain},
@@ -1172,16 +1213,20 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
 def phase_legacy_kernels(dev, n: int = 65536) -> dict:
     """Phase 2, slice 4: the legacy cluster kernel against its plain version
     on 65,536 random and 65,536 aimed rays of create_n_cubes(1000), each
-    sorted with sort_rays, on the relative and the global-frame scene and
-    broadphase only (skip_narrow). Results must agree bit for bit."""
+    sorted with sort_rays and unsorted, on the relative and the
+    global-frame scene and broadphase only (skip_narrow). Results must
+    agree bit for bit."""
     a, b, c = tb.create_n_cubes(1000)
     scenes = {rel: build_cluster_scene(a, b, c, relative=rel)
               for rel in (True, False)}
     o, d = tb.create_rays(n, seed=tb.seed_state_after(1000))
     ao, ad = tb.aimed_rays(a, n)
     out, err = {}, 0.0
-    for leg, (lo, ld) in {"random": (o, d), "aimed": (ao, ad)}.items():
-        perm, _ = sort_rays(lo, ld)
+    for leg, (lo, ld) in {"random": (o, d), "aimed": (ao, ad),
+                          "random_unsorted": (o, d),
+                          "aimed_unsorted": (ao, ad)}.items():
+        perm = (np.random.default_rng(11).permutation(n)
+                if leg.endswith("unsorted") else sort_rays(lo, ld)[0])
         rows = ct_mod.ray_rows(Ray.create(lo[perm], ld[perm], device=dev))
         res = {}
         for case, (rel, skip) in {"relative": (True, False),
@@ -1213,6 +1258,18 @@ def legacy_tables(sc, dev):
             _dev(sc.tris_rel, dev))
 
 
+def sort_legacy(o, d, dev):
+    """A legacy leg's rays sorted on the host with sort_rays: the sorted
+    numpy (o, d), the same on ``dev``, the inverse permutation and the
+    sort's seconds."""
+    t0 = time.perf_counter()
+    perm, unsort = sort_rays(o, d)
+    seconds = time.perf_counter() - t0
+    sorted_np = (o[perm], d[perm])
+    return (sorted_np, tuple(torch.from_numpy(x).to(dev) for x in sorted_np),
+            unsort, seconds)
+
+
 def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
                  err: dict) -> dict:
     """Phase 10: the legacy ClusterScene path at full size (the 120k
@@ -1231,12 +1288,8 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     sort_s, sorted_np, rays_dev, unsort = {}, {}, {}, {}
     for leg, (lo, ld) in {"legacy_random": (o, d),
                           "legacy_aimed": (ao, ad)}.items():
-        t0 = time.perf_counter()
-        perm, unsort[leg] = sort_rays(lo, ld)
-        sort_s[leg] = time.perf_counter() - t0
-        sorted_np[leg] = (lo[perm], ld[perm])
-        rays_dev[leg] = tuple(torch.from_numpy(x).to(dev)
-                              for x in sorted_np[leg])
+        (sorted_np[leg], rays_dev[leg], unsort[leg],
+         sort_s[leg]) = sort_legacy(lo, ld, dev)
     legs = {
         "legacy_random": lambda: trace_closest_hit(
             scene, Ray.create(*rays_dev["legacy_random"])),
@@ -1264,12 +1317,15 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     check(hit_aim >= 0.999, f"legacy_aimed hit fraction {hit_aim} < 0.999")
     # both aimed legs recompute the winner's exact t, so rays with the same
     # winner agree bit for bit; a near tie is one legacy key step (W=128).
-    # The legacy walk takes the origin relative to a Morton cluster's
-    # centre, up to ~4e4 units away, which rounds it by up to 2^-9 of a
-    # unit an axis: a ray that one walk hits within CRACK_BAND
-    # (barycentric, on unit cubes) of an edge can run through that edge in
-    # the other's frame, where both triangles' edge tests may round outside
-    # (tests/test_torch_legacy.py::test_crack_ray_at_a_cube_edge)
+    # A one-sided miss within CRACK_BAND (barycentric, on unit cubes) of an
+    # edge is the crack class. The legacy table stores each triangle's a'
+    # relative to a Morton cluster's centre, up to ~4e4 units away, where
+    # float32 keeps 2^-8 of a unit, so two triangles that share an edge may
+    # be stored 2^-8 apart, and a ray can pass between them
+    # (tests/test_torch_legacy.py::test_table_crack_ray_at_a_cube_edge).
+    # The walk's own origin in that frame is an exact float pair, which
+    # closed the crack its rounding had opened
+    # (::test_crack_ray_at_a_cube_edge)
     back = torch.from_numpy(unsort["legacy_aimed"]).to(dev)
     h_leg = res["legacy_aimed"]
     h_leg = h_leg._replace(**{f: getattr(h_leg, f)[back]
@@ -1286,7 +1342,8 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     crack = (one_hits & (edge_d <= CRACK_BAND)).cpu().numpy()
     diffs, outside = classify_differences(h_aim, h_leg, ct_mod.CW, crack)
     check(outside == 0, f"legacy_aimed differs from the aimed leg on "
-          f"{outside} rays outside the near-tie and grazing-edge classes")
+          f"{outside} rays outside the near-tie, grazing-edge and crack "
+          "classes")
     emit("legacy", triangles=int(a.shape[0]), build_s=build_s,
          sort_s=sort_s, clusters=int(scene.num_clusters),
          nodes=int(scene.num_nodes),
@@ -1342,8 +1399,9 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
         v_pr, f_pr = float(visits.float().mean()), float(fires.float().mean())
         work[leg] = {"node_visits": v_pr, "leaf_fires": f_pr,
                      "triangle_tests": f_pr * ct_mod.CW}
-        ops = n * (v_pr * (wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
-                   + f_pr * (ct_mod.LEAF_OPS + ct_mod.CW * wide_mod.TRI_OPS))
+        ops = (n * (v_pr * (wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
+                    + f_pr * (ct_mod.LEAF_OPS + ct_mod.CW * ct_mod.TRI_OPS))
+               + a.shape[0] * wide_mod.TRI_ONCE_OPS)
         nbytes = (ct_mod.N_ROWS * 4 * n + scene.smem_nodes.nbytes
                   + scene.smem_cc.nbytes + scene.tris_rel.nbytes + 8 * n)
         bms, by = roofline(ops, nbytes)
@@ -1701,9 +1759,8 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     check(scene.gnodes is not None and scene.width == 16, "120k scene layout")
     tris_dev = tuple(torch.from_numpy(x).to(dev) for x in (a, b, c))
-    n_rand, n_aim = 2 << 20, 1 << 20
-    o, d = tb.create_rays(n_rand, seed=tb.seed_state_after(10000))
-    ao, ad = tb.aimed_rays(a, n_aim)
+    o, d, ao, ad = main_rays(a)
+    n_rand, n_aim = len(o), len(ao)
     o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     ao_dev, ad_dev = torch.from_numpy(ao).to(dev), torch.from_numpy(ad).to(dev)
     tr_rand = make_tracer(scene, packet=8192, sweep=False, sort="octmorton")
@@ -1826,8 +1883,9 @@ def main() -> None:
     tests_pr, fires_pr = float(tests.float().mean()), float(fires.float().mean())
     visits_pr = float(visits.float().mean())
     W = scene.width
-    wide_ops = n * (tests_pr * wide_mod.K * wide_mod.SLAB_OPS
-                    + fires_pr * (wide_mod.LEAF_OPS + W * wide_mod.TRI_OPS))
+    wide_ops = (n * (tests_pr * wide_mod.K * wide_mod.SLAB_OPS
+                     + fires_pr * (wide_mod.LEAF_OPS + W * wide_mod.TRI_OPS))
+                + a.shape[0] * wide_mod.TRI_ONCE_OPS)
     wide_bytes = (wide_mod.N_ROWS * 4 * n + scene.gnodes.nbytes
                   + scene.groups.nbytes + 8 * n)
     sweep_ops = n * visits_pr * wide_mod.SLAB_OPS

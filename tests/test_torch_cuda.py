@@ -453,3 +453,139 @@ def test_k_closest_stacked_on_card_matches_cpu(cuda):
         ref = fn(sc, rays, k=5, packet=256, tris=tris, device="cpu")
         assert (ref[2] > 2).float().mean() > 0.2
         _equal(got, ref)
+
+
+# ---- the warp schedules of the cluster walk and the nearest group walk ----
+#
+# Both kernels run a warp of 32 rays or points together (a shared cursor or
+# group order, leaf tests shared by the lanes that fire them); these inputs
+# stress that: unsorted rows (the most divergence), counts that leave a
+# warp ragged, and warps in which one lane fires.
+
+def _shuffled(n, *arrays, seed=0):
+    perm = np.random.default_rng(seed).permutation(n)
+    return tuple(x[perm] for x in arrays)
+
+
+@pytest.mark.parametrize("mode", ["relative", "global", "skip_narrow"])
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+def test_cluster_kernel_warp_schedule(cuda, n, mode):
+    a, b, c = tb.create_n_cubes(500)
+    o, d = _rays(a, n=65538)
+    o, d = _shuffled(65538, o, d, seed=n)
+    o, d = o[:n], d[:n]
+    scene = build_cluster_scene(a, b, c, relative=mode != "global")
+    rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
+    tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
+              _dev(scene.tris_rel, cuda))
+    kw = dict(relative=scene.relative, skip_narrow=mode == "skip_narrow")
+    tk, ik = ct_mod.cluster_trace(*tables, rows, **kw)
+    tp, ip = ct_mod.cluster_trace_plain(*tables, rows, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    if mode == "skip_narrow":
+        assert not (ik >= 0).any()
+    elif n > 33:
+        assert (ik >= 0).any() and (ik < 0).any()
+
+
+def _one_lane_rows(a, n_warps, lanes):
+    """Rays of which only lane ``lanes[w]`` of each warp w is aimed at a
+    cube; the others start beyond the scene and point away from it."""
+    n = 32 * n_warps
+    ao, ad = tb.aimed_rays(a, n, seed=7)
+    o = np.full((n, 3), 3e5, np.float32)
+    d = np.tile(np.array([[1.0, 0.5, 0.25]], np.float32), (n, 1))
+    idx = 32 * np.arange(n_warps) + np.asarray(lanes)
+    o[idx], d[idx] = ao[idx], ad[idx]
+    return o, d, idx
+
+
+@pytest.mark.parametrize("relative", [True, False])
+def test_cluster_kernel_one_lane_fires(cuda, relative):
+    a, b, c = tb.create_n_cubes(500)
+    o, d, idx = _one_lane_rows(a, 4, [0, 5, 17, 31])
+    scene = build_cluster_scene(a, b, c, relative=relative)
+    rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
+    tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
+              _dev(scene.tris_rel, cuda))
+    tk, ik = ct_mod.cluster_trace(*tables, rows, relative=relative)
+    tp, ip = ct_mod.cluster_trace_plain(*tables, rows, relative=relative)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    hit = (ik >= 0).cpu().numpy()
+    assert hit[idx].all() and hit.sum() == len(idx)
+
+
+@pytest.fixture(scope="module")
+def wide_scenes(cuda):
+    """One scene per cluster width: the cube scene at W = 16, 32 and 64,
+    the dense mesh at W = 128, with their triangles."""
+    out = {}
+    cubes = tb.create_n_cubes(500)
+    for w in (16, 32, 64):
+        out[w] = (build_tight_scene(*cubes, leaf_size=w), cubes)
+    mesh = tb.create_dense_mesh(120)
+    out[128] = (build_tight_scene(*mesh, leaf_size=128), mesh)
+    for w, (sc, _) in out.items():
+        assert sc.width == w and sc.gnodes is not None
+    return out
+
+
+def _near_rows(pts, d_max, dev):
+    return near_mod.point_rows(torch.from_numpy(pts).to(dev),
+                               torch.from_numpy(d_max).to(dev))
+
+
+def _near_pair(scene, rows, dev, refine):
+    gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
+    before = near_mod.wide_launches
+    dk, ik = near_mod.nearest_wide(gn, grp, rows, scene.width, scene.gdepth,
+                                   refine=refine)
+    assert near_mod.wide_launches == before + 1
+    dp, ip = near_mod.nearest_wide_plain(gn, grp, rows, scene.width,
+                                         refine=refine)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dk), _bits(dp))
+    assert torch.equal(ik, ip)
+    return ik
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_nearest_wide_warp_schedule(wide_scenes, cuda, width, n, refine):
+    scene, (a, b, c) = wide_scenes[width]
+    rng = np.random.default_rng(n + width)
+    cen = (a + b + c) / 3.0
+    m = 65538
+    near = cen[rng.integers(0, len(cen), m // 2)] + rng.normal(
+        scale=3.0, size=(m // 2, 3))
+    lo, hi = a.min(axis=0) - 50.0, a.max(axis=0) + 50.0
+    far = rng.uniform(lo, hi, (m // 2, 3))
+    pts = np.concatenate([near, far]).astype(np.float32)
+    # every third point has a radius of 5
+    d_max = np.where(np.arange(m) % 3 == 0, 5.0, np.inf).astype(np.float32)
+    pts, d_max = _shuffled(m, pts, d_max, seed=n)
+    ik = _near_pair(scene, _near_rows(pts[:n], d_max[:n], cuda), cuda, refine)
+    if n > 33:
+        assert (ik >= 0).any() and (ik < 0).any()
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_nearest_wide_one_lane_fires(wide_scenes, cuda, width):
+    """Points whose radius is 0 fire no box; one lane of each warp has none
+    and so walks and narrowphases alone."""
+    scene, (a, b, c) = wide_scenes[width]
+    n_warps = 4
+    cen = (a + b + c) / 3.0
+    pts = cen[np.random.default_rng(8).integers(0, len(cen), 32 * n_warps)]
+    d_max = np.zeros(32 * n_warps, np.float32)
+    idx = 32 * np.arange(n_warps) + np.array([0, 9, 16, 31])
+    d_max[idx] = np.inf
+    ik = _near_pair(scene, _near_rows(pts.astype(np.float32), d_max, cuda),
+                    cuda, True)
+    hit = (ik >= 0).cpu().numpy()
+    assert hit[idx].all() and hit.sum() == len(idx)

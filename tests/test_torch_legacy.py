@@ -12,9 +12,13 @@ Tolerances:
   2^-16 relative); raw t within the key truncation (2^-16 relative) with
   the reference's reciprocal made exact (``exact_reciprocal``), and within
   2^-8 as shipped (the reference's approximate reciprocal is bfloat16 in
-  interpret mode). The per-ray walk would differ from the packet kernel
-  also in the grazing-edge and face-plane classes; these rays are aimed
-  away from edges and face planes, so neither occurs here.
+  interpret mode). The port keeps the ray origin in the cluster frame as a
+  float pair (``cluster_trace.two_diff``), the reference rounds it once:
+  where the pair's low part is not 0, the two raw t may differ by that one
+  key step, which the same tolerance holds. The per-ray walk would differ
+  from the packet kernel also in the grazing-edge and face-plane classes;
+  these rays are aimed away from edges and face planes, so neither occurs
+  here.
 * With ``tris``: t and u within 1e-4 of the brute-force oracle, as the
   reference's own test (tests/test_trace_kernel.py) holds it.
 """
@@ -235,35 +239,50 @@ def test_face_plane_ray_misses_the_box():
     assert torch.isfinite(ht.t).all()
 
 
-def test_crack_ray_at_a_cube_edge(exact_reciprocal):
+@pytest.fixture(scope="module")
+def aimed_120k():
+    """bench.py's aimed leg on the 120k scene: the triangles, the
+    1,048,576 aimed rays and the port's ClusterScene."""
+    a, b, c = tb.create_n_cubes(10000)
+    ao, ad = tb.aimed_rays(a, 1 << 20)
+    return (a, b, c), ao, ad, build_cluster_scene(a, b, c)
+
+
+def _brute_one(rays, tris):
+    """Brute force's closest triangle of one ray: (id, t, u, v)."""
+    tt = tuple(torch.from_numpy(x)[None] for x in tris)
+    brute = ray_intersects_triangle(Ray(*(x[:, None] for x in rays)), *tt)
+    k = int(brute.distance[0].argmin())
+    return (k, float(brute.distance[0, k]), float(brute.u[0, k]),
+            float(brute.v[0, k]))
+
+
+def test_crack_ray_at_a_cube_edge(exact_reciprocal, aimed_120k):
     """The one ray of bench.py's aimed set on the 120k scene
     (create_n_cubes(10000), aimed_rays(a, 2**20), ray 805001) that the
-    legacy walk misses while brute force hits: triangle 91993, 2^-9
+    legacy walk missed while brute force hits: triangle 91993, 2^-9
     (barycentric) inside the edge it shares with 92002 on a unit cube.
 
     The cluster frame rounds the origin: o - cc lies ~3.9e4 from the
     cluster centre, where float32 keeps 2^-8 of a unit, and its z moves by
     2^-9, which puts the ray through that shared edge. There the float32
-    edge tests of both triangles round to outside, so the per-ray walk
-    falls through (the crack class). The reference's forms round the same
-    table differently and report 92002 at a t within 1e-5 of the true
-    hit: the grazing-edge class."""
-    a, b, c = tb.create_n_cubes(10000)
+    edge tests of both triangles round to outside (the crack class). The
+    walk keeps the origin as a float pair, o - cc = hi + lo exactly, and
+    forms tv = (hi - a') + lo, so it hits 91993 as brute force does. The
+    reference's forms round the same table differently and report 92002
+    at a t within 1e-5 of the true hit: the grazing-edge class."""
+    (a, b, c), ao, ad, st = aimed_120k
     ray = 805001
-    ao, ad = tb.aimed_rays(a, 1 << 20)
     o, d = ao[ray:ray + 1], ad[ray:ray + 1]
-    st = build_cluster_scene(a, b, c)
     rays = Ray.create(o, d, device=CPU)
-    tris = tuple(torch.from_numpy(x)[None] for x in (a, b, c))
-    brute = ray_intersects_triangle(Ray(*(x[:, None] for x in rays)), *tris)
-    k = int(brute.distance[0].argmin())
-    t_true = float(brute.distance[0, k])
-    w = 1.0 - float(brute.u[0, k]) - float(brute.v[0, k])
-    assert k == 91993 and 0.0 < w < 3e-3
-    # the stored rows, with the origin as the frame rounds it, put the ray
-    # on the edge of both triangles (float64 on the stored values)
+    k, t_true, u, v = _brute_one(rays, (a, b, c))
+    assert k == 91993 and 0.0 < 1.0 - u - v < 3e-3
+    # the stored rows, with the origin as o - cc rounds it, put the ray on
+    # the edge of both triangles (float64 on the stored values)
     cl = int(np.nonzero(st.tri_map == k)[0][0]) // 128
     o_rel = (rays.origin[0].numpy() - st.smem_cc[:3, cl]).astype(np.float64)
+    hi, lo = ct_mod.two_diff(rays.origin[0], torch.from_numpy(st.smem_cc[:3, cl]))
+    assert (lo != 0).any()
     dd = rays.direction[0].numpy().astype(np.float64)
     for tid in (91993, 92002):
         lane = int(np.nonzero(st.tri_map == tid)[0][0])
@@ -275,9 +294,78 @@ def test_crack_ray_at_a_cube_edge(exact_reciprocal):
         det = p @ e1
         assert abs(1.0 - (tv @ p) / det - (dd @ q) / det) < 1e-6
     ht = trace_closest_hit(st, rays, device=CPU)
-    assert not torch.isfinite(ht.t).any() and int(ht.shape_id[0]) == -1
+    assert int(ht.shape_id[0]) == 91993
+    assert abs(float(ht.t[0]) - t_true) <= 2e-4 * t_true
+    # the exact recompute on the winner
+    hx = trace_closest_hit(st, rays, tris=(a, b, c), device=CPU)
+    assert int(hx.shape_id[0]) == 91993
+    assert abs(float(hx.t[0]) - t_true) <= 1e-6 * t_true
     hj = trace_j(build_j(a, b, c), bvh_tpu.Ray.create(jnp.asarray(o),
                                                       jnp.asarray(d)),
                  interpret=True)
     assert int(hj.shape_id[0]) == 92002
     assert abs(float(hj.t[0]) - t_true) <= 1e-5 * t_true
+
+
+@pytest.mark.parametrize("scale", [1e2, 4e4, 1e5])
+def test_two_diff_is_exact(scale):
+    """The cluster-frame origin's float pair: hi + lo equals o - cc exactly
+    (float64 holds the sum and the difference of two float32 values of
+    these sizes exactly), hi is the rounded difference, and lo is 0 where
+    the difference is exact in float32 (cc = 0, the global frame)."""
+    rng = np.random.default_rng(int(scale))
+    o = rng.uniform(-scale, scale, 100_000).astype(np.float32)
+    cc = rng.uniform(-scale, scale, 100_000).astype(np.float32)
+    hi, lo = ct_mod.two_diff(torch.from_numpy(o), torch.from_numpy(cc))
+    exact = o.astype(np.float64) - cc.astype(np.float64)
+    assert np.array_equal(hi.numpy(), (o - cc).astype(np.float32))
+    assert np.array_equal(hi.numpy().astype(np.float64)
+                          + lo.numpy().astype(np.float64), exact)
+    assert (lo.numpy() != 0).mean() > 0.1
+    hi0, lo0 = ct_mod.two_diff(torch.from_numpy(o), torch.zeros(1))
+    assert torch.equal(hi0, torch.from_numpy(o)) and not lo0.any()
+
+
+def test_table_crack_ray_at_a_cube_edge(exact_reciprocal, aimed_120k):
+    """A crack in the table, which the exact cluster-frame origin cannot
+    close: ray 475904 of the same aimed set. Brute force hits triangle
+    54391 2.2e-3 (barycentric) inside an edge. The ClusterScene table
+    (array-equal to the reference's) stores a' = a - cc rounded in
+    float32, ~4e4 units from the cluster centre, and that rounding moved
+    54391's stored a' by 2^-8 in z. With the exact origin, float64 on the
+    stored rows puts the ray outside every stored triangle of the cube. The
+    port's legacy walk misses this ray, an open fault (ROADMAP queue 3):
+    the walk evaluates the stored rows, so closing the crack needs a table
+    that keeps a' exactly. The reference's forms round the table the other
+    way and report 54394, another triangle of the cube, at a t within 1e-4
+    of the true hit: the grazing-edge class."""
+    (a, b, c), ao, ad, st = aimed_120k
+    ray = 475904
+    o, d = ao[ray:ray + 1], ad[ray:ray + 1]
+    rays = Ray.create(o, d, device=CPU)
+    k, t_true, u, v = _brute_one(rays, (a, b, c))
+    assert k == 54391 and 0.0 < v < 3e-3
+    dd = d[0].astype(np.float64)
+    cube = k // 12
+    for tid in range(12 * cube, 12 * cube + 12):
+        lane = int(np.nonzero(st.tri_map == tid)[0][0])
+        cl = lane // 128
+        rows = st.tris_rel[cl, :9, lane % 128].astype(np.float64)
+        ap, e1, e2 = rows[0:3], rows[3:6], rows[6:9]
+        tv = o[0].astype(np.float64) - st.smem_cc[:3, cl].astype(np.float64) - ap
+        p = np.cross(dd, e2)
+        det = p @ e1
+        if det < 1e-12:  # back-facing or edge-on
+            continue
+        q = np.cross(tv, e1)
+        uu, vv = (tv @ p) / det, (dd @ q) / det
+        assert not (uu >= 0 and vv >= 0 and uu + vv <= 1), tid
+        if tid == k:
+            assert -3e-3 < vv < 0.0
+            a_rel = a[k].astype(np.float64) - st.smem_cc[:3, cl].astype(np.float64)
+            assert abs(abs(ap[2] - a_rel[2]) - 2.0 ** -8) < 1e-9
+    hj = trace_j(build_j(a, b, c), bvh_tpu.Ray.create(jnp.asarray(o),
+                                                      jnp.asarray(d)),
+                 interpret=True)
+    assert int(hj.shape_id[0]) == 54394
+    assert abs(float(hj.t[0]) - t_true) <= 1e-4 * t_true
