@@ -16,13 +16,16 @@
 //   * a fired leaf (entry < 0, meaning -(cluster+1)) is narrowphased with
 //     the ray origin in the cluster frame (smem_cc[:, c] for a relative
 //     scene, 0 otherwise) as a float pair: hi = o - cc rounded and lo its
-//     exact rounding error (TwoSum), and tv = (hi - a') + lo in every
-//     triangle test, so that the ~4e4-unit distance to a Morton cluster's
-//     centre costs no precision at the triangle's edges. The cluster's
-//     winner is its smallest key (the bits of t with the low 7 bits
-//     replaced by the lane; no hit is 0x7F000000, so a t >= 2^127 counts
-//     as no hit), and its t replaces the ray's best only when strictly
-//     smaller, so a tie goes to the cluster visited first;
+//     exact rounding error (TwoSum), and tv = ((hi - a') + lo) - a_lo in
+//     every triangle test, where a_lo is the part of the triangle's a - cc
+//     that the stored a' (rounded to float32) leaves out (a zero table
+//     gives the walk without it), so that the ~4e4-unit distance to a
+//     Morton cluster's centre costs no precision at the triangle's edges,
+//     neither in the ray's origin nor in the table. The cluster's winner is its
+//     smallest key (the bits of t with the low 7 bits replaced by the lane;
+//     no hit is 0x7F000000, so a t >= 2^127 counts as no hit), and its t
+//     replaces the ray's best only when strictly smaller, so a tie goes to
+//     the cluster visited first;
 //   * the cursor moves to exit at a leaf or a node that did not fire, else to
 //     entry. skip_narrow walks without leaf tests (every ray a miss).
 //
@@ -30,7 +33,7 @@
 // (-1 on a miss).
 //
 // What bounds it on an H100: float32 operations. A fired leaf costs 128
-// (ray, triangle) tests of 47 operations, 97% of the work on a random ray,
+// (ray, triangle) tests of 50 operations, 97% of the work on a random ray,
 // besides p = e2 x e1 (9 a triangle, whatever the number of rays); the
 // tables (7.7 MB on the 120k-triangle scene) stay in L2. One thread per ray
 // wasted most of that: lanes of a warp fire different leaves at different
@@ -45,10 +48,11 @@
 // at its exit: the warp steps through the union of its rays' nodes once, in
 // table order. When lanes fire a leaf, the warp loads the cluster's rows once,
 // coalesced, lane j taking triangles j, j+32, j+64 and j+96, and computes
-// each triangle's p = e2 x e1 once. Then, for each fired lane in ballot
-// order, it broadcasts that ray (hi, lo, d) with __shfl_sync, every lane
-// tests its four triangles, and __reduce_min_sync takes the key minimum,
-// which does not depend on the order, so the result is the plain version's.
+// each triangle's p = e2 x e1 once, and reads its a_lo. Then, for each fired
+// lane in ballot order, it broadcasts that ray (hi, lo, d) with __shfl_sync,
+// every lane tests its four triangles, and __reduce_min_sync takes the key
+// minimum, which does not depend on the order, so the result is the plain
+// version's.
 // All 32 lanes stay in the loop until every cursor is done (a lane past n
 // starts done): the shuffles and reductions need the whole warp.
 //
@@ -62,7 +66,6 @@ namespace {
 constexpr int CW = 128;                 // triangles per cluster
 constexpr int TPL = CW / 32;            // triangles per lane in a leaf test
 constexpr int LEGACY_SENT = 0x7F000000;  // the legacy kernel's "no hit" key
-constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // x - y as a float pair: hi the rounded difference, lo its rounding error
 // (Knuth's TwoSum of x and -y; ops/cluster_trace.py::two_diff).
@@ -79,6 +82,7 @@ __global__ void __launch_bounds__(128)
     cluster_trace_kernel(const float* __restrict__ nodes, int Nc,
                          const float* __restrict__ cc, int C,
                          const float* __restrict__ tris,
+                         const float* __restrict__ a_lo,
                          const float* __restrict__ rays, int n, int relative,
                          int skip_narrow, float* __restrict__ t_out,
                          int* __restrict__ id_out) {
@@ -129,8 +133,16 @@ __global__ void __launch_bounds__(128)
         two_diff(oz, ccz, hz, lz);
         const float* tile = tris + (size_t)c * 16 * CW;
         Tri tr[TPL];
+        float alx[TPL], aly[TPL], alz[TPL];
 #pragma unroll
-        for (int s = 0; s < TPL; ++s) tr[s] = load_tri(tile, lane + 32 * s);
+        for (int s = 0; s < TPL; ++s) {
+          const int j = lane + 32 * s;
+          tr[s] = load_tri(tile, j);
+          const float* al = a_lo + (size_t)c * 3 * CW + j;
+          alx[s] = __ldg(al);
+          aly[s] = __ldg(al + CW);
+          alz[s] = __ldg(al + 2 * CW);
+        }
         int km = LEGACY_SENT;
         for (unsigned rest = F; rest; rest &= rest - 1) {
           const int f = __ffs(rest) - 1;
@@ -143,9 +155,10 @@ __global__ void __launch_bounds__(128)
           int k = LEGACY_SENT;
 #pragma unroll
           for (int s = 0; s < TPL; ++s) {
-            // tv = (hi - a') + lo
-            int key = tri_key(tr[s], (Hx - tr[s].a0) + Lx, (Hy - tr[s].a1) + Ly,
-                              (Hz - tr[s].a2) + Lz, Dx, Dy, Dz, CW,
+            // tv = ((hi - a') + lo) - a_lo
+            int key = tri_key(tr[s], ((Hx - tr[s].a0) + Lx) - alx[s],
+                              ((Hy - tr[s].a1) + Ly) - aly[s],
+                              ((Hz - tr[s].a2) + Lz) - alz[s], Dx, Dy, Dz, CW,
                               lane + 32 * s, LEGACY_SENT);
             k = key < k ? key : k;
           }
@@ -171,13 +184,15 @@ __global__ void __launch_bounds__(128)
 
 extern "C" int cluster_trace_launch(const float* nodes, int Nc,
                                     const float* cc, int C, const float* tris,
-                                    const float* rays, int n, int relative,
+                                    const float* a_lo, const float* rays,
+                                    int n, int relative,
                                     int skip_narrow, float* t_out, int* id_out,
                                     void* stream) {
   if (n <= 0) return 0;
   const int block = 128;
   const int grid = (n + block - 1) / block;
   cluster_trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      nodes, Nc, cc, C, tris, rays, n, relative, skip_narrow, t_out, id_out);
+      nodes, Nc, cc, C, tris, a_lo, rays, n, relative, skip_narrow, t_out,
+      id_out);
   return (int)cudaGetLastError();
 }

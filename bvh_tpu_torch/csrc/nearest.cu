@@ -1,6 +1,6 @@
-// Nearest triangle to each point: the group walk over the wide table, a warp
-// of 32 points at a time, and the entry/exit walk over the node table, one
-// thread per point, each with its own form of one point-triangle test.
+// Nearest triangle to each point: the group walk over the wide table and the
+// entry/exit walk over the node table, each a warp of 32 points at a time,
+// with one warp-cooperative point-triangle test.
 //
 // Replaces the TPU kernels bvh_tpu/ops/nearest.py::_nearest_wide_body
 // (launched by _nearest_wide) and ::_nearest_body (launched by
@@ -36,28 +36,30 @@
 // cancellation across the cluster frame. Results differ from the
 // reference only at rounding level.
 //
-// What bounds the group walk on an H100: float32 operations, 16 box tests
-// of 34 operations per entered group and a 41-operation cascade per (point,
-// triangle) of a fired leaf, besides |e1|^2, e1.e2 and |e2|^2 (15 a
-// triangle, whatever the number of points); the tables (a few MB) stay in
-// L2. One thread
-// per point lost most of the card to divergence: a lane looped over its own
-// fired leaves while the others waited, its cascade branched seven ways,
-// and each lane recomputed |e1|^2, e1.e2 and |e2|^2 of every triangle.
+// What bounds both walks on an H100: float32 operations, 16 box tests of 34
+// operations per entered group (one box test of 35 per entry/exit node) and
+// a 41-operation cascade per (point, triangle) of a fired leaf, besides
+// |e1|^2, e1.e2 and |e2|^2 (15 a triangle, whatever the number of points);
+// the tables (a few MB) stay in L2. One thread per point lost most of the
+// card to divergence: a lane looped over its own fired leaves while the
+// others waited, its cascade branched seven ways, and each lane recomputed
+// |e1|^2, e1.e2 and |e2|^2 of every triangle.
 //
-// The warp schedule (nearest_wide_kernel). Morton-sorted points of a warp
-// walk nearly the same groups, so the warp steps through the union of its
-// points' groups in DFS order, one group a step, and tests its 16 children
-// for the lanes entering it from broadcast loads. A fired leaf slot is then
-// narrowphased by the whole warp for the lanes that fired it: the cluster's
-// triangles are loaded once, coalesced, with their triangle-only terms,
-// min(W, 32) lanes serve one point (two points a pass at W = 16, four
-// triangles a lane at W = 128), and the key minimum is a warp reduction.
-// The cascade (pair_key) picks its region without branches and divides only
-// where the region needs it, so the warp skips a division no lane needs.
-// Every lane folds its own leaves in ascending slot order, so the result is
-// the plain version's bit for bit. All 32 lanes stay in the loop until
-// every walk is done.
+// The warp schedule. Morton-sorted points of a warp walk nearly the same
+// nodes, so the warp steps through the union of its points' nodes once, in
+// DFS order: the group walk one group a step (nearest_wide_kernel), testing
+// its 16 children for the lanes entering it, the entry/exit walk one node a
+// step (nearest_entry_exit_kernel), each from broadcast loads. A fired leaf
+// is then narrowphased by the whole warp for the lanes that fired it: the
+// cluster's triangles are loaded once, coalesced, with their triangle-only
+// terms, min(W, 32) lanes serve one point (two points a pass at W = 16,
+// four triangles a lane at W = 128), and the key minimum is a warp
+// reduction. The cascade (pair_key) picks its region without branches and
+// divides only where the region needs it, so the warp skips a division no
+// lane needs (in one-thread form, this cascade made the entry/exit walk
+// 2.3x slower than a branchy one). Every lane folds its own leaves in its
+// walk's order, so the result is the plain version's bit for bit. All 32
+// lanes stay in the loop until every walk is done.
 //
 // Numerics: built with -fmad=false and IEEE division, every sum written in
 // one fixed order, so the kernels agree bit for bit with their plain
@@ -169,81 +171,6 @@ __device__ __forceinline__ void fold(Point& p, int km, int c, int W) {
     p.bc = c;
   }
   p.vb = nmin(__int_as_float(p.bk & ~(W - 1)), p.vb);
-}
-
-// Narrowphase of cluster c (frame origin cc) against one point, one thread
-// (the entry/exit walk): pair_key's cascade with branches, so that a thread
-// computes only its own region's terms (with pair_key's form this walk ran
-// about 30% slower on an H100).
-__device__ void point_narrow(Point& p, const float* __restrict__ groups,
-                             int W, int c, float ccx, float ccy, float ccz) {
-  const float inf = __int_as_float(SENT);
-  float opx = p.px - ccx, opy = p.py - ccy, opz = p.pz - ccz;
-  const int per_row = 128 / W;
-  const float* tile =
-      groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
-  int bk = p.bk;
-  for (int j = 0; j < W; ++j) {
-    float a0 = __ldg(tile + 0 * 128 + j), a1 = __ldg(tile + 1 * 128 + j);
-    float a2 = __ldg(tile + 2 * 128 + j), e10 = __ldg(tile + 3 * 128 + j);
-    float e11 = __ldg(tile + 4 * 128 + j), e12 = __ldg(tile + 5 * 128 + j);
-    float e20 = __ldg(tile + 6 * 128 + j), e21 = __ldg(tile + 7 * 128 + j);
-    float e22 = __ldg(tile + 8 * 128 + j);
-    float qx = opx - a0, qy = opy - a1, qz = opz - a2;
-    float d1 = (e10 * qx + e11 * qy) + e12 * qz;
-    float d2 = (e20 * qx + e21 * qy) + e22 * qz;
-    float aa = (e10 * e10 + e11 * e11) + e12 * e12;
-    float bc = (e10 * e20 + e11 * e21) + e12 * e22;
-    float cc = (e20 * e20 + e21 * e21) + e22 * e22;
-    float d3 = d1 - aa, d4 = d2 - bc, d5 = d1 - bc, d6 = d2 - cc;
-    float v, w;
-    if (d1 <= 0.0f && d2 <= 0.0f) {  // vertex A
-      v = 0.0f;
-      w = 0.0f;
-    } else if (d3 >= 0.0f && d4 <= d3) {  // vertex B
-      v = 1.0f;
-      w = 0.0f;
-    } else {
-      float vc = d1 * d4 - d3 * d2;
-      if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) {  // edge AB
-        v = d1 / (d1 - d3);
-        w = 0.0f;
-      } else if (d6 >= 0.0f && d5 <= d6) {  // vertex C
-        v = 0.0f;
-        w = 1.0f;
-      } else {
-        float vb2 = d5 * d2 - d1 * d6;
-        if (vb2 <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) {  // edge AC
-          v = 0.0f;
-          w = d2 / (d2 - d6);
-        } else {
-          float va = d3 * d6 - d5 * d4;
-          if (va <= 0.0f && (d4 - d3) >= 0.0f && (d5 - d6) >= 0.0f) {  // BC
-            float t = (d4 - d3) / ((d4 - d3) + (d5 - d6));
-            v = 1.0f - t;
-            w = t;
-          } else {  // face
-            float denom = (va + vb2) + vc;
-            v = vb2 / denom;
-            w = vc / denom;
-          }
-        }
-      }
-    }
-    float fx = (v * e10 + w * e20) - qx;
-    float fy = (v * e11 + w * e21) - qy;
-    float fz = (v * e12 + w * e22) - qz;
-    float dd = (fx * fx + fy * fy) + fz * fz;
-    if (aa > 0.0f && dd < inf) {
-      int key = (__float_as_int(dd) & ~(W - 1)) | j;
-      if (key < bk) {
-        bk = key;
-        p.bc = c;
-      }
-    }
-  }
-  p.bk = bk;
-  p.vb = nmin(__int_as_float(bk & ~(W - 1)), p.vb);
 }
 
 __device__ __forceinline__ float box_d2min(const Point& p, float ax, float ay,
@@ -457,35 +384,57 @@ __global__ void __launch_bounds__(128)
   if (valid) store_point(p, W, i, d2_out, id_out);
 }
 
-// The entry/exit walk, one thread per point.
-__global__ void nearest_entry_exit_kernel(const float* __restrict__ nodes,
-                                          int Nn,
-                                          const float* __restrict__ groups,
-                                          int W, int refine,
-                                          const float* __restrict__ pts, int n,
-                                          float* __restrict__ d2_out,
-                                          int* __restrict__ id_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point p = load_point(pts, n, i);
+// The entry/exit walk, a warp of 32 points at a time. Each lane keeps its
+// own cursor, bound, best key and best cluster. The node table is in DFS
+// entry/exit order, so a point's cursor only grows: each step the warp takes
+// its smallest live cursor (__reduce_min_sync; a done lane offers
+// 0xFFFFFFFF), the lanes at that cursor test the node from one broadcast
+// load, refining first (vb = min(vb, d2max)) and then firing on d2min < vb,
+// and the others wait; lanes that split at a node meet again at its exit.
+// So the warp steps through the union of its points' nodes once, in table
+// order. A fired leaf is narrowphased by the whole warp for the lanes that
+// fired it (warp_narrow). All 32 lanes stay in the loop until every cursor
+// is done (a lane past n starts done).
+template <int W>
+__global__ void __launch_bounds__(128)
+    nearest_entry_exit_kernel(const float* __restrict__ nodes, int Nn,
+                              const float* __restrict__ groups, int refine,
+                              const float* __restrict__ pts, int n,
+                              float* __restrict__ d2_out,
+                              int* __restrict__ id_out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = i < n;
+  Point p = {0.0f, 0.0f, 0.0f, 0.0f, SENT, 0};
+  if (valid) p = load_point(pts, n, i);
   // node rows: box lo (3), box hi (3), entry, exit, each [Nn]
-  int cursor = 0;
-  while (cursor < Nn) {
-    const float* col = nodes + cursor;
-    float ax = __ldg(col), ay = __ldg(col + Nn), az = __ldg(col + 2 * Nn);
-    float bx = __ldg(col + 3 * Nn), by = __ldg(col + 4 * Nn),
-          bz = __ldg(col + 5 * Nn);
-    float entry = __ldg(col + 6 * Nn), exit_ = __ldg(col + 7 * Nn);
-    float d2min = box_d2min(p, ax, ay, az, bx, by, bz);
-    if (refine) p.vb = nmin(p.vb, box_d2max(p, ax, ay, az, bx, by, bz));
-    bool fired = d2min < p.vb;
-    bool leaf = entry < 0.0f;
-    if (leaf && fired)
-      point_narrow(p, groups, W, (int)(-entry - 1.0f), (ax + bx) * 0.5f,
-                   (ay + by) * 0.5f, (az + bz) * 0.5f);
-    cursor = (leaf || !fired) ? (int)exit_ : (int)entry;
+  int cursor = valid ? 0 : Nn;
+  while (true) {
+    const unsigned cmin = __reduce_min_sync(
+        FULL, cursor < Nn ? (unsigned)cursor : 0xFFFFFFFFu);
+    if (cmin == 0xFFFFFFFFu) break;
+    const bool here = (unsigned)cursor == cmin;
+    const float* col = nodes + cmin;
+    const float ax = __ldg(col), ay = __ldg(col + Nn), az = __ldg(col + 2 * Nn);
+    const float bx = __ldg(col + 3 * Nn), by = __ldg(col + 4 * Nn),
+                bz = __ldg(col + 5 * Nn);
+    const float entry = __ldg(col + 6 * Nn), exit_ = __ldg(col + 7 * Nn);
+    bool fired = false;
+    if (here) {
+      const float d2min = box_d2min(p, ax, ay, az, bx, by, bz);
+      if (refine) p.vb = nmin(p.vb, box_d2max(p, ax, ay, az, bx, by, bz));
+      fired = d2min < p.vb;
+    }
+    const bool leaf = entry < 0.0f;  // the same for the whole warp
+    if (leaf) {
+      const unsigned F = __ballot_sync(FULL, fired);
+      if (F)
+        warp_narrow<W>(p, F, groups, (int)(-entry - 1.0f), (ax + bx) * 0.5f,
+                       (ay + by) * 0.5f, (az + bz) * 0.5f, lane);
+    }
+    if (here) cursor = (leaf || !fired) ? (int)exit_ : (int)entry;
   }
-  store_point(p, W, i, d2_out, id_out);
+  if (valid) store_point(p, W, i, d2_out, id_out);
 }
 
 template <int W>
@@ -494,6 +443,16 @@ int launch_wide(const WideTables& tb, const float* pts, int n, float* d2_out,
   const int block = 128;
   nearest_wide_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
       tb, pts, n, d2_out, id_out);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int launch_entry_exit(const float* nodes, int Nn, const float* groups,
+                      int refine, const float* pts, int n, float* d2_out,
+                      int* id_out, cudaStream_t stream) {
+  const int block = 128;
+  nearest_entry_exit_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
+      nodes, Nn, groups, refine, pts, n, d2_out, id_out);
   return (int)cudaGetLastError();
 }
 
@@ -521,9 +480,20 @@ extern "C" int nearest_entry_exit_launch(const float* nodes, int Nn,
                                          float* d2_out, int* id_out,
                                          void* stream) {
   if (n <= 0) return 0;
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  nearest_entry_exit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      nodes, Nn, groups, width, refine, pts, n, d2_out, id_out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (width) {
+    case 16:
+      return launch_entry_exit<16>(nodes, Nn, groups, refine, pts, n, d2_out,
+                                   id_out, st);
+    case 32:
+      return launch_entry_exit<32>(nodes, Nn, groups, refine, pts, n, d2_out,
+                                   id_out, st);
+    case 64:
+      return launch_entry_exit<64>(nodes, Nn, groups, refine, pts, n, d2_out,
+                                   id_out, st);
+    case 128:
+      return launch_entry_exit<128>(nodes, Nn, groups, refine, pts, n, d2_out,
+                                    id_out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,9 +1,11 @@
 // What the two closest/any-hit trace kernels share (wide_trace.cu, the group
 // walk, and tight_trace.cu, the entry/exit walk): the per-ray state, the
 // NaN-propagating min/max, the bf16-pair unpack, the slab test of a box and
-// the leaf test of a cluster. The sweep gate (sweep.cu) takes the min/max
-// and the unpack; the legacy cluster trace (cluster_trace.cu) the min/max
-// and the triangle test (load_tri, tri_key).
+// the leaf test of a cluster, in one-thread form (narrow_cluster, the
+// entry/exit walk) and in warp form (warp_leaves, the group walk). The
+// sweep gate (sweep.cu) takes the min/max and the unpack; the legacy
+// cluster trace (cluster_trace.cu) the min/max and the triangle test
+// (load_tri, tri_key).
 //
 // The leaf test replaces the TPU kernel's bvh_tpu/ops/trace.py::
 // _narrow_cluster: Moller-Trumbore of one ray against the W triangles of
@@ -44,6 +46,7 @@ constexpr int SENT = 0x7F800000;                // +inf bits: "no hit" key
 constexpr int MODE_CLOSEST = 0;
 constexpr int MODE_BOUNDED = 1;
 constexpr int MODE_ANY = 2;
+constexpr unsigned FULL = 0xFFFFFFFFu;  // every lane of a warp
 
 __device__ __forceinline__ float nmin(float a, float b) {
   return (a < b || a != a) ? a : b;
@@ -173,17 +176,17 @@ __device__ __forceinline__ int tile_min_key(const float* __restrict__ tile,
   return bk;
 }
 
-// Leaf test of cluster c, frame origin (ccx, ccy, ccz), against one ray: the
-// cluster's smallest key replaces the ray's best key only when strictly
-// smaller, then the bound is updated.
-__device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
-                               int W, int c, float ccx, float ccy, float ccz,
-                               int mode) {
+// The rows of cluster c in groups [G, 16, 128]: lanes (c mod 128/W)*W + j.
+__device__ __forceinline__ const float* cluster_tile(
+    const float* __restrict__ groups, int W, int c) {
   const int per_row = 128 / W;
-  const float* tile =
-      groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
-  int km = tile_min_key(tile, W, r.ox - ccx, r.oy - ccy, r.oz - ccz, r.dx,
-                        r.dy, r.dz);
+  return groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
+}
+
+// Folds cluster c's smallest key km into the ray: it replaces the best key
+// only when strictly smaller, then the bound is updated.
+__device__ __forceinline__ void fold_key(RayState& r, int km, int c, int W,
+                                         int mode) {
   if (km < r.bk) {
     r.bk = km;
     r.bc = c;
@@ -195,6 +198,84 @@ __device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
     r.vb = nmin(nt, r.vb);
   else
     r.vb = nt;
+}
+
+// Leaf test of cluster c, frame origin (ccx, ccy, ccz), against one ray, in
+// one thread (the entry/exit walk).
+__device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
+                               int W, int c, float ccx, float ccy, float ccz,
+                               int mode) {
+  int km = tile_min_key(cluster_tile(groups, W, c), W, r.ox - ccx,
+                        r.oy - ccy, r.oz - ccz, r.dx, r.dy, r.dz);
+  fold_key(r, km, c, W, mode);
+}
+
+// The leaf test in warp form (the group walk): every lane has its own list
+// of leaves to test, and the whole warp tests them together, pair by pair.
+// next(c, ccx, ccy, ccz) gives the lane's next cluster and its frame origin,
+// false once the lane has none left; every lane must call this function.
+// Each pass takes the lowest lanes that have a leaf pending: SPAN = min(W,
+// 32) lanes serve one (ray, cluster) pair, so W = 16 takes two pairs a pass
+// and W = 128 gives each lane four triangles. A lane loads its triangles of
+// the pair's cluster (coalesced over the SPAN lanes) and computes p = e2 x e1
+// once for them; the pair's owner broadcasts the ray's origin in the
+// cluster's frame and its direction (the values its one-thread test would
+// use), the key minimum is taken over the SPAN lanes, and the owner folds
+// it. A lane's leaves are folded in its own order, so the result is the
+// one-thread leaf test's, bit for bit.
+template <int W, typename Next>
+__device__ __forceinline__ void warp_leaves(RayState& r,
+                                            const float* __restrict__ groups,
+                                            int mode, int lane, Next next) {
+  constexpr int SPAN = W < 32 ? W : 32;  // lanes per pair
+  constexpr int TPL = W / SPAN;          // triangles per lane
+  constexpr int PPP = 32 / SPAN;         // pairs per pass (1 or 2)
+  const int j0 = lane % SPAN;
+  int c = 0;
+  float ccx = 0.0f, ccy = 0.0f, ccz = 0.0f;
+  bool has = next(c, ccx, ccy, ccz);
+  while (true) {
+    unsigned F = __ballot_sync(FULL, has);
+    if (F == 0) break;
+    const int f0 = __ffs(F) - 1;
+    F &= F - 1;
+    const int f1 = (PPP == 2 && F) ? __ffs(F) - 1 : -1;
+    // this lane serves pair f0 (first half) or f1 (second half, f0's again
+    // when there is no second pair: its result is dropped)
+    const int src = (lane >= SPAN && f1 >= 0) ? f1 : f0;
+    const int C = __shfl_sync(FULL, c, src);
+    const float Ox = __shfl_sync(FULL, r.ox - ccx, src),
+                Oy = __shfl_sync(FULL, r.oy - ccy, src),
+                Oz = __shfl_sync(FULL, r.oz - ccz, src);
+    const float Dx = __shfl_sync(FULL, r.dx, src),
+                Dy = __shfl_sync(FULL, r.dy, src),
+                Dz = __shfl_sync(FULL, r.dz, src);
+    const float* tile = cluster_tile(groups, W, C);
+    int k = SENT;
+#pragma unroll
+    for (int s = 0; s < TPL; ++s) {
+      const int j = j0 + SPAN * s;
+      const Tri t = load_tri(tile, j);
+      const int key =
+          tri_key(t, Ox - t.a0, Oy - t.a1, Oz - t.a2, Dx, Dy, Dz, W, j, SENT);
+      k = key < k ? key : k;
+    }
+    if (SPAN == 32) {
+      k = __reduce_min_sync(FULL, k);
+    } else {
+#pragma unroll
+      for (int off = SPAN / 2; off > 0; off >>= 1) {
+        const int o = __shfl_xor_sync(FULL, k, off);
+        k = o < k ? o : k;
+      }
+    }
+    const int k0 = __shfl_sync(FULL, k, 0);
+    const int k1 = __shfl_sync(FULL, k, PPP == 2 ? SPAN : 0);
+    if (lane == f0 || lane == f1) {
+      fold_key(r, lane == f0 ? k0 : k1, c, W, mode);
+      has = next(c, ccx, ccy, ccz);
+    }
+  }
 }
 
 }  // namespace

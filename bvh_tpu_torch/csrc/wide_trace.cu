@@ -1,12 +1,13 @@
-// Wide (16-ary) group-walk closest-hit and any-hit trace, one thread per ray.
+// Wide (16-ary) group-walk closest-hit and any-hit trace: one ray a lane,
+// walking in lock step, with the leaf tests taken by the whole warp.
 //
 // Replaces the TPU kernel bvh_tpu/ops/trace.py::_wide_body (built by
 // _make_wide_kernel, launched by _trace_wide_jit), with its walk engine
-// _make_mask_walk/_ctz16 and its leaf test _narrow_cluster (shared with the
-// entry/exit kernel in trace_common.cuh). The TPU kernel walks one shared
-// cursor per packet of rays, keeps the node table in scalar memory and runs
-// the leaf test as a matrix product. Here each ray walks on its own, which
-// computes the same function:
+// _make_mask_walk/_ctz16 and its leaf test _narrow_cluster (trace_common.cuh,
+// warp_leaves). The TPU kernel walks one shared cursor per packet of rays,
+// keeps the node table in scalar memory and runs the leaf test as a matrix
+// product. Here each ray walks on its own, which computes the plain
+// version's function (bvh_tpu_torch/ops/wide.py::wide_trace_plain):
 //
 //   * hints (optional): the leaf slots g*K+k listed for the ray's packet are
 //     narrowphased first, without a box test (-1 in the packet's first slot
@@ -16,19 +17,43 @@
 //     ascending order; then visit the fired interior children lowest bit
 //     first (a DFS stack of (group, remaining mask), depth WIDE_DMAX);
 //   * modes closest, bounded and any (trace_common.cuh). Once vb is -inf
-//     (an any-hit ray found its occluder) no box can fire again, so the walk
-//     ends after the group in hand: the result is bit for bit that of the
-//     full walk.
+//     (an any-hit ray found its occluder) no box can fire again, so the ray
+//     walks no further than the group in hand: the result is bit for bit
+//     that of the full walk.
 //
 // What bounds it on an H100: the float32 operations of the slab tests and
 // the leaf tests (per ray: 16 slab tests per visited group, W triangle
-// tests per fired leaf); the tables (a few MB) stay in L2. Threads of a
-// warp diverge where their rays walk different subtrees; the caller's
-// coherence sort keeps neighbouring rays on similar paths. This first
-// version is the simple, exact design: no shared-memory staging, no
-// packet frustum, no persistent threads.
+// tests per fired leaf); the tables (a few MB) stay in L2. Rays of a warp
+// share an octant and an origin cell, but their directions spread, so the
+// union of the groups its lanes visit is 3-8 times the longest lane's walk
+// (counted on the CPU with the plain walk): a warp walking that union
+// together would do more work, so each lane keeps its own walk and the
+// warp steps in lock step, one group a lane a step. Two things were slow in
+// a thread-per-ray form of that walk, and the design changes both:
 //
-// Numerics: see trace_common.cuh; the leaf mask is a float VALUE too.
+//   * the loads. gnodes [7K+1, Gn] keeps a group in column g, so a lane read
+//     its 16 child boxes as 96 scalar loads from 96 cache lines, and one
+//     load instruction of the warp touched as many lines as the lanes had
+//     distinct groups. The kernel reads a group-major copy instead (built
+//     once per table by ops/wide.py::group_records): one 512-byte record a
+//     group, the 16 boxes in its first three 128-byte lines, read as 24
+//     float4 loads, the payloads and the leaf mask in the fourth;
+//   * the leaf tests. Lanes fire leaves at different steps, and a lane that
+//     fired one ran its W triangle tests alone while the others waited.
+//     Now, after every step's slab tests, the lanes' fired leaves are
+//     tested by the whole warp (warp_leaves: min(W, 32) lanes a leaf), each
+//     lane's in ascending slot order; the hinted slots of a packet too.
+//
+// All 32 lanes stay in the loop until every walk is done (a lane past n,
+// or one that has finished, takes part in the leaf tests without a walk of
+// its own): the shuffles and ballots need the whole warp. packet is a power
+// of two of at least 128, so a warp's rays share one packet: its gate and
+// hints are the same for all its lanes, and a gated-off warp returns at
+// once. A walk starts from a group with an empty stack (start below), so a
+// walk from a subtree's root would need no other change.
+//
+// Numerics: see trace_common.cuh; payloads and the leaf mask are float
+// VALUES and convert with (int).
 
 #include "trace_common.cuh"
 
@@ -36,110 +61,176 @@ namespace {
 
 constexpr int K = 16;          // children per group
 constexpr int WIDE_DMAX = 16;  // DFS stack depth
+// a group's record in the group-major table, in floats: the 16 boxes amin
+// (3), amax (3) at 6k, the payloads at PAY + k, the leaf mask at LMASK
+constexpr int REC = 128;
+constexpr int PAY = 6 * K;
+constexpr int LMASK = 7 * K;
 
-struct Tables {
-  const float* gnodes;  // [7K+1, Gn]
-  const float* groups;  // [G, 16, 128]
-  int Gn;
-  int W;
-  int mode;
-};
-
-// Leaf test of the cluster in slot k of group g.
-__device__ void narrow_slot(RayState& r, const Tables& tb, int g, int k) {
-  const float* col = tb.gnodes + g;
-  const int Gn = tb.Gn;
-  float ax = __ldg(col + (7 * k + 0) * Gn), ay = __ldg(col + (7 * k + 1) * Gn);
-  float az = __ldg(col + (7 * k + 2) * Gn), bx = __ldg(col + (7 * k + 3) * Gn);
-  float by = __ldg(col + (7 * k + 4) * Gn), bz = __ldg(col + (7 * k + 5) * Gn);
-  int c = (int)(-__ldg(col + (7 * k + 6) * Gn) - 1.0f);
-  narrow_cluster(r, tb.groups, tb.W, c, (ax + bx) * 0.5f, (ay + by) * 0.5f,
-                 (az + bz) * 0.5f, tb.mode);
-}
-
-// Tests group g; narrowphases its fired leaves; returns the fired
-// interior bits.
-__device__ int enter(RayState& r, const Tables& tb, int g) {
-  const float* col = tb.gnodes + g;
-  const int Gn = tb.Gn;
+// The fired children of group record rec: bit k where child k's box fires.
+__device__ __forceinline__ int slab16(const RayState& r,
+                                      const float* __restrict__ rec) {
+  const float4* q = reinterpret_cast<const float4*>(rec);
   int m = 0;
 #pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float* ch = col + 7 * k * Gn;
-    if (slab_fires(r, __ldg(ch), __ldg(ch + Gn), __ldg(ch + 2 * Gn),
-                   __ldg(ch + 3 * Gn), __ldg(ch + 4 * Gn), __ldg(ch + 5 * Gn)))
-      m |= 1 << k;
+  for (int k = 0; k < K; k += 2) {
+    // children k and k + 1: 12 floats in 3 float4
+    const float4 u = __ldg(q + 3 * (k / 2));
+    const float4 v = __ldg(q + 3 * (k / 2) + 1);
+    const float4 w = __ldg(q + 3 * (k / 2) + 2);
+    if (slab_fires(r, u.x, u.y, u.z, u.w, v.x, v.y)) m |= 1 << k;
+    if (slab_fires(r, v.z, v.w, w.x, w.y, w.z, w.w)) m |= 2 << k;
   }
-  int lmask = (int)__ldg(col + 7 * K * Gn);
-  int lm = m & lmask;
-  while (lm) {
-    int k = __ffs(lm) - 1;
-    lm &= lm - 1;
-    narrow_slot(r, tb, g, k);
-  }
-  return m & ~lmask;
+  return m;
 }
 
-__global__ void wide_trace_kernel(Tables tb, const float* __restrict__ rays,
-                                  int n, const int* __restrict__ hints,
-                                  int n_hints, const int* __restrict__ gate,
-                                  int packet, float* __restrict__ t_out,
-                                  int* __restrict__ id_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (gate != nullptr && gate[i / packet] == 0) {
-    store_miss(i, t_out, id_out);
+// The cluster in slot k of group record rec, and its frame origin (the
+// box's centre).
+__device__ __forceinline__ void leaf_slot(const float* __restrict__ rec,
+                                          int k, int& c, float& ccx,
+                                          float& ccy, float& ccz) {
+  const float* b = rec + 6 * k;
+  ccx = (__ldg(b) + __ldg(b + 3)) * 0.5f;
+  ccy = (__ldg(b + 1) + __ldg(b + 4)) * 0.5f;
+  ccz = (__ldg(b + 2) + __ldg(b + 5)) * 0.5f;
+  c = (int)(-__ldg(rec + PAY + k) - 1.0f);
+}
+
+template <int W>
+__global__ void __launch_bounds__(128)
+    wide_trace_kernel(const float* __restrict__ recs,
+                      const float* __restrict__ groups, int mode,
+                      const float* __restrict__ rays, int n,
+                      const int* __restrict__ hints, int n_hints,
+                      const int* __restrict__ gate, int packet,
+                      float* __restrict__ t_out, int* __restrict__ id_out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int base = i - lane;  // the warp's first ray
+  if (base >= n) return;
+  const bool valid = i < n;
+  const int pkt = base / packet;  // the warp's packet
+  if (gate != nullptr && gate[pkt] == 0) {
+    if (valid) store_miss(i, t_out, id_out);
     return;
   }
-  RayState r = load_ray(rays, n, i);
-  if (hints != nullptr) {
-    const int* h = hints + (size_t)(i / packet) * n_hints;
-    if (h[0] >= 0)
-      for (int j = 0; j < n_hints; ++j)
-        narrow_slot(r, tb, h[j] >> 4, h[j] & (K - 1));
+  RayState r = {};
+  if (valid) r = load_ray(rays, n, i);
+  r.bk = SENT;
+
+  if (hints != nullptr && hints[(size_t)pkt * n_hints] >= 0) {
+    const int* h = hints + (size_t)pkt * n_hints;
+    int j = 0;
+    warp_leaves<W>(r, groups, mode, lane,
+                   [&](int& c, float& ccx, float& ccy, float& ccz) {
+                     if (!valid || j == n_hints) return false;
+                     const int slot = h[j++];
+                     leaf_slot(recs + (size_t)(slot >> 4) * REC, slot & (K - 1),
+                               c, ccx, ccy, ccz);
+                     return true;
+                   });
   }
 
   int stk_g[WIDE_DMAX];
   int stk_m[WIDE_DMAX];
-  int d = 0;
-  int gid = 0;
-  int mask = enter(r, tb, 0);
-  while (!(r.vb == neg_inf())) {
-    if (mask == 0) {
-      if (d == 0) break;
-      --d;
-      gid = stk_g[d];
-      mask = stk_m[d];
-      continue;
+  int d = 0, gid = 0, mask = 0;
+  int g = 0;  // the group the lane enters this step: the start, group 0
+  bool entering = valid, start = true;
+  while (true) {
+    const float* rec = recs + (size_t)g * REC;
+    int m = 0, lmask = 0;
+    if (entering) {
+      m = slab16(r, rec);
+      lmask = (int)__ldg(rec + LMASK);
     }
-    int k = __ffs(mask) - 1;
-    mask &= mask - 1;
-    int child = (int)__ldg(tb.gnodes + (7 * k + 6) * tb.Gn + gid);
-    int m2 = enter(r, tb, child);
-    if (m2 != 0) {
-      stk_g[d] = gid;
-      stk_m[d] = mask;
-      ++d;
-      gid = child;
-      mask = m2;
+    // the fired leaves, lowest slot first, tested by the whole warp
+    int lm = m & lmask;
+    warp_leaves<W>(r, groups, mode, lane,
+                   [&](int& c, float& ccx, float& ccy, float& ccz) {
+                     if (lm == 0) return false;
+                     const int k = __ffs(lm) - 1;
+                     lm &= lm - 1;
+                     leaf_slot(rec, k, c, ccx, ccy, ccz);
+                     return true;
+                   });
+    if (entering) {
+      // descend into g if it has fired interior children
+      const int m2 = m & ~lmask;
+      if (start) {
+        mask = m2;
+      } else if (m2) {
+        stk_g[d] = gid;
+        stk_m[d] = mask;
+        ++d;
+        gid = g;
+        mask = m2;
+      }
     }
+    start = false;
+    // the lane's next group: the lowest remaining fired child of the
+    // deepest group that has one; none once the stack is empty or the
+    // bound is -inf
+    entering = false;
+    if (valid && !(r.vb == neg_inf())) {
+      while (true) {
+        if (mask == 0) {
+          if (d == 0) break;
+          --d;
+          gid = stk_g[d];
+          mask = stk_m[d];
+          continue;
+        }
+        const int k = __ffs(mask) - 1;
+        mask &= mask - 1;
+        g = (int)__ldg(recs + (size_t)gid * REC + PAY + k);
+        entering = true;
+        break;
+      }
+    }
+    if (!__any_sync(FULL, entering)) break;
   }
-  store_ray(r, tb.W, i, t_out, id_out);
+  if (valid) store_ray(r, W, i, t_out, id_out);
+}
+
+template <int W>
+int launch(const float* recs, const float* groups, int mode,
+           const float* rays, int n, const int* hints, int n_hints,
+           const int* gate, int packet, float* t_out, int* id_out,
+           cudaStream_t stream) {
+  const int block = 128;
+  wide_trace_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
+      recs, groups, mode, rays, n, hints, n_hints, gate, packet, t_out,
+      id_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int wide_trace_launch(const float* gnodes, int Gn,
-                                 const float* groups, int width,
-                                 const float* rays, int n, const int* hints,
-                                 int n_hints, const int* gate, int packet,
-                                 int mode, float* t_out, int* id_out,
-                                 void* stream) {
+// The floats of a group's record, for the wrapper to check against its own
+// layout (ops/wide.py::group_records).
+extern "C" int wide_trace_rec_floats() { return REC; }
+
+// recs: the group-major table [Gn, REC] (ops/wide.py::group_records).
+extern "C" int wide_trace_launch(const float* recs, const float* groups,
+                                 int width, const float* rays, int n,
+                                 const int* hints, int n_hints,
+                                 const int* gate, int packet, int mode,
+                                 float* t_out, int* id_out, void* stream) {
   if (n <= 0) return 0;
-  Tables tb{gnodes, groups, Gn, width, mode};
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  wide_trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      tb, rays, n, hints, n_hints, gate, packet, t_out, id_out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (width) {
+    case 16:
+      return launch<16>(recs, groups, mode, rays, n, hints, n_hints, gate,
+                        packet, t_out, id_out, st);
+    case 32:
+      return launch<32>(recs, groups, mode, rays, n, hints, n_hints, gate,
+                        packet, t_out, id_out, st);
+    case 64:
+      return launch<64>(recs, groups, mode, rays, n, hints, n_hints, gate,
+                        packet, t_out, id_out, st);
+    case 128:
+      return launch<128>(recs, groups, mode, rays, n, hints, n_hints, gate,
+                         packet, t_out, id_out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -66,7 +66,15 @@ class TightScene(NamedTuple):
 
 class ClusterScene(NamedTuple):
     """Host tables of a scene for the legacy 128-triangle cluster trace
-    (numpy). Same fields as the reference's ``ClusterScene``."""
+    (numpy). The reference's ``ClusterScene`` fields, then ``a_lo``.
+
+    ``a_lo`` [C, 3, 128] float32 is the port's own: the part of each
+    triangle's ``a - cc`` that the stored ``a'`` (rounded to float32) leaves
+    out, which the walk subtracts from its origin. ``build_cluster_scene``
+    computes it; a scene carried in by ``cluster_scene_from_arrays`` from
+    the reference's arrays (which hold no vertices) gets zeros, and traces
+    as the walk without it did.
+    """
 
     smem_nodes: np.ndarray  # [8, Nc] f32: amin(3), amax(3), entry, exit
     smem_cc: np.ndarray  # [4, C] f32 cluster box centres (row 3 unused)
@@ -74,7 +82,8 @@ class ClusterScene(NamedTuple):
     tri_map: np.ndarray  # [C * 128] i32 lane -> original triangle id (-1 pad)
     num_clusters: int
     num_nodes: int
-    relative: bool = True  # triangle rows stored relative to the box centre
+    relative: bool  # triangle rows stored relative to the box centre
+    a_lo: np.ndarray  # [C, 3, 128] f32: (a - cc) - a' (0 in pad lanes)
 
     @property
     def num_tris(self) -> int:
@@ -113,6 +122,8 @@ def build_cluster_scene(a: np.ndarray, b: np.ndarray, c: np.ndarray,
     ``relative=False`` stores the triangle rows in the global frame (no
     per-cluster origin; loses precision at 1e5 coordinates). Padding lanes
     of the last cluster are degenerate (e1 = e2 = 0), so they never hit.
+    Beside the reference's fields, the scene holds ``a_lo`` (see
+    ``ClusterScene``); pad lanes hold 0 there.
     """
     a = np.asarray(a, np.float32)
     b = np.asarray(b, np.float32)
@@ -147,10 +158,17 @@ def build_cluster_scene(a: np.ndarray, b: np.ndarray, c: np.ndarray,
 
     ccl = np.repeat(cc, CLUSTER, axis=0) if relative else np.float32(0.0)
     a_rel = a_s - ccl
+    # a' = a - cc rounded to float32 may sit 2^-8 off a - cc at ~4e4 units
+    # from the centre, enough to open a crack between two triangles that
+    # share an edge. a - cc and its remainder after a' are exact in float64
+    # (float32 values within ~1e5 of each other), and the remainder is
+    # exact again once rounded to float32
+    a_lo = ((a_s.astype(np.float64) - ccl) - a_rel).astype(np.float32)
     e1 = b_s - a_s
     e2 = c_s - a_s
     if pad:
         a_rel[n:] = 0.0
+        a_lo[n:] = 0.0
         e1[n:] = 0.0
         e2[n:] = 0.0
     tris_rel = np.zeros((C, 16, CLUSTER), np.float32)
@@ -161,7 +179,9 @@ def build_cluster_scene(a: np.ndarray, b: np.ndarray, c: np.ndarray,
     tri_map = np.full(n_pad, -1, np.int32)
     tri_map[:n] = order.astype(np.int32)
     return ClusterScene(smem_nodes, smem_cc, tris_rel, tri_map, C,
-                        flat.num_nodes, relative)
+                        flat.num_nodes, relative,
+                        np.ascontiguousarray(
+                            a_lo.reshape(C, CLUSTER, 3).transpose(0, 2, 1)))
 
 
 def cut_clusters(flat, leaf_size: int = TIGHT):
@@ -746,8 +766,9 @@ def cluster_scene_from_arrays(fields) -> ClusterScene:
     field names: the ``_asdict()`` of a scene the JAX package built, or the
     npz its ``save_cluster_scene`` writes (``np.load(path)``).
 
-    0-d arrays become ints (``relative`` a bool); ``__version__`` is
-    checked, then dropped.
+    0-d arrays become ints (``relative`` a bool, True where it is missing);
+    ``__version__`` is checked, then dropped. Without ``a_lo`` (the
+    reference's arrays) the scene gets zeros there.
     """
     f = dict(fields)
     version = f.pop("__version__", None)
@@ -765,6 +786,9 @@ def cluster_scene_from_arrays(fields) -> ClusterScene:
             out[name] = bool(np.asarray(val))
         else:
             out[name] = np.asarray(val)
+    out.setdefault("relative", True)
+    out.setdefault("a_lo", np.zeros((out["num_clusters"], 3, CLUSTER),
+                                    np.float32))
     return ClusterScene(**out)
 
 

@@ -32,8 +32,9 @@ up to ~4e4 units from the origin, where float32 keeps 2^-8 of a unit, so
 ``o - cc`` alone can move a ray onto the edge two triangles share, and
 both edge tests then round outside (the crack class). The table's own
 ``a' = a - cc`` is rounded the same way, so two triangles that share an
-edge may still be stored 2^-8 apart; the walk cannot close that crack
-(ROADMAP queue 3).
+edge may be stored 2^-8 apart; the scene carries the remainder ``a_lo =
+(a - cc) - a'`` beside the table (``ClusterScene.a_lo``), and each test
+forms ``tv = ((hi - a') + lo) - a_lo``, which closes that crack too.
 
 Where the per-ray walk differs from the TPU kernel's packet walk: the TPU
 kernel narrowphases every ray of a packet at a leaf that any of its rays
@@ -42,11 +43,11 @@ misses a leaf by rounding (grazing edges) or is NaN (the face-plane rule)
 can still take its hit from such a leaf there, and not here; otherwise the
 two give the same closest hit up to the near-tie class.
 
-Inputs: ``smem_nodes [8, Nc]``, ``smem_cc [4, C]`` and ``tris_rel [C, 16,
-128]`` float32, and the ray rows ``rays [9, n]`` float32: inv (3,
-unclamped), d (3), o (3). Output per ray: ``t`` float32 (the best key's
-value, +inf on a miss) and ``lane_id`` int32 (cluster·128 + lane, -1 on a
-miss).
+Inputs: ``smem_nodes [8, Nc]``, ``smem_cc [4, C]``, ``tris_rel [C, 16,
+128]`` and ``a_lo [C, 3, 128]`` float32, and the ray rows
+``rays [9, n]`` float32: inv (3, unclamped), d (3), o (3). Output per ray:
+``t`` float32 (the best key's value, +inf on a miss) and ``lane_id`` int32
+(cluster·128 + lane, -1 on a miss).
 """
 
 from __future__ import annotations
@@ -63,10 +64,10 @@ from .wide import narrow_keys
 CW = 128  # triangles per cluster
 LEGACY_SENT = 0x7F000000  # the legacy kernel's "no hit" key
 N_ROWS = 9  # ray rows: inv (3, unclamped), d (3), o (3)
-# float32 operations per (ray, triangle) test: ``wide.TRI_OPS`` and the
-# three adds of lo into tv (p = e2 x e1 is ``wide.TRI_ONCE_OPS``, once a
-# triangle)
-TRI_OPS = 47
+# float32 operations per (ray, triangle) test: ``wide.TRI_OPS``, the
+# three adds of lo into tv and the three subtractions of a_lo (p = e2 x e1
+# is ``wide.TRI_ONCE_OPS``, once a triangle)
+TRI_OPS = 50
 # per fired leaf beyond its 128 triangle tests: the origin's float pair
 # (``two_diff``, 6 an axis) and the fold's two compares; a node visit costs
 # ``wide.SLAB_OPS`` plus ``tight.STEP_OPS``, as in the entry/exit walk
@@ -96,8 +97,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C interface of a build of ``cluster_trace.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.cluster_trace_launch.restype = ci
-    lib.cluster_trace_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci,
-                                         vp, vp, vp]
+    lib.cluster_trace_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci,
+                                         ci, vp, vp, vp]
     return lib
 
 
@@ -108,8 +109,9 @@ def ray_rows(rays) -> torch.Tensor:
     return torch.stack([*inv.unbind(1), *d.unbind(1), *o.unbind(1)])
 
 
-def _check(nodes, cc, tris, rays):
-    for name, x in (("smem_cc", cc), ("tris_rel", tris), ("rays", rays)):
+def _check(nodes, cc, tris, a_lo, rays):
+    for name, x in (("smem_cc", cc), ("tris_rel", tris), ("a_lo", a_lo),
+                    ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
         if x.device != rays.device:
@@ -117,6 +119,9 @@ def _check(nodes, cc, tris, rays):
     check_nodes(nodes, rays, packed=False)
     if tris.dim() != 3 or tuple(tris.shape[1:]) != (16, CW):
         raise ValueError(f"tris_rel must be [C, 16, {CW}], got {tuple(tris.shape)}")
+    if tuple(a_lo.shape) != (tris.shape[0], 3, CW):
+        raise ValueError(f"a_lo must be [{tris.shape[0]}, 3, {CW}], got "
+                         f"{tuple(a_lo.shape)}")
     if cc.dim() != 2 or cc.shape[0] != 4 or cc.shape[1] != tris.shape[0]:
         raise ValueError(f"smem_cc must be [4, {tris.shape[0]}], got "
                          f"{tuple(cc.shape)}")
@@ -125,10 +130,10 @@ def _check(nodes, cc, tris, rays):
 
 
 def cluster_trace(nodes: torch.Tensor, cc: torch.Tensor, tris: torch.Tensor,
-                  rays: torch.Tensor, relative: bool = True,
+                  a_lo: torch.Tensor, rays: torch.Tensor, relative: bool = True,
                   skip_narrow: bool = False):
-    """Closest hit of every ray over a ``ClusterScene``'s tables:
-    ``(t, lane_id)``.
+    """Closest hit of every ray over a ``ClusterScene``'s tables (``a_lo``
+    included): ``(t, lane_id)``.
 
     ``relative``: the triangle rows are stored relative to ``smem_cc``
     (``ClusterScene.relative``). ``skip_narrow``: walk the tree without leaf
@@ -138,10 +143,10 @@ def cluster_trace(nodes: torch.Tensor, cc: torch.Tensor, tris: torch.Tensor,
     launches the kernel.
     """
     global launches
-    _check(nodes, cc, tris, rays)
+    _check(nodes, cc, tris, a_lo, rays)
     if rays.device.type == "cpu":
-        return cluster_trace_plain(nodes, cc, tris, rays, relative=relative,
-                                   skip_narrow=skip_narrow)
+        return cluster_trace_plain(nodes, cc, tris, a_lo, rays,
+                                   relative=relative, skip_narrow=skip_narrow)
     if rays.device.type != "cuda":
         raise ValueError(f"no cluster_trace kernel for device {rays.device}")
     n = rays.shape[1]
@@ -149,7 +154,8 @@ def cluster_trace(nodes: torch.Tensor, cc: torch.Tensor, tris: torch.Tensor,
     lane_id = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = load().cluster_trace_launch(
         nodes.data_ptr(), nodes.shape[1], cc.data_ptr(), cc.shape[1],
-        tris.data_ptr(), rays.data_ptr(), n, int(bool(relative)),
+        tris.data_ptr(), a_lo.data_ptr(), rays.data_ptr(), n,
+        int(bool(relative)),
         int(bool(skip_narrow)), t.data_ptr(), lane_id.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
@@ -159,9 +165,9 @@ def cluster_trace(nodes: torch.Tensor, cc: torch.Tensor, tris: torch.Tensor,
 
 
 def cluster_trace_plain(nodes: torch.Tensor, cc: torch.Tensor,
-                        tris: torch.Tensor, rays: torch.Tensor,
-                        relative: bool = True, skip_narrow: bool = False,
-                        counts: bool = False):
+                        tris: torch.Tensor, a_lo: torch.Tensor,
+                        rays: torch.Tensor, relative: bool = True,
+                        skip_narrow: bool = False, counts: bool = False):
     """The kernel's function in plain PyTorch (any device).
 
     Returns ``(t, lane_id)``, or with ``counts=True``
@@ -171,6 +177,7 @@ def cluster_trace_plain(nodes: torch.Tensor, cc: torch.Tensor,
     n = rays.shape[1]
     nc = nodes.shape[1]
     tiles = tris.permute(0, 2, 1)  # [C, 128, 16]
+    alo = a_lo.permute(0, 2, 1)  # [C, 128, 3]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     best = torch.full((n,), _INF, dtype=torch.float32, device=dev)
     best_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -212,7 +219,7 @@ def cluster_trace_plain(nodes: torch.Tensor, cc: torch.Tensor,
             # rounded, and its rounding error lo
             lo = tuple(two_diff(rays[6 + j, r], ccs[j])[1] for j in range(3))
             km = narrow_keys(rays, tiles, CW, r, c, *ccs, sent=LEGACY_SENT,
-                             row0=3, lo=lo)
+                             row0=3, frame=(lo, alo))
             tc = (km & -CW).view(torch.float32)
             closer = (km < LEGACY_SENT) & (tc < best[r])
             best[r] = torch.where(closer, tc, best[r])

@@ -5,12 +5,12 @@ versions) and the entry point ``nearest_tight``.
 Counterpart of ``bvh_tpu/ops/nearest.py``. The CUDA kernels
 (``csrc/nearest.cu``) replace the TPU kernels ``_nearest_wide_body`` (the
 group walk over ``gnodes``) and ``_nearest_body`` (the entry/exit walk over
-``smem_nodes``) with their shared narrowphase ``_point_narrow``. The group
-walk runs a warp of 32 points together (one group order for the warp, each
-fired leaf narrowphased by the lanes that fired it together), the
-entry/exit walk one point per thread; the plain versions below compute the
-same function, point by point, in lock step over a batch, and round every
-operation as the kernels do, so the two agree bit for bit on the card. See
+``smem_nodes``) with their shared narrowphase ``_point_narrow``. Both walks
+run a warp of 32 points together (one group or node order for the warp,
+each fired leaf narrowphased by the lanes that fired it together); the
+plain versions below compute the same function, point by point, in lock
+step over a batch, and round every operation as the kernels do, so the two
+agree bit for bit on the card. See
 the kernel source for the walks' rules; the two walks order the bound
 refinement differently (the group walk fires against ``vb`` as read before
 the group, the entry/exit walk refines first), and each keeps its own
@@ -20,7 +20,7 @@ Inputs: the tables ``gnodes [113, Gn]`` or ``smem_nodes [8, Nn]`` and
 ``groups [G, 16, 128]`` float32 (see ``ops/cluster.py``), and the point
 rows ``pts [4, n]`` float32: x, y, z and d_max² (+inf without a radius).
 The TPU kernels' slab and point-matrix layouts (``_pack_points``) are not
-copied: one thread per point has no packets to pad.
+copied: a warp's points need no packet padding.
 Output per point: ``d2`` float32 (the packed key's bits with the lane bits
 cleared, so up to W-1 ulps below the nearest squared distance; +inf where
 nothing lies within the radius) and ``lane_id`` int32 (cluster·W + lane,
@@ -42,8 +42,8 @@ from ..bvh.lbvh import morton_codes
 from ..device import resolve_device
 from ._build import load_cuda_library
 from .trace import _chain_ids, _check_packet, _dev
-from .wide import (K, SENT, WIDE_DMAX, decode_keys, dfs_walk, fired_leaves,
-                   fold_slots)
+from .wide import (K, SENT, WIDE_DMAX, check_depth, decode_keys, dfs_walk,
+                   fired_leaves, fold_slots)
 
 _INF = float("inf")
 N_ROWS = 4  # point rows: x, y, z, d_max^2
@@ -141,8 +141,7 @@ def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
     """
     global wide_launches
     _check("gnodes", gnodes, 7 * K + 1, groups, pts, width)
-    if not 0 < depth < WIDE_DMAX:
-        raise ValueError(f"wide-tree depth {depth} outside 1..{WIDE_DMAX - 1}")
+    check_depth(depth)
     if pts.device.type == "cpu":
         return nearest_wide_plain(gnodes, groups, pts, width, refine=refine)
     if pts.device.type != "cuda":

@@ -39,23 +39,26 @@ from .cluster_trace import cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
 from .sweep import sweep_gate
 from .tight import tight_trace
-from .wide import K, wide_trace
+from .wide import K, group_records, wide_trace
 
 _INF = float("inf")
 
 # Device copies of host-built scene tables, keyed by (array identity,
-# device): without it every call would copy the tables to the card again.
-# An entry is dropped when its numpy array is garbage-collected.
-_DEVICE_TABLE_CACHE: dict[tuple[int, str], tuple] = {}
+# device, layout): without it every call would copy the tables to the card
+# again. An entry is dropped when its numpy array is garbage-collected.
+_DEVICE_TABLE_CACHE: dict[tuple, tuple] = {}
 
 
-def _dev(arr, device: torch.device):
-    """A host numpy table as a tensor on ``device``, copied once."""
-    key = (id(arr), str(device))
+def _dev(arr, device: torch.device, layout=None):
+    """A host numpy table as a tensor on ``device``, copied once; with
+    ``layout`` (a numpy function of the table, such as
+    ``wide.group_records``), that function's result, made once."""
+    key = (id(arr), str(device), layout)
     ent = _DEVICE_TABLE_CACHE.get(key)
     if ent is not None and ent[0]() is arr:
         return ent[1]
-    ten = torch.as_tensor(np.ascontiguousarray(arr)).to(device)
+    host = arr if layout is None else layout(arr)
+    ten = torch.as_tensor(np.ascontiguousarray(host)).to(device)
     ref = weakref.ref(arr, lambda _r, k=key, c=_DEVICE_TABLE_CACHE: c.pop(k, None))
     _DEVICE_TABLE_CACHE[key] = (ref, ten)
     return ten
@@ -201,8 +204,8 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
             gate = sweep_gate(_dev(table, dev), rows, packet, packed=packed,
                               pre_gate=pre_gate)
     if wide:
-        return wide_trace(_dev(scene.gnodes, dev), _dev(scene.groups, dev),
-                          rows, width=int(scene.width),
+        return wide_trace(_dev(scene.gnodes, dev, group_records),
+                          _dev(scene.groups, dev), rows, width=int(scene.width),
                           depth=int(scene.gdepth), gate=gate, packet=packet,
                           bounded=bounded, mode=mode, hints=hints)
     return tight_trace(_dev(table, dev), _dev(scene.groups, dev), rows,
@@ -456,6 +459,7 @@ def trace_closest_hit(scene, rays: Ray, tris=None, packet: int = 1024,
     t, lane_id = cluster_trace(_dev(scene.smem_nodes, dev),
                                _dev(scene.smem_cc, dev),
                                _dev(scene.tris_rel, dev),
+                               _dev(scene.a_lo, dev),
                                cluster_ray_rows(rays),
                                relative=bool(scene.relative),
                                skip_narrow=skip_narrow)

@@ -5,9 +5,11 @@ and key folding that the entry/exit walk (``ops/tight.py``) shares.
 Replaces the TPU kernel ``bvh_tpu/ops/trace.py::_wide_body`` (with
 ``_make_mask_walk``, ``_ctz16`` and the leaf test ``_narrow_cluster``). The
 CUDA kernel (``csrc/wide_trace.cu``, leaf test in ``csrc/trace_common.cuh``)
-walks one ray per thread; the plain version below computes the same
-function, ray by ray, in lock step over a batch, and rounds every operation
-as the kernel does, so the two agree bit for bit on the card.
+walks one ray a lane, in lock step, reads the table in a group-major copy
+(``group_records``) and tests the leaves its lanes fire with the whole
+warp; the plain version below computes the same function, ray by ray, in
+lock step over a batch, and rounds every operation as the kernel does, so
+the two agree bit for bit on the card.
 
 Per ray: narrowphase the hinted leaf slots of its packet, if any; test group
 0's 16 children against the bound ``vb`` (``t_max``, +inf when unbounded);
@@ -39,12 +41,17 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ._build import load_cuda_library
 
 K = 16  # children per group
 WIDE_DMAX = 16  # per-ray DFS stack depth
+# the deepest wide tree the kernels take: the nearest group walk orders a
+# warp's groups by a 64-bit key of 4 bits a level below the root, and the
+# scene build (ops/cluster.py) makes no deeper table
+MAX_DEPTH = 14
 SENT = 0x7F800000  # +inf bits: the "no hit" key
 _INF = float("inf")
 _EPS = float(torch.finfo(torch.float32).eps)
@@ -61,6 +68,7 @@ TRI_OPS = 44
 TRI_ONCE_OPS = 9
 LEAF_OPS = 9
 N_ROWS = 13  # ray rows: o*inv (3), inv (3), t_max, d (3), o (3)
+REC = 128  # floats per group in the kernel's group-major table
 
 MODES = {"closest": 0, "any": 2}  # the kernels' mode codes (1: bounded)
 
@@ -71,12 +79,46 @@ any_launches = 0  # of those, the launches in any-hit mode
 @functools.cache
 def load() -> ctypes.CDLL:
     """Builds (first call) and loads ``csrc/wide_trace.cu``."""
-    lib = load_cuda_library("wide_trace", "wide_trace.cu")
+    return bind(load_cuda_library("wide_trace", "wide_trace.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a build of ``wide_trace.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wide_trace_launch.restype = ci
-    lib.wide_trace_launch.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci,
-                                      ci, vp, vp, vp]
+    lib.wide_trace_launch.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci,
+                                      vp, vp, vp]
+    lib.wide_trace_rec_floats.restype = ci
+    if lib.wide_trace_rec_floats() != REC:
+        raise RuntimeError("wide_trace.cu's group record is not "
+                           f"{REC} floats")
     return lib
+
+
+def group_records(gnodes: np.ndarray) -> np.ndarray:
+    """The kernel's group-major copy of a scene's ``gnodes [7K+1, Gn]``:
+    [Gn, REC] float32, one 512-byte record a group holding its 16 child
+    boxes (amin (3), amax (3) at 6k, read as float4 and in three 128-byte
+    lines), the payloads at 6K + k and the leaf mask at 7K; the rest is 0.
+    The values are the table's own. Callers upload it once a table with
+    ``ops/trace.py::_dev(gnodes, device, group_records)``."""
+    gn = gnodes.shape[1]
+    box = gnodes[:7 * K].reshape(K, 7, gn)
+    rec = np.zeros((gn, REC), np.float32)
+    rec[:, :6 * K] = box[:, :6].transpose(2, 0, 1).reshape(gn, 6 * K)
+    rec[:, 6 * K:7 * K] = box[:, 6].T
+    rec[:, 7 * K] = gnodes[7 * K]
+    return rec
+
+
+def wide_table(records: torch.Tensor) -> torch.Tensor:
+    """``gnodes [7K+1, Gn]`` back from its records (``group_records``), for
+    the plain version."""
+    gn = records.shape[0]
+    box = torch.cat([records[:, :6 * K].reshape(gn, K, 6),
+                     records[:, 6 * K:7 * K, None]], 2)  # [Gn, K, 7]
+    return torch.cat([box.reshape(gn, 7 * K), records[:, 7 * K:7 * K + 1]],
+                     1).t().contiguous()
 
 
 def mode_code(mode: str, bounded: bool) -> int:
@@ -105,32 +147,40 @@ def check_options(rays: torch.Tensor, gate, hints, packet: int) -> None:
                          f"tensor on {rays.device}")
 
 
-def _check(gnodes, groups, rays, width, depth, gate, hints, packet):
-    for name, x in (("gnodes", gnodes), ("groups", groups), ("rays", rays)):
+def _check(records, groups, rays, width, depth, gate, hints, packet):
+    for name, x in (("records", records), ("groups", groups), ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
         if x.device != rays.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
-    if gnodes.dim() != 2 or gnodes.shape[0] != 7 * K + 1:
-        raise ValueError(f"gnodes must be [{7 * K + 1}, Gn], got {tuple(gnodes.shape)}")
+    if records.dim() != 2 or records.shape[1] != REC:
+        raise ValueError(f"records must be [Gn, {REC}], got {tuple(records.shape)}")
     if groups.dim() != 3 or tuple(groups.shape[1:]) != (16, 128):
         raise ValueError(f"groups must be [G, 16, 128], got {tuple(groups.shape)}")
     if rays.dim() != 2 or rays.shape[0] != N_ROWS:
         raise ValueError(f"rays must be [{N_ROWS}, n], got {tuple(rays.shape)}")
     if width not in (16, 32, 64, 128):
         raise ValueError(f"width must be 16/32/64/128, got {width}")
-    if not 0 < depth < WIDE_DMAX:
-        raise ValueError(f"wide-tree depth {depth} outside 1..{WIDE_DMAX - 1}")
+    check_depth(depth)
     check_options(rays, gate, hints, packet)
 
 
-def wide_trace(gnodes: torch.Tensor, groups: torch.Tensor, rays: torch.Tensor,
-               width: int, depth: int, gate: torch.Tensor | None = None,
-               packet: int = 8192, bounded: bool = False,
-               mode: str = "closest", hints: torch.Tensor | None = None):
+def check_depth(depth: int) -> None:
+    """Refuses a wide-tree depth outside 1..MAX_DEPTH."""
+    if not 0 < depth <= MAX_DEPTH:
+        raise ValueError(f"wide-tree depth {depth} outside 1..{MAX_DEPTH}")
+
+
+def wide_trace(records: torch.Tensor, groups: torch.Tensor,
+               rays: torch.Tensor, width: int, depth: int,
+               gate: torch.Tensor | None = None, packet: int = 8192,
+               bounded: bool = False, mode: str = "closest",
+               hints: torch.Tensor | None = None):
     """Closest or any hit of every ray: ``(t, lane_id)``.
 
-    ``depth`` is the wide tree's group depth (``TightScene.gdepth``).
+    ``records`` is the wide table in the kernel's layout
+    (``group_records``), ``depth`` the wide tree's group depth
+    (``TightScene.gdepth``).
     ``gate``: optional int32 [ceil(n / packet)]; rays of a packet whose gate
     is 0 are reported as misses without a walk. ``bounded``: the ``t_max``
     row is a real bound (keep ``vb <= t_max``). ``mode="any"``: a ray stops
@@ -140,23 +190,23 @@ def wide_trace(gnodes: torch.Tensor, groups: torch.Tensor, rays: torch.Tensor,
     narrowphased first for the rays of each packet; -1 in a packet's first
     slot turns them off, and every other slot must then hold a leaf slot.
 
-    On a CPU tensor this runs the plain version; on a CUDA tensor it
-    launches the kernel.
+    On a CPU tensor this runs the plain version (over ``wide_table``); on a
+    CUDA tensor it launches the kernel.
     """
     global launches, any_launches
-    _check(gnodes, groups, rays, width, depth, gate, hints, packet)
+    _check(records, groups, rays, width, depth, gate, hints, packet)
     code = mode_code(mode, bounded)
     if rays.device.type == "cpu":
-        return wide_trace_plain(gnodes, groups, rays, width, gate=gate,
-                                packet=packet, bounded=bounded, mode=mode,
-                                hints=hints)
+        return wide_trace_plain(wide_table(records), groups, rays, width,
+                                gate=gate, packet=packet, bounded=bounded,
+                                mode=mode, hints=hints)
     if rays.device.type != "cuda":
         raise ValueError(f"no wide_trace kernel for device {rays.device}")
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     lane_id = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = load().wide_trace_launch(
-        gnodes.data_ptr(), gnodes.shape[1], groups.data_ptr(), width,
+        records.data_ptr(), groups.data_ptr(), width,
         rays.data_ptr(), n, 0 if hints is None else hints.data_ptr(),
         0 if hints is None else hints.shape[1],
         0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),
@@ -182,15 +232,18 @@ def _cross_rows(u0, u1, u2, v0, v1, v2):
 
 def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
                 r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz,
-                sent: int = SENT, row0: int = 7, lo=None):
+                sent: int = SENT, row0: int = 7, frame=None):
     """Leaf tests of the (ray ``r[i]``, cluster ``c[i]``) pairs with frame
     origins ``cc``: each pair's smallest packed key over the cluster's W
     triangles, ``sent`` where none is below it. ``tiles`` is ``groups`` as
     [G, 128, 16] (lane-major); rows ``row0`` to ``row0 + 5`` of ``rays``
     hold d (3) and o (3).
 
-    ``lo``: optional ``(lox, loy, loz)``, the rounding error of each pair's
-    ``o - cc`` (``cluster_trace.two_diff``); then ``tv = (o' - a') + lo``."""
+    ``frame``: the legacy walk's exact cluster frame ``(lo, alo)``: ``lo =
+    (lox, loy, loz)``, the rounding error of each pair's ``o - cc``
+    (``cluster_trace.two_diff``), and ``alo`` [G, 128, 3], the part of each
+    triangle's ``a - cc`` that ``a'`` leaves out (``ClusterScene.a_lo``
+    lane-major); then ``tv = ((o' - a') + lo) - alo``."""
     dev = rays.device
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
@@ -203,9 +256,12 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(9))
     # the bilinear forms around tv = o' - a' (see csrc/trace_common.cuh)
     tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
-    if lo is not None:
+    if frame is not None:
+        lo, alo = frame
         lox, loy, loz = (x[:, None] for x in lo)
         tvx, tvy, tvz = tvx + lox, tvy + loy, tvz + loz
+        al = alo[(c // per_row)[:, None], lane]  # [P, W, 3]
+        tvx, tvy, tvz = tvx - al[..., 0], tvy - al[..., 1], tvz - al[..., 2]
     p0, p1, p2 = _cross_rows(e20, e21, e22, e10, e11, e12)  # e2 x e1
     w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
     det = (p0 * dx + p1 * dy) + p2 * dz

@@ -228,3 +228,66 @@ def aimed_rays(a: np.ndarray, n: int, seed: int = 0, dist: float = 50.0):
     offs /= np.linalg.norm(offs, axis=1, keepdims=True)
     origins = (centers[idx] + offs * np.float32(dist)).astype(np.float32)
     return origins, (centers[idx] + np.float32(0.1) - origins).astype(np.float32)
+
+
+def chain_tables(scene, depth: int, K: int = 16):
+    """A ``TightScene`` whose trees are a chain ``depth`` groups deep, over
+    the first ``15 * (depth - 1) + K`` clusters of ``scene`` (a scene with
+    wide tables): group l holds 15 of them as leaf slots and, in slot
+    l mod K, the group l + 1, which holds the rest below it; the last group
+    holds K leaves. The entry/exit table ``smem_nodes`` is the same tree in
+    DFS order. Leaf boxes are the scene's own (a cluster's rows are stored
+    relative to its leaf box's centre), an interior box is the union of
+    the leaf boxes below it, and the other clusters lie outside both
+    trees (``gslot`` lists the chain's clusters' slots only). For tests of
+    the deepest tables the walks take."""
+    g0 = scene.gnodes
+    slot = scene.gslot.astype(np.int64)
+    n_cl = 15 * (depth - 1) + K
+    if scene.num_clusters < n_cl:
+        raise ValueError(f"a chain {depth} deep needs {n_cl} clusters")
+    boxes = np.stack([g0[7 * (slot % K) + j, slot // K] for j in range(6)],
+                     axis=1)  # [C, 6] leaf boxes: amin (3), amax (3)
+    gn = np.full((7 * K + 1, depth), np.nan, np.float32)
+    gn[6:7 * K:7] = -1.0  # empty-slot payloads
+    gn[7 * K] = 0.0
+    gslot = np.zeros(n_cl, np.int32)
+    # the clusters of group l: leaves, and the groups below l
+    first = [15 * lvl for lvl in range(depth)]
+    below = [np.arange(first[lvl], n_cl) for lvl in range(depth)]
+    for lvl in range(depth):
+        inner = lvl % K if lvl < depth - 1 else -1
+        cl = iter(range(first[lvl], first[lvl] + (15 if inner >= 0 else K)))
+        for k in range(K):
+            if k == inner:
+                sub = boxes[below[lvl + 1]]
+                gn[7 * k:7 * k + 3, lvl] = sub[:, 0:3].min(axis=0)
+                gn[7 * k + 3:7 * k + 6, lvl] = sub[:, 3:6].max(axis=0)
+                gn[7 * k + 6, lvl] = lvl + 1
+            else:
+                c = next(cl)
+                gn[7 * k:7 * k + 6, lvl] = boxes[c]
+                gn[7 * k + 6, lvl] = -(c + 1)
+                gn[7 * K, lvl] += 1 << k
+                gslot[c] = lvl * K + k
+    # the same tree as an entry/exit table: a node's entry is its first
+    # child (or -(cluster+1)), its exit the node after its subtree
+    cols = [None]  # the root's column, filled last
+
+    def emit(lvl):
+        for k in range(K):
+            pay = gn[7 * k + 6, lvl]
+            i = len(cols)
+            cols.append([*gn[7 * k:7 * k + 6, lvl], pay, i + 1])
+            if pay >= 0:
+                cols[i][6] = i + 1
+                emit(int(pay))
+                cols[i][7] = len(cols)
+    emit(0)
+    all_boxes = boxes[:n_cl]
+    cols[0] = [*all_boxes[:, 0:3].min(axis=0), *all_boxes[:, 3:6].max(axis=0),
+               1, len(cols)]
+    smem = np.asarray(cols, np.float32).T.copy()
+    return scene._replace(smem_nodes=smem, gnodes=gn, gslot=gslot,
+                          gdepth=depth, sweep_nodes=None, packed_nodes=None,
+                          num_nodes=smem.shape[1])

@@ -54,7 +54,8 @@ final line):
    2,097,152 reference rays) and legacy_aimed (the 1,048,576 aimed rays,
    exact recompute) through trace_closest_hit, each sorted with sort_rays;
    brute-force bounds; legacy_aimed equal to the aimed leg of phase 3
-   outside the near-tie, grazing-edge and crack classes (each counted);
+   outside the near-tie and grazing-edge classes (each counted; the crack
+   class must be empty);
    the cluster kernel against its plain version on each leg's rows (bit
    for bit), both timed there beside the kernel's bound.
 11. chained, the slice's main path at full size: bench.py's sparse_1m leg
@@ -69,10 +70,10 @@ final line):
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
 hinted, packed), the group walk's any mode and hints, the sweep on a
 packed table and with a pre-gate, and the legacy cluster kernel (relative,
-global frame, broadphase only) against their plain versions. The two
-kernels that run a warp of rays or points together, the legacy cluster
-walk and the nearest group walk, are also held there on unsorted rows,
-where a warp's lanes diverge the most.
+global frame, broadphase only) against their plain versions. The kernels
+that run a warp of rays or points together, the legacy cluster walk, both
+nearest walks and the group walk (whose leaf tests the warp shares), are
+also held there on unsorted rows, where a warp's lanes diverge the most.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -309,6 +310,7 @@ def phase_kernels(dev) -> dict:
     a, b, c = tb.create_n_cubes(1000)
     scene = build_tight_scene(a, b, c)
     gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
+    rec = records(scene, dev)
     sn = _dev(scene.smem_nodes, dev)
     n = 65536
     o, d = tb.create_rays(n, seed=tb.seed_state_after(1000))
@@ -316,9 +318,13 @@ def phase_kernels(dev) -> dict:
     n = min(len(o), len(ao))
     out, worst = {}, {"wide_trace": 0.0, "sweep_gate": 0.0}
     rows_of = {}
+    shuffle = torch.from_numpy(np.random.default_rng(13).permutation(n)).to(dev)
     for leg, (lo, ld, mode) in {"random": (o, d, "octmorton"),
-                                "aimed": (ao, ad, "morton")}.items():
-        perm, _ = sort_rays_device(lo, ld, mode=mode, device=dev)
+                                "aimed": (ao, ad, "morton"),
+                                "random_unsorted": (o, d, None),
+                                "aimed_unsorted": (ao, ad, None)}.items():
+        perm = (shuffle if mode is None else
+                sort_rays_device(lo, ld, mode=mode, device=dev)[0])
         rays = Ray.create(lo, ld, device=dev).take(perm)
         inf = torch.full((n,), float("inf"), device=dev)
         t_max = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(1),
@@ -348,7 +354,7 @@ def phase_kernels(dev) -> dict:
         }
         for name, cs in cases.items():
             kw = dict(gate=cs["gate"], packet=1024, bounded=cs["bounded"])
-            tk, ik = wide_mod.wide_trace(gn, grp, cs["rows"], scene.width,
+            tk, ik = wide_mod.wide_trace(rec, grp, cs["rows"], scene.width,
                                          scene.gdepth, **kw)
             tp, ip = wide_mod.wide_trace_plain(gn, grp, cs["rows"],
                                                scene.width, **kw)
@@ -405,7 +411,7 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
     scene_p = build_tight_scene(a, b, c, packed=True)
     grp = _dev(scene.groups, dev)
     grp_p = _dev(scene_p.groups, dev)
-    gn = _dev(scene.gnodes, dev)
+    gn, rec = _dev(scene.gnodes, dev), records(scene, dev)
     sn, pn = _dev(scene.smem_nodes, dev), _dev(scene_p.packed_nodes, dev)
     packet = 1024
     p = n // packet
@@ -479,7 +485,7 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
             "any_gated": (rows, {"mode": "any", "gate": gate}),
         }
         for name, (rr, kw) in wide_cases.items():
-            tk, ik = wide_mod.wide_trace(gn, grp, rr, scene.width,
+            tk, ik = wide_mod.wide_trace(rec, grp, rr, scene.width,
                                          scene.gdepth, packet=packet, **kw)
             tp, ip = wide_mod.wide_trace_plain(gn, grp, rr, scene.width,
                                                packet=packet, **kw)
@@ -543,8 +549,9 @@ def compare_main_shapes(kernel_rows: dict, gated_scene, err: dict):
             check(bad == 0, f"{leg}: sweep gate differs from plain ({bad})")
             gates["gated"] = g_k
         for case, gate in gates.items():
-            tk, ik = wide_mod.wide_trace(g_, r_, rows, sc.width, sc.gdepth,
-                                         gate=gate, packet=8192)
+            tk, ik = wide_mod.wide_trace(records(sc, rows.device), r_, rows,
+                                         sc.width, sc.gdepth, gate=gate,
+                                         packet=8192)
             tp, ip = wide_plain_chunked(g_, r_, rows, sc.width, gate=gate)
             differ = int(((tk.view(torch.int32) != tp.view(torch.int32))
                           | (ik != ip)).sum())
@@ -865,6 +872,47 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
              "bvh_tpu/ops/nearest.py:214"))]
 
 
+CAMERA_SIDE = 1024  # the W=128 leg's camera: pixels a side
+
+
+def dense_camera():
+    """The W=128 leg's camera rays over the dense mesh, numpy: 1024x1024
+    pixels in 32x32 tiles (tile-major)."""
+    side = CAMERA_SIDE
+    oc, dc = camera_rays([0.0, 60.0, -120.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                         55.0, side, side)
+
+    def tile(x):
+        return (x.reshape(side // 32, 32, side // 32, 32, 3)
+                .transpose(0, 2, 1, 3, 4).reshape(-1, 3).copy())
+
+    return tile(oc), tile(dc)
+
+
+def trace_rows(od, dd, mode):
+    """The ray rows the group walk takes on a leg of rays ``od``, ``dd`` on
+    the card: sorted with ``sort_rays_device(mode=mode)`` (None: as given),
+    unbounded."""
+    rays = Ray.create(od, dd)
+    if mode is not None:
+        rays = rays.take(sort_rays_device(od, dd, mode=mode)[0])
+    return _ray_rows(rays, torch.full((od.shape[0],), float("inf"),
+                                      device=od.device))
+
+
+PATH_LIGHT = (40.0, 80.0, -40.0)  # the pathtrace leg's point light
+
+
+def pathtracer(scene_d, tris_np, dev):
+    """bench.py's pathtrace leg over the dense mesh: the renderer and its
+    packet (bounces=2, packet=1024, the light at (40, 80, -40), power
+    20000)."""
+    packet = 1024
+    return make_pathtracer(scene_d, tris_np, bounces=2, packet=packet,
+                           light_pos=PATH_LIGHT, light_power=20000.0,
+                           device=dev), packet
+
+
 def main_rays(a):
     """The ray legs of the 120k scene (first vertices ``a``), numpy:
     bench.py's 2,097,152 random rays and its 1,048,576 aimed rays."""
@@ -892,12 +940,10 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     and timings. Returns the any-mode group walk's entry of the
     ``kernels`` line."""
     side = int(round(oc_dev.shape[0] ** 0.5))
-    bounces, packet = 2, 1024
-    light = (40.0, 80.0, -40.0)
+    bounces, light = 2, PATH_LIGHT
     tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_np)
     t0 = time.perf_counter()
-    tracer = make_pathtracer(scene_d, tris_np, bounces=bounces, packet=packet,
-                             light_pos=light, light_power=20000.0, device=dev)
+    tracer, packet = pathtracer(scene_d, tris_np, dev)
     setup_s = time.perf_counter() - t0
 
     def frame():
@@ -941,7 +987,8 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     check(gates_differ == 0, f"pathtrace shadow wave: {gates_differ} sweep "
           "gates differ from plain")
     kw = dict(packet=packet, bounded=True, mode="any", gate=g_k)
-    tk, ik = wide_mod.wide_trace(gn, grp, rows, W, scene_d.gdepth, **kw)
+    rec = records(scene_d, dev)
+    tk, ik = wide_mod.wide_trace(rec, grp, rows, W, scene_d.gdepth, **kw)
     tp, ip = wide_plain_chunked(gn, grp, rows, W, **kw)
     torch.cuda.synchronize()
     differ = same_bits(tk, ik, tp, ip)
@@ -980,8 +1027,8 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     ms = cuda_ms(frame, reps=5)
     rays = side * side * 2 * (bounces + 1)
     bd = device_breakdown(frame, ms)
-    kms = cuda_ms(lambda: wide_mod.wide_trace(gn, grp, rows, W, scene_d.gdepth,
-                                              **kw))
+    kms = cuda_ms(lambda: wide_mod.wide_trace(rec, grp, rows, W,
+                                              scene_d.gdepth, **kw))
     pms = cuda_ms(lambda: wide_plain_chunked(gn, grp, rows, W, **kw), reps=3,
                   warmup=0)
     # work per ray on every 32nd ray: sample ray j lies in packet
@@ -992,7 +1039,7 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     tests_pr, fires_pr = float(tests.float().mean()), float(fires.float().mean())
     n = rows.shape[1]
     b = walk_bound(n, W, tests_pr, fires_pr, True,
-                   wide_mod.N_ROWS * 4 * n + scene_d.gnodes.nbytes
+                   wide_mod.N_ROWS * 4 * n + rec.nbytes
                    + scene_d.groups.nbytes + 8 * n, len(tris_np[0]))
     emit("pathtrace_timings", card=card, ms=ms, rays_per_s=rays / (ms * 1e-3),
          rays_counted=rays, breakdown=bd,
@@ -1233,11 +1280,10 @@ def phase_legacy_kernels(dev, n: int = 65536) -> dict:
                                   "global": (False, False),
                                   "skip_narrow": (True, True)}.items():
             sc = scenes[rel]
-            tables = legacy_tables(sc, dev)
-            tk, ik = ct_mod.cluster_trace(*tables, rows, relative=rel,
-                                          skip_narrow=skip)
-            tp, ip = ct_mod.cluster_trace_plain(*tables, rows, relative=rel,
-                                                skip_narrow=skip)
+            tk, ik = legacy_call(ct_mod.cluster_trace, sc, rows, relative=rel,
+                                 skip_narrow=skip)
+            tp, ip = legacy_call(ct_mod.cluster_trace_plain, sc, rows,
+                                 relative=rel, skip_narrow=skip)
             torch.cuda.synchronize()
             differ = same_bits(tk, ik, tp, ip)
             err = max(err, finite_err(tk, tp))
@@ -1252,10 +1298,18 @@ def phase_legacy_kernels(dev, n: int = 65536) -> dict:
             "clusters": int(scenes[True].num_clusters)}
 
 
-def legacy_tables(sc, dev):
-    """A ClusterScene's tables on ``dev``: (smem_nodes, smem_cc, tris_rel)."""
-    return (_dev(sc.smem_nodes, dev), _dev(sc.smem_cc, dev),
-            _dev(sc.tris_rel, dev))
+def legacy_call(fn, sc, rows, **kw):
+    """``fn`` (``cluster_trace`` or its plain version) over a ClusterScene's
+    tables on the rows' device, its ``a_lo`` included."""
+    dev = rows.device
+    return fn(_dev(sc.smem_nodes, dev), _dev(sc.smem_cc, dev),
+              _dev(sc.tris_rel, dev), _dev(sc.a_lo, dev), rows, **kw)
+
+
+def records(sc, dev):
+    """A scene's wide table in the group-walk kernel's layout, on
+    ``dev``."""
+    return _dev(sc.gnodes, dev, wide_mod.group_records)
 
 
 def sort_legacy(o, d, dev):
@@ -1323,9 +1377,10 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     # float32 keeps 2^-8 of a unit, so two triangles that share an edge may
     # be stored 2^-8 apart, and a ray can pass between them
     # (tests/test_torch_legacy.py::test_table_crack_ray_at_a_cube_edge).
-    # The walk's own origin in that frame is an exact float pair, which
-    # closed the crack its rounding had opened
-    # (::test_crack_ray_at_a_cube_edge)
+    # The walk's own origin in that frame is an exact float pair
+    # (::test_crack_ray_at_a_cube_edge), and it subtracts the part of a - cc
+    # that the stored a' leaves out (the scene's a_lo): no crack is left, and
+    # the crack class must be empty
     back = torch.from_numpy(unsort["legacy_aimed"]).to(dev)
     h_leg = res["legacy_aimed"]
     h_leg = h_leg._replace(**{f: getattr(h_leg, f)[back]
@@ -1344,6 +1399,8 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     check(outside == 0, f"legacy_aimed differs from the aimed leg on "
           f"{outside} rays outside the near-tie, grazing-edge and crack "
           "classes")
+    cracks = sum(x["class"] == "crack" for x in diffs)
+    check(cracks == 0, f"legacy_aimed: {cracks} crack-class rays")
     emit("legacy", triangles=int(a.shape[0]), build_s=build_s,
          sort_s=sort_s, clusters=int(scene.num_clusters),
          nodes=int(scene.num_nodes),
@@ -1373,12 +1430,11 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     # (the plain walk in chunks of LEGACY_PLAIN_CHUNK rays, so that its
     # batched leaf tests stay within a few GB), both timed there beside the
     # kernel's bound
-    tables = legacy_tables(scene, dev)
-
     def plain(rows, counts=False):
-        parts = [ct_mod.cluster_trace_plain(
-            *tables, rows[:, s:s + LEGACY_PLAIN_CHUNK].contiguous(),
-            counts=counts) for s in range(0, rows.shape[1], LEGACY_PLAIN_CHUNK)]
+        parts = [legacy_call(ct_mod.cluster_trace_plain, scene,
+                             rows[:, s:s + LEGACY_PLAIN_CHUNK].contiguous(),
+                             counts=counts)
+                 for s in range(0, rows.shape[1], LEGACY_PLAIN_CHUNK)]
         return tuple(torch.cat(x) for x in zip(*parts))
 
     kernel_ms, plain_ms, work, bounds, vs_plain = {}, {}, {}, {}, {}
@@ -1386,7 +1442,7 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     for leg in legs:
         rows = ct_mod.ray_rows(Ray.create(*rays_dev[leg]))
         n = rows.shape[1]
-        tk, ik = ct_mod.cluster_trace(*tables, rows)
+        tk, ik = legacy_call(ct_mod.cluster_trace, scene, rows)
         tp, ip, visits, fires = plain(rows, counts=True)
         torch.cuda.synchronize()
         differ = same_bits(tk, ik, tp, ip)
@@ -1394,7 +1450,8 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
         vs_plain[leg] = {"rays": n, "rays_differ": differ,
                          "hits": int((ik >= 0).sum())}
         check(differ == 0, f"{leg}: {differ} rays differ from plain")
-        kernel_ms[leg] = cuda_ms(lambda: ct_mod.cluster_trace(*tables, rows))
+        kernel_ms[leg] = cuda_ms(lambda: legacy_call(ct_mod.cluster_trace,
+                                                     scene, rows))
         plain_ms[leg] = cuda_ms(lambda: plain(rows), reps=3, warmup=0)
         v_pr, f_pr = float(visits.float().mean()), float(fires.float().mean())
         work[leg] = {"node_visits": v_pr, "leaf_fires": f_pr,
@@ -1403,7 +1460,8 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
                     + f_pr * (ct_mod.LEAF_OPS + ct_mod.CW * ct_mod.TRI_OPS))
                + a.shape[0] * wide_mod.TRI_ONCE_OPS)
         nbytes = (ct_mod.N_ROWS * 4 * n + scene.smem_nodes.nbytes
-                  + scene.smem_cc.nbytes + scene.tris_rel.nbytes + 8 * n)
+                  + scene.smem_cc.nbytes + scene.tris_rel.nbytes
+                  + scene.a_lo.nbytes + 8 * n)
         bms, by = roofline(ops, nbytes)
         bounds[leg] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
                        "bound_by": by, "ops_ms_at_issue_rate": ops / issue * 1e3}
@@ -1507,7 +1565,8 @@ def plain_of(name: str, args: tuple, kw: dict) -> tuple:
         width = kw.pop("width")
         del kw["depth"]
         check(kw["hints"] is None, "hinted chained walk")
-        return plain_chunked(wide_mod.wide_trace_plain, args[:2], args[2],
+        return plain_chunked(wide_mod.wide_trace_plain,
+                             (wide_mod.wide_table(args[0]), args[1]), args[2],
                              width, **kw)
     gnodes, grp, pts, width = args[:4]
     chunk = PLAIN_CHUNK // width
@@ -1770,12 +1829,8 @@ def main() -> None:
     scene_d = build_tight_scene(ad_, bd_, cd_, leaf_size=128)
     check(scene_d.gnodes is not None and scene_d.width == 128, "dense layout")
     tris_d = tuple(torch.from_numpy(x).to(dev) for x in (ad_, bd_, cd_))
-    side = 1024
-    oc, dc = camera_rays([0.0, 60.0, -120.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0],
-                         55.0, side, side)
-    tile = lambda x: (x.reshape(side // 32, 32, side // 32, 32, 3)  # noqa: E731
-                      .transpose(0, 2, 1, 3, 4).reshape(-1, 3).copy())
-    oc, dc = tile(oc), tile(dc)
+    side = CAMERA_SIDE
+    oc, dc = dense_camera()
     oc_dev, dc_dev = torch.from_numpy(oc).to(dev), torch.from_numpy(dc).to(dev)
     tr_cam = make_tracer(scene_d, packet=4096, sweep=False, sort=None)
 
@@ -1842,18 +1897,10 @@ def main() -> None:
     # against its plain version on the same rows, and both timed there
     gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
     sn = _dev(scene.smem_nodes, dev)
-    kernel_rows = {}
-    for leg, (od, dd, mode, sc) in {
-            "random": (o_dev, d_dev, "octmorton", scene),
-            "aimed": (ao_dev, ad_dev, "morton", scene),
-            "camera_w128": (oc_dev, dc_dev, None, scene_d)}.items():
-        if mode is None:
-            rays = Ray.create(od, dd)
-        else:
-            perm, _ = sort_rays_device(od, dd, mode=mode)
-            rays = Ray.create(od, dd).take(perm)
-        inf = torch.full((od.shape[0],), float("inf"), device=dev)
-        kernel_rows[leg] = (_ray_rows(rays, inf), sc)
+    kernel_rows = {
+        "random": (trace_rows(o_dev, d_dev, "octmorton"), scene),
+        "aimed": (trace_rows(ao_dev, ad_dev, "morton"), scene),
+        "camera_w128": (trace_rows(oc_dev, dc_dev, None), scene_d)}
     t0 = time.perf_counter()
     main_vs_plain, err = compare_main_shapes(kernel_rows, scene,
                                              dict(p2["max_abs_err"]))
@@ -1862,8 +1909,9 @@ def main() -> None:
     kernel_ms, plain_ms = {}, {}
     for leg, (rows, sc) in kernel_rows.items():
         g_, r_ = _dev(sc.gnodes, dev), _dev(sc.groups, dev)
+        rec = records(sc, dev)
         kernel_ms[f"wide_trace/{leg}"] = cuda_ms(
-            lambda: wide_mod.wide_trace(g_, r_, rows, sc.width, sc.gdepth))
+            lambda: wide_mod.wide_trace(rec, r_, rows, sc.width, sc.gdepth))
         plain_ms[f"wide_trace/{leg}"] = cuda_ms(
             lambda: wide_plain_chunked(g_, r_, rows, sc.width),
             reps=5, warmup=0)
@@ -1886,7 +1934,7 @@ def main() -> None:
     wide_ops = (n * (tests_pr * wide_mod.K * wide_mod.SLAB_OPS
                      + fires_pr * (wide_mod.LEAF_OPS + W * wide_mod.TRI_OPS))
                 + a.shape[0] * wide_mod.TRI_ONCE_OPS)
-    wide_bytes = (wide_mod.N_ROWS * 4 * n + scene.gnodes.nbytes
+    wide_bytes = (wide_mod.N_ROWS * 4 * n + records(scene, dev).nbytes
                   + scene.groups.nbytes + 8 * n)
     sweep_ops = n * visits_pr * wide_mod.SLAB_OPS
     sweep_bytes = 7 * 4 * n + scene.smem_nodes.nbytes + 4 * (-(-n // 8192))

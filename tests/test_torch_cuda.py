@@ -47,6 +47,11 @@ def _bits(x):
     return x.view(torch.int32) if x.is_floating_point() else x
 
 
+def _rec(scene, dev):
+    """The scene's wide table in the group-walk kernel's layout on dev."""
+    return _dev(scene.gnodes, dev, wide_mod.group_records)
+
+
 def _to(rays, dev):
     """The same ray tensors on ``dev`` (each device would normalize the
     directions itself, the card's square root 1 ulp off on some)."""
@@ -154,7 +159,8 @@ def test_wide_kernel_matches_plain(case, cuda, mode):
         gate = sweep_mod.sweep_gate(_dev(scene.smem_nodes, cuda), rows, 256)
     kw = dict(gate=gate, packet=256, bounded=mode == "bounded")
     before = wide_mod.launches
-    tk, ik = wide_mod.wide_trace(gn, grp, rows, scene.width, scene.gdepth, **kw)
+    tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
+                                 scene.width, scene.gdepth, **kw)
     assert wide_mod.launches == before + 1
     tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
@@ -196,11 +202,11 @@ def test_tracer_on_card_matches_cpu(case, cuda):
 def test_wrapper_refuses_mixed_devices(case, cuda):
     scene, _, _, _, rays, tm = case
     rows = _ray_rows(rays, tm)
-    with pytest.raises(ValueError, match="gnodes"):
-        wide_mod.wide_trace(_dev(scene.gnodes, "cpu"), _dev(scene.groups, cuda),
+    with pytest.raises(ValueError, match="records"):
+        wide_mod.wide_trace(_rec(scene, "cpu"), _dev(scene.groups, cuda),
                             rows, scene.width, scene.gdepth)
     with pytest.raises(ValueError, match="gate"):
-        wide_mod.wide_trace(_dev(scene.gnodes, cuda), _dev(scene.groups, cuda),
+        wide_mod.wide_trace(_rec(scene, cuda), _dev(scene.groups, cuda),
                             rows, scene.width, scene.gdepth,
                             gate=torch.ones(64, dtype=torch.int32), packet=128)
 
@@ -258,7 +264,8 @@ def test_wide_kernel_any_and_hints_match_plain(case, cuda, mode):
         p = -(-rows.shape[1] // packet)
         kw["hints"] = torch.from_numpy(_hints(scene.gslot, p)).to(cuda)
     before = wide_mod.launches
-    tk, ik = wide_mod.wide_trace(gn, grp, rows, scene.width, scene.gdepth, **kw)
+    tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
+                                 scene.width, scene.gdepth, **kw)
     assert wide_mod.launches == before + 1
     tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
@@ -335,7 +342,7 @@ def test_cluster_kernel_matches_plain(legacy, cuda, mode):
     scene = build_cluster_scene(*tris, relative=mode != "global")
     rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
     tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
-              _dev(scene.tris_rel, cuda))
+              _dev(scene.tris_rel, cuda), _dev(scene.a_lo, cuda))
     kw = dict(relative=scene.relative, skip_narrow=mode == "skip_narrow")
     before = ct_mod.launches
     tk, ik = ct_mod.cluster_trace(*tables, rows, **kw)
@@ -477,7 +484,7 @@ def test_cluster_kernel_warp_schedule(cuda, n, mode):
     scene = build_cluster_scene(a, b, c, relative=mode != "global")
     rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
     tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
-              _dev(scene.tris_rel, cuda))
+              _dev(scene.tris_rel, cuda), _dev(scene.a_lo, cuda))
     kw = dict(relative=scene.relative, skip_narrow=mode == "skip_narrow")
     tk, ik = ct_mod.cluster_trace(*tables, rows, **kw)
     tp, ip = ct_mod.cluster_trace_plain(*tables, rows, **kw)
@@ -509,7 +516,7 @@ def test_cluster_kernel_one_lane_fires(cuda, relative):
     scene = build_cluster_scene(a, b, c, relative=relative)
     rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
     tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
-              _dev(scene.tris_rel, cuda))
+              _dev(scene.tris_rel, cuda), _dev(scene.a_lo, cuda))
     tk, ik = ct_mod.cluster_trace(*tables, rows, relative=relative)
     tp, ip = ct_mod.cluster_trace_plain(*tables, rows, relative=relative)
     torch.cuda.synchronize()
@@ -589,3 +596,231 @@ def test_nearest_wide_one_lane_fires(wide_scenes, cuda, width):
                     cuda, True)
     hit = (ik >= 0).cpu().numpy()
     assert hit[idx].all() and hit.sum() == len(idx)
+
+
+# ---- the warp forms of the entry/exit nearest walk and the group walk ------
+# The entry/exit nearest walk runs a warp of 32 points over the union of its
+# points' nodes; the group walk keeps one ray a lane in lock step but tests
+# the leaves its lanes fire with the whole warp (and reads a group-major
+# copy of the table). The same stresses as above, plus a table 14 groups
+# deep (testbase.chain_tables), the deepest the wrappers take.
+
+def _near_ee_pair(scene, rows, dev, refine):
+    sn, grp = _dev(scene.smem_nodes, dev), _dev(scene.groups, dev)
+    before = near_mod.entry_exit_launches
+    dk, ik = near_mod.nearest_entry_exit(sn, grp, rows, scene.width,
+                                         refine=refine)
+    assert near_mod.entry_exit_launches == before + 1
+    dp, ip = near_mod.nearest_entry_exit_plain(sn, grp, rows, scene.width,
+                                               refine=refine)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dk), _bits(dp))
+    assert torch.equal(ik, ip)
+    return ik
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_nearest_entry_exit_warp_schedule(wide_scenes, cuda, width, n, refine):
+    scene, (a, b, c) = wide_scenes[width]
+    rng = np.random.default_rng(n + 3 * width)
+    cen = (a + b + c) / 3.0
+    m = 65538
+    near = cen[rng.integers(0, len(cen), m // 2)] + rng.normal(
+        scale=3.0, size=(m // 2, 3))
+    lo, hi = a.min(axis=0) - 50.0, a.max(axis=0) + 50.0
+    far = rng.uniform(lo, hi, (m // 2, 3))
+    pts = np.concatenate([near, far]).astype(np.float32)
+    d_max = np.where(np.arange(m) % 3 == 0, 5.0, np.inf).astype(np.float32)
+    pts, d_max = _shuffled(m, pts, d_max, seed=n + 1)
+    ik = _near_ee_pair(scene, _near_rows(pts[:n], d_max[:n], cuda), cuda,
+                       refine)
+    if n > 33:
+        assert (ik >= 0).any() and (ik < 0).any()
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_nearest_entry_exit_one_lane_fires(wide_scenes, cuda, width):
+    """Points whose radius is 0 fire no box; one lane of each warp has none
+    and so walks and narrowphases alone."""
+    scene, (a, b, c) = wide_scenes[width]
+    n_warps = 4
+    cen = (a + b + c) / 3.0
+    pts = cen[np.random.default_rng(9).integers(0, len(cen), 32 * n_warps)]
+    d_max = np.zeros(32 * n_warps, np.float32)
+    idx = 32 * np.arange(n_warps) + np.array([0, 9, 16, 31])
+    d_max[idx] = np.inf
+    ik = _near_ee_pair(scene, _near_rows(pts.astype(np.float32), d_max, cuda),
+                       cuda, True)
+    hit = (ik >= 0).cpu().numpy()
+    assert hit[idx].all() and hit.sum() == len(idx)
+
+
+WIDE_MODES = ["closest", "bounded", "any", "any_bounded", "gated", "hinted"]
+
+
+def _wide_pair(scene, rows, dev, mode, packet=128):
+    """The group-walk kernel against its plain version in ``mode``, on the
+    same rows (t_max in row 6): returns the kernel's lane ids."""
+    gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
+    p = -(-rows.shape[1] // packet)
+    kw = dict(packet=packet, bounded="bounded" in mode,
+              mode="any" if mode.startswith("any") else "closest")
+    if mode == "gated":
+        g = sweep_mod.sweep_gate(_dev(scene.smem_nodes, dev), rows, packet)
+        # every other packet gated off, whatever the sweep says
+        g[::2] = 0
+        kw["gate"] = g
+    if mode == "hinted":
+        kw["hints"] = torch.from_numpy(
+            _hints(scene.gslot, p, k=5, seed=p)).to(dev)
+    before = wide_mod.launches
+    tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
+                                 scene.width, scene.gdepth, **kw)
+    assert wide_mod.launches == before + 1
+    tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    return ik
+
+
+def _mixed_rays(a, m, seed, dev, mesh=False):
+    """m unsorted rays with a t_max between 0 and 120: on the cube scenes
+    half aimed at cubes and half in the reference's random range; over the
+    dense mesh from above it, heading down at random angles."""
+    rng = np.random.default_rng(seed)
+    if mesh:
+        o = rng.uniform(-100, 100, (m, 3)).astype(np.float32)
+        o[:, 1] = 40.0
+        d = rng.normal(size=(m, 3)).astype(np.float32)
+        d[:, 1] = -np.abs(d[:, 1])
+    else:
+        o, d = _rays(a, n=m + m % 2, seed=seed)
+        o, d = _shuffled(m, o[:m], d[:m], seed=seed)
+    rays = Ray.create(o, d, device=dev)
+    tm = torch.from_numpy(rng.uniform(0.0, 120.0, m).astype(np.float32)).to(dev)
+    return rays, tm
+
+
+@pytest.mark.parametrize("mode", WIDE_MODES)
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_wide_kernel_warp_schedule(wide_scenes, cuda, width, n, mode):
+    scene, (a, b, c) = wide_scenes[width]
+    rays, tm = _mixed_rays(a, 65538, n + width, cuda, mesh=width == 128)
+    bound = tm if "bounded" in mode else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)[:, :n].contiguous()
+    ik = _wide_pair(scene, rows, cuda, mode)
+    if n > 33:
+        assert (ik >= 0).any() and (ik < 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_wide_kernel_one_lane_fires(wide_scenes, cuda, width, mode):
+    """One lane of each warp aimed at a cube, the others away from the
+    scene: that lane walks and fires leaves alone."""
+    scene, (a, b, c) = wide_scenes[width]
+    o, d, idx = _one_lane_rows(a, 4, [0, 5, 17, 31])
+    rays = Ray.create(o, d, device=cuda)
+    rows = _ray_rows(rays, torch.full((len(o),), np.inf, device=cuda))
+    ik = _wide_pair(scene, rows, cuda, mode)
+    hit = (ik >= 0).cpu().numpy()
+    assert hit[idx].all() and hit.sum() == len(idx)
+
+
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_wide_kernel_any_lanes_finish_early(wide_scenes, cuda, width):
+    """Any hit with every even lane aimed at a cube (it finds an occluder
+    and stops walking early) and every odd lane a random ray that walks on:
+    the warp runs until its last lane is done."""
+    scene, (a, b, c) = wide_scenes[width]
+    m = 32 * 64
+    ao, ad = tb.aimed_rays(a, m, seed=11)
+    ro, rd = tb.create_rays(m, seed=tb.seed_state_after(width))
+    ao[1::2], ad[1::2] = ro[1::2], rd[1::2]
+    rays = Ray.create(ao, ad, device=cuda)
+    for t_max in (np.inf, 200.0):
+        rows = _ray_rows(rays, torch.full((m,), t_max, device=cuda))
+        for mode in ("any", "any_bounded"):
+            ik = _wide_pair(scene, rows, cuda, mode, packet=256)
+            assert (ik[0::2] >= 0).float().mean() > 0.9
+
+
+@pytest.fixture(scope="module")
+def deep_scene(wide_scenes):
+    """The W=16 cube scene's clusters as a chain 14 groups deep."""
+    scene, tris = wide_scenes[16]
+    return tb.chain_tables(scene, 14), tris
+
+
+@pytest.mark.parametrize("mode", WIDE_MODES)
+def test_wide_kernel_deep_table(deep_scene, cuda, mode):
+    scene, (a, b, c) = deep_scene
+    assert scene.gdepth == 14
+    rays, tm = _mixed_rays(a, 8193, 14, cuda)
+    bound = tm if "bounded" in mode else torch.full_like(tm, np.inf)
+    ik = _wide_pair(scene, _ray_rows(rays, bound), cuda, mode)
+    assert (ik >= 0).any()
+
+
+@pytest.mark.parametrize("walk", ["wide", "entry_exit"])
+@pytest.mark.parametrize("refine", [True, False])
+def test_nearest_deep_table(deep_scene, cuda, walk, refine):
+    scene, (a, b, c) = deep_scene
+    rng = np.random.default_rng(15)
+    cen = (a + b + c) / 3.0
+    pts = (cen[rng.integers(0, len(cen), 8193)]
+           + rng.normal(scale=20.0, size=(8193, 3))).astype(np.float32)
+    d_max = np.where(np.arange(8193) % 4 == 0, 10.0, np.inf).astype(np.float32)
+    rows = _near_rows(pts, d_max, cuda)
+    if walk == "wide":
+        ik = _near_pair(scene, rows, cuda, refine)
+    else:
+        ik = _near_ee_pair(scene, rows, cuda, refine)
+    assert (ik >= 0).any()
+
+
+# ---- the legacy walk with the table's a_lo ----------------------------------
+
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("n", [31, 65537])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_cluster_kernel_with_a_lo(cuda, n, relative, order):
+    a, b, c = tb.create_n_cubes(500)
+    o, d = _rays(a, n=65538)
+    if order == "sorted":
+        perm = sort_rays(o, d)[0]
+        o, d = o[perm], d[perm]
+    else:
+        o, d = _shuffled(65538, o, d, seed=n)
+    o, d = o[:n], d[:n]
+    scene = build_cluster_scene(a, b, c, relative=relative)
+    assert scene.a_lo.shape == (scene.num_clusters, 3, 128)
+    rows = ct_mod.ray_rows(Ray.create(o, d, device=cuda))
+    tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
+              _dev(scene.tris_rel, cuda), _dev(scene.a_lo, cuda))
+    kw = dict(relative=relative)
+    tk, ik = ct_mod.cluster_trace(*tables, rows, **kw)
+    tp, ip = ct_mod.cluster_trace_plain(*tables, rows, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    assert (ik >= 0).any()
+
+
+def test_table_crack_ray_on_card(cuda):
+    """Ray 475904 of bench.py's aimed set on the 120k scene, which the
+    stored a' alone leaves in a crack, hits through the card's legacy walk
+    as through the CPU's."""
+    a, b, c = tb.create_n_cubes(10000)
+    ao, ad = tb.aimed_rays(a, 1 << 20)
+    scene = build_cluster_scene(a, b, c)
+    o, d = ao[475904:475905], ad[475904:475905]
+    rays = Ray.create(o, d, device="cpu")
+    got = trace_closest_hit(scene, _to(rays, cuda), device=cuda)
+    ref = trace_closest_hit(scene, rays, device="cpu")
+    _equal(got, ref)
+    assert int(ref.shape_id[0]) == 54391

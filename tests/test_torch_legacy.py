@@ -73,7 +73,8 @@ def exact_reciprocal(monkeypatch):
 
 
 def _assert_scene_equal(sj, st):
-    assert st._fields == sj._fields
+    # the reference's fields, then the port's own a_lo
+    assert st._fields == sj._fields + ("a_lo",)
     for name in sj._fields:
         x, y = getattr(sj, name), getattr(st, name)
         if isinstance(x, np.ndarray):
@@ -200,22 +201,23 @@ def test_skip_narrow_and_wrapper(world):
     assert not np.isfinite(np.asarray(ref.t)).any()
     # the wrapper on CPU tensors is the plain version, with the walk's counts
     nodes, cc = _dev(st.smem_nodes, CPU), _dev(st.smem_cc, CPU)
-    tris_rel = _dev(st.tris_rel, CPU)
+    tris_rel, a_lo = _dev(st.tris_rel, CPU), _dev(st.a_lo, CPU)
     rows = ct_mod.ray_rows(rays)
-    t0, i0 = ct_mod.cluster_trace(nodes, cc, tris_rel, rows)
-    t1, i1, visits, fires = ct_mod.cluster_trace_plain(nodes, cc, tris_rel,
-                                                       rows, counts=True)
+    t0, i0 = ct_mod.cluster_trace(nodes, cc, tris_rel, a_lo, rows)
+    t1, i1, visits, fires = ct_mod.cluster_trace_plain(
+        nodes, cc, tris_rel, a_lo, rows, counts=True)
     assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
     assert torch.equal(i0, i1)
     assert (visits >= 1).all() and (fires <= visits).all() and fires.sum() > 0
     _, _, v_skip, f_skip = ct_mod.cluster_trace_plain(
-        nodes, cc, tris_rel, rows, skip_narrow=True, counts=True)
+        nodes, cc, tris_rel, a_lo, rows, skip_narrow=True, counts=True)
     # without leaf tests no bound shrinks, so the walk visits no fewer nodes
     assert (v_skip >= visits).all() and (f_skip >= fires).all()
     with pytest.raises(ValueError, match=r"rays must be \[9, n\]"):
-        ct_mod.cluster_trace(nodes, cc, tris_rel, rows[:8].contiguous())
+        ct_mod.cluster_trace(nodes, cc, tris_rel, a_lo, rows[:8].contiguous())
     with pytest.raises(ValueError, match="smem_cc"):
-        ct_mod.cluster_trace(nodes, cc[:, :1].contiguous(), tris_rel, rows)
+        ct_mod.cluster_trace(nodes, cc[:, :1].contiguous(), tris_rel, a_lo,
+                             rows)
     with pytest.raises(ValueError, match="multiple of 128"):
         trace_closest_hit(st, rays, packet=200, device=CPU)
 
@@ -327,18 +329,19 @@ def test_two_diff_is_exact(scale):
 
 
 def test_table_crack_ray_at_a_cube_edge(exact_reciprocal, aimed_120k):
-    """A crack in the table, which the exact cluster-frame origin cannot
-    close: ray 475904 of the same aimed set. Brute force hits triangle
-    54391 2.2e-3 (barycentric) inside an edge. The ClusterScene table
-    (array-equal to the reference's) stores a' = a - cc rounded in
+    """A crack in the table, which the exact cluster-frame origin alone
+    cannot close: ray 475904 of the same aimed set. Brute force hits
+    triangle 54391 2.2e-3 (barycentric) inside an edge. The ClusterScene
+    table (array-equal to the reference's) stores a' = a - cc rounded in
     float32, ~4e4 units from the cluster centre, and that rounding moved
     54391's stored a' by 2^-8 in z. With the exact origin, float64 on the
-    stored rows puts the ray outside every stored triangle of the cube. The
-    port's legacy walk misses this ray, an open fault (ROADMAP queue 3):
-    the walk evaluates the stored rows, so closing the crack needs a table
-    that keeps a' exactly. The reference's forms round the table the other
-    way and report 54394, another triangle of the cube, at a t within 1e-4
-    of the true hit: the grazing-edge class."""
+    stored rows puts the ray outside every stored triangle of the cube.
+    The scene carries, beside the table, the remainder a_lo = (a - cc) - a'
+    of every triangle, and the walk forms tv = ((hi - a') + lo) - a_lo: the
+    port's legacy trace hits 54391 at a t within 2e-4 of brute force. The
+    reference's forms round the table the other way and report 54394,
+    another triangle of the cube, at a t within 1e-4 of the true hit: the
+    grazing-edge class."""
     (a, b, c), ao, ad, st = aimed_120k
     ray = 475904
     o, d = ao[ray:ray + 1], ad[ray:ray + 1]
@@ -364,8 +367,78 @@ def test_table_crack_ray_at_a_cube_edge(exact_reciprocal, aimed_120k):
             assert -3e-3 < vv < 0.0
             a_rel = a[k].astype(np.float64) - st.smem_cc[:3, cl].astype(np.float64)
             assert abs(abs(ap[2] - a_rel[2]) - 2.0 ** -8) < 1e-9
+            # a' + a_lo is a - cc exactly, and puts the ray inside 54391
+            lo = st.a_lo[cl, :, lane % 128].astype(np.float64)
+            assert np.array_equal(ap + lo, a_rel)
+            tv = tv - lo
+            uu, vv = (tv @ p) / det, (dd @ np.cross(tv, e1)) / det
+            assert uu >= 0 and vv >= 0 and uu + vv <= 1
+    ht = trace_closest_hit(st, rays, device=CPU)
+    assert int(ht.shape_id[0]) == k
+    assert abs(float(ht.t[0]) - t_true) <= 2e-4 * t_true
+    hx = trace_closest_hit(st, rays, tris=(a, b, c), device=CPU)
+    assert int(hx.shape_id[0]) == k
+    assert abs(float(hx.t[0]) - t_true) <= 1e-6 * t_true
     hj = trace_j(build_j(a, b, c), bvh_tpu.Ray.create(jnp.asarray(o),
                                                       jnp.asarray(d)),
                  interpret=True)
     assert int(hj.shape_id[0]) == 54394
     assert abs(float(hj.t[0]) - t_true) <= 1e-4 * t_true
+
+
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("n_cubes", [30, 10000])
+def test_build_cluster_scene_a_lo(relative, n_cubes):
+    """Beside the reference's fields, a built scene carries a_lo [C, 3,
+    128]: tris_rel stays array-equal to the reference's, and float64(a')
+    + float64(a_lo) is a - cc exactly (float64) on every stored lane; pad
+    lanes and the global frame hold 0."""
+    a, b, c = tb.create_n_cubes(n_cubes, seed=n_cubes)
+    st = build_cluster_scene(a, b, c, relative=relative)
+    if n_cubes == 30:
+        sj = build_j(a, b, c, relative=relative)
+        assert np.array_equal(np.asarray(sj.tris_rel), st.tris_rel)
+    C = st.num_clusters
+    assert st.a_lo.shape == (C, 3, 128) and st.a_lo.dtype == np.float32
+    lanes = st.tri_map.reshape(C, 128)
+    real = lanes >= 0
+    cc = st.smem_cc[:3].T.astype(np.float64) if relative else np.zeros((C, 3))
+    exact = a[lanes.clip(0)].astype(np.float64) - cc[:, None, :]  # [C, 128, 3]
+    got = (st.tris_rel[:, 0:3].astype(np.float64)
+           + st.a_lo.astype(np.float64)).transpose(0, 2, 1)
+    assert np.array_equal(got[real], exact[real])
+    assert not st.a_lo.transpose(0, 2, 1)[~real].any()
+    if not relative:
+        assert not st.a_lo.any()
+    elif n_cubes == 10000:
+        assert (st.a_lo != 0).any()
+
+
+def test_scene_from_arrays_traces_as_before(world):
+    """A scene carried in from the reference's arrays (no vertices) gets a
+    zero a_lo and traces bit for bit as the built scene with its a_lo
+    zeroed, whose tests form ((hi - a') + lo) - 0 = (hi - a') + lo, the
+    walk without a_lo. A built scene's a_lo survives _replace and a round
+    trip through _asdict; a table of the wrong shape is refused."""
+    tris, o, d = world
+    sj = build_j(*tris)
+    sa = cluster_scene_from_arrays(sj._asdict())
+    C = sa.num_clusters
+    assert sa.a_lo.shape == (C, 3, 128) and sa.a_lo.dtype == np.float32
+    assert not sa.a_lo.any()
+    st = build_cluster_scene(*tris)
+    assert st._replace(relative=True).a_lo is st.a_lo
+    back = cluster_scene_from_arrays(st._asdict())
+    assert np.array_equal(back.a_lo, st.a_lo) and (st.a_lo != 0).any()
+    rays = Ray.create(o, d, device=CPU)
+    got = trace_closest_hit(sa, rays, device=CPU)
+    zeroed = trace_closest_hit(st._replace(a_lo=np.zeros_like(st.a_lo)),
+                               rays, device=CPU)
+    assert torch.equal(got.t.view(torch.int32), zeroed.t.view(torch.int32))
+    assert torch.equal(got.shape_id, zeroed.shape_id)
+    assert torch.isfinite(got.t).any()
+    tables = tuple(_dev(x, CPU) for x in (sa.smem_nodes, sa.smem_cc,
+                                         sa.tris_rel))
+    with pytest.raises(ValueError, match="a_lo"):
+        ct_mod.cluster_trace(*tables, torch.zeros(C, 2, 128),
+                             ct_mod.ray_rows(rays))

@@ -340,3 +340,28 @@ def test_nearest_never_falls_back_to_cpu(cubes120):
         nearest_tight(st, pts)
     with pytest.raises(RuntimeError, match="CUDA"):
         sort_points_device(pts)
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_deep_chain_table(refine):
+    """Both nearest walks over a tree 14 groups deep (testbase.chain_tables
+    over create_n_cubes(300)): bit-equal to each other, each point's d²
+    within the key truncation of brute force over the chain's triangles;
+    the group walk takes depth 14 and refuses 15."""
+    a, b, c = tb.create_n_cubes(300)
+    st = tb.chain_tables(build_tight_scene(a, b, c), 14)
+    lanes = np.concatenate([np.arange(16) + (c_ // 8) * 128 + (c_ % 8) * 16
+                            for c_ in range(15 * 13 + 16)])
+    ids = st.tri_map[lanes]
+    ids = ids[ids >= 0]
+    pts = near_points(a[ids], b[ids], c[ids], 512, 15.0, 4)
+    rows = near_mod.point_rows(torch.from_numpy(pts), None)
+    gn, sn, grp = (_dev(x, CPU) for x in (st.gnodes, st.smem_nodes, st.groups))
+    dw, iw = near_mod.nearest_wide(gn, grp, rows, 16, 14, refine=refine)
+    de, ie = near_mod.nearest_entry_exit(sn, grp, rows, 16, refine=refine)
+    assert torch.equal(dw.view(torch.int32), de.view(torch.int32))
+    assert torch.equal(iw, ie)
+    bd2 = brute_d2(pts, a[ids], b[ids], c[ids]).min(axis=1)
+    np.testing.assert_allclose(dw.numpy(), bd2, rtol=2 * 16 * 2.0 ** -23 + 1e-6)
+    with pytest.raises(ValueError, match=r"depth 15 outside 1\.\.14"):
+        near_mod.nearest_wide(gn, grp, rows, 16, 15)

@@ -29,7 +29,7 @@ import bvh_tpu
 from bvh_tpu.ops.cluster import build_tight_scene as build_j
 from bvh_tpu.ops.trace import _pack_rays_tight, _sweep_tight
 from bvh_tpu.ops.trace import trace_closest_hit_tight as trace_j
-from bvh_tpu_torch import Ray
+from bvh_tpu_torch import Ray, ray_intersects_triangle
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import build_tight_scene, trace_closest_hit_tight
 from bvh_tpu_torch.ops import sweep as sweep_mod
@@ -128,7 +128,8 @@ def test_plain_group_walk_counts(cubes):
 def test_wrapper_rejects_bad_inputs(cubes):
     a, b, c = cubes
     st = build_tight_scene(a, b, c)
-    gn, grp = _dev(st.gnodes, CPU), _dev(st.groups, CPU)
+    gn = _dev(st.gnodes, CPU, wide_mod.group_records)
+    grp = _dev(st.groups, CPU)
     rows = torch.zeros(wide_mod.N_ROWS, 300)
     with pytest.raises(ValueError, match="rays"):
         wide_mod.wide_trace(gn, grp, rows[:12], 16, st.gdepth)
@@ -139,6 +140,8 @@ def test_wrapper_rejects_bad_inputs(cubes):
                             gate=torch.ones(1, dtype=torch.int32), packet=128)
     with pytest.raises(ValueError, match="float32"):
         wide_mod.wide_trace(gn.double(), grp, rows, 16, st.gdepth)
+    with pytest.raises(ValueError, match=r"records must be \[Gn, 128\]"):
+        wide_mod.wide_trace(_dev(st.gnodes, CPU), grp, rows, 16, st.gdepth)
     with pytest.raises(ValueError, match="packet"):
         sweep_mod.sweep_gate(_dev(st.smem_nodes, CPU), rows, 100)
 
@@ -168,3 +171,100 @@ def test_plain_sweep_matches_reference(cubes, bounded):
     assert gate_t.dtype == torch.int32
     assert np.array_equal(gate_j, gate_t.numpy())
     assert 0 < gate_j.sum() < len(gate_j)
+
+
+@pytest.mark.parametrize("W", [16, 32])
+def test_group_records_hold_the_table(cubes, W):
+    """The kernel's group-major copy of gnodes holds the table's own values:
+    child k's box at 6k, its payload at 6K + k, the leaf mask at 7K, zeros
+    after; ``wide_table`` gives the table back bit for bit (NaN boxes of
+    empty slots included), and ``_dev`` makes and uploads it once a table."""
+    st = build_tight_scene(*cubes, leaf_size=W)
+    gn = torch.from_numpy(st.gnodes)
+    rec = _dev(st.gnodes, CPU, wide_mod.group_records)
+    K = wide_mod.K
+    assert rec.dtype == torch.float32
+    assert rec.shape == (gn.shape[1], wide_mod.REC)
+    assert wide_mod.REC * 4 == 512  # one record: four 128-byte lines
+    box = gn[:7 * K].view(K, 7, -1)
+    for k in range(K):
+        for j in range(6):
+            assert torch.equal(rec[:, 6 * k + j].view(torch.int32),
+                               box[k, j].view(torch.int32))
+        assert torch.equal(rec[:, 6 * K + k], box[k, 6])
+    assert torch.equal(rec[:, 7 * K], gn[7 * K])
+    assert not rec[:, 7 * K + 1:].any()
+    assert torch.isnan(gn).any()
+    assert torch.equal(wide_mod.wide_table(rec).view(torch.int32),
+                       gn.view(torch.int32))
+    assert _dev(st.gnodes, CPU, wide_mod.group_records) is rec
+    assert _dev(st.gnodes, CPU) is not rec
+
+
+@pytest.fixture(scope="module")
+def deep_chain():
+    """create_n_cubes(300) (225 clusters of 16) as a chain 14 groups deep,
+    with its triangles."""
+    tris = tb.create_n_cubes(300)
+    return tb.chain_tables(build_tight_scene(*tris), 14), tris
+
+
+def test_chain_slots_lie_in_the_chain(deep_chain):
+    """Every slot that chain_tables lists for a cluster (the hints the card
+    tests draw) lies in the chain's own 14-group table and holds that
+    cluster: a slot of the source scene's wider table would send a hinted
+    walk past the table's end."""
+    st, _ = deep_chain
+    K = wide_mod.K
+    g, k = st.gslot >> 4, st.gslot & (K - 1)
+    assert st.gslot.shape == (15 * 13 + K,)
+    assert (g >= 0).all() and (g < st.gnodes.shape[1]).all()
+    pay = st.gnodes[7 * k + 6, g]
+    assert np.array_equal(pay, -(np.arange(len(pay)) + 1.0))
+    lmask = st.gnodes[7 * K, g].astype(np.int64)
+    assert ((lmask >> k) & 1).all()
+
+
+def test_wrappers_refuse_depth_above_14(deep_chain):
+    """The deepest wide tree the kernels take is 14 groups (the nearest
+    group walk's 64-bit DFS key holds 14 levels, and the scene build makes
+    no deeper table); 15 is refused on every device, 14 is taken."""
+    st, _ = deep_chain
+    assert st.gdepth == wide_mod.MAX_DEPTH == 14
+    gn = _dev(st.gnodes, CPU, wide_mod.group_records)
+    grp = _dev(st.groups, CPU)
+    rows = torch.zeros(wide_mod.N_ROWS, 64)
+    for depth in (15, 0):
+        with pytest.raises(ValueError, match=rf"depth {depth} outside 1\.\.14"):
+            wide_mod.wide_trace(gn, grp, rows, 16, depth)
+    t, lane_id = wide_mod.wide_trace(gn, grp, rows, 16, 14)
+    assert not (lane_id >= 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_deep_chain_table_matches_brute_force(deep_chain, mode):
+    """The group walk over a table 14 groups deep (testbase.chain_tables,
+    which keeps 211 of the scene's clusters): the closest hit equals brute
+    force over the triangles the chain holds, and any hit finds a hit
+    exactly where it does."""
+    st, (a, b, c) = deep_chain
+    o, d = tb.aimed_rays(a, 2048, seed=3)
+    rays = Ray.create(o, d, device=CPU)
+    rows = _ray_rows(rays, torch.full((len(o),), np.inf))
+    t, lane_id = wide_mod.wide_trace(
+        _dev(st.gnodes, CPU, wide_mod.group_records), _dev(st.groups, CPU),
+        rows, 16, 14, mode=mode)
+    # the triangles of the chain's clusters (clusters 0..210, W = 16)
+    lanes = np.concatenate([np.arange(16) + (c_ // 8) * 128 + (c_ % 8) * 16
+                            for c_ in range(15 * 13 + 16)])
+    ids = st.tri_map[lanes]
+    ids = ids[ids >= 0]
+    tt = tuple(torch.from_numpy(x[ids])[None] for x in (a, b, c))
+    brute = ray_intersects_triangle(Ray(*(x[:, None] for x in rays)), *tt)
+    bt = brute.distance.amin(dim=1)
+    hit = lane_id >= 0
+    assert torch.equal(hit, torch.isfinite(bt))
+    assert 0 < int(hit.sum()) < len(o)
+    if mode == "closest":
+        rel = (t[hit] - bt[hit]).abs() / bt[hit]
+        assert float(rel.max()) <= 2 * 16 * 2.0 ** -23 + 1e-6
