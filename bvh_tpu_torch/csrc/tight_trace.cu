@@ -1,13 +1,15 @@
-// Entry/exit-walk closest-hit and any-hit trace, one thread per ray.
+// Entry/exit-walk closest-hit and any-hit trace: one ray a lane, walking in
+// lock step, with the leaf tests taken by the whole warp.
 //
 // Replaces the TPU kernel bvh_tpu/ops/trace.py::_tight_body (built by
 // _make_tight_kernel, launched by _trace_tight), with its node reader
-// _read_node and its leaf test _narrow_cluster (shared with the group walk
-// in trace_common.cuh). It serves every scene without a usable wide table:
+// _read_node and its leaf test _narrow_cluster (trace_common.cuh,
+// warp_leaves). It serves every scene without a usable wide table:
 // bf16-packed scenes, bmat scenes, scenes built with wide=False and scenes
 // whose wide table was dropped at build. The TPU kernel walks one shared
 // cursor per packet over the node table in scalar memory; here each ray
-// walks on its own, which computes the same function:
+// walks on its own, which computes the plain version's function
+// (bvh_tpu_torch/ops/tight.py::tight_trace_plain):
 //
 //   * hints (optional): the node-table ids listed for the ray's packet are
 //     narrowphased first, without a box test (-1 in the packet's first slot
@@ -20,12 +22,10 @@
 //   * modes closest, bounded and any (trace_common.cuh); once vb is -inf no
 //     box can fire again, so the walk ends there with the full walk's
 //     result;
-//   * packed tables ([5, Nn]): rows 0-2 hold each axis's (min, max) as the
-//     high and low bf16 halves of one float32 word, lo = bits & 0xFFFF0000
-//     and hi = bits << 16, rows 3-4 entry and exit; a leaf's frame origin is
-//     the raw float value of rows 0-2, against which the scene build stored
-//     the group rows. Otherwise the table is [8, Nn] (box lo, box hi, entry,
-//     exit) and the frame origin is the box centre.
+//   * the node records (ops/sweep.py::node_records, read by read_node in
+//     trace_common.cuh): packed records hold each axis's bf16 pair word,
+//     whose raw value is a leaf's frame origin; f32 records hold box lo and
+//     hi, and the frame origin is the box centre.
 //
 // bmat scenes carry precomputed bilinear forms (bgroups); this kernel
 // evaluates the leaf test from groups with the regrouped forms of
@@ -34,99 +34,141 @@
 //
 // What bounds it on an H100: the float32 slab tests (one per visited node)
 // and leaf tests (W triangle tests per fired leaf); the tables stay in L2.
-// The walk is a chain of dependent node reads, and threads of a warp
-// diverge where their rays take different paths; the caller's coherence
-// sort keeps neighbouring rays on similar paths. This first version is the
-// simple, exact design.
+// A ray fires about one leaf on aimed rows, but the lanes of a warp fire
+// theirs at different steps of the walk, so with one thread a ray the
+// warp ran each lane's W triangle tests alone while the others waited
+// (about 13 such steps a warp at W = 16, counted with the plain walk:
+// 2-3 times the work of the slab steps). As the group walk (wide_trace.cu)
+// does, the design changes two things:
+//
+//   * the loads: one 32-byte record a node, read as two float4, where the
+//     table's [8, Nn] rows took 8 (packed: 5) scalar loads from as many
+//     cache lines;
+//   * the leaf tests: after every step the lanes' fired leaves are tested by
+//     the whole warp (warp_leaves: min(W, 32) lanes a leaf), and so are a
+//     packet's hinted leaves. A lane has at most one leaf a step, and its
+//     leaves are folded in its own order, so results are the plain
+//     version's bit for bit.
+//
+// Each step is branch-free: a lane that is not walking takes it on node 0
+// and drops its results, so no branch reconverges every step, and the slab
+// test uses one NaN-propagating min or max instruction a term (slab_hit).
+// On the three rows kernel_ab.py times, the first took 3-6% off and the
+// second 10-18%; testing the fired leaves every 4 steps instead of every
+// step (a lane that fired waits) lost 1-2% (PERF.md).
+//
+// Each lane keeps its own walk (the nodes a warp's rays visit spread, as
+// for the group walk), in lock step. All 32 lanes stay in the loop until
+// every walk is done (a lane past n, one that has finished and an any-hit
+// lane whose vb is -inf take part in the leaf tests without a walk of their
+// own): the shuffles and ballots need the whole warp. packet is a power of
+// two of at least 128, so a warp's rays share one packet: its gate and
+// hints are the same for all its lanes, and a gated-off warp returns at
+// once.
+//
+// Numerics: see trace_common.cuh.
 
 #include "trace_common.cuh"
 
 namespace {
 
-struct Node {
-  float ax, ay, az, bx, by, bz;  // box
-  float ccx, ccy, ccz;           // a leaf's frame origin
-  float entry, exit_;
-};
-
-__device__ __forceinline__ Node read_node(const float* __restrict__ nodes,
-                                          int Nn, int packed, int cur) {
-  const float* col = nodes + cur;
-  Node nd;
-  if (packed) {
-    nd.ccx = __ldg(col);
-    nd.ccy = __ldg(col + Nn);
-    nd.ccz = __ldg(col + 2 * Nn);
-    unpack_pair(nd.ccx, nd.ax, nd.bx);
-    unpack_pair(nd.ccy, nd.ay, nd.by);
-    unpack_pair(nd.ccz, nd.az, nd.bz);
-    nd.entry = __ldg(col + 3 * Nn);
-    nd.exit_ = __ldg(col + 4 * Nn);
-  } else {
-    nd.ax = __ldg(col);
-    nd.ay = __ldg(col + Nn);
-    nd.az = __ldg(col + 2 * Nn);
-    nd.bx = __ldg(col + 3 * Nn);
-    nd.by = __ldg(col + 4 * Nn);
-    nd.bz = __ldg(col + 5 * Nn);
-    nd.ccx = (nd.ax + nd.bx) * 0.5f;
-    nd.ccy = (nd.ay + nd.by) * 0.5f;
-    nd.ccz = (nd.az + nd.bz) * 0.5f;
-    nd.entry = __ldg(col + 6 * Nn);
-    nd.exit_ = __ldg(col + 7 * Nn);
-  }
-  return nd;
-}
-
-__global__ void tight_trace_kernel(const float* __restrict__ nodes, int Nn,
-                                   int packed, const float* __restrict__ groups,
-                                   int W, const float* __restrict__ rays, int n,
-                                   const int* __restrict__ hints, int n_hints,
-                                   const int* __restrict__ gate, int packet,
-                                   int mode, float* __restrict__ t_out,
-                                   int* __restrict__ id_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (gate != nullptr && gate[i / packet] == 0) {
-    store_miss(i, t_out, id_out);
+template <int W>
+__global__ void __launch_bounds__(128)
+    tight_trace_kernel(const float4* __restrict__ recs, int nn, int packed,
+                       const float* __restrict__ groups, int mode,
+                       const float* __restrict__ rays, int n,
+                       const int* __restrict__ hints, int n_hints,
+                       const int* __restrict__ gate, int packet,
+                       float* __restrict__ t_out, int* __restrict__ id_out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int base = i - lane;  // the warp's first ray
+  if (base >= n) return;
+  const bool valid = i < n;
+  const int pkt = base / packet;  // the warp's packet
+  if (gate != nullptr && gate[pkt] == 0) {
+    if (valid) store_miss(i, t_out, id_out);
     return;
   }
-  RayState r = load_ray(rays, n, i);
-  if (hints != nullptr) {
-    const int* h = hints + (size_t)(i / packet) * n_hints;
-    if (h[0] >= 0)
-      for (int j = 0; j < n_hints; ++j) {
-        Node nd = read_node(nodes, Nn, packed, h[j]);
-        narrow_cluster(r, groups, W, (int)(-nd.entry - 1.0f), nd.ccx, nd.ccy,
-                       nd.ccz, mode);
-      }
+  RayState r = {};
+  if (valid) r = load_ray(rays, n, i);
+  r.bk = SENT;
+
+  if (hints != nullptr && hints[(size_t)pkt * n_hints] >= 0) {
+    const int* h = hints + (size_t)pkt * n_hints;
+    int j = 0;
+    warp_leaves<W>(r, groups, mode, lane,
+                   [&](int& c, float& ccx, float& ccy, float& ccz) {
+                     if (!valid || j == n_hints) return false;
+                     const Node nd = read_node(recs, packed, h[j++]);
+                     c = (int)(-nd.entry - 1.0f);
+                     ccx = nd.ccx, ccy = nd.ccy, ccz = nd.ccz;
+                     return true;
+                   });
   }
+
   int cursor = 0;
-  while (cursor < Nn && !(r.vb == neg_inf())) {
-    Node nd = read_node(nodes, Nn, packed, cursor);
-    bool fired = slab_fires(r, nd.ax, nd.ay, nd.az, nd.bx, nd.by, nd.bz);
-    bool leaf = nd.entry < 0.0f;
-    if (leaf && fired)
-      narrow_cluster(r, groups, W, (int)(-nd.entry - 1.0f), nd.ccx, nd.ccy,
-                     nd.ccz, mode);
-    cursor = (leaf || !fired) ? (int)nd.exit_ : (int)nd.entry;
+  bool walking = valid && nn > 0 && !(r.vb == neg_inf());
+  while (__any_sync(FULL, walking)) {
+    const Node nd = read_node(recs, packed, walking ? cursor : 0);
+    const bool leaf = nd.entry < 0.0f;
+    const bool hit = slab_fires(r, nd.ax, nd.ay, nd.az, nd.bx, nd.by, nd.bz);
+    const bool fired = walking && hit;
+    if (walking) cursor = (leaf || !fired) ? (int)nd.exit_ : (int)nd.entry;
+    bool fired_leaf = leaf && fired;  // the lane's leaf to test this step
+    warp_leaves<W>(r, groups, mode, lane,
+                   [&](int& c, float& ccx, float& ccy, float& ccz) {
+                     if (!fired_leaf) return false;
+                     fired_leaf = false;
+                     c = (int)(-nd.entry - 1.0f);
+                     ccx = nd.ccx, ccy = nd.ccy, ccz = nd.ccz;
+                     return true;
+                   });
+    walking = walking && cursor < nn && !(r.vb == neg_inf());
   }
-  store_ray(r, W, i, t_out, id_out);
+  if (valid) store_ray(r, W, i, t_out, id_out);
+}
+
+template <int W>
+int launch(const float* recs, int nn, int packed, const float* groups,
+           int mode, const float* rays, int n, const int* hints, int n_hints,
+           const int* gate, int packet, float* t_out, int* id_out,
+           cudaStream_t stream) {
+  const int block = 128;
+  tight_trace_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
+      reinterpret_cast<const float4*>(recs), nn, packed, groups, mode, rays,
+      n, hints, n_hints, gate, packet, t_out, id_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tight_trace_launch(const float* nodes, int Nn, int packed,
+// The floats of a node's record, for the wrapper to check against its own
+// layout (ops/sweep.py::node_records).
+extern "C" int tight_trace_rec_floats() { return NODE_REC; }
+
+// recs: the node-major table [nn, NODE_REC] (ops/sweep.py::node_records).
+extern "C" int tight_trace_launch(const float* recs, int nn, int packed,
                                   const float* groups, int width,
                                   const float* rays, int n, const int* hints,
                                   int n_hints, const int* gate, int packet,
                                   int mode, float* t_out, int* id_out,
                                   void* stream) {
   if (n <= 0) return 0;
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  tight_trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      nodes, Nn, packed, groups, width, rays, n, hints, n_hints, gate, packet,
-      mode, t_out, id_out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (width) {
+    case 16:
+      return launch<16>(recs, nn, packed, groups, mode, rays, n, hints,
+                        n_hints, gate, packet, t_out, id_out, st);
+    case 32:
+      return launch<32>(recs, nn, packed, groups, mode, rays, n, hints,
+                        n_hints, gate, packet, t_out, id_out, st);
+    case 64:
+      return launch<64>(recs, nn, packed, groups, mode, rays, n, hints,
+                        n_hints, gate, packet, t_out, id_out, st);
+    case 128:
+      return launch<128>(recs, nn, packed, groups, mode, rays, n, hints,
+                         n_hints, gate, packet, t_out, id_out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

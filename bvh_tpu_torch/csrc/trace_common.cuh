@@ -1,10 +1,10 @@
 // What the two closest/any-hit trace kernels share (wide_trace.cu, the group
 // walk, and tight_trace.cu, the entry/exit walk): the per-ray state, the
 // NaN-propagating min/max, the bf16-pair unpack, the slab test of a box and
-// the leaf test of a cluster, in one-thread form (narrow_cluster, the
-// entry/exit walk) and in warp form (warp_leaves, the group walk). The
-// sweep gate (sweep.cu) takes the min/max and the unpack; the legacy
-// cluster trace (cluster_trace.cu) the min/max and the triangle test
+// the leaf test of a cluster in warp form (warp_leaves). The entry/exit walk
+// and the sweep gate (sweep.cu) also share the node record of an entry/exit
+// table (read_node), and the sweep the slab test (slab_hit); the legacy
+// cluster trace (cluster_trace.cu) takes the min/max and the triangle test
 // (load_tri, tri_key).
 //
 // The leaf test replaces the TPU kernel's bvh_tpu/ops/trace.py::
@@ -64,6 +64,48 @@ __device__ __forceinline__ void unpack_pair(float w, float& lo, float& hi) {
   hi = __int_as_float((int)(bits << 16));
 }
 
+// One node of an entry/exit table, read from its node-major record (two
+// float4, ops/sweep.py::node_records): the box, a leaf's frame origin and
+// the entry and exit pointers. A packed record holds each axis's bf16 pair
+// word, unpacked here, and that raw word is the frame origin, against which
+// the scene build stored the leaf's group rows; an f32 record holds box lo
+// and hi, and the frame origin is the box's centre.
+constexpr int NODE_REC = 8;  // floats a node record
+
+struct Node {
+  float ax, ay, az, bx, by, bz;  // box
+  float ccx, ccy, ccz;           // a leaf's frame origin
+  float entry, exit_;
+};
+
+__device__ __forceinline__ Node read_node(const float4* __restrict__ recs,
+                                          bool packed, int cur) {
+  const float4 u = __ldg(recs + 2 * cur);
+  const float4 v = __ldg(recs + 2 * cur + 1);
+  Node nd;
+  if (packed) {
+    nd.ccx = u.x;
+    nd.ccy = u.y;
+    nd.ccz = u.z;
+    unpack_pair(u.x, nd.ax, nd.bx);
+    unpack_pair(u.y, nd.ay, nd.by);
+    unpack_pair(u.z, nd.az, nd.bz);
+  } else {
+    nd.ax = u.x;
+    nd.ay = u.y;
+    nd.az = u.z;
+    nd.bx = u.w;
+    nd.by = v.x;
+    nd.bz = v.y;
+    nd.ccx = (nd.ax + nd.bx) * 0.5f;
+    nd.ccy = (nd.ay + nd.by) * 0.5f;
+    nd.ccz = (nd.az + nd.bz) * 0.5f;
+  }
+  nd.entry = v.z;
+  nd.exit_ = v.w;
+  return nd;
+}
+
 struct RayState {
   float oix, oiy, oiz, ix, iy, iz;  // o * inv, inv (clamped to +-1e30)
   float dx, dy, dz, ox, oy, oz;     // d, o
@@ -101,18 +143,49 @@ __device__ __forceinline__ void store_miss(int i, float* __restrict__ t_out,
   id_out[i] = -1;
 }
 
+// NaN-propagating min and max in one instruction each (PTX min.NaN and
+// max.NaN, sm_80 and later: NaN if either operand is NaN). Where only
+// comparisons read the result, as in the slab test, they decide exactly as
+// nmin/nmax and torch.minimum/maximum do: a NaN compares false whatever its
+// bits, and +0 and -0 compare equal.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// The slab test of a box (lo a, hi b) against a ray (o * inv, inv) and a
+// bound: the box is entered in front of the origin and before the bound.
+// A NaN box (an empty slot) never passes. The trace walks (slab_fires) and
+// the sweep gate share it.
+__device__ __forceinline__ bool slab_hit(float ax, float ay, float az,
+                                         float bx, float by, float bz,
+                                         float oix, float oiy, float oiz,
+                                         float ix, float iy, float iz,
+                                         float bound) {
+  float t1 = ax * ix - oix;
+  float t2 = bx * ix - oix;
+  float u1 = ay * iy - oiy;
+  float u2 = by * iy - oiy;
+  float v1 = az * iz - oiz;
+  float v2 = bz * iz - oiz;
+  float tmin = max_nan(max_nan(min_nan(t1, t2), min_nan(u1, u2)),
+                       min_nan(v1, v2));
+  float tmax = min_nan(min_nan(max_nan(t1, t2), max_nan(u1, u2)),
+                       max_nan(v1, v2));
+  return (tmax >= max_nan(tmin, 0.0f)) && (tmin < bound);
+}
+
 __device__ __forceinline__ bool slab_fires(const RayState& r, float ax,
                                            float ay, float az, float bx,
                                            float by, float bz) {
-  float t1 = ax * r.ix - r.oix;
-  float t2 = bx * r.ix - r.oix;
-  float u1 = ay * r.iy - r.oiy;
-  float u2 = by * r.iy - r.oiy;
-  float v1 = az * r.iz - r.oiz;
-  float v2 = bz * r.iz - r.oiz;
-  float tmin = nmax(nmax(nmin(t1, t2), nmin(u1, u2)), nmin(v1, v2));
-  float tmax = nmin(nmin(nmax(t1, t2), nmax(u1, u2)), nmax(v1, v2));
-  return (tmax >= nmax(tmin, 0.0f)) && (tmin < r.vb);
+  return slab_hit(ax, ay, az, bx, by, bz, r.oix, r.oiy, r.oiz, r.ix, r.iy,
+                  r.iz, r.vb);
 }
 
 // One triangle of a cluster: rows a', e1, e2 (triangle j at tile[row * 128
@@ -159,23 +232,6 @@ __device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
   return key;
 }
 
-// The smallest packed key of one ray over the W triangles whose rows a', e1,
-// e2 start at tile, with the ray origin (opx, opy, opz) in the cluster
-// frame; SENT where no key is below it.
-__device__ __forceinline__ int tile_min_key(const float* __restrict__ tile,
-                                            int W, float opx, float opy,
-                                            float opz, float dx, float dy,
-                                            float dz) {
-  int bk = SENT;
-  for (int j = 0; j < W; ++j) {
-    Tri t = load_tri(tile, j);
-    int key = tri_key(t, opx - t.a0, opy - t.a1, opz - t.a2, dx, dy, dz, W, j,
-                      SENT);
-    if (key < bk) bk = key;
-  }
-  return bk;
-}
-
 // The rows of cluster c in groups [G, 16, 128]: lanes (c mod 128/W)*W + j.
 __device__ __forceinline__ const float* cluster_tile(
     const float* __restrict__ groups, int W, int c) {
@@ -200,17 +256,7 @@ __device__ __forceinline__ void fold_key(RayState& r, int km, int c, int W,
     r.vb = nt;
 }
 
-// Leaf test of cluster c, frame origin (ccx, ccy, ccz), against one ray, in
-// one thread (the entry/exit walk).
-__device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
-                               int W, int c, float ccx, float ccy, float ccz,
-                               int mode) {
-  int km = tile_min_key(cluster_tile(groups, W, c), W, r.ox - ccx,
-                        r.oy - ccy, r.oz - ccz, r.dx, r.dy, r.dz);
-  fold_key(r, km, c, W, mode);
-}
-
-// The leaf test in warp form (the group walk): every lane has its own list
+// The leaf test in warp form (both trace walks): every lane has its own list
 // of leaves to test, and the whole warp tests them together, pair by pair.
 // next(c, ccx, ccy, ccz) gives the lane's next cluster and its frame origin,
 // false once the lane has none left; every lane must call this function.
@@ -219,10 +265,10 @@ __device__ void narrow_cluster(RayState& r, const float* __restrict__ groups,
 // and W = 128 gives each lane four triangles. A lane loads its triangles of
 // the pair's cluster (coalesced over the SPAN lanes) and computes p = e2 x e1
 // once for them; the pair's owner broadcasts the ray's origin in the
-// cluster's frame and its direction (the values its one-thread test would
-// use), the key minimum is taken over the SPAN lanes, and the owner folds
-// it. A lane's leaves are folded in its own order, so the result is the
-// one-thread leaf test's, bit for bit.
+// cluster's frame and its direction (the values the plain versions' leaf
+// test uses), the key minimum is taken over the SPAN lanes, and the owner
+// folds it. A lane's leaves are folded in its own order, so the result is
+// that of testing them one by one in the lane, bit for bit.
 template <int W, typename Next>
 __device__ __forceinline__ void warp_leaves(RayState& r,
                                             const float* __restrict__ groups,

@@ -6,10 +6,11 @@ node reader ``_read_node`` and the leaf test ``_narrow_cluster``). It serves
 every scene without a usable wide table: bf16-packed scenes, bmat scenes,
 scenes built with ``wide=False`` and scenes whose wide table was dropped at
 build. The CUDA kernel (``csrc/tight_trace.cu``, leaf test in
-``csrc/trace_common.cuh``) walks one ray per thread; the plain version
-below computes the same function, ray by ray, in lock step over a batch,
-and rounds every operation as the kernel does, so the two agree bit for bit
-on the card.
+``csrc/trace_common.cuh``) walks one ray a lane, in lock step, reads the
+table in a node-major copy (``ops/sweep.py::node_records``) and tests the
+leaves its lanes fire with the whole warp; the plain version below computes
+the same function, ray by ray, in lock step over a batch, and rounds every
+operation as the kernel does, so the two agree bit for bit on the card.
 
 Per ray: narrowphase the hinted leaves of its packet (node-table ids), if
 any; then a cursor starts at 0 and runs while it is below the table's width
@@ -43,7 +44,7 @@ import functools
 import torch
 
 from ._build import load_cuda_library
-from .sweep import check_nodes, unpack_nodes
+from .sweep import NODE_REC, check_records, node_table, unpack_nodes
 from .wide import (N_ROWS, SENT, check_options, decode_keys, fold_keys,
                    mode_code, narrow_keys, run_hints)
 
@@ -63,16 +64,20 @@ def load() -> ctypes.CDLL:
     lib.tight_trace_launch.restype = ci
     lib.tight_trace_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, ci, vp,
                                        ci, ci, vp, vp, vp]
+    lib.tight_trace_rec_floats.restype = ci
+    if lib.tight_trace_rec_floats() != NODE_REC:
+        raise RuntimeError("tight_trace.cu's node record is not "
+                           f"{NODE_REC} floats")
     return lib
 
 
-def _check(nodes, groups, rays, width, packed, gate, hints, packet):
+def _check(records, groups, rays, width, gate, hints, packet):
     for name, x in (("groups", groups), ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
         if x.device != rays.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
-    check_nodes(nodes, rays, packed)
+    check_records(records, rays)
     if groups.dim() != 3 or tuple(groups.shape[1:]) != (16, 128):
         raise ValueError(f"groups must be [G, 16, 128], got {tuple(groups.shape)}")
     if rays.dim() != 2 or rays.shape[0] != N_ROWS:
@@ -82,38 +87,40 @@ def _check(nodes, groups, rays, width, packed, gate, hints, packet):
     check_options(rays, gate, hints, packet)
 
 
-def tight_trace(nodes: torch.Tensor, groups: torch.Tensor, rays: torch.Tensor,
-                width: int, packed: bool = False,
+def tight_trace(records: torch.Tensor, groups: torch.Tensor,
+                rays: torch.Tensor, width: int, packed: bool = False,
                 gate: torch.Tensor | None = None, packet: int = 8192,
                 bounded: bool = False, mode: str = "closest",
                 hints: torch.Tensor | None = None):
     """Closest or any hit of every ray by the entry/exit walk:
     ``(t, lane_id)``, as ``ops.wide.wide_trace`` returns them.
 
-    ``nodes``: ``smem_nodes [8, Nn]``, or ``packed_nodes [5, Nn]`` with
-    ``packed``. ``gate``, ``packet``, ``bounded`` and ``mode`` as in
-    ``wide_trace``. ``hints``: optional int32 [ceil(n / packet), n_hints]
-    node-table ids of leaves narrowphased first for the rays of each
-    packet; -1 in a packet's first slot turns them off, and every other slot
-    must then hold a leaf's id.
+    ``records``: the entry/exit table in the kernel's layout
+    (``ops/sweep.py::node_records`` of ``smem_nodes [8, Nn]``, or of
+    ``packed_nodes [5, Nn]`` with ``packed``). ``gate``, ``packet``,
+    ``bounded`` and ``mode`` as in ``wide_trace``. ``hints``: optional
+    int32 [ceil(n / packet), n_hints] node-table ids of leaves narrowphased
+    first for the rays of each packet; -1 in a packet's first slot turns
+    them off, and every other slot must then hold a leaf's id.
 
-    On a CPU tensor this runs the plain version; on a CUDA tensor it
-    launches the kernel.
+    On a CPU tensor this runs the plain version (over
+    ``ops/sweep.py::node_table``); on a CUDA tensor it launches the kernel.
     """
     global launches, any_launches
-    _check(nodes, groups, rays, width, packed, gate, hints, packet)
+    _check(records, groups, rays, width, gate, hints, packet)
     code = mode_code(mode, bounded)
     if rays.device.type == "cpu":
-        return tight_trace_plain(nodes, groups, rays, width, packed=packed,
-                                 gate=gate, packet=packet, bounded=bounded,
-                                 mode=mode, hints=hints)
+        return tight_trace_plain(node_table(records, packed), groups, rays,
+                                 width, packed=packed, gate=gate,
+                                 packet=packet, bounded=bounded, mode=mode,
+                                 hints=hints)
     if rays.device.type != "cuda":
         raise ValueError(f"no tight_trace kernel for device {rays.device}")
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     lane_id = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = load().tight_trace_launch(
-        nodes.data_ptr(), nodes.shape[1], int(packed), groups.data_ptr(),
+        records.data_ptr(), records.shape[0], int(packed), groups.data_ptr(),
         width, rays.data_ptr(), n, 0 if hints is None else hints.data_ptr(),
         0 if hints is None else hints.shape[1],
         0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),

@@ -37,7 +37,7 @@ from ..device import resolve_device
 from ..ray import Ray, ray_intersects_triangle
 from .cluster_trace import cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
-from .sweep import sweep_gate
+from .sweep import node_records, sweep_gate
 from .tight import tight_trace
 from .wide import K, group_records, wide_trace
 
@@ -52,7 +52,8 @@ _DEVICE_TABLE_CACHE: dict[tuple, tuple] = {}
 def _dev(arr, device: torch.device, layout=None):
     """A host numpy table as a tensor on ``device``, copied once; with
     ``layout`` (a numpy function of the table, such as
-    ``wide.group_records``), that function's result, made once."""
+    ``wide.group_records`` or ``sweep.node_records``), that function's
+    result, made once."""
     key = (id(arr), str(device), layout)
     ent = _DEVICE_TABLE_CACHE.get(key)
     if ent is not None and ent[0]() is arr:
@@ -199,17 +200,18 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
     if sweep:
         swn = scene.sweep_nodes
         if swn is not None:
-            gate = sweep_gate(_dev(swn, dev), rows, packet, pre_gate=pre_gate)
-        else:
-            gate = sweep_gate(_dev(table, dev), rows, packet, packed=packed,
+            gate = sweep_gate(_dev(swn, dev, node_records), rows, packet,
                               pre_gate=pre_gate)
+        else:
+            gate = sweep_gate(_dev(table, dev, node_records), rows, packet,
+                              packed=packed, pre_gate=pre_gate)
     if wide:
         return wide_trace(_dev(scene.gnodes, dev, group_records),
                           _dev(scene.groups, dev), rows, width=int(scene.width),
                           depth=int(scene.gdepth), gate=gate, packet=packet,
                           bounded=bounded, mode=mode, hints=hints)
-    return tight_trace(_dev(table, dev), _dev(scene.groups, dev), rows,
-                       width=int(scene.width), packed=packed, gate=gate,
+    return tight_trace(_dev(table, dev, node_records), _dev(scene.groups, dev),
+                       rows, width=int(scene.width), packed=packed, gate=gate,
                        packet=packet, bounded=bounded, mode=mode, hints=hints)
 
 
@@ -374,9 +376,12 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
     dev = resolve_device(device)
     wide = _traces_wide(scene)
     table, _ = _entry_exit_table(scene)
-    for t in (scene.gnodes if wide else table, scene.groups, scene.tri_map,
-              scene.sweep_nodes if scene.sweep_nodes is not None else table):
-        _dev(t, dev)  # copy the tables to the device once
+    swn = scene.sweep_nodes if scene.sweep_nodes is not None else table
+    # copy the tables to the device once, in the layouts the kernels read
+    for t, layout in ((scene.gnodes, group_records) if wide
+                      else (table, node_records), (scene.groups, None),
+                      (scene.tri_map, None), (swn, node_records)):
+        _dev(t, dev, layout)
     tris9 = None if tris is None else _tris9(tris, dev)
 
     def tracer(origins, directions) -> HitRecord:

@@ -23,11 +23,15 @@ final line):
    leg against brute force over all triangles.
 4. W=128: the 260k-triangle dense mesh, a 1024x1024 camera in 32x32 tiles
    through make_tracer(sort=None, sweep=False), brute-force checked.
-5. timings (CUDA events, median of 7 after warm-up): rays/s of each leg,
-   each leg's device time by kernel and idle share (torch.profiler); each
-   kernel against its plain version on the main path's own sorted rows
-   (every leg, gated and ungated; bit for bit), and both timed at those
-   shapes beside the kernel's bound.
+5. timings (CUDA events, median of 7 after warm-up): rays/s of each leg
+   (the aimed leg also with sweep=False), each leg's device time by kernel
+   and idle share (torch.profiler); each kernel against its plain version
+   on the main path's own sorted rows (every leg, gated and ungated; bit
+   for bit), and both timed at those shapes beside the kernel's bound. The
+   sweep gate's bound is the least work of any schedule (a fired packet's
+   shortest walk to a fire, an unfired packet's every walk), counted on
+   every ray, with the earlier bound (every ray to its own fire) beside
+   it.
 6. nearest main path: 1,048,576 reference-random points (bench.py's
    nearest leg) against the 120k-triangle scene through nearest_tight in
    both walks (identical results), and 1,048,576 points near the dense
@@ -311,7 +315,7 @@ def phase_kernels(dev) -> dict:
     scene = build_tight_scene(a, b, c)
     gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
     rec = records(scene, dev)
-    sn = _dev(scene.smem_nodes, dev)
+    sn, sr = _dev(scene.smem_nodes, dev), node_recs(scene.smem_nodes, dev)
     n = 65536
     o, d = tb.create_rays(n, seed=tb.seed_state_after(1000))
     ao, ad = tb.aimed_rays(a, n)
@@ -334,9 +338,9 @@ def phase_kernels(dev) -> dict:
         rows_of[leg] = rows
         res = {}
         for packet in (1024, 8192):
-            g_k = sweep_mod.sweep_gate(sn, rows, packet)
+            g_k = sweep_mod.sweep_gate(sr, rows, packet)
             g_p = sweep_mod.sweep_gate_plain(sn, rows, packet)
-            gb_k = sweep_mod.sweep_gate(sn, rows_b, packet)
+            gb_k = sweep_mod.sweep_gate(sr, rows_b, packet)
             gb_p = sweep_mod.sweep_gate_plain(sn, rows_b, packet)
             torch.cuda.synchronize()
             bad = int((g_k != g_p).sum() + (gb_k != gb_p).sum())
@@ -346,7 +350,7 @@ def phase_kernels(dev) -> dict:
             res[f"gate_mismatch_p{packet}"] = bad
             res[f"gate_open_p{packet}"] = int(g_k.sum())
             check(bad == 0, f"{leg}: sweep gate differs from plain ({bad})")
-        gate = sweep_mod.sweep_gate(sn, rows, 1024)
+        gate = sweep_mod.sweep_gate(sr, rows, 1024)
         cases = {
             "closest": dict(rows=rows, bounded=False, gate=None),
             "bounded": dict(rows=rows_b, bounded=True, gate=None),
@@ -413,6 +417,8 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
     grp_p = _dev(scene_p.groups, dev)
     gn, rec = _dev(scene.gnodes, dev), records(scene, dev)
     sn, pn = _dev(scene.smem_nodes, dev), _dev(scene_p.packed_nodes, dev)
+    sr, pr = (node_recs(scene.smem_nodes, dev),
+              node_recs(scene_p.packed_nodes, dev))
     packet = 1024
     p = n // packet
     o, d = tb.create_rays(n, seed=tb.seed_state_after(1000))
@@ -436,8 +442,8 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
                 "sweep_pre_gate": (sn, False, pre),
                 "sweep_packed_pre_gate": (pn, True, pre)}.items():
             for rr in (rows, rows_b):
-                g_k = sweep_mod.sweep_gate(table, rr, packet, packed=packed,
-                                           pre_gate=pg)
+                g_k = sweep_mod.sweep_gate(pr if packed else sr, rr, packet,
+                                           packed=packed, pre_gate=pg)
                 g_p = sweep_mod.sweep_gate_plain(table, rr, packet,
                                                  packed=packed, pre_gate=pg)
                 torch.cuda.synchronize()
@@ -446,8 +452,8 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
                                         float((g_k - g_p).abs().max()))
                 res[f"{name}_mismatch"] = res.get(f"{name}_mismatch", 0) + bad
                 check(bad == 0, f"{leg}/{name}: sweep gate differs from plain")
-        gate = sweep_mod.sweep_gate(sn, rows, packet)
-        gate_p = sweep_mod.sweep_gate(pn, rows, packet, packed=True)
+        gate = sweep_mod.sweep_gate(sr, rows, packet)
+        gate_p = sweep_mod.sweep_gate(pr, rows, packet, packed=True)
         hints = torch.from_numpy(random_hints(leaves, p, 4, 1)).to(dev)
         hints_p = torch.from_numpy(random_hints(leaves_p, p, 4, 2)).to(dev)
         hints_w = torch.from_numpy(random_hints(scene.gslot, p, 4, 3)).to(dev)
@@ -466,8 +472,9 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
                                     {"gate": gate_p, "hints": hints_p}),
         }
         for name, (table, gr, packed, rr, kw) in tight_cases.items():
-            tk, ik = tight_mod.tight_trace(table, gr, rr, scene.width,
-                                           packed=packed, packet=packet, **kw)
+            tk, ik = tight_mod.tight_trace(pr if packed else sr, gr, rr,
+                                           scene.width, packed=packed,
+                                           packet=packet, **kw)
             tp, ip = tight_mod.tight_trace_plain(table, gr, rr, scene.width,
                                                  packed=packed, packet=packet,
                                                  **kw)
@@ -539,7 +546,8 @@ def compare_main_shapes(kernel_rows: dict, gated_scene, err: dict):
         gates = {"ungated": None}
         if sc is gated_scene:
             sn = _dev(sc.smem_nodes, rows.device)
-            g_k = sweep_mod.sweep_gate(sn, rows, 8192)
+            g_k = sweep_mod.sweep_gate(node_recs(sc.smem_nodes, rows.device),
+                                       rows, 8192)
             g_p = sweep_mod.sweep_gate_plain(sn, rows, 8192)
             bad = int((g_k != g_p).sum())
             err["sweep_gate"] = max(err["sweep_gate"],
@@ -980,9 +988,10 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     W = scene_d.width
     # the wave's sweep gate (trace_any_hit_tight's sweep=True) against its
     # plain version, then the any-mode walk gated by it as the wave runs it
-    sn = _dev(scene_d.smem_nodes, dev)
-    g_k = sweep_mod.sweep_gate(sn, rows, packet)
-    g_p = sweep_mod.sweep_gate_plain(sn, rows, packet)
+    g_k = sweep_mod.sweep_gate(node_recs(scene_d.smem_nodes, dev), rows,
+                               packet)
+    g_p = sweep_mod.sweep_gate_plain(_dev(scene_d.smem_nodes, dev), rows,
+                                     packet)
     gates_differ = int((g_k != g_p).sum())
     check(gates_differ == 0, f"pathtrace shadow wave: {gates_differ} sweep "
           "gates differ from plain")
@@ -1177,9 +1186,10 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     for leg, table, packed in (
             ("aimed_entry_exit", scene_nw.smem_nodes, False),
             ("aimed_packed", scene_pk.packed_nodes, True)):
-        tab = _dev(table, dev)
-        g_k = sweep_mod.sweep_gate(tab, rows, 8192, packed=packed)
-        g_p = sweep_mod.sweep_gate_plain(tab, rows, 8192, packed=packed)
+        g_k = sweep_mod.sweep_gate(node_recs(table, dev), rows, 8192,
+                                   packed=packed)
+        g_p = sweep_mod.sweep_gate_plain(_dev(table, dev), rows, 8192,
+                                         packed=packed)
         bad = int((g_k != g_p).sum())
         vs_plain[f"sweep_gate/{leg}"] = {"gates_differ": bad,
                                          "gates_open": int(g_k.sum()),
@@ -1198,7 +1208,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     err["tight_trace"] = err.get("tight_trace", 0.0)
     for leg, (table, groups, rr, kw) in runs.items():
         tab, grp = _dev(table, dev), _dev(groups, dev)
-        tk, ik = tight_mod.tight_trace(tab, grp, rr, W, packet=8192, **kw)
+        tk, ik = tight_mod.tight_trace(node_recs(table, dev), grp, rr, W,
+                                       packet=8192, **kw)
         tp, ip = tight_plain_chunked(tab, grp, rr, W, **kw)
         torch.cuda.synchronize()
         differ = same_bits(tk, ik, tp, ip)
@@ -1211,24 +1222,18 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     for leg, table, packed in (
             ("aimed_entry_exit", scene_nw.smem_nodes, False),
             ("aimed_packed", scene_pk.packed_nodes, True)):
-        tab = _dev(table, dev)
+        tab, rec = _dev(table, dev), node_recs(table, dev)
         sweep_ms[leg] = cuda_ms(lambda: sweep_mod.sweep_gate(
-            tab, rows, 8192, packed=packed))
+            rec, rows, 8192, packed=packed))
         sweep_plain_ms[leg] = cuda_ms(lambda: sweep_mod.sweep_gate_plain(
             tab, rows, 8192, packed=packed), reps=3, warmup=0)
-        _, sv = sweep_mod.sweep_gate_plain(tab, rows[:, ::32].contiguous(),
-                                           8192 // 32, packed=packed,
-                                           counts=True)
-        sv_pr = float(sv.float().mean())
-        bms, by = roofline(n * sv_pr * wide_mod.SLAB_OPS,
-                           7 * 4 * n + table.nbytes + 4 * (-(-n // 8192)))
-        sweep_bounds[leg] = {"node_tests": sv_pr, "bound_ms": bms,
-                             "bound_by": by}
+        sweep_bounds[leg] = sweep_bound(tab, rows, 8192, packed=packed)
     bounds = {}
     for leg, (table, groups, rr, kw) in runs.items():
         tab, grp = _dev(table, dev), _dev(groups, dev)
+        rec = node_recs(table, dev)
         kernel_ms[leg] = cuda_ms(lambda: tight_mod.tight_trace(
-            tab, grp, rr, W, packet=8192, **kw))
+            rec, grp, rr, W, packet=8192, **kw))
         plain_ms[leg] = cuda_ms(lambda: tight_plain_chunked(tab, grp, rr, W,
                                                             **kw),
                                 reps=3, warmup=0)
@@ -1310,6 +1315,38 @@ def records(sc, dev):
     """A scene's wide table in the group-walk kernel's layout, on
     ``dev``."""
     return _dev(sc.gnodes, dev, wide_mod.group_records)
+
+
+def node_recs(table, dev):
+    """An entry/exit table in the sweep and entry/exit kernels' layout, on
+    ``dev``."""
+    return _dev(table, dev, sweep_mod.node_records)
+
+
+def sweep_bound(table, rows, packet: int, packed: bool = False) -> dict:
+    """The sweep gate's bound on ``rows`` over the node ``table`` (on the
+    rows' device): the least work that any schedule must do
+    (``sweep.least_node_tests``: for a packet that fires, the shortest walk
+    to a fire among its rays; for one that does not, every ray's whole
+    walk; the rows 0-6 of the rays of unfired packets, the table once and
+    the gate), counted by the plain walk on every ray; and, as
+    ``earlier``, the bound before it, which charged every ray's walk to its
+    own fire and every ray's rows."""
+    n = rows.shape[1]
+    fired, visits = sweep_mod.sweep_gate_plain(table, rows, 1, counts=True,
+                                               packed=packed)
+    tests, open_rays = sweep_mod.least_node_tests(visits, fired, packet)
+    gate_bytes = 4 * (-(-n // packet))
+    ops = tests * wide_mod.SLAB_OPS
+    nbytes = 7 * 4 * open_rays + table.nbytes + gate_bytes
+    ms, by = roofline(ops, nbytes)
+    tests_0 = int(visits.sum())
+    ms_0, by_0 = roofline(tests_0 * wide_mod.SLAB_OPS,
+                          7 * 4 * n + table.nbytes + gate_bytes)
+    return {"node_tests": tests, "rays_read": open_rays, "ops": ops,
+            "bytes": nbytes, "bound_ms": ms, "bound_by": by,
+            "earlier": {"node_tests": tests_0, "bound_ms": ms_0,
+                        "bound_by": by_0}}
 
 
 def sort_legacy(o, d, dev):
@@ -1559,7 +1596,8 @@ def plain_of(name: str, args: tuple, kw: dict) -> tuple:
     inputs, the group walks chunked as ``plain_chunked`` and
     ``near_plain`` chunk them."""
     if name == "sweep_gate":
-        return (sweep_mod.sweep_gate_plain(*args, **kw),)
+        table = sweep_mod.node_table(args[0], kw.get("packed", False))
+        return (sweep_mod.sweep_gate_plain(table, *args[1:], **kw),)
     if name == "wide_trace":
         kw = dict(kw)
         width = kw.pop("width")
@@ -1825,6 +1863,8 @@ def main() -> None:
     tr_rand = make_tracer(scene, packet=8192, sweep=False, sort="octmorton")
     tr_sweep = make_tracer(scene, packet=8192, sweep=True, sort="octmorton")
     tr_aim = make_tracer(scene, packet=8192, sort="morton", tris=(a, b, c))
+    tr_aim_off = make_tracer(scene, packet=8192, sweep=False, sort="morton",
+                             tris=(a, b, c))
     ad_, bd_, cd_ = tb.create_dense_mesh()
     scene_d = build_tight_scene(ad_, bd_, cd_, leaf_size=128)
     check(scene_d.gnodes is not None and scene_d.width == 128, "dense layout")
@@ -1883,6 +1923,7 @@ def main() -> None:
         "random_sweep_off": (tr_rand, o_dev, d_dev),
         "random_sweep_on": (tr_sweep, o_dev, d_dev),
         "aimed": (tr_aim, ao_dev, ad_dev),
+        "aimed_sweep_off": (tr_aim_off, ao_dev, ad_dev),
         "camera_w128": (tr_cam, oc_dev, dc_dev),
     }
     e2e = {}
@@ -1916,8 +1957,9 @@ def main() -> None:
             lambda: wide_plain_chunked(g_, r_, rows, sc.width),
             reps=5, warmup=0)
     rows_r = kernel_rows["random"][0]
+    sr = node_recs(scene.smem_nodes, dev)
     kernel_ms["sweep_gate/random"] = cuda_ms(
-        lambda: sweep_mod.sweep_gate(sn, rows_r, 8192))
+        lambda: sweep_mod.sweep_gate(sr, rows_r, 8192))
     plain_ms["sweep_gate/random"] = cuda_ms(
         lambda: sweep_mod.sweep_gate_plain(sn, rows_r, 8192), reps=5, warmup=0)
 
@@ -1927,32 +1969,28 @@ def main() -> None:
     sample = rows_r[:, ::32].contiguous()
     _, _, tests, fires = wide_mod.wide_trace_plain(
         gn, grp, sample, scene.width, counts=True)
-    _, visits = sweep_mod.sweep_gate_plain(sn, sample, 8192, counts=True)
     tests_pr, fires_pr = float(tests.float().mean()), float(fires.float().mean())
-    visits_pr = float(visits.float().mean())
     W = scene.width
     wide_ops = (n * (tests_pr * wide_mod.K * wide_mod.SLAB_OPS
                      + fires_pr * (wide_mod.LEAF_OPS + W * wide_mod.TRI_OPS))
                 + a.shape[0] * wide_mod.TRI_ONCE_OPS)
     wide_bytes = (wide_mod.N_ROWS * 4 * n + records(scene, dev).nbytes
                   + scene.groups.nbytes + 8 * n)
-    sweep_ops = n * visits_pr * wide_mod.SLAB_OPS
-    sweep_bytes = 7 * 4 * n + scene.smem_nodes.nbytes + 4 * (-(-n // 8192))
+    # the sweep's least work, from every ray's walk
+    sweep_b = sweep_bound(sn, rows_r, 8192)
 
     wb, wby = roofline(wide_ops, wide_bytes)
-    sb, sby = roofline(sweep_ops, sweep_bytes)
     # the same operations at the float32 issue rate without FMA pairing
     # (the kernels are built with -fmad=false): 128 lanes per SM per clock
     issue = fp32_issue_rate()
     emit("timings", card=card, end_to_end=e2e, kernel_ms=kernel_ms,
          plain_ms=plain_ms, plain_ms_phase2=p2["plain_ms"],
-         work_per_ray={"group_tests": tests_pr, "leaf_fires": fires_pr,
-                       "sweep_node_tests": visits_pr},
+         work_per_ray={"group_tests": tests_pr, "leaf_fires": fires_pr},
          fp32_issue_per_s=issue,
          wide_trace={"ops": wide_ops, "bytes": wide_bytes, "bound_ms": wb,
                      "ops_ms_at_issue_rate": wide_ops / issue * 1e3},
-         sweep_gate={"ops": sweep_ops, "bytes": sweep_bytes, "bound_ms": sb,
-                     "ops_ms_at_issue_rate": sweep_ops / issue * 1e3})
+         sweep_gate={**sweep_b,
+                     "ops_ms_at_issue_rate": sweep_b["ops"] / issue * 1e3})
     kernels = [
         {"name": "wide_trace", "route": "cuda",
          "source": "bvh_tpu_torch/csrc/wide_trace.cu",
@@ -1969,7 +2007,8 @@ def main() -> None:
          "max_abs_err": err["sweep_gate"],
          "ms": kernel_ms["sweep_gate/random"],
          "plain_ms": plain_ms["sweep_gate/random"],
-         "bound_ms": sb, "bound_by": sby, "library_ms": None},
+         "bound_ms": sweep_b["bound_ms"], "bound_by": sweep_b["bound_by"],
+         "library_ms": None},
     ]
 
     # ---- phases 6 and 7: the nearest main path and its timings ----------

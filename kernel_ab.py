@@ -1,6 +1,7 @@
-"""Times the port's group-walk trace kernel, its entry/exit nearest kernel
-and its legacy cluster walk against an earlier checkout of the port, on one
-NVIDIA card, in turns (old, new, new, old) within one process.
+"""Times the port's group-walk trace kernel, its sweep gate, its entry/exit
+trace kernel, its entry/exit nearest kernel and its legacy cluster walk
+against an earlier checkout of the port, on one NVIDIA card, in turns (old,
+new, new, old) within one process.
 
     python3 kernel_ab.py --old DIR [--only MODULE ...]
 
@@ -10,11 +11,15 @@ beside the current one under a name of its own, builds its kernels from its
 own sources into its own ``_build/``, and runs through its own wrappers, so
 an earlier C interface needs no adapter here. Both packages are called at
 points whose signatures the two share: ``ops.trace._walk`` (the group walk,
-its gate passed in, no sweep), ``ops.nearest.nearest_entry_exit`` and
-``ops.trace.trace_closest_hit`` (the legacy walk with the ray rows before
-it and the hit record after it). ``--only`` limits the runs to one module's
-kernel (``wide_trace``, ``nearest``, ``cluster_trace``), so that a copy of
-the package with one source changed can be timed against the current one.
+its gate passed in, no sweep; the entry/exit walk with ``wide=False``),
+``ops.sweep.sweep_gate`` over the package's own device copy of the node
+table (``ops.trace._dev`` with the package's ``node_records`` where it has
+one), ``ops.nearest.nearest_entry_exit`` and ``ops.trace.trace_closest_hit``
+(the legacy walk with the ray rows before it and the hit record after it).
+``--only`` limits the runs to one module's kernel (``wide_trace``,
+``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``), so that a copy
+of the package with one source changed can be timed against the current
+one.
 The scenes are built once, by the current package, and the rows are the
 ones ``chip_smoke.py`` gives the kernels (built by its helpers):
 
@@ -23,12 +28,22 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
   the sweep at packet 8192, on the dense mesh's 1024x1024 camera (W=128),
   and on the path tracer's first bounce wave (unsorted, gated) and first
   shadow wave (``mode="any"``, gated), as one frame launches them;
+* the sweep gate (packet 8192) on the random rays sorted octmorton over
+  ``smem_nodes``, on the aimed rays sorted morton over ``smem_nodes`` and
+  over a packed=True build's ``packed_nodes``, and on the first part of
+  ``chip_smoke.py``'s ``chained_aimed`` leg (1,008,000 triangles in 11
+  parts), with the rows carrying that part's bound and its root pre-gate,
+  as the chained trace launches it;
+* the entry/exit walk on the aimed rays over a wide=False build and a
+  packed=True build, each gated by its sweep at packet 8192, and the any-hit
+  rows of ``shadow_aimed_entry_exit`` (t_max 1.2x each ray's hit);
 * the entry/exit nearest walk on the 1,048,576 sorted random points;
 * the legacy walk on the 1,048,576 aimed rays, sorted, on the
   ``ClusterScene``.
 
 Each time is ``chip_smoke.cuda_ms``. Old and new results are compared bit
-for bit: the group and nearest walks must agree; the legacy walks may
+for bit: the gates and the group, entry/exit and nearest walks must agree;
+the legacy walks may
 differ where one subtracts the table's ``a_lo`` and the other does not, and
 the count is reported. Prints the card's name and power limit, then one
 JSON line.
@@ -49,12 +64,14 @@ import torch
 import chip_smoke as cs
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
-from bvh_tpu_torch.ops import build_cluster_scene, build_tight_scene
+from bvh_tpu_torch.ops import (build_chained_scene, build_cluster_scene,
+                               build_tight_scene, make_tracer,
+                               sort_rays_device, trace_closest_hit_chained)
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import trace as trace_mod
-from bvh_tpu_torch.ops.trace import _dev
+from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 
-MODULES = ("wide_trace", "nearest", "cluster_trace")
+MODULES = ("wide_trace", "sweep", "tight_trace", "nearest", "cluster_trace")
 
 
 def import_package(root: Path, name: str):
@@ -85,7 +102,7 @@ def main() -> None:
              f"{args.old} holds no bvh_tpu_torch package")
     import_package(args.old, "kernel_ab_old")
     ops = {tag: {m: importlib.import_module(f"{pkg}.ops.{m}")
-                 for m in ("trace", "nearest")}
+                 for m in ("trace", "nearest", "sweep")}
            for tag, pkg in (("old", "kernel_ab_old"), ("new", "bvh_tpu_torch"))}
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -106,6 +123,26 @@ def wide_run(scene, rows, gate=None, packet=8192, bounded=False,
                                           mode, True, hints, pre_gate=gate)
 
 
+def tight_run(scene, rows, gate=None, packet=8192, bounded=False,
+              mode="closest"):
+    """An entry/exit-walk run: ``_walk`` of either package over ``scene``
+    with ``wide=False``."""
+    return lambda ops: ops["trace"]._walk(scene, rows, packet, False, bounded,
+                                          mode, False, pre_gate=gate)
+
+
+def sweep_run(table, rows, packet=8192, packed=False, pre_gate=None):
+    """A sweep run: either package's ``sweep_gate`` over its own device copy
+    of the host ``table`` (in its ``node_records`` layout where it has
+    one)."""
+    def run(ops):
+        layout = getattr(ops["sweep"], "node_records", None)
+        nodes = ops["trace"]._dev(table, rows.device, layout)
+        return (ops["sweep"].sweep_gate(nodes, rows, packet, packed=packed,
+                                        pre_gate=pre_gate),)
+    return run
+
+
 def runs(dev, names) -> dict:
     """The runs of the modules ``names``: {key: (module name, launch)},
     where launch(ops) runs the row set through one package's modules."""
@@ -122,7 +159,8 @@ def runs(dev, names) -> dict:
         wide["random"] = wide_run(
             scene, cs.trace_rows(o_dev, d_dev, "octmorton"))
         rows_a = cs.trace_rows(ao_dev, ad_dev, "morton")
-        gate = sweep_mod.sweep_gate(_dev(scene.smem_nodes, dev), rows_a, 8192)
+        gate = sweep_mod.sweep_gate(cs.node_recs(scene.smem_nodes, dev),
+                                    rows_a, 8192)
         wide["aimed_gated"] = wide_run(scene, rows_a, gate=gate)
         wide["camera_w128"] = wide_run(
             scene_d, cs.trace_rows(oc, dc, None))
@@ -142,6 +180,52 @@ def runs(dev, names) -> dict:
                 bounded=kw["bounded"], mode=kw["mode"], hints=kw["hints"])
     out.update({f"wide_trace/{k}": ("wide_trace", fn)
                 for k, fn in wide.items()})
+    if "sweep" in names or "tight_trace" in names:
+        scene_nw = build_tight_scene(a, b, c, wide=False)
+        scene_pk = build_tight_scene(a, b, c, packed=True)
+        o_dev, d_dev, ao_dev, ad_dev = (torch.from_numpy(x).to(dev)
+                                        for x in (o, d, ao, ad))
+        rows_r = cs.trace_rows(o_dev, d_dev, "octmorton")
+        rows_a = cs.trace_rows(ao_dev, ad_dev, "morton")
+        gates = {sc: sweep_mod.sweep_gate(
+                     cs.node_recs(tab, dev), rows_a, 8192, packed=packed)
+                 for sc, tab, packed in (
+                     ("nw", scene_nw.smem_nodes, False),
+                     ("pk", scene_pk.packed_nodes, True))}
+    if "sweep" in names:
+        out["sweep/random"] = ("sweep", sweep_run(scene.smem_nodes, rows_r))
+        out["sweep/aimed"] = ("sweep", sweep_run(scene.smem_nodes, rows_a))
+        out["sweep/aimed_packed"] = ("sweep", sweep_run(
+            scene_pk.packed_nodes, rows_a, packed=True))
+        # the first part of the chained aimed leg, as the chain launches it
+        cubes = tb.create_n_cubes(84000)
+        ch = build_chained_scene(*cubes, max_part=100_000)
+        co, cd = (torch.from_numpy(x).to(dev)
+                  for x in tb.aimed_rays(cubes[0], 1 << 20))
+        perm, _ = sort_rays_device(co, cd, mode="morton")
+        _, calls = cs.recorded(lambda: trace_closest_hit_chained(
+            ch, Ray.create(co, cd), tris=tuple(torch.from_numpy(x).to(dev)
+                                               for x in cubes),
+            packet=8192, perm=perm), targets=((trace_mod, "sweep_gate"),))
+        args, kw, _ = calls["sweep_gate"][0]
+        cs.check(ch.parts[0].sweep_nodes is None
+                 and ch.parts[0].packed_nodes is None, "chain part tables")
+        out["sweep/chained_aimed_part0"] = ("sweep", sweep_run(
+            ch.parts[0].smem_nodes, args[1], packet=args[2],
+            pre_gate=kw["pre_gate"]))
+    if "tight_trace" in names:
+        out["tight_trace/aimed_gated"] = ("tight_trace", tight_run(
+            scene_nw, rows_a, gate=gates["nw"]))
+        out["tight_trace/aimed_packed_gated"] = ("tight_trace", tight_run(
+            scene_pk, rows_a, gate=gates["pk"]))
+        # shadow_aimed_entry_exit: any hit below 1.2x each ray's hit
+        h = make_tracer(scene, packet=8192, sort="morton", tris=(a, b, c),
+                        device=dev)(ao_dev, ad_dev)
+        perm, _ = sort_rays_device(ao_dev, ad_dev, mode="morton")
+        rows_sh = _ray_rows(Ray.create(ao_dev, ad_dev).take(perm),
+                            (h.t * 1.2)[perm])
+        out["tight_trace/shadow_aimed_any"] = ("tight_trace", tight_run(
+            scene_nw, rows_sh, bounded=True, mode="any"))
     if "nearest" in names:
         rows_p, _ = cs.nearest_rows(*cs.nearest_points(dense, dev))
         sn, grp = _dev(scene.smem_nodes, dev), _dev(scene.groups, dev)
@@ -158,21 +242,33 @@ def runs(dev, names) -> dict:
     return out
 
 
+def rows_differ(a: tuple, b: tuple) -> int:
+    """Rows (rays, points or packets) whose outputs differ in any bit."""
+    bad = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        bad |= ((x.view(torch.int32) != y.view(torch.int32))
+                if x.is_floating_point() else x != y)
+    return int(bad.sum())
+
+
 def compare(run_set: dict, ops: dict) -> dict:
-    """Old against new on every run: rows, rows whose results differ,
-    hits, the old and the new times (ms) and the speedup."""
+    """Old against new on every run: rows (rays, points or packets), rows
+    whose results differ, hits (open gates for the sweep), the old and the
+    new times (ms) and the speedup."""
     out = {}
     for key, (name, fn) in run_set.items():
         res = {tag: fn(ops[tag]) for tag in ("old", "new")}
         torch.cuda.synchronize()
-        differ = cs.same_bits(*res["old"], *res["new"])
+        differ = rows_differ(res["old"], res["new"])
         if name != "cluster_trace":
             cs.check(differ == 0, f"{key}: old and new differ on {differ} rows")
         ms = {"old": [], "new": []}
         for tag in ("old", "new", "new", "old"):
             ms[tag].append(cs.cuda_ms(lambda: fn(ops[tag])))
-        out[key] = {"rows": int(res["new"][0].shape[0]), "rows_differ": differ,
-                    "hits": int((res["new"][1] >= 0).sum()),
+        new = res["new"]
+        out[key] = {"rows": int(new[0].shape[0]), "rows_differ": differ,
+                    "hits": int((new[0] != 0).sum() if len(new) == 1
+                                else (new[1] >= 0).sum()),
                     "old_ms": ms["old"], "new_ms": ms["new"],
                     "speedup": sum(ms["old"]) / sum(ms["new"])}
     return out

@@ -45,6 +45,7 @@ from bvh_tpu_torch.ops import (build_chained_scene, build_tight_scene,
                                trace_any_hit_chained,
                                trace_closest_hit_chained,
                                trace_closest_hit_tight)
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 PACKET = 128

@@ -52,6 +52,12 @@ def _rec(scene, dev):
     return _dev(scene.gnodes, dev, wide_mod.group_records)
 
 
+def _nrec(table, dev):
+    """An entry/exit table in the sweep and entry/exit kernels' layout on
+    dev."""
+    return _dev(table, dev, sweep_mod.node_records)
+
+
 def _to(rays, dev):
     """The same ray tensors on ``dev`` (each device would normalize the
     directions itself, the card's square root 1 ulp off on some)."""
@@ -156,7 +162,7 @@ def test_wide_kernel_matches_plain(case, cuda, mode):
     gn, grp = _dev(scene.gnodes, cuda), _dev(scene.groups, cuda)
     gate = None
     if mode == "gated":
-        gate = sweep_mod.sweep_gate(_dev(scene.smem_nodes, cuda), rows, 256)
+        gate = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, cuda), rows, 256)
     kw = dict(gate=gate, packet=256, bounded=mode == "bounded")
     before = wide_mod.launches
     tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
@@ -176,7 +182,7 @@ def test_sweep_kernel_matches_plain(case, cuda, packet):
     for t_max in (torch.full_like(tm, float("inf")), tm):
         rows = _ray_rows(rays, t_max)
         before = sweep_mod.launches
-        gk = sweep_mod.sweep_gate(sn, rows, packet)
+        gk = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, cuda), rows, packet)
         assert sweep_mod.launches == before + 1
         gp = sweep_mod.sweep_gate_plain(sn, rows, packet)
         torch.cuda.synchronize()
@@ -230,19 +236,20 @@ def test_tight_kernel_matches_plain(case, cuda, mode):
     packed = mode.startswith("packed")
     if packed:
         scene = build_tight_scene(*tris, leaf_size=scene.width, packed=True)
-    table = _dev(scene.packed_nodes if packed else scene.smem_nodes, cuda)
+    host = scene.packed_nodes if packed else scene.smem_nodes
+    table, rec = _dev(host, cuda), _nrec(host, cuda)
     grp = _dev(scene.groups, cuda)
     packet = 256
     p = -(-rows.shape[1] // packet)
     kw = dict(packed=packed, packet=packet, bounded=bounded,
               mode="any" if "any" in mode else "closest")
     if mode == "gated":
-        kw["gate"] = sweep_mod.sweep_gate(table, rows, packet)
+        kw["gate"] = sweep_mod.sweep_gate(rec, rows, packet)
     if mode == "hinted":
         leaves = np.nonzero(scene.smem_nodes[6] < 0)[0]
         kw["hints"] = torch.from_numpy(_hints(leaves, p)).to(cuda)
     before = tight_mod.launches
-    tk, ik = tight_mod.tight_trace(table, grp, rows, scene.width, **kw)
+    tk, ik = tight_mod.tight_trace(rec, grp, rows, scene.width, **kw)
     assert tight_mod.launches == before + 1
     tp, ip = tight_mod.tight_trace_plain(table, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
@@ -279,14 +286,15 @@ def test_sweep_packed_and_pre_gate_match_plain(case, cuda, packed):
     scene, tris, _, _, rays, tm = case
     if packed:
         scene = build_tight_scene(*tris, leaf_size=scene.width, packed=True)
-    table = _dev(scene.packed_nodes if packed else scene.smem_nodes, cuda)
+    host = scene.packed_nodes if packed else scene.smem_nodes
+    table = _dev(host, cuda)
     rows = _ray_rows(rays, tm)
     packet = 128
     p = -(-rows.shape[1] // packet)
     pre = torch.from_numpy(np.resize(np.array([1, 0, 1], np.int32), p)).to(cuda)
     for pre_gate in (None, pre):
-        gk = sweep_mod.sweep_gate(table, rows, packet, packed=packed,
-                                  pre_gate=pre_gate)
+        gk = sweep_mod.sweep_gate(_nrec(host, cuda), rows, packet,
+                                  packed=packed, pre_gate=pre_gate)
         gp = sweep_mod.sweep_gate_plain(table, rows, packet, packed=packed,
                                         pre_gate=pre_gate)
         torch.cuda.synchronize()
@@ -668,7 +676,7 @@ def _wide_pair(scene, rows, dev, mode, packet=128):
     kw = dict(packet=packet, bounded="bounded" in mode,
               mode="any" if mode.startswith("any") else "closest")
     if mode == "gated":
-        g = sweep_mod.sweep_gate(_dev(scene.smem_nodes, dev), rows, packet)
+        g = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, dev), rows, packet)
         # every other packet gated off, whatever the sweep says
         g[::2] = 0
         kw["gate"] = g
@@ -824,3 +832,186 @@ def test_table_crack_ray_on_card(cuda):
     ref = trace_closest_hit(scene, rays, device="cpu")
     _equal(got, ref)
     assert int(ref.shape_id[0]) == 54391
+
+
+# ---- the sweep gate's exits and the entry/exit walk in lock step -----------
+#
+# The sweep kernel stops a warp, a block and the blocks of a packet once the
+# packet's bit is known; the entry/exit kernel runs a warp's walks in lock
+# step and tests their leaves together. Both must still give their plain
+# versions' bits: ragged n (one-lane warps and blocks), unsorted rows,
+# packets of 128 and 8192, pre-gated packets, packets fired only by their
+# last ray, one lane firing alone, any-hit lanes finishing early, hints.
+
+def _sweep_pair(table, packed, rows, dev, packet, pre_gate=None):
+    """The sweep kernel against its plain version on the same rows over the
+    host ``table``: returns the gate."""
+    before = sweep_mod.launches
+    gk = sweep_mod.sweep_gate(_nrec(table, dev), rows, packet, packed=packed,
+                              pre_gate=pre_gate)
+    assert sweep_mod.launches == before + 1
+    gp = sweep_mod.sweep_gate_plain(_dev(table, dev), rows, packet,
+                                    packed=packed, pre_gate=pre_gate)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, gp)
+    return gk
+
+
+@pytest.fixture(scope="module")
+def packed_scenes(wide_scenes):
+    """The scenes of ``wide_scenes`` built with packed=True."""
+    return {w: build_tight_scene(*tris, leaf_size=w, packed=True)
+            for w, (_, tris) in wide_scenes.items()}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("packet", [128, 8192])
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+def test_sweep_kernel_warp_schedule(wide_scenes, packed_scenes, cuda, n,
+                                    packet, packed):
+    scene, (a, b, c) = wide_scenes[16]
+    table = packed_scenes[16].packed_nodes if packed else scene.smem_nodes
+    rays, tm = _mixed_rays(a, 65538, n + packet, cuda)
+    rows = _ray_rows(rays, tm)[:, :n].contiguous()
+    p = -(-n // packet)
+    pre = torch.from_numpy(np.resize(np.array([1, 0, 1], np.int32), p))
+    for pre_gate in (None, pre.to(cuda)):
+        g = _sweep_pair(table, packed, rows, cuda, packet, pre_gate)
+    if n > 33:
+        assert g.any()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("packet", [128, 8192])
+def test_sweep_fired_only_by_last_ray(wide_scenes, packed_scenes, cuda,
+                                      packet, packed):
+    """Packets whose only firing ray is their last one (in the packet's
+    last block and warp, the last packet ragged) and packets with none:
+    no exit may drop a bit or set one."""
+    scene, (a, b, c) = wide_scenes[16]
+    table = packed_scenes[16].packed_nodes if packed else scene.smem_nodes
+    n = 5 * packet + 77
+    o, d = tb.create_rays(n, seed=tb.seed_state_after(31))
+    inf = torch.full((n,), float("inf"), device=cuda)
+    tab = _dev(table, cuda)
+
+    def own_bits(o, d):
+        rows = _ray_rows(Ray.create(o, d, device=cuda), inf)
+        return rows, sweep_mod.sweep_gate_plain(tab, rows, 1, packed=packed)
+
+    # the random rays that reach a leaf box leave the scene instead
+    _, own = own_bits(o, d)
+    away = own.bool().cpu().numpy()
+    o[away], d[away] = 3e5, np.array([1.0, 0.5, 0.25], np.float32)
+    last = np.array([packet - 1, 3 * packet - 1, 4 * packet - 1, n - 1])
+    o[last], d[last] = tb.aimed_rays(a, len(last), seed=9)
+    rows, own = own_bits(o, d)
+    fired = np.nonzero(own.cpu().numpy())[0]
+    assert set(fired) <= set(last) and len(fired) >= 3
+    g = _sweep_pair(table, packed, rows, cuda, packet)
+    want = np.zeros(6, np.int32)
+    want[fired // packet] = 1
+    assert np.array_equal(g.cpu().numpy(), want)
+
+
+TIGHT_MODES = ["closest", "bounded", "any", "any_bounded", "gated", "hinted"]
+
+
+def _tight_pair(scene, rows, dev, mode, packet=128):
+    """The entry/exit kernel against its plain version in ``mode``, on the
+    same rows (t_max in row 6), over the scene's packed table if it has
+    one: returns the kernel's lane ids."""
+    packed = scene.packed_nodes is not None
+    host = scene.packed_nodes if packed else scene.smem_nodes
+    table, rec, grp = _dev(host, dev), _nrec(host, dev), _dev(scene.groups, dev)
+    p = -(-rows.shape[1] // packet)
+    kw = dict(packed=packed, packet=packet, bounded="bounded" in mode,
+              mode="any" if mode.startswith("any") else "closest")
+    if mode == "gated":
+        g = sweep_mod.sweep_gate(rec, rows, packet, packed=packed)
+        # every other packet gated off, whatever the sweep says
+        g[::2] = 0
+        kw["gate"] = g
+    if mode == "hinted":
+        leaves = np.nonzero(host[3 if packed else 6] < 0)[0]
+        kw["hints"] = torch.from_numpy(_hints(leaves, p, k=5, seed=p)).to(dev)
+    before = tight_mod.launches
+    tk, ik = tight_mod.tight_trace(rec, grp, rows, scene.width, **kw)
+    assert tight_mod.launches == before + 1
+    tp, ip = tight_mod.tight_trace_plain(table, grp, rows, scene.width, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp))
+    assert torch.equal(ik, ip)
+    return ik
+
+
+@pytest.mark.parametrize("mode", TIGHT_MODES)
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_tight_kernel_warp_schedule(wide_scenes, cuda, width, n, mode):
+    scene, (a, b, c) = wide_scenes[width]
+    rays, tm = _mixed_rays(a, 65538, n + width, cuda, mesh=width == 128)
+    bound = tm if "bounded" in mode else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)[:, :n].contiguous()
+    ik = _tight_pair(scene, rows, cuda, mode)
+    if n > 33:
+        assert (ik >= 0).any() and (ik < 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_bounded", "hinted"])
+@pytest.mark.parametrize("n", [1, 33, 65537])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_tight_kernel_packed_warp_schedule(wide_scenes, packed_scenes, cuda,
+                                           width, n, mode):
+    _, (a, b, c) = wide_scenes[width]
+    rays, tm = _mixed_rays(a, 65538, n + width, cuda, mesh=width == 128)
+    bound = tm if "bounded" in mode else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)[:, :n].contiguous()
+    ik = _tight_pair(packed_scenes[width], rows, cuda, mode)
+    if n > 33:
+        assert (ik >= 0).any() and (ik < 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "any", "hinted"])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_tight_kernel_one_lane_fires(wide_scenes, cuda, width, mode):
+    """One lane of each warp aimed at a cube, the others away from the
+    scene: that lane walks and fires leaves alone (with hints, the whole
+    warp also tests the packet's hinted leaves)."""
+    scene, (a, b, c) = wide_scenes[width]
+    o, d, idx = _one_lane_rows(a, 4, [0, 5, 17, 31])
+    rays = Ray.create(o, d, device=cuda)
+    rows = _ray_rows(rays, torch.full((len(o),), np.inf, device=cuda))
+    ik = _tight_pair(scene, rows, cuda, mode)
+    hit = (ik >= 0).cpu().numpy()
+    assert hit[idx].all()
+    if mode != "hinted":
+        assert hit.sum() == len(idx)
+
+
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_tight_kernel_any_lanes_finish_early(wide_scenes, cuda, width):
+    """Any hit with every even lane aimed at a cube (it finds an occluder
+    and stops walking early) and every odd lane a random ray that walks on:
+    the warp runs until its last lane is done."""
+    scene, (a, b, c) = wide_scenes[width]
+    m = 32 * 64
+    ao, ad = tb.aimed_rays(a, m, seed=11)
+    ro, rd = tb.create_rays(m, seed=tb.seed_state_after(width))
+    ao[1::2], ad[1::2] = ro[1::2], rd[1::2]
+    rays = Ray.create(ao, ad, device=cuda)
+    for t_max in (np.inf, 200.0):
+        rows = _ray_rows(rays, torch.full((m,), t_max, device=cuda))
+        for mode in ("any", "any_bounded", "hinted"):
+            ik = _tight_pair(scene, rows, cuda, mode, packet=256)
+            assert (ik[0::2] >= 0).float().mean() > 0.9
+
+
+def test_tight_kernel_deep_table(deep_scene, cuda):
+    """The 14-deep chain's entry/exit table, every mode."""
+    scene, (a, b, c) = deep_scene
+    rays, tm = _mixed_rays(a, 8193, 14, cuda)
+    for mode in TIGHT_MODES:
+        bound = tm if "bounded" in mode else torch.full_like(tm, np.inf)
+        ik = _tight_pair(scene, _ray_rows(rays, bound), cuda, mode)
+        assert (ik >= 0).any()

@@ -42,6 +42,7 @@ from bvh_tpu_torch.ops import (build_cluster_scene, cluster_scene_from_arrays,
                                sort_rays, trace_closest_hit)
 from bvh_tpu_torch.ops import cluster_trace as ct_mod
 from bvh_tpu_torch.ops.trace import _dev
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 KEY_STEP = 2.0 ** -16  # one step of the 7-bit key truncation, relative

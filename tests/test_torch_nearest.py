@@ -37,6 +37,7 @@ from bvh_tpu_torch.ops import (build_tight_scene, nearest_tight,
                                scene_from_arrays, sort_points_device)
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops.trace import _dev
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

@@ -32,6 +32,7 @@ from bvh_tpu_torch import Ray, ray_intersects_triangle
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import (build_chained_scene, build_tight_scene,
                                trace_k_closest, trace_k_closest_chained)
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 PACKET = 128

@@ -26,6 +26,7 @@ from bvh_tpu.render import make_pathtracer as make_pathtracer_j
 from bvh_tpu_torch import render
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import build_tight_scene
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 SIDE = 32

@@ -1,11 +1,34 @@
 """The port's host scene build against bvh_tpu: every TightScene field
 array-equal (``equal_nan`` for the NaN-padded wide table), for the native
 and the numpy build and every leaf width; and a bvh_tpu-built scene carried
-across with ``scene_from_arrays``."""
+across with ``scene_from_arrays``.
+
+The reference's native builder (``bvh_tpu/native.py``) builds
+``csrc/libbvhbuild.so`` with ``make`` on first use and, on any failure,
+keeps its numpy fallback for the life of the process. That fallback orders
+the lanes of a cluster differently from the native build (it ignores the
+cluster hint), so a port build with ``use_native=True`` would no longer
+equal the reference's. Under ``pytest -n``, every worker imports
+``tests/test_native.py``, which loads the library at import, so in a fresh
+checkout several workers run ``make`` on the same output at once, and one
+that loses the race keeps the fallback. ``reference_native`` (module-scoped,
+autouse; imported by every ``tests/test_torch_*.py`` that compares a
+``use_native=True`` build with the reference's) takes that state away: under
+one file lock for all workers it builds the library if it is missing and
+reloads the reference's binding if it failed, and fails the tests of the
+module, naming the cause, if the library still does not load. It never
+skips and never falls back to ``use_native=False``.
+"""
+
+import fcntl
+import os
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
 
+from bvh_tpu import native as native_j
 from bvh_tpu import testbase as tb_j
 from bvh_tpu.io.serialize import save_tight_scene
 from bvh_tpu.ops.cluster import build_tight_scene as build_j
@@ -15,6 +38,56 @@ from bvh_tpu_torch.bvh.sah_build import build_sah
 from bvh_tpu_torch.native import build_sah_native
 from bvh_tpu_torch.ops.cluster import (TightScene, build_tight_scene,
                                        collapse_upper, scene_from_arrays)
+
+
+# one lock for every worker and every checkout on the machine: makes of two
+# checkouts write to different files, so this only serialises them
+NATIVE_LOCK = os.path.join(tempfile.gettempdir(), "bvh_tpu_native_build.lock")
+
+
+def load_reference_native() -> None:
+    """Makes sure ``bvh_tpu.native`` has its native library loaded in this
+    process: under ``NATIVE_LOCK`` it runs ``make`` in the reference's
+    source directory if ``libbvhbuild.so`` is missing there, and if the
+    binding has no library (a failed or raced first load), resets its
+    cache and loads again. Fails, naming the cause, if it still has none."""
+    made = None
+    with open(NATIVE_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        src = native_j._find_src_dir()
+        if os.path.isdir(src) and not os.path.exists(
+                os.path.join(src, "libbvhbuild.so")):
+            try:
+                made = subprocess.run(["make", "-C", src],
+                                      capture_output=True, text=True,
+                                      timeout=300)
+            except (OSError, subprocess.SubprocessError) as err:
+                made = err
+        if not native_j.native_available():
+            native_j._SRC_DIR = src
+            native_j._LIB = None
+            native_j._TRIED = False
+            native_j._load()
+    if native_j.native_available():
+        return
+    if not os.path.isdir(src):
+        cause = f"its source directory {src} does not exist"
+    elif isinstance(made, Exception):
+        cause = f"make -C {src} did not run: {made}"
+    elif made is not None and made.returncode != 0:
+        cause = (f"make -C {src} failed (exit {made.returncode}):\n"
+                 f"{made.stderr[-2000:]}")
+    else:
+        cause = f"{src}/libbvhbuild.so does not load"
+    pytest.fail("bvh_tpu's native builder is unavailable, so its builds "
+                f"fall back to numpy and cannot be compared: {cause}",
+                pytrace=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The reference's native builder, loaded (``load_reference_native``)."""
+    load_reference_native()
 
 
 def _assert_scene_equal(sj, st):
@@ -134,3 +207,17 @@ def test_scene_from_arrays_rejects():
         scene_from_arrays({**fields, "__tight_version__": np.int64(99)})
     with pytest.raises(ValueError, match="not TightScene fields"):
         scene_from_arrays({**fields, "bogus": np.zeros(1)})
+
+
+def test_reference_native_recovers_from_a_failed_load(cubes, monkeypatch):
+    """A worker whose first load of the reference's library failed (the
+    binding cached None) gets it back, and its native build equals the
+    port's again."""
+    monkeypatch.setattr(native_j, "_LIB", None)
+    monkeypatch.setattr(native_j, "_TRIED", True)
+    assert not native_j.native_available()
+    load_reference_native()
+    assert native_j._LIB is not None and native_j.native_available()
+    a, b, c = cubes
+    _assert_scene_equal(build_j(a, b, c, use_native=True),
+                        build_tight_scene(a, b, c, use_native=True))

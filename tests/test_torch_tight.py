@@ -51,6 +51,7 @@ from bvh_tpu_torch.ops import (build_tight_scene, make_tracer,
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 N_CUBES = 40
@@ -268,18 +269,21 @@ def test_tight_kernel_wrapper(world):
     tris, o, d = world
     st = build_tight_scene(*tris, packed=True, sweep_cut=64)
     rows = _ray_rows(Ray.create(o, d, device=CPU), torch.full((len(o),), np.inf))
-    pn, sn = _dev(st.packed_nodes, CPU), _dev(st.smem_nodes, CPU)
+    pn = _dev(st.packed_nodes, CPU)
+    pr = _dev(st.packed_nodes, CPU, sweep_mod.node_records)
+    sn = _dev(st.smem_nodes, CPU, sweep_mod.node_records)
     grp = _dev(st.groups, CPU)
-    t0, i0 = tight_mod.tight_trace(pn, grp, rows, st.width, packed=True)
+    t0, i0 = tight_mod.tight_trace(pr, grp, rows, st.width, packed=True)
     t1, i1, visits, fires = tight_mod.tight_trace_plain(
         pn, grp, rows, st.width, packed=True, counts=True)
     assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
     assert torch.equal(i0, i1)
     assert (visits >= 1).all() and (fires <= visits).all() and fires.sum() > 0
-    with pytest.raises(ValueError, match=r"\[5, Nn\]"):
-        tight_mod.tight_trace(sn, grp, rows, st.width, packed=True)
-    with pytest.raises(ValueError, match=r"\[8, Nn\]"):
-        tight_mod.tight_trace(pn, grp, rows, st.width)
+    # the kernels read the records, not the [5, Nn] or [8, Nn] table
+    with pytest.raises(ValueError, match=r"records must be \[Nn, 8\]"):
+        tight_mod.tight_trace(pn, grp, rows, st.width, packed=True)
+    with pytest.raises(ValueError, match=r"records must be \[Nn, 8\]"):
+        tight_mod.tight_trace(_dev(st.smem_nodes, CPU), grp, rows, st.width)
     with pytest.raises(ValueError, match="mode"):
         tight_mod.tight_trace(sn, grp, rows, st.width, mode="nearest")
     with pytest.raises(ValueError, match="hints"):
@@ -421,8 +425,8 @@ def test_sweep_matches_reference(world, packed, pre):
     rows = _ray_rows(Ray.create(o, d, device=CPU), torch.from_numpy(t_max))
     table_t = st.packed_nodes if packed else st.smem_nodes
     gate_t = sweep_mod.sweep_gate(
-        _dev(table_t, CPU), rows, packet, packed=packed,
-        pre_gate=None if pg is None else torch.from_numpy(pg))
+        _dev(table_t, CPU, sweep_mod.node_records), rows, packet,
+        packed=packed, pre_gate=None if pg is None else torch.from_numpy(pg))
     assert np.array_equal(gate_j, gate_t.numpy())
     assert 0 < gate_j.sum() < len(gate_j)
 
@@ -442,3 +446,131 @@ def test_make_tracer_matches_reference(world, kwargs, exact_reciprocal):
                        device=CPU)(o, d)
     assert torch.equal(got.t.view(torch.int32), got2.t.view(torch.int32))
     assert torch.equal(got.shape_id, got2.shape_id)
+
+
+# ---- the kernels' node records and the sweep's least work -------------------
+
+@pytest.mark.parametrize("name", ["smem_nodes", "packed_nodes", "sweep_nodes"])
+def test_node_records_hold_the_table(world, name):
+    """The kernels' node-major copy of an entry/exit table holds the
+    table's own words (box lo, box hi, entry, exit; a packed table's raw
+    pair words, then zeros) and gives the table back bit for bit."""
+    tris, _, _ = world
+    st = build_tight_scene(*tris, packed=True, sweep_cut=64)
+    table = getattr(st, name)
+    packed = name == "packed_nodes"
+    rec = sweep_mod.node_records(table)
+    assert rec.dtype == np.float32 and rec.shape == (table.shape[1], 8)
+    assert rec.flags.c_contiguous
+    if packed:
+        assert np.array_equal(rec[:, 0:3].view(np.int32),
+                              table[0:3].T.view(np.int32))
+        assert not rec[:, 3:6].any()
+        assert np.array_equal(rec[:, 6:8], table[3:5].T)
+    else:
+        assert np.array_equal(rec.view(np.int32), table.T.view(np.int32))
+    back = sweep_mod.node_table(_dev(table, CPU, sweep_mod.node_records),
+                                packed)
+    assert back.is_contiguous()
+    assert np.array_equal(back.numpy().view(np.int32), table.view(np.int32))
+    with pytest.raises(ValueError, match="5 or 8 rows"):
+        sweep_mod.node_records(table[:4])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_records_path_equals_the_table_walks(world, packed):
+    """The wrappers on records (gated, hinted, any-bounded) give the plain
+    walks' bits over the table itself."""
+    tris, o, d = world
+    st = build_tight_scene(*tris, packed=packed, wide=False)
+    table = st.packed_nodes if packed else st.smem_nodes
+    tab, rec = _dev(table, CPU), _dev(table, CPU, sweep_mod.node_records)
+    grp = _dev(st.groups, CPU)
+    n, packet = len(o), 128
+    t_max = np.random.default_rng(5).uniform(0, 100, n).astype(np.float32)
+    rows = _ray_rows(Ray.create(o, d, device=CPU), torch.from_numpy(t_max))
+    pre = torch.from_numpy(np.resize(np.array([1, 0, 1], np.int32),
+                                     -(-n // packet)))
+    g_r = sweep_mod.sweep_gate(rec, rows, packet, packed=packed, pre_gate=pre)
+    g_t = sweep_mod.sweep_gate_plain(tab, rows, packet, packed=packed,
+                                     pre_gate=pre)
+    assert torch.equal(g_r, g_t) and 0 < int(g_r.sum()) < g_r.numel()
+    leaves = np.nonzero(table[3 if packed else 6] < 0)[0]
+    hints = np.random.default_rng(6).choice(leaves, (g_r.numel(), 3))
+    hints = torch.from_numpy(hints.astype(np.int32))
+    hints[::2, 0] = -1
+    for kw in ({"gate": g_r, "hints": hints},
+               {"mode": "any", "bounded": True}):
+        got = tight_mod.tight_trace(rec, grp, rows, st.width, packed=packed,
+                                    packet=packet, **kw)
+        want = tight_mod.tight_trace_plain(tab, grp, rows, st.width,
+                                           packed=packed, packet=packet, **kw)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+
+
+def _brute_least_tests(table, rows, packet, pre):
+    """The sweep's least work by a scalar walk of every ray in numpy: a
+    packet that fires costs its shortest walk to a fire, one that does not
+    every ray's whole walk; pre-gated packets cost nothing."""
+    nn = table.shape[1]
+    ax, ay, az, bx, by, bz, entry, exit_ = table
+    r = rows.numpy()
+    n = r.shape[1]
+    tests, open_rays = 0, 0
+    for s in range(0, n, packet):
+        if pre is not None and pre[s // packet] == 0:
+            continue
+        walks = []
+        for i in range(s, min(s + packet, n)):
+            oix, oiy, oiz, ix, iy, iz, tmx = r[0:7, i]
+            cur, steps, fired = 0, 0, False
+            while cur < nn:
+                steps += 1
+                t1, t2 = ax[cur] * ix - oix, bx[cur] * ix - oix
+                u1, u2 = ay[cur] * iy - oiy, by[cur] * iy - oiy
+                v1, v2 = az[cur] * iz - oiz, bz[cur] * iz - oiz
+                tmin = np.maximum(np.maximum(np.minimum(t1, t2),
+                                             np.minimum(u1, u2)),
+                                  np.minimum(v1, v2))
+                tmax = np.minimum(np.minimum(np.maximum(t1, t2),
+                                             np.maximum(u1, u2)),
+                                  np.maximum(v1, v2))
+                useful = (tmax >= np.maximum(tmin, np.float32(0))) and tmin < tmx
+                if useful and entry[cur] < 0:
+                    fired = True
+                    break
+                cur = int(entry[cur] if useful else exit_[cur])
+            walks.append((fired, steps))
+        firing = [k for f, k in walks if f]
+        if firing:
+            tests += min(firing)
+        else:
+            tests += sum(k for _, k in walks)
+            open_rays += len(walks)
+    return tests, open_rays
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_least_node_tests_matches_a_brute_count(world, pre):
+    """The sweep's bound charges a fired packet its shortest firing walk
+    and an unfired one every walk, as a scalar walk of every ray counts."""
+    tris, o, d = world
+    st = build_tight_scene(*tris)
+    n, packet = len(o), 128
+    t_max = np.random.default_rng(8).uniform(0, 60, n).astype(np.float32)
+    rows = _ray_rows(Ray.create(o, d, device=CPU), torch.from_numpy(t_max))
+    p = -(-n // packet)
+    pg = (torch.from_numpy(np.resize(np.array([1, 1, 0], np.int32), p))
+          if pre else None)
+    tab = _dev(st.smem_nodes, CPU)
+    per_ray = None if pg is None else pg.repeat_interleave(packet)[:n]
+    fired, visits = sweep_mod.sweep_gate_plain(tab, rows, 1, counts=True,
+                                               pre_gate=per_ray)
+    got = sweep_mod.least_node_tests(visits, fired, packet, pre_gate=pg)
+    want = _brute_least_tests(st.smem_nodes, rows, packet,
+                              None if pg is None else pg.numpy())
+    assert got == want
+    gate = sweep_mod.sweep_gate_plain(tab, rows, packet, pre_gate=pg)
+    assert 0 < int(gate.sum()) < p  # both kinds of packet are counted
+    assert got[0] < int(visits.sum())  # fired packets cost less than before

@@ -26,6 +26,7 @@ from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import (build_tight_scene, make_tracer,
                                scene_from_arrays, sort_rays_device,
                                trace_closest_hit_tight)
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 N_CUBES = 120

@@ -35,6 +35,7 @@ from bvh_tpu_torch.ops import build_tight_scene, trace_closest_hit_tight
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
+from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 N_CUBES = 120
@@ -143,7 +144,8 @@ def test_wrapper_rejects_bad_inputs(cubes):
     with pytest.raises(ValueError, match=r"records must be \[Gn, 128\]"):
         wide_mod.wide_trace(_dev(st.gnodes, CPU), grp, rows, 16, st.gdepth)
     with pytest.raises(ValueError, match="packet"):
-        sweep_mod.sweep_gate(_dev(st.smem_nodes, CPU), rows, 100)
+        sweep_mod.sweep_gate(_dev(st.smem_nodes, CPU, sweep_mod.node_records),
+                             rows, 100)
 
 
 @pytest.mark.parametrize("bounded", [False, True])
@@ -167,7 +169,8 @@ def test_plain_sweep_matches_reference(cubes, bounded):
     st = build_tight_scene(a, b, c)
     tm = torch.full((n,), np.inf) if t_max is None else torch.from_numpy(t_max)
     rows = _ray_rows(Ray.create(o, d, device=CPU), tm)
-    gate_t = sweep_mod.sweep_gate(_dev(st.smem_nodes, CPU), rows, packet)
+    gate_t = sweep_mod.sweep_gate(
+        _dev(st.smem_nodes, CPU, sweep_mod.node_records), rows, packet)
     assert gate_t.dtype == torch.int32
     assert np.array_equal(gate_j, gate_t.numpy())
     assert 0 < gate_j.sum() < len(gate_j)
