@@ -16,6 +16,17 @@
 //     vb, giving the fired mask; narrowphase every fired leaf bit in
 //     ascending order; then visit the fired interior children lowest bit
 //     first (a DFS stack of (group, remaining mask), depth WIDE_DMAX);
+//   * subtree entry (start_g, optional; the reference's SUBTREE walk,
+//     _wide_body 1468-1494, with the skip pair of _make_mask_walk): the
+//     packet's entry groups (sg, sg2) are walked first, each from an empty
+//     stack. Phase 1 walks from sg; phase 2 from sg2, never entering sg;
+//     phase 3 from group 0, entering neither. A phase whose start is <= 0
+//     is not run (group 0 is nobody's child, so ids <= 0 never match a
+//     child). When a lane's stack empties before phase 3 it takes the next
+//     phase's start step (the 16 children of its start group, no push) in
+//     the same loop. A launch without start_g runs the build without the
+//     phases (SUBTREE false), whose loop is the plain walk's: the skip
+//     compare alone cost the W=128 and any-hit rows 3-4%;
 //   * modes closest, bounded and any (trace_common.cuh). Once vb is -inf
 //     (an any-hit ray found its occluder) no box can fire again, so the ray
 //     walks no further than the group in hand: the result is bit for bit
@@ -47,10 +58,9 @@
 // All 32 lanes stay in the loop until every walk is done (a lane past n,
 // or one that has finished, takes part in the leaf tests without a walk of
 // its own): the shuffles and ballots need the whole warp. packet is a power
-// of two of at least 128, so a warp's rays share one packet: its gate and
-// hints are the same for all its lanes, and a gated-off warp returns at
-// once. A walk starts from a group with an empty stack (start below), so a
-// walk from a subtree's root would need no other change.
+// of two of at least 128, so a warp's rays share one packet: its gate,
+// hints and subtree entries are the same for all its lanes, and a gated-off
+// warp returns at once.
 //
 // Numerics: see trace_common.cuh; payloads and the leaf mask are float
 // VALUES and convert with (int).
@@ -96,13 +106,14 @@ __device__ __forceinline__ void leaf_slot(const float* __restrict__ rec,
   c = (int)(-__ldg(rec + PAY + k) - 1.0f);
 }
 
-template <int W>
+template <int W, bool SUBTREE>
 __global__ void __launch_bounds__(128)
     wide_trace_kernel(const float* __restrict__ recs,
                       const float* __restrict__ groups, int mode,
                       const float* __restrict__ rays, int n,
                       const int* __restrict__ hints, int n_hints,
-                      const int* __restrict__ gate, int packet,
+                      const int* __restrict__ gate,
+                      const int* __restrict__ start_g, int packet,
                       float* __restrict__ t_out, int* __restrict__ id_out) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -131,10 +142,18 @@ __global__ void __launch_bounds__(128)
                    });
   }
 
+  // the packet's subtree entries; the first phase to run and its start
+  int sg = 0, sg2 = 0;
+  if (SUBTREE) {
+    sg = start_g[2 * pkt];
+    sg2 = start_g[2 * pkt + 1];
+  }
+  int phase = sg > 0 ? 1 : sg2 > 0 ? 2 : 3;
   int stk_g[WIDE_DMAX];
   int stk_m[WIDE_DMAX];
   int d = 0, gid = 0, mask = 0;
-  int g = 0;  // the group the lane enters this step: the start, group 0
+  // the group the lane enters this step: the first phase's start
+  int g = phase == 1 ? sg : phase == 2 ? sg2 : 0;
   bool entering = valid, start = true;
   while (true) {
     const float* rec = recs + (size_t)g * REC;
@@ -157,6 +176,7 @@ __global__ void __launch_bounds__(128)
       // descend into g if it has fired interior children
       const int m2 = m & ~lmask;
       if (start) {
+        gid = g;
         mask = m2;
       } else if (m2) {
         stk_g[d] = gid;
@@ -168,21 +188,31 @@ __global__ void __launch_bounds__(128)
     }
     start = false;
     // the lane's next group: the lowest remaining fired child of the
-    // deepest group that has one; none once the stack is empty or the
-    // bound is -inf
+    // deepest group that has one, but for the phase's skipped subtrees;
+    // once the stack is empty, the next phase's start; none after phase 3
+    // or once the bound is -inf
     entering = false;
     if (valid && !(r.vb == neg_inf())) {
       while (true) {
         if (mask == 0) {
-          if (d == 0) break;
-          --d;
-          gid = stk_g[d];
-          mask = stk_m[d];
-          continue;
+          if (d > 0) {
+            --d;
+            gid = stk_g[d];
+            mask = stk_m[d];
+            continue;
+          }
+          if (!SUBTREE || phase == 3) break;
+          phase = phase == 1 && sg2 > 0 ? 2 : 3;
+          g = phase == 2 ? sg2 : 0;
+          entering = start = true;
+          break;
         }
         const int k = __ffs(mask) - 1;
         mask &= mask - 1;
         g = (int)__ldg(recs + (size_t)gid * REC + PAY + k);
+        // phase 2 skips sg, phase 3 sg and sg2
+        if (SUBTREE && phase > 1 && (g == sg || (phase == 3 && g == sg2)))
+          continue;
         entering = true;
         break;
       }
@@ -195,12 +225,19 @@ __global__ void __launch_bounds__(128)
 template <int W>
 int launch(const float* recs, const float* groups, int mode,
            const float* rays, int n, const int* hints, int n_hints,
-           const int* gate, int packet, float* t_out, int* id_out,
-           cudaStream_t stream) {
+           const int* gate, const int* start_g, int packet, float* t_out,
+           int* id_out, cudaStream_t stream) {
   const int block = 128;
-  wide_trace_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
-      recs, groups, mode, rays, n, hints, n_hints, gate, packet, t_out,
-      id_out);
+  const int grid = (n + block - 1) / block;
+  if (start_g != nullptr) {
+    wide_trace_kernel<W, true><<<grid, block, 0, stream>>>(
+        recs, groups, mode, rays, n, hints, n_hints, gate, start_g, packet,
+        t_out, id_out);
+  } else {
+    wide_trace_kernel<W, false><<<grid, block, 0, stream>>>(
+        recs, groups, mode, rays, n, hints, n_hints, gate, start_g, packet,
+        t_out, id_out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -210,27 +247,30 @@ int launch(const float* recs, const float* groups, int mode,
 // layout (ops/wide.py::group_records).
 extern "C" int wide_trace_rec_floats() { return REC; }
 
-// recs: the group-major table [Gn, REC] (ops/wide.py::group_records).
+// recs: the group-major table [Gn, REC] (ops/wide.py::group_records);
+// start_g: null, or the packets' subtree entries [p, 2] (closest and
+// bounded modes).
 extern "C" int wide_trace_launch(const float* recs, const float* groups,
                                  int width, const float* rays, int n,
                                  const int* hints, int n_hints,
-                                 const int* gate, int packet, int mode,
-                                 float* t_out, int* id_out, void* stream) {
+                                 const int* gate, const int* start_g,
+                                 int packet, int mode, float* t_out,
+                                 int* id_out, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch<16>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                        packet, t_out, id_out, st);
+                        start_g, packet, t_out, id_out, st);
     case 32:
       return launch<32>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                        packet, t_out, id_out, st);
+                        start_g, packet, t_out, id_out, st);
     case 64:
       return launch<64>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                        packet, t_out, id_out, st);
+                        start_g, packet, t_out, id_out, st);
     case 128:
       return launch<128>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                         packet, t_out, id_out, st);
+                         start_g, packet, t_out, id_out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,9 @@
+"""Differentiable closest-hit rendering: gradients of hit distance and
+barycentrics with respect to triangle vertices and ray origins and
+directions. Counterpart of ``bvh_tpu/diff`` but for ``render_hits`` and
+``render_depth``, which walk the general BVH path not ported yet."""
+
+from .camera import camera_rays
+from .render import render_depth_fast, render_hits_fast
+
+__all__ = ["camera_rays", "render_depth_fast", "render_hits_fast"]

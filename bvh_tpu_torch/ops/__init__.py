@@ -1,7 +1,8 @@
 """The port's trace and nearest-triangle paths: host scene tables (tight,
 legacy cluster and chained scenes), the coherence sorts, and the
 hand-written CUDA kernels (group walk, entry/exit walk, sweep gate, legacy
-cluster walk, the two nearest walks) with their plain PyTorch versions.
+cluster walk, the two nearest walks) with their plain PyTorch versions,
+and the seeders and subtree-entry planners of the group walk.
 The legacy walk's wrapper is ``ops.cluster_trace.cluster_trace``: the
 module keeps the name, so the package does not re-export the function."""
 
@@ -17,10 +18,11 @@ from .nearest import (nearest_chained, nearest_entry_exit,
 from .ordered import trace_k_closest, trace_k_closest_chained
 from .sweep import sweep_gate, sweep_gate_plain
 from .tight import tight_trace, tight_trace_plain
-from .trace import (make_tracer, sort_rays, sort_rays_device,
+from .trace import (compute_seed_hints, make_key_planner, make_planner,
+                    make_seeder, make_tracer, sort_rays, sort_rays_device,
                     trace_any_hit_chained, trace_any_hit_tight,
                     trace_closest_hit, trace_closest_hit_chained,
-                    trace_closest_hit_tight)
+                    trace_closest_hit_seeded, trace_closest_hit_tight)
 from .wide import wide_trace, wide_trace_plain
 
 __all__ = [
@@ -34,6 +36,10 @@ __all__ = [
     "chained_scene_from_parts",
     "cluster_scene_from_arrays",
     "collapse_upper",
+    "compute_seed_hints",
+    "make_key_planner",
+    "make_planner",
+    "make_seeder",
     "make_tracer",
     "nearest_chained",
     "nearest_entry_exit",
@@ -54,6 +60,7 @@ __all__ = [
     "trace_any_hit_tight",
     "trace_closest_hit",
     "trace_closest_hit_chained",
+    "trace_closest_hit_seeded",
     "trace_closest_hit_tight",
     "trace_k_closest",
     "trace_k_closest_chained",

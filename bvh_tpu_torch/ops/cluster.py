@@ -386,6 +386,37 @@ def build_wide_table(smem_nodes: np.ndarray, num_clusters: int,
     return gnodes, gslot, depth
 
 
+def wide_group_meta(gnodes: np.ndarray):
+    """``(parent, depth, anc)`` of every group of a wide table, int64.
+
+    The root, group 0, has parent -1 and depth 0; ``anc [Gn, D]`` holds a
+    group's ancestor at each depth (the group itself at its own depth, -1
+    below it). Pad columns that no payload names get parent -1 and depth 0.
+    The subtree-entry planners (``ops/trace.py``) read it. Counterpart of
+    ``bvh_tpu/ops/cluster.py::wide_group_meta``, array-equal to it."""
+    gn = np.asarray(gnodes)
+    K = (gn.shape[0] - 1) // 7
+    Gn = gn.shape[1]
+    pay = gn[6:7 * K:7, :]  # [K, Gn] child payloads; interior ones >= 0
+    inner = np.isfinite(pay) & (pay >= 0)
+    _, gs = np.nonzero(inner)
+    ch = pay[inner].astype(np.int64)
+    parent = np.full(Gn, -1, np.int64)
+    parent[ch] = gs
+    if not (parent[ch] < ch).all():
+        raise ValueError("the wide table does not list parents first")
+    depth = np.zeros(Gn, np.int64)
+    order = ch[np.argsort(ch)]  # parents before their children
+    for g in order:
+        depth[g] = depth[parent[g]] + 1
+    D = int(depth.max()) + 1
+    anc = np.full((Gn, D), -1, np.int64)
+    anc[np.arange(Gn), depth] = np.arange(Gn)
+    for g in order:
+        anc[g, :depth[g]] = anc[parent[g], :depth[g]]
+    return parent, depth, anc
+
+
 def _pad_node_table(smem_nodes: np.ndarray, bucket: int = 2048,
                     target: int | None = None) -> np.ndarray:
     """Pads the entry/exit node table to a bucket multiple of columns. A

@@ -3,7 +3,9 @@ and a legacy ``ClusterScene``: the coherence sorts, the ray prologue, the
 gates, the walks and the epilogue.
 
 Counterpart of ``sort_rays_device``, ``trace_closest_hit_tight``,
-``trace_any_hit_tight``, ``make_tracer``, ``trace_closest_hit_chained``,
+``trace_any_hit_tight``, ``make_tracer``, the seeders and planners
+(``compute_seed_hints``, ``trace_closest_hit_seeded``, ``make_seeder``,
+``make_planner``, ``make_key_planner``), ``trace_closest_hit_chained``,
 ``trace_any_hit_chained``, ``sort_rays`` and ``trace_closest_hit`` in
 ``bvh_tpu/ops/trace.py``. The legacy trace has its own walk and rules
 (``ops/cluster_trace.py``); what follows is about the others.
@@ -35,6 +37,7 @@ from ..bvh.lbvh import morton_codes
 from ..bvh.traverse import HitRecord
 from ..device import resolve_device
 from ..ray import Ray, ray_intersects_triangle
+from .cluster import wide_group_meta
 from .cluster_trace import cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
 from .sweep import node_records, sweep_gate
@@ -180,6 +183,33 @@ def _hints(scene, hints, wide: bool, n: int, packet: int, dev):
     return torch.as_tensor(h, dtype=torch.int32).to(dev).contiguous()
 
 
+def _start_g(scene, start_g, wide: bool, n: int, packet: int, dev):
+    """``start_g`` ([p] or [p, 2]; numpy, torch or any array numpy reads) as
+    an int32 [p, 2] tensor on ``dev``, a [p] input padded with -1; None for
+    none. Subtree entry takes the group walk only, and every id must name a
+    group of the wide table."""
+    if start_g is None:
+        return None
+    if not wide:
+        raise ValueError("start_g (subtree entry) takes the group walk: a "
+                         "scene with a wide table, not packed or bmat, and "
+                         "wide=None or True")
+    if torch.is_tensor(start_g):
+        s = start_g.to(device=dev, dtype=torch.int32)
+    else:
+        s = torch.as_tensor(np.asarray(start_g).astype(np.int32)).to(dev)
+    p = -(-n // packet)
+    if s.dim() == 1:
+        s = torch.stack([s, torch.full_like(s, -1)], dim=1)
+    if s.dim() != 2 or tuple(s.shape) != (p, 2):
+        raise ValueError(f"start_g must be [{p}] or [{p}, 2], got "
+                         f"{tuple(s.shape)}")
+    gn = scene.gnodes.shape[1]
+    if int(s.max()) >= gn:
+        raise ValueError(f"start_g holds a group id >= Gn = {gn}")
+    return s.contiguous()
+
+
 def _pre_gate(pre_gate, n: int, packet: int, dev):
     if pre_gate is None:
         return None
@@ -191,9 +221,10 @@ def _pre_gate(pre_gate, n: int, packet: int, dev):
 
 
 def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
-          wide: bool, hints=None, pre_gate=None):
+          wide: bool, hints=None, pre_gate=None, start_g=None):
     """The gate (sweep and pre-gate) and the walk over the ray rows:
-    ``(t, lane_id)``."""
+    ``(t, lane_id)``; ``start_g`` (group walk) the packets' subtree
+    entries."""
     dev = rows.device
     table, packed = _entry_exit_table(scene)
     gate = pre_gate
@@ -209,7 +240,8 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
         return wide_trace(_dev(scene.gnodes, dev, group_records),
                           _dev(scene.groups, dev), rows, width=int(scene.width),
                           depth=int(scene.gdepth), gate=gate, packet=packet,
-                          bounded=bounded, mode=mode, hints=hints)
+                          bounded=bounded, mode=mode, hints=hints,
+                          start_g=start_g)
     return tight_trace(_dev(table, dev, node_records), _dev(scene.groups, dev),
                        rows, width=int(scene.width), packed=packed, gate=gate,
                        packet=packet, bounded=bounded, mode=mode, hints=hints)
@@ -240,12 +272,13 @@ def _finish(rays_s: Ray, tris9, t, sid) -> HitRecord:
 
 
 def _trace(scene, rays_s: Ray, tris9, packet: int, sweep: bool, tm,
-           bounded: bool, wide: bool, hints=None, pre_gate=None) -> HitRecord:
+           bounded: bool, wide: bool, hints=None, pre_gate=None,
+           start_g=None) -> HitRecord:
     """The closest-hit trace on sorted rays ``rays_s``; ``tm`` is the per-ray
     t_max in the same order (+inf when unbounded); ``tris9`` an optional
     [n_tris, 9] vertex table for the exact winner recompute."""
     t, lane_id = _walk(scene, _ray_rows(rays_s, tm), packet, sweep, bounded,
-                       "closest", wide, hints, pre_gate)
+                       "closest", wide, hints, pre_gate, start_g)
     if bounded:
         # a leaf hit at t >= t_max (the slab test prunes boxes, not
         # triangles) is a miss
@@ -297,14 +330,14 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
     without a walk (and skip the sweep). ``perm``: [n] coherence-sort
     permutation over UNSORTED ``rays`` (and a per-ray ``t_max``); outputs
     come back in sorted order, as if the caller had passed sorted rays.
+    ``start_g``: optional [ceil(n / packet)] or [ceil(n / packet), 2] group
+    ids (``make_planner``, ``make_key_planner``; a [p] input is padded with
+    -1): each packet walks these subtrees first and then the rest of the
+    tree (``ops/wide.py``), which changes no result; ids <= 0 do nothing.
+    Group walk only (not ``wide=False``, packed or bmat scenes). With
+    ``perm``, ``hints`` and ``start_g`` address the sorted packets.
     ``device``: where to run (None: the card).
-
-    ``start_g`` (the subtree-entry planner's input) is not ported yet and
-    raises ``NotImplementedError``.
     """
-    if start_g is not None:
-        raise NotImplementedError(
-            "start_g= is not ported yet (ROADMAP queue 1 item 10)")
     _check_packet(packet)
     walk_wide = _choose_walk(scene, wide)
     dev = resolve_device(device)
@@ -317,11 +350,12 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
         # the hint format is the default walk's
         raise ValueError("hints follow the scene's default walk; do not "
                          "override wide= with hints")
+    sg = _start_g(scene, start_g, walk_wide, r, packet, dev)
     pg = _pre_gate(pre_gate, r, packet, dev)
     rays, tm = _prepare(rays, t_max, perm, dev)
     tris9 = None if tris is None else _tris9(tris, dev)
     return _trace(scene, rays, tris9, packet, sweep, tm, t_max is not None,
-                  walk_wide, hints_t, pg)
+                  walk_wide, hints_t, pg, sg)
 
 
 def trace_any_hit_tight(scene, rays: Ray, t_max=None, packet: int = 2048,
@@ -364,17 +398,21 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
     ``sort``: "octant", "morton" or "octmorton" coherence sort inside the
     call, or None when the rays are already coherent (camera tiles).
     ``tris``: optional (a, b, c) vertex arrays for the exact winner
-    recompute, copied to the device once. ``device``: where to run (None:
-    the card). ``plan`` (the subtree-entry planner) is not ported yet.
+    recompute, copied to the device once. ``plan="key"``: each call plans
+    the packets' subtree entries from the sorted origins
+    (``make_key_planner``) and walks them first; results do not change.
+    It needs the group walk; pair it with ``sort="morton"``. ``device``:
+    where to run (None: the card).
     """
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= is not ported yet (ROADMAP queue 1 item 10)")
+    if plan not in (None, "key"):
+        raise ValueError(f"unknown plan {plan!r}")
     _check_packet(packet)
     if sort not in (None, "octant", "morton", "octmorton"):
         raise ValueError(f"unknown sort mode {sort!r}")
     dev = resolve_device(device)
     wide = _traces_wide(scene)
+    planner = (None if plan is None
+               else make_key_planner(scene, packet=packet, device=dev))
     table, _ = _entry_exit_table(scene)
     swn = scene.sweep_nodes if scene.sweep_nodes is not None else table
     # copy the tables to the device once, in the layouts the kernels read
@@ -398,7 +436,9 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
             od = torch.cat([o, d], dim=1)[perm]
             rays_s = Ray.create(od[:, 0:3], od[:, 3:6], device=dev)
         tm = torch.full((o.shape[0],), _INF, dtype=torch.float32, device=dev)
-        out = _trace(scene, rays_s, tris9, packet, sweep, tm, False, wide)
+        sg = None if planner is None else planner(rays_s.origin)
+        out = _trace(scene, rays_s, tris9, packet, sweep, tm, False, wide,
+                     start_g=sg)
         if sort is None:
             return out
         # un-permute as int32 bit patterns, so every t, u, v moves exactly
@@ -414,6 +454,315 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
                          comb[:, 1].contiguous())
 
     return tracer
+
+
+# ---- seeding hints and subtree-entry planners -------------------------------
+
+def _hint_tables(scene):
+    """The seeders' host tables ``(lane_of_tri, node_of_cluster, n_tris,
+    W)``, int64 numpy: each triangle's lane in ``groups``, and each
+    cluster's hint id in the format of the scene's default walk
+    (``_traces_wide``): leaf slot ids g·K+k (``gslot``) on the group walk,
+    node-table leaf ids on the entry/exit walk. Counterpart of the
+    reference's ``_hint_tables``."""
+    tri_map = np.asarray(scene.tri_map)
+    n_tris = int(tri_map.max()) + 1
+    W = int(scene.width)
+    lane_of_tri = np.zeros(n_tris, np.int64)
+    valid = tri_map >= 0
+    lane_of_tri[tri_map[valid]] = np.nonzero(valid)[0]
+    if _traces_wide(scene):
+        node_of_cluster = np.asarray(scene.gslot, np.int64)
+    else:
+        entry = np.asarray(scene.smem_nodes[6])
+        leaf_nodes = np.nonzero(entry < 0)[0]
+        leaf_cluster = (-entry[leaf_nodes] - 1.0).astype(np.int64)
+        node_of_cluster = np.zeros(int(scene.num_clusters), np.int64)
+        node_of_cluster[leaf_cluster] = leaf_nodes
+    return lane_of_tri, node_of_cluster, n_tris, W
+
+
+def _sample(rays: Ray, r: int, packet: int, sample_stride: int):
+    """Every ``sample_stride``-th ray, or None when there are fewer rays
+    than that; the stride must divide the packet (its samples fill whole
+    packets)."""
+    if r < sample_stride:
+        return None
+    if packet % sample_stride:
+        raise ValueError(f"sample_stride {sample_stride} must divide the "
+                         f"packet {packet}")
+    return Ray(*(x[::sample_stride] for x in rays))
+
+
+def compute_seed_hints(scene, rays: Ray, packet: int = 2048,
+                       sample_stride: int = 32, k_hints: int = 64,
+                       device=None):
+    """Seeding hints for ``trace_closest_hit_tight(hints=)``: int32 numpy
+    [ceil(n / packet), k_hints], or None when there are fewer rays than
+    ``sample_stride``.
+
+    Traces every ``sample_stride``-th ray (at packet ``min(packet, 1024)``)
+    and lists, per packet, the first ``k_hints`` distinct clusters its
+    samples hit, ascending, in the scene's default walk's hint format; empty
+    slots repeat the first, and a packet whose samples all missed gets -1.
+    The mapping runs on the host. Counterpart of the reference's
+    ``compute_seed_hints``, array-equal to it on the same sampled hits."""
+    _check_packet(packet)
+    r = rays.origin.shape[0]
+    sample = _sample(rays, r, packet, sample_stride)
+    if sample is None:
+        return None
+    pre = trace_closest_hit_tight(scene, sample, packet=min(packet, 1024),
+                                  device=device)
+    lane_of_tri, node_of_cluster, _, W = _hint_tables(scene)
+    sid = pre.shape_id.cpu().numpy()
+    p = -(-r // packet)
+    rpp = packet // sample_stride
+    sid_pad = np.full(p * rpp, -1, np.int64)
+    sid_pad[:sid.shape[0]] = sid
+    big = np.int64(1 << 40)
+    cl = np.where(sid_pad >= 0, lane_of_tri[np.clip(sid_pad, 0, None)] // W,
+                  big)
+    cl = np.sort(cl.reshape(p, rpp), axis=1)
+    first = np.ones_like(cl, dtype=bool)
+    first[:, 1:] = cl[:, 1:] != cl[:, :-1]
+    first &= cl < big
+    rank = np.cumsum(first, axis=1) - 1  # of each distinct cluster in its row
+    keep = first & (rank < k_hints)
+    hints = np.full((p, k_hints), -1, np.int64)
+    hints[np.nonzero(keep)[0], rank[keep]] = node_of_cluster[cl[keep]]
+    hints = np.where(hints < 0, hints[:, 0:1], hints)
+    return hints.astype(np.int32)
+
+
+def trace_closest_hit_seeded(scene, rays: Ray, tris=None, packet: int = 2048,
+                             sample_stride: int = 32, k_hints: int = 64,
+                             device=None) -> HitRecord:
+    """Closest hit with sampled-hit seeding: ``compute_seed_hints``, then
+    ``trace_closest_hit_tight(hints=)``. Seeding only tightens the bounds
+    sooner, so the results are ``trace_closest_hit_tight``'s. ``device`` as
+    in ``trace_closest_hit_tight``."""
+    hints = compute_seed_hints(scene, rays, packet=packet,
+                               sample_stride=sample_stride, k_hints=k_hints,
+                               device=device)
+    return trace_closest_hit_tight(scene, rays, tris=tris, packet=packet,
+                                   hints=hints, device=device)
+
+
+def make_seeder(scene, packet: int = 2048, sample_stride: int = 32,
+                k_hints: int = 64, device=None):
+    """``seeder(rays) -> hints``: ``compute_seed_hints`` on the device, with
+    no copy to the host: an int32 [ceil(n / packet), k_hints] tensor on
+    ``device`` (None: the card), or None when there are fewer rays than
+    ``sample_stride``. The hints are the same.
+
+        seeder = make_seeder(scene)
+        trace_closest_hit_tight(scene, rays, hints=seeder(rays))
+    """
+    _check_packet(packet)
+    dev = resolve_device(device)
+    lane_of_tri, node_of_cluster, n_tris, W = _hint_tables(scene)
+    lane_t = torch.as_tensor(lane_of_tri.astype(np.int32)).to(dev)
+    node_t = torch.as_tensor(node_of_cluster.astype(np.int32)).to(dev)
+    big = 0x7FFFFFF0
+
+    def seeder(rays: Ray):
+        r = rays.origin.shape[0]
+        sample = _sample(rays, r, packet, sample_stride)
+        if sample is None:
+            return None
+        pre = trace_closest_hit_tight(scene, sample, packet=min(packet, 1024),
+                                      device=dev)
+        p = -(-r // packet)
+        rpp = packet // sample_stride
+        sid = torch.full((p * rpp,), -1, dtype=torch.int32, device=dev)
+        sid[:pre.shape_id.shape[0]] = pre.shape_id
+        cl = torch.where(sid >= 0,
+                         lane_t[sid.clamp(0, n_tris - 1).to(torch.int64)] // W,
+                         big)
+        cl = torch.sort(cl.view(p, rpp), dim=1).values
+        first = torch.ones_like(cl, dtype=torch.bool)
+        first[:, 1:] = cl[:, 1:] != cl[:, :-1]
+        first &= cl < big
+        rank = torch.cumsum(first, dim=1) - 1
+        # each packet's first k_hints distinct clusters in slots 0..k-1;
+        # the others write -1 to the spare slot k
+        slot = torch.where(first & (rank < k_hints), rank, k_hints)
+        node = node_t[cl.clamp(0, node_t.shape[0] - 1).to(torch.int64)]
+        hints = torch.full((p, k_hints + 1), -1, dtype=torch.int32, device=dev)
+        hints[torch.arange(p, device=dev)[:, None], slot] = torch.where(
+            slot < k_hints, node, -1)
+        hints = hints[:, :k_hints]
+        return torch.where(hints < 0, hints[:, 0:1], hints).contiguous()
+
+    return seeder
+
+
+def _wide_meta(scene):
+    """The planners' view of a group-walk scene's wide table: ``(anc,
+    two_entries)``. ``two_entries``: whether a packet whose entry would be
+    the root may enter two depth-1 subtrees instead (the root has more than
+    two interior children and the tree is at least two levels deep below
+    it)."""
+    if not _traces_wide(scene):
+        raise ValueError("subtree entry takes a scene whose default walk is "
+                         "the group walk (a wide table, not packed or bmat)")
+    parent, depth, anc = wide_group_meta(scene.gnodes)
+    two = (anc.shape[1] > 1 and int((parent == 0).sum()) > 2
+           and int(depth.max()) >= 2)
+    return anc, two
+
+
+def _chain_lca(A, ref, member=None):
+    """Per packet: the depth of the deepest group shared by the ancestor
+    chains ``A [p, m, D]`` and ``ref [p, 1, D]`` (over the chains where
+    ``member [p, m]`` is True, all when None), and that group of ``ref``."""
+    same = (A == ref) & (ref >= 0)
+    if member is not None:
+        same |= ~member[:, :, None]
+    same = torch.cumprod(same.all(dim=1).to(torch.int32), dim=1)
+    d = same.sum(dim=1) - 1
+    ar = torch.arange(A.shape[0], device=A.device)
+    return d, ref[:, 0, :][ar, d.clamp(0, A.shape[2] - 1)]
+
+
+def make_planner(scene, packet: int = 2048, sample_stride: int = 32,
+                 k_hints: int = 64, device=None):
+    """``plan(rays) -> (hints, start_g)``: ``make_seeder``'s hints and each
+    packet's subtree entries, int32 [p, 2] on ``device`` (None: the card).
+
+    Slot 0 is the lowest common ancestor of the groups the packet's hints
+    lie in, -1 where that is the root or the samples all missed. Where it
+    is the root and the tree allows two entries (``_wide_meta``), the
+    samples are split by their ancestor one level below, and the packet
+    enters the common ancestor of the first sample's part and that of the
+    first sample outside it. Results equal the unplanned trace's for any
+    entries. Counterpart of the reference's ``make_planner``, equal to it
+    on the same hints.
+
+        hints, start_g = make_planner(scene)(rays)
+        trace_closest_hit_tight(scene, rays, hints=hints, start_g=start_g)
+    """
+    dev = resolve_device(device)
+    anc, two_entries = _wide_meta(scene)
+    anc_t = torch.as_tensor(anc.astype(np.int32)).to(dev)  # [Gn, D]
+    D = anc.shape[1]
+    seeder = make_seeder(scene, packet=packet, sample_stride=sample_stride,
+                         k_hints=k_hints, device=dev)
+
+    def plan(rays: Ray):
+        hints = seeder(rays)
+        if hints is None:
+            return None, None
+        p = hints.shape[0]
+        ar = torch.arange(p, device=dev)
+        has = hints[:, 0] >= 0
+        A = anc_t[(hints.clamp_min(0) >> 4).to(torch.int64)]  # [p, k, D]
+        ref = A[:, 0:1, :]
+        lca_d, start = _chain_lca(A, ref)
+        minus = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        e1 = torch.where(has & (lca_d > 0), start, minus)
+        e2 = minus
+        if two_entries:
+            # the samples' ancestors one level below the common one
+            sdep = (lca_d + 1).clamp(1, D - 1)
+            c1 = A.gather(2, sdep[:, None, None].expand(-1, A.shape[1], 1))[..., 0]
+            in1 = c1 == c1[:, 0:1]
+            other = ~in1 & (c1 >= 0)
+            idx2 = other.to(torch.int32).argmax(dim=1)  # the first outside
+            exists2 = other[ar, idx2]
+            ref2 = A[ar, idx2][:, None, :]
+            in2 = c1 == ref2[:, 0, :].gather(1, sdep[:, None])
+            d1, g1 = _chain_lca(A, ref, in1)
+            d2, g2 = _chain_lca(A, ref2, in2)
+            two = has & (lca_d == 0) & (c1[:, 0] >= 0) & (d1 > 0)
+            e1 = torch.where(two, g1, e1)
+            e2 = torch.where(two & exists2 & (d2 > 0), g2, e2)
+        return hints, torch.stack([e1, e2], dim=1).to(torch.int32).contiguous()
+
+    return plan
+
+
+def make_key_planner(scene, packet: int = 8192, grid_bits: int = 5,
+                     device=None):
+    """``plan(sorted_origins) -> start_g``: each packet's subtree entries
+    from its origins' bounds, int32 [ceil(n / packet), 2] on ``device``
+    (None: the card), with no trace.
+
+    Once a scene, on the host: a cell table of ``2^grid_bits`` cells an axis
+    over the root box, each cell holding the deepest group whose subtree box
+    covers it whole (groups claim cells parent first; a cell two groups
+    cover keeps the first). Per packet: the cells of its origin box's two
+    corners name two groups; their lowest common ancestor is the entry, or
+    -1 where that is the root. Where it is the root and the tree allows two
+    entries, the packet enters the corners' two depth-1 subtrees (one if
+    they are the same). Results equal the unplanned trace's for any
+    entries. Counterpart of the reference's ``make_key_planner``,
+    array-equal to it: the same float32 steps, ``(pt - lo) * inv_step``
+    truncated toward zero and clipped."""
+    dev = resolve_device(device)
+    anc, two_entries = _wide_meta(scene)
+    parent = wide_group_meta(scene.gnodes)[0]
+    gn = np.asarray(scene.gnodes)
+    Gn = gn.shape[1]
+    D = anc.shape[1]
+    # each group's subtree box: the union of its filled child slots
+    bmin = np.full((Gn, 3), np.inf, np.float32)
+    bmax = np.full((Gn, 3), -np.inf, np.float32)
+    for k in range(K):
+        box = gn[7 * k:7 * k + 6]
+        valid = np.isfinite(box[0])
+        bmin[valid] = np.minimum(bmin[valid], box[0:3, valid].T)
+        bmax[valid] = np.maximum(bmax[valid], box[3:6, valid].T)
+    cells = 1 << grid_bits
+    lo = bmin[0].copy()
+    step = np.maximum(bmax[0] - lo, 1e-30) / cells
+    cell_group = np.zeros((cells, cells, cells), np.int32)  # the root
+    for g in np.nonzero(parent >= 0)[0]:  # ids ascend: parents first
+        # the cells g's box covers whole (cut ones stay the parent's)
+        i0 = np.clip(np.ceil((bmin[g] - lo) / step - 1e-6).astype(np.int64),
+                     0, cells)
+        i1 = np.clip(np.floor((bmax[g] - lo) / step + 1e-6).astype(np.int64),
+                     0, cells)
+        if (i1 <= i0).any():
+            continue
+        sub = cell_group[i0[0]:i1[0], i0[1]:i1[1], i0[2]:i1[2]]
+        sub[sub == parent[g]] = g
+    cell_t = torch.as_tensor(cell_group.reshape(-1).astype(np.int64)).to(dev)
+    anc_t = torch.as_tensor(anc.astype(np.int32)).to(dev)
+    lo_t = torch.as_tensor(lo).to(dev)
+    inv_step_t = torch.as_tensor((1.0 / step).astype(np.float32)).to(dev)
+    cell_stride = torch.tensor([cells * cells, cells, 1], device=dev)
+
+    def plan(origins) -> torch.Tensor:
+        o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
+        r = o.shape[0]
+        p = -(-r // packet)
+        pad = p * packet - r
+        if pad:
+            o = torch.cat([o, o[-1:].expand(pad, 3)])
+        # both corners of every packet's origin box, [2p, 3], in one pass
+        # (the plan is a few dozen small launches, so each one counts)
+        corners = torch.cat(torch.aminmax(o.view(p, packet, 3), dim=1))
+        # each corner's cell: clamped to [-1, cells] first, so that the
+        # conversion stays in range; the clip after it gives what it gives
+        # on the unclamped value
+        x = ((corners - lo_t) * inv_step_t).clamp(-1.0, float(cells))
+        q = x.to(torch.int32).clamp(0, cells - 1).to(torch.int64)
+        A = anc_t[cell_t[(q * cell_stride).sum(dim=1)]]  # [2p, D]
+        A1, A2 = A[:p], A[p:]
+        lca_d, start = _chain_lca(A2[:, None], A1[:, None])
+        minus = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        e1 = torch.where(lca_d > 0, start, minus)
+        e2 = minus
+        if two_entries:
+            d1a, d1b = A1[:, 1], A2[:, 1]
+            two = (lca_d == 0) & (d1a >= 0)
+            e1 = torch.where(two, d1a, e1)
+            e2 = torch.where(two & (d1b >= 0) & (d1b != d1a), d1b, e2)
+        return torch.stack([e1, e2], dim=1).to(torch.int32).contiguous()
+
+    return plan
 
 
 # ---- the legacy ClusterScene trace ------------------------------------------

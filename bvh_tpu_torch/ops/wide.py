@@ -14,7 +14,15 @@ the two agree bit for bit on the card.
 Per ray: narrowphase the hinted leaf slots of its packet, if any; test group
 0's 16 children against the bound ``vb`` (``t_max``, +inf when unbounded);
 narrowphase the fired leaf children in ascending slot order; then enter the
-fired interior children lowest slot first, depth first. A leaf narrowphase
+fired interior children lowest slot first, depth first. With subtree entry
+(``start_g``, the reference's ``SUBTREE`` walk) the packet's entry groups
+``(sg, sg2)`` are walked first, each from an empty stack: the walk from
+``sg``, then the walk from ``sg2`` that never enters ``sg``, then the walk
+from group 0 that enters neither; ids <= 0 are inert. A subtree a later
+walk skips was walked whole before, so every leaf the walk from group 0
+would test is still tested, in another order; the entries only tighten
+the bound sooner, and the result equals the walk's without them (the
+tests hold it so for any entries). A leaf narrowphase
 keeps the smallest packed key (the bits of ``t`` with the low log2(W) bits
 replaced by the lane) and sets ``vb`` to the key's ``t`` (closest), to
 ``min(t, vb)`` (bounded), or to -inf once ``t < t_max`` and ``t_max``
@@ -74,6 +82,7 @@ MODES = {"closest": 0, "any": 2}  # the kernels' mode codes (1: bounded)
 
 launches = 0  # kernel launches, counted in ``wide_trace``
 any_launches = 0  # of those, the launches in any-hit mode
+subtree_launches = 0  # of those, the launches with subtree entries
 
 
 @functools.cache
@@ -86,8 +95,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C interface of a build of ``wide_trace.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wide_trace_launch.restype = ci
-    lib.wide_trace_launch.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci,
-                                      vp, vp, vp]
+    lib.wide_trace_launch.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci,
+                                      ci, vp, vp, vp]
     lib.wide_trace_rec_floats.restype = ci
     if lib.wide_trace_rec_floats() != REC:
         raise RuntimeError("wide_trace.cu's group record is not "
@@ -128,9 +137,11 @@ def mode_code(mode: str, bounded: bool) -> int:
     return MODES[mode] or int(bool(bounded))
 
 
-def check_options(rays: torch.Tensor, gate, hints, packet: int) -> None:
-    """Checks the per-packet inputs of a trace kernel: ``gate`` int32 [p]
-    and ``hints`` int32 [p, n_hints] for p = ceil(n / packet)."""
+def check_options(rays: torch.Tensor, gate, hints, packet: int,
+                  start_g=None) -> None:
+    """Checks the per-packet inputs of a trace kernel: ``gate`` int32 [p],
+    ``hints`` int32 [p, n_hints] and ``start_g`` int32 [p, 2] for
+    p = ceil(n / packet)."""
     if packet < 128 or packet & (packet - 1):
         raise ValueError(f"packet must be a power of two >= 128, got {packet}")
     p = -(-rays.shape[1] // packet)
@@ -145,9 +156,15 @@ def check_options(rays: torch.Tensor, gate, hints, packet: int) -> None:
             or hints.device != rays.device or not hints.is_contiguous()):
         raise ValueError(f"hints must be a contiguous int32 [{p}, n_hints] "
                          f"tensor on {rays.device}")
+    if start_g is not None and (
+            start_g.dtype != torch.int32 or tuple(start_g.shape) != (p, 2)
+            or start_g.device != rays.device or not start_g.is_contiguous()):
+        raise ValueError(f"start_g must be a contiguous int32 [{p}, 2] tensor "
+                         f"on {rays.device}")
 
 
-def _check(records, groups, rays, width, depth, gate, hints, packet):
+def _check(records, groups, rays, width, depth, gate, hints, packet,
+           start_g):
     for name, x in (("records", records), ("groups", groups), ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
@@ -162,7 +179,7 @@ def _check(records, groups, rays, width, depth, gate, hints, packet):
     if width not in (16, 32, 64, 128):
         raise ValueError(f"width must be 16/32/64/128, got {width}")
     check_depth(depth)
-    check_options(rays, gate, hints, packet)
+    check_options(rays, gate, hints, packet, start_g)
 
 
 def check_depth(depth: int) -> None:
@@ -175,7 +192,8 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
                rays: torch.Tensor, width: int, depth: int,
                gate: torch.Tensor | None = None, packet: int = 8192,
                bounded: bool = False, mode: str = "closest",
-               hints: torch.Tensor | None = None):
+               hints: torch.Tensor | None = None,
+               start_g: torch.Tensor | None = None):
     """Closest or any hit of every ray: ``(t, lane_id)``.
 
     ``records`` is the wide table in the kernel's layout
@@ -189,17 +207,24 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     optional int32 [ceil(n / packet), n_hints] leaf slot ids g·K+k
     narrowphased first for the rays of each packet; -1 in a packet's first
     slot turns them off, and every other slot must then hold a leaf slot.
+    ``start_g``: optional int32 [ceil(n / packet), 2] subtree entries of
+    each packet (closest and bounded modes; ids <= 0 inert), walked before
+    the walk from the root (see the module's docstring). Like the hints,
+    its ids are not read back here (that would wait for the card): every
+    id must be below Gn, as ``ops/trace.py`` checks.
 
     On a CPU tensor this runs the plain version (over ``wide_table``); on a
     CUDA tensor it launches the kernel.
     """
-    global launches, any_launches
-    _check(records, groups, rays, width, depth, gate, hints, packet)
+    global launches, any_launches, subtree_launches
+    _check(records, groups, rays, width, depth, gate, hints, packet, start_g)
     code = mode_code(mode, bounded)
+    if start_g is not None and code == 2:
+        raise ValueError("start_g takes the closest and bounded modes")
     if rays.device.type == "cpu":
         return wide_trace_plain(wide_table(records), groups, rays, width,
                                 gate=gate, packet=packet, bounded=bounded,
-                                mode=mode, hints=hints)
+                                mode=mode, hints=hints, start_g=start_g)
     if rays.device.type != "cuda":
         raise ValueError(f"no wide_trace kernel for device {rays.device}")
     n = rays.shape[1]
@@ -209,12 +234,14 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
         records.data_ptr(), groups.data_ptr(), width,
         rays.data_ptr(), n, 0 if hints is None else hints.data_ptr(),
         0 if hints is None else hints.shape[1],
-        0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),
+        0 if gate is None else gate.data_ptr(),
+        0 if start_g is None else start_g.data_ptr(), packet, code, t.data_ptr(),
         lane_id.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_trace kernel launch failed: CUDA error {rc}")
     launches += 1
     any_launches += code == 2
+    subtree_launches += start_g is not None
     return t, lane_id
 
 
@@ -347,15 +374,19 @@ def fold_slots(r, ii, kk, km, kc, bk, bc, vb, W: int, bounded: bool,
 
 
 def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int,
-             done=None) -> None:
+             done=None, start: torch.Tensor | None = None,
+             skip: tuple | None = None) -> None:
     """The group walk of the walkers ``live`` (of ``n``), in lock step.
 
     ``enter(r, g)`` tests group ``g[i]`` for walker ``r[i]``, runs its fired
-    leaves and returns the fired interior bits. Each walker starts at group
-    0, then enters the fired interior children lowest slot first, depth
-    first, on a (group, remaining mask) stack of depth ``WIDE_DMAX``, as the
-    kernels do. ``done(r)``: optional; after the root, a walker for which it
-    is True leaves the walk before its next step, as the kernels end it."""
+    leaves and returns the fired interior bits. Each walker starts at its
+    group of ``start`` (int64, one per walker of ``live``; None: group 0)
+    with an empty stack, then enters the fired interior children lowest slot
+    first, depth first, on a (group, remaining mask) stack of depth
+    ``WIDE_DMAX``, as the kernels do. ``skip``: optional pair of int64 [n]
+    group ids per ray; a child whose id equals either is never entered.
+    ``done(r)``: optional; after the start, a walker for which it is True
+    leaves the walk before its next step, as the kernels end it."""
     dev = live.device
     d = torch.zeros(n, dtype=torch.int64, device=dev)
     gid = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -363,7 +394,9 @@ def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int,
     stk_g = torch.zeros(n, WIDE_DMAX, dtype=torch.int64, device=dev)
     stk_m = torch.zeros(n, WIDE_DMAX, dtype=torch.int32, device=dev)
     if live.numel():
-        mask[live] = enter(live, torch.zeros_like(live))
+        g0 = torch.zeros_like(live) if start is None else start
+        gid[live] = g0
+        mask[live] = enter(live, g0)
     while live.numel():
         if done is not None:
             live = live[~done(live)]
@@ -376,6 +409,9 @@ def dfs_walk(live: torch.Tensor, enter, pay_all: torch.Tensor, n: int,
             k = _ctz16(mh & -mh).to(torch.int64)
             mask[h] = mh & (mh - 1)
             child = pay_all[k, gid[h]].to(torch.int64)
+            if skip is not None:
+                go = (child != skip[0][h]) & (child != skip[1][h])
+                h, child = h[go], child[go]
             m2 = enter(h, child)
             push = m2 != 0
             hp = h[push]
@@ -411,13 +447,15 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
                      gate: torch.Tensor | None = None, packet: int = 8192,
                      bounded: bool = False, counts: bool = False,
                      mode: str = "closest",
-                     hints: torch.Tensor | None = None):
+                     hints: torch.Tensor | None = None,
+                     start_g: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch (any device).
 
     Returns ``(t, lane_id)``, or with ``counts=True``
     ``(t, lane_id, group_tests, leaf_fires)``: per ray, the groups whose 16
-    children it tested and the leaf clusters it narrowphased in the walk
-    (int64; hinted leaves are not counted).
+    children it tested and the leaf clusters it narrowphased over every
+    walk (int64; hinted leaves are not counted). ``start_g``: the packets'
+    subtree entries, walked as the module's docstring says.
     """
     W = width
     dev = rays.device
@@ -483,7 +521,18 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
     run_hints(live, hints, packet, narrow_hint)
     # an any-hit ray whose bound is -inf fires no box again
     done = None if tmx is None else (lambda r: vb[r] == -_INF)
-    dfs_walk(live, enter, pay_all, n, done)
+    if start_g is None:
+        dfs_walk(live, enter, pay_all, n, done)
+    else:
+        # the walk from sg, the walk from sg2 skipping sg, then the walk
+        # from the root skipping both (ids <= 0 match no child)
+        sg = torch.zeros(n, 2, dtype=torch.int64, device=dev)
+        sg[live] = start_g[live // packet].to(torch.int64)
+        s1, s2 = sg[:, 0], sg[:, 1]
+        for first, skip in ((s1, None), (s2, (s1, s1))):
+            on = live[first[live] > 0]
+            dfs_walk(on, enter, pay_all, n, done, start=first[on], skip=skip)
+        dfs_walk(live, enter, pay_all, n, done, skip=(s1, s2))
 
     t, lane_id = decode_keys(bk, bc, W)
     if counts:

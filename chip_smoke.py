@@ -1,6 +1,6 @@
 """Drives the PyTorch/CUDA port's closest-hit, any-hit, k-closest and
-nearest-triangle paths (tight, legacy cluster and chained scenes) on one
-NVIDIA card.
+nearest-triangle paths (tight, legacy cluster and chained scenes), its
+subtree-entry planners and its differentiable rendering on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,11 @@ final line):
    sort="morton" and the exact winner recompute; 4,096 sampled rays of each
    leg against brute force over all triangles.
 4. W=128: the 260k-triangle dense mesh, a 1024x1024 camera in 32x32 tiles
-   through make_tracer(sort=None, sweep=False), brute-force checked.
+   through make_tracer(sort=None, sweep=False), brute-force checked; the
+   package's diff.camera_rays against this script's numpy twin (the
+   tracer takes raw directions and normalizes them, so the twin's
+   unnormalized directions stay its input; the package's normalized rays
+   must equal the ones the tracer makes from them).
 5. timings (CUDA events, median of 7 after warm-up): rays/s of each leg
    (the aimed leg also with sweep=False), each leg's device time by kernel
    and idle share (torch.profiler); each kernel against its plain version
@@ -70,6 +74,18 @@ final line):
    root gates, every kernel launch of the first four legs against its
    plain version on that launch's own inputs (bit for bit), timings and
    device breakdowns; then the ``kernels`` line.
+12. planned: bench.py's aimed leg as the reference
+   runs it, make_tracer(plan="key") on the aimed rays, equal to the
+   unplanned leg of phase 3 and brute-force checked; the sampling planner
+   (make_planner) and the seeded trace equal to the unplanned trace;
+   bench.py's diff_fwd_bwd leg (render_depth_fast with the key plan's
+   start_g, the loss over the hits and its gradients for a, b and c) with
+   depth against brute force and the gradients against the same loss with
+   the plain walk as the hard pass on the card; the group walk with the
+   key plan's entries and with the sampling planner's hints and entries
+   against its plain version and against itself without entries on the
+   leg's own rows (bit for bit); planned and unplanned timed in turns,
+   the diff leg in parts, work per ray and bounds.
 
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
 hinted, packed), the group walk's any mode and hints, the sweep on a
@@ -97,12 +113,16 @@ import torch
 from bvh_tpu_torch import (Ray, native, point_triangle_distance_squared,
                            ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
+from bvh_tpu_torch.diff import camera_rays as package_camera_rays
+from bvh_tpu_torch.diff import render_depth_fast
 from bvh_tpu_torch.ops import (_build, build_chained_scene,
                                build_cluster_scene, build_tight_scene,
-                               make_tracer, nearest_chained, nearest_tight,
+                               make_key_planner, make_planner, make_tracer,
+                               nearest_chained, nearest_tight,
                                sort_points_device, sort_rays,
                                trace_any_hit_chained, trace_any_hit_tight,
                                trace_closest_hit, trace_closest_hit_chained,
+                               trace_closest_hit_seeded,
                                trace_closest_hit_tight, trace_k_closest,
                                trace_k_closest_chained)
 from bvh_tpu_torch.ops import cluster_trace as ct_mod
@@ -124,6 +144,10 @@ PLAIN_CHUNK = 1 << 23  # rays (points) x cluster width per plain walk call
 N_POINTS = 1 << 20  # points per nearest leg (bench.py's nearest leg)
 SURFACE_D_MAX = 2.0  # the narrow-band leg's search radius
 LEGACY_PLAIN_CHUNK = 1 << 18  # rays per call of the plain legacy walk
+# diff_fwd_bwd's gradients against its plain-walk twin: the same hits and
+# the same float32 recompute; only the order of the scatter-adds into the
+# vertex tables may differ (a triangle sums ~100 rays)
+DIFF_GRAD_RTOL = 1e-4
 CRACK_BAND = 3e-3  # barycentric distance from an edge of the crack class:
 # 2^-9 of a unit on two axes, over a unit triangle
 
@@ -223,6 +247,7 @@ def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
 def reset_counts() -> None:
     wide_mod.launches = 0
     wide_mod.any_launches = 0
+    wide_mod.subtree_launches = 0
     sweep_mod.launches = 0
     tight_mod.launches = 0
     tight_mod.any_launches = 0
@@ -509,17 +534,20 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
 
 
 def plain_chunked(plain, tables: tuple, rows, width: int, gate=None,
-                  packet: int = 8192, **kw):
+                  packet: int = 8192, hints=None, start_g=None, **kw):
     """A trace walk's plain version, ``plain(*tables, rows, width, ...)``,
     over chunks of PLAIN_CHUNK // width rays (each ray walks on its own;
     chunks are whole packets), so that its batched leaf tests stay within a
-    few GB at W=128. ``kw``: the mode options."""
+    few GB at W=128. ``gate``, ``hints`` and ``start_g``: per packet, cut
+    with the chunks; ``kw``: the mode options."""
     chunk = max(PLAIN_CHUNK // width, packet)
     parts = []
     for s in range(0, rows.shape[1], chunk):
-        g = None if gate is None else gate[s // packet:(s + chunk) // packet]
+        per = {k: v[s // packet:(s + chunk) // packet] for k, v in
+               (("gate", gate), ("hints", hints), ("start_g", start_g))
+               if v is not None}
         parts.append(plain(*tables, rows[:, s:s + chunk].contiguous(), width,
-                           gate=g, packet=packet, **kw))
+                           packet=packet, **per, **kw))
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
@@ -881,14 +909,15 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
 
 
 CAMERA_SIDE = 1024  # the W=128 leg's camera: pixels a side
+# its eye, look-at point, up and vertical field of view
+CAMERA = ([0.0, 60.0, -120.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], 55.0)
 
 
 def dense_camera():
     """The W=128 leg's camera rays over the dense mesh, numpy: 1024x1024
     pixels in 32x32 tiles (tile-major)."""
     side = CAMERA_SIDE
-    oc, dc = camera_rays([0.0, 60.0, -120.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0],
-                         55.0, side, side)
+    oc, dc = camera_rays(*CAMERA, side, side)
 
     def tile(x):
         return (x.reshape(side // 32, 32, side // 32, 32, 3)
@@ -1258,6 +1287,237 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
             "replaces": "bvh_tpu/ops/trace.py:650",
             "launches": launches["tight_trace"],
             "max_abs_err": err["tight_trace"], "ms": kernel_ms[key],
+            "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
+            "bound_by": bounds[key]["bound_by"], "library_ms": None}
+
+
+def in_turns(fns: dict, rounds: int = 2) -> dict:
+    """Each of ``fns`` timed with ``cuda_ms`` in turns, in the given order
+    and then back (A B B A), ``rounds`` times: the median of its turns and
+    the turns."""
+    turns = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            turns[k].append(cuda_ms(fns[k]))
+    return {k: {"ms": statistics.median(v), "turns": v}
+            for k, v in turns.items()}
+
+
+def records_equal(h_a, h_b) -> bool:
+    """Two HitRecords equal bit for bit in every field."""
+    return all(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                           y.view(torch.int32) if y.is_floating_point() else y)
+               for x, y in zip(h_a, h_b))
+
+
+def plain_walk_on_card(records_, groups, rows, width, depth, **kw):
+    """``wide_mod.wide_trace``'s signature over the plain group walk on the
+    same tensors (chunked): the diff leg's plain-walk twin."""
+    return wide_plain_chunked(wide_mod.wide_table(records_), groups, rows,
+                              width, **kw)
+
+
+def planned_phase(dev, card: str, scene, tris_np, ao, ad, ao_dev, ad_dev,
+                  h_aim, issue: float, err: dict) -> dict:
+    """Phase 12: bench.py's aimed and diff_fwd_bwd legs as the reference
+    runs them, with the key planner's subtree entries (``start_g``); the
+    sampling planner and the seeded trace; checks and timings. Returns the
+    entry of the group walk with subtree entries in the ``kernels`` line."""
+    a = tris_np[0]
+    n, packet, W = ao.shape[0], 8192, scene.width
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_np)
+    tracers = {(plan, sweep): make_tracer(scene, packet=packet, sweep=sweep,
+                                          sort="morton", tris=tris_np,
+                                          plan=plan)
+               for plan in (None, "key") for sweep in (True, False)}
+    tr_key = tracers["key", True]
+    # bench.py's aimed leg: the morton-sorted rays and their packets' plan
+    perm, _ = sort_rays_device(ao_dev, ad_dev, mode="morton")
+    aimed = Ray.create(ao_dev[perm], ad_dev[perm])
+    key_plan = make_key_planner(scene, packet=packet)
+    sg_key = key_plan(aimed.origin)
+    target = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    def fwd_bwd():
+        """bench.py's diff_fwd_bwd: the loss over the hits and its gradients
+        with respect to a, b and c."""
+        av, bv, cv = (x.detach().requires_grad_() for x in tris_dev)
+        depth, hit = render_depth_fast(scene, aimed, av, bv, cv,
+                                       packet=packet, start_g=sg_key)
+        loss = torch.where(hit, (depth - target) ** 2, 0.0).sum() * 1e-9
+        loss.backward()
+        return loss.detach(), depth.detach(), hit, (av.grad, bv.grad, cv.grad)
+
+    # the phase's main path: every count is zero before and read after
+    reset_counts()
+    h_key = tr_key(ao_dev, ad_dev)
+    diff_out = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = {"wide_trace": wide_mod.launches,
+                "wide_trace_subtree": wide_mod.subtree_launches,
+                "sweep_gate": sweep_mod.launches}
+    emit("planned_launches", **launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the planned aimed and "
+              "diff_fwd_bwd path")
+
+    # the planned leg equals the unplanned one and holds brute force's bounds
+    check(records_equal(h_key, h_aim),
+          "the key-planned aimed leg differs from the unplanned one")
+    bf_key = check_vs_brute("aimed_key", ao, ad, h_key.t.cpu().numpy(),
+                            tris_dev, 12)
+    # the sampling planner, the device seeder and the seeded trace
+    base = trace_closest_hit_tight(scene, aimed, packet=packet)
+    seeded = trace_closest_hit_seeded(scene, aimed, packet=packet)
+    hints_p, sg_plan = make_planner(scene, packet=packet)(aimed)
+    planned = trace_closest_hit_tight(scene, aimed, packet=packet,
+                                      hints=hints_p, start_g=sg_plan)
+    check(records_equal(seeded, base), "the seeded trace differs from the "
+          "unseeded one")
+    check(records_equal(planned, base), "the sampling planner's trace "
+          "differs from the unplanned one")
+    check(records_equal(trace_closest_hit_tight(scene, aimed, packet=packet,
+                                                start_g=sg_key), base),
+          "trace_closest_hit_tight(start_g=) differs from the unplanned trace")
+    plans = {"key": {"packets": int(sg_key.shape[0]),
+                     "first_entries": int((sg_key[:, 0] > 0).sum()),
+                     "second_entries": int((sg_key[:, 1] > 0).sum())},
+             "sampling": {"first_entries": int((sg_plan[:, 0] > 0).sum()),
+                          "second_entries": int((sg_plan[:, 1] > 0).sum())}}
+
+    # diff_fwd_bwd: depth against brute force, gradients against the same
+    # loss with the plain walk as the hard pass on the card
+    loss, depth, hit, grads = diff_out
+    t_depth = torch.where(hit, depth, float("inf")).cpu().numpy()
+    bf_diff = check_vs_brute("diff_fwd_bwd", ao[perm.cpu().numpy()],
+                             ad[perm.cpu().numpy()], t_depth, tris_dev, 13)
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "diff_fwd_bwd: a gradient is not finite")
+    orig = trace_mod.wide_trace
+    trace_mod.wide_trace = plain_walk_on_card
+    try:
+        loss_p, depth_p, hit_p, grads_p = fwd_bwd()
+    finally:
+        trace_mod.wide_trace = orig
+    check(torch.equal(hit, hit_p) and torch.equal(
+        depth.view(torch.int32), depth_p.view(torch.int32)),
+        "diff_fwd_bwd: depth differs from the plain-walk twin")
+    grad_err = []
+    for g, gp in zip(grads, grads_p):
+        scale = float(gp.abs().max())
+        e = float((g - gp).abs().max())
+        grad_err.append({"max_abs_diff": e, "max_abs": scale})
+        check(e <= DIFF_GRAD_RTOL * scale, f"diff_fwd_bwd: gradients differ "
+              f"from the plain-walk twin by {e} (largest {scale})")
+    emit("planned", triangles=int(a.shape[0]), rays=n, packet=packet,
+         plans=plans, aimed_key_equals_unplanned=True, brute_force=bf_key,
+         seeded_equals_unseeded=True, sampling_planner_equals_unplanned=True,
+         diff_fwd_bwd={"loss": float(loss), "loss_plain_twin": float(loss_p),
+                       "hit_fraction": float(hit.float().mean()),
+                       "brute_force": bf_diff,
+                       "gradients_vs_plain_twin": grad_err,
+                       "grad_rtol": DIFF_GRAD_RTOL})
+
+    # planned and unplanned tracers timed in turns (host time moves between
+    # calls and phases)
+    e2e = in_turns({
+        f"aimed_plan_{plan}_sweep_{'on' if sweep else 'off'}":
+        (lambda tr=tr: tr(ao_dev, ad_dev))
+        for (plan, sweep), tr in tracers.items()})
+    for v in e2e.values():
+        v["rays_per_s"] = n / (v["ms"] * 1e-3)
+
+    def hard_pass():
+        with torch.no_grad():
+            return trace_closest_hit_tight(scene, aimed, packet=packet,
+                                           start_g=sg_key)
+
+    def forward():
+        av, bv, cv = (x.detach().requires_grad_() for x in tris_dev)
+        depth, hit = render_depth_fast(scene, aimed, av, bv, cv,
+                                       packet=packet, start_g=sg_key)
+        return torch.where(hit, (depth - target) ** 2, 0.0).sum() * 1e-9
+
+    # diff_fwd_bwd and its parts, each timed alone: the hard pass, the
+    # forward (hard pass, gather, recompute, loss), forward and backward
+    parts = {k: cuda_ms(fn, reps=5) for k, fn in
+             (("hard_pass", hard_pass), ("forward", forward),
+              ("forward_backward", fwd_bwd))}
+    ms = parts["forward_backward"]
+    e2e["diff_fwd_bwd"] = {"ms": ms, "rays_per_s": n / (ms * 1e-3),
+                           "parts_ms": {
+                               "hard_pass": parts["hard_pass"],
+                               "gather_recompute_loss":
+                               parts["forward"] - parts["hard_pass"],
+                               "backward": ms - parts["forward"]}}
+    legs = {"aimed_plan_key_sweep_on": lambda: tr_key(ao_dev, ad_dev),
+            "diff_fwd_bwd": fwd_bwd}
+    emit("planned_breakdown", card=card, legs={
+        leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
+
+    # row 1 with subtree entries on the leg's own sorted rows, gated as
+    # make_tracer's sweep=True gates them, against its plain version
+    rows = _ray_rows(aimed, torch.full((n,), float("inf"), device=dev))
+    gate = sweep_mod.sweep_gate(node_recs(scene.smem_nodes, dev), rows, packet)
+    rec, grp = records(scene, dev), _dev(scene.groups, dev)
+    gn = _dev(scene.gnodes, dev)
+    runs = {"none_gated": {"gate": gate},
+            "key_gated": {"gate": gate, "start_g": sg_key},
+            "sampling_gated": {"gate": gate, "hints": hints_p,
+                               "start_g": sg_plan},
+            "none": {}, "key": {"start_g": sg_key}}
+    vs_plain = {}
+    err["wide_trace_subtree"] = 0.0
+    t0 = time.perf_counter()
+    for run, kw in runs.items():
+        tk, ik = wide_mod.wide_trace(rec, grp, rows, W, scene.gdepth,
+                                     packet=packet, **kw)
+        t0k, i0k = wide_mod.wide_trace(rec, grp, rows, W, scene.gdepth,
+                                       packet=packet, gate=kw.get("gate"))
+        tp, ip = wide_plain_chunked(gn, grp, rows, W, packet=packet, **kw)
+        torch.cuda.synchronize()
+        differ = same_bits(tk, ik, tp, ip)
+        vs_unplanned = same_bits(tk, ik, t0k, i0k)
+        err["wide_trace_subtree"] = max(err["wide_trace_subtree"],
+                                        finite_err(tk, tp))
+        vs_plain[run] = {"rays_differ": differ,
+                         "rays_differ_from_no_entries": vs_unplanned,
+                         "hits": int((ik >= 0).sum())}
+        check(differ == 0, f"planned/{run}: {differ} rays differ from plain")
+        check(vs_unplanned == 0, f"planned/{run}: {vs_unplanned} rays differ "
+              "from the walk without subtree entries")
+    vs_s = time.perf_counter() - t0
+    kernel_ms = in_turns({run: (lambda kw=kw: wide_mod.wide_trace(
+        rec, grp, rows, W, scene.gdepth, packet=packet, **kw))
+        for run, kw in runs.items()})
+    plain_ms = {run: cuda_ms(lambda: wide_plain_chunked(
+        gn, grp, rows, W, packet=packet, **runs[run]), reps=3, warmup=0)
+        for run in ("none_gated", "key_gated")}
+    # work per ray on every 32nd ray (its gate, hints and entries apply at
+    # packet // 32), and the bound of each run from it
+    work, bounds = {}, {}
+    for run, kw in runs.items():
+        _, _, tests, fires = wide_mod.wide_trace_plain(
+            gn, grp, rows[:, ::32].contiguous(), W, counts=True,
+            packet=packet // 32, **kw)
+        t_pr, f_pr = float(tests.float().mean()), float(fires.float().mean())
+        work[run] = {"group_tests": t_pr, "leaf_fires": f_pr}
+        nbytes = (wide_mod.N_ROWS * 4 * n + rec.nbytes + scene.groups.nbytes
+                  + 8 * n + sum(v.nbytes for v in kw.values()))
+        b = walk_bound(n, W, t_pr, f_pr, True, nbytes, len(a))
+        bounds[run] = {**b, "ops_ms_at_issue_rate": b["ops"] / issue * 1e3}
+    emit("planned_timings", card=card, end_to_end=e2e,
+         kernels_vs_plain={"seconds": vs_s, "runs": vs_plain},
+         kernel_ms=kernel_ms, plain_ms=plain_ms, work_per_ray=work,
+         bounds=bounds)
+    key = "key_gated"
+    return {"name": "wide_trace_subtree", "route": "cuda",
+            "source": "bvh_tpu_torch/csrc/wide_trace.cu",
+            "replaces": "bvh_tpu/ops/trace.py:1468",
+            "launches": launches["wide_trace_subtree"],
+            "max_abs_err": err["wide_trace_subtree"],
+            "ms": kernel_ms[key]["ms"],
             "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
             "bound_by": bounds[key]["bound_by"], "library_ms": None}
 
@@ -1914,9 +2174,21 @@ def main() -> None:
     # ---- phase 4: W=128 dense mesh camera -------------------------------
     hit_cam = float(torch.isfinite(h_cam.t).float().mean())
     bf_cam = check_vs_brute("camera", oc, dc, h_cam.t.cpu().numpy(), tris_d, 3)
+    # the package's diff.camera_rays against this script's numpy twin, as
+    # the tracer takes the twin's rays (normalized on the card), row-major
+    pkg = package_camera_rays(*CAMERA, side, side, device=dev)
+    twin = Ray.create(*(torch.from_numpy(x).to(dev)
+                        for x in camera_rays(*CAMERA, side, side)))
+    cam_cmp = {"origins_equal": torch.equal(pkg.origin, twin.origin),
+               "direction_values_differ": int(
+                   (pkg.direction.view(torch.int32)
+                    != twin.direction.view(torch.int32)).sum()),
+               "direction_max_abs_diff": float(
+                   (pkg.direction - twin.direction).abs().max())}
     emit("dense_camera", triangles=int(ad_.shape[0]),
          clusters=int(scene_d.num_clusters), width=int(scene_d.width),
-         rays=side * side, hit_fraction=hit_cam, brute_force=bf_cam)
+         rays=side * side, hit_fraction=hit_cam, brute_force=bf_cam,
+         package_camera_rays_vs_twin=cam_cmp)
 
     # ---- phase 5: timings ------------------------------------------------
     legs = {
@@ -2027,6 +2299,11 @@ def main() -> None:
     kernels.append(legacy_phase(dev, card, (a, b, c), o, d, ao, ad, h_aim,
                                 issue, dict(p2l["max_abs_err"])))
     chain_err = chained_phase(dev, card, scene, (a, b, c))
+
+    # ---- phase 12: the planned aimed leg and diff_fwd_bwd, last, so that
+    # its profile of a backward pass follows every other leg's -----------
+    kernels.append(planned_phase(dev, card, scene, (a, b, c), ao, ad, ao_dev,
+                                 ad_dev, h_aim, issue, dict(p2["max_abs_err"])))
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,17 +14,24 @@ import torch
 
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
+from bvh_tpu_torch.diff import render_depth_fast
 from bvh_tpu_torch.ops import (build_chained_scene, build_cluster_scene,
-                               build_tight_scene, make_tracer,
+                               build_tight_scene, make_key_planner,
+                               make_planner, make_seeder, make_tracer,
                                nearest_chained, nearest_tight, sort_rays,
+                               sort_rays_device,
                                trace_any_hit_chained, trace_any_hit_tight,
                                trace_closest_hit, trace_closest_hit_chained,
-                               trace_k_closest, trace_k_closest_chained)
+                               trace_closest_hit_seeded,
+                               trace_closest_hit_tight, trace_k_closest,
+                               trace_k_closest_chained)
 from bvh_tpu_torch.ops import cluster_trace as ct_mod
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
+from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops import wide as wide_mod
+from bvh_tpu_torch.ops.cluster import wide_group_meta
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 
 pytestmark = pytest.mark.cuda
@@ -1015,3 +1022,185 @@ def test_tight_kernel_deep_table(deep_scene, cuda):
         bound = tm if "bounded" in mode else torch.full_like(tm, np.inf)
         ik = _tight_pair(scene, _ray_rows(rays, bound), cuda, mode)
         assert (ik >= 0).any()
+
+
+# ---- subtree entry (start_g), the planners, differentiable rendering ------
+
+def _entry_pairs(scene, p, kind, seed):
+    """[p, 2] int32 subtree entries on ``scene``'s wide table: random
+    groups, nested pairs either way (the second an ancestor of the first,
+    or inside it), equal pairs, or all -1; a fifth of the packets get -1
+    in one slot or both."""
+    parent, depth, _ = wide_group_meta(scene.gnodes)
+    real = np.nonzero((parent >= 0) | (np.arange(len(parent)) == 0))[0]
+    inner = real[depth[real] >= 1]
+    rng = np.random.default_rng(seed)
+    sg = rng.choice(real, size=(p, 2))
+    if kind == "nested_up":
+        sg[:, 0] = rng.choice(inner, p)
+        sg[:, 1] = parent[sg[:, 0]]
+    elif kind == "nested_down":
+        sg[:, 1] = rng.choice(inner, p)
+        sg[:, 0] = parent[sg[:, 1]]
+    elif kind == "equal":
+        sg[:, 1] = sg[:, 0]
+    elif kind == "inert":
+        sg[:] = -1
+    sg[::5, 0] = -1
+    sg[2::5] = -1
+    return sg.astype(np.int32)
+
+
+def _start_g_pair(scene, rows, dev, mode, sg, packet):
+    """The group-walk kernel with subtree entries ``sg`` against its plain
+    version and against the kernel without them: all bit-equal. Returns
+    the kernel's lane ids."""
+    gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
+    p = -(-rows.shape[1] // packet)
+    kw = dict(packet=packet, bounded=mode == "bounded")
+    if mode == "gated":
+        g = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, dev), rows, packet)
+        g[::2] = 0
+        kw["gate"] = g
+    if mode == "hinted":
+        kw["hints"] = torch.from_numpy(
+            _hints(scene.gslot, p, k=5, seed=p)).to(dev)
+    start = torch.from_numpy(sg).to(dev)
+    before = wide_mod.launches
+    tk, ik = wide_mod.wide_trace(_rec(scene, dev), grp, rows, scene.width,
+                                 scene.gdepth, start_g=start, **kw)
+    t0, i0 = wide_mod.wide_trace(_rec(scene, dev), grp, rows, scene.width,
+                                 scene.gdepth, **kw)
+    assert wide_mod.launches == before + 2
+    tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width,
+                                       start_g=start, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(ik, ip)
+    assert torch.equal(_bits(tk), _bits(t0)) and torch.equal(ik, i0)
+    return ik
+
+
+@pytest.mark.parametrize("mode", ["closest", "bounded", "gated", "hinted"])
+@pytest.mark.parametrize("kind", ["random", "nested_up", "nested_down",
+                                  "equal", "inert"])
+@pytest.mark.parametrize("packet", [128, 8192])
+@pytest.mark.parametrize("width", [16, 128])
+def test_wide_kernel_start_g_matches_plain(wide_scenes, cuda, width, packet,
+                                           kind, mode):
+    """65,537 unsorted rays (a ragged last warp and packet)."""
+    scene, (a, b, c) = wide_scenes[width]
+    rays, tm = _mixed_rays(a, 65537, packet + width, cuda, mesh=width == 128)
+    bound = tm if mode == "bounded" else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)
+    sg = _entry_pairs(scene, -(-65537 // packet), kind, seed=packet + width)
+    ik = _start_g_pair(scene, rows, cuda, mode, sg, packet)
+    assert (ik >= 0).any() and (ik < 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "bounded", "gated", "hinted"])
+def test_wide_kernel_start_g_deep_table(deep_scene, cuda, mode):
+    """The 14-deep chain, entries anywhere on it and nested."""
+    scene, (a, b, c) = deep_scene
+    rays, tm = _mixed_rays(a, 8193, 15, cuda)
+    bound = tm if mode == "bounded" else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)
+    for kind in ("random", "nested_up", "nested_down"):
+        sg = _entry_pairs(scene, -(-8193 // 128), kind, seed=len(kind))
+        ik = _start_g_pair(scene, rows, cuda, mode, sg, 128)
+        assert (ik >= 0).any()
+
+
+def test_wide_kernel_start_g_warp_schedule(wide_scenes, cuda):
+    """n = 1, 31, 33: warps with idle lanes take the phases too."""
+    scene, (a, b, c) = wide_scenes[16]
+    rays, tm = _mixed_rays(a, 65538, 3, cuda)
+    rows = _ray_rows(rays, torch.full_like(tm, np.inf))
+    for n in (1, 31, 33):
+        sg = _entry_pairs(scene, 1, "nested_up", seed=n)
+        sg[0] = np.abs(sg[0])
+        _start_g_pair(scene, rows[:, :n].contiguous(), cuda, "closest", sg, 128)
+
+
+def test_planners_on_card_match_cpu(wide_scenes, cuda):
+    """make_seeder, make_planner and make_key_planner on the card give the
+    CPU's hints and entries; traced with them, the results are the
+    unplanned trace's."""
+    scene, (a, b, c) = wide_scenes[16]
+    o, d = tb.aimed_rays(a, 16384, seed=5, dist=5.0)
+    perm = sort_rays_device(o, d, mode="morton", device=cuda)[0].cpu().numpy()
+    o, d = o[perm], d[perm]
+    rays = Ray.create(o, d, device=cuda)
+    rays_c = _to(rays, "cpu")
+    for packet in (512, 8192):
+        hk = make_seeder(scene, packet=packet, device=cuda)(rays)
+        hc = make_seeder(scene, packet=packet, device="cpu")(rays_c)
+        assert torch.equal(hk.cpu(), hc)
+        (ph, sg), (phc, sgc) = (
+            make_planner(scene, packet=packet, device=dev)(r)
+            for dev, r in ((cuda, rays), ("cpu", rays_c)))
+        assert torch.equal(ph.cpu(), phc) and torch.equal(sg.cpu(), sgc)
+        kg = make_key_planner(scene, packet=packet, device=cuda)(rays.origin)
+        kc = make_key_planner(scene, packet=packet, device="cpu")(rays_c.origin)
+        assert torch.equal(kg.cpu(), kc)
+        base = tuple(x.cpu() for x in trace_closest_hit_tight(
+            scene, rays, packet=packet, device=cuda))
+        for kw in ({"hints": ph, "start_g": sg}, {"start_g": kg}):
+            got = trace_closest_hit_tight(scene, rays, packet=packet,
+                                          device=cuda, **kw)
+            _equal(got, base)
+        seeded = trace_closest_hit_seeded(scene, rays, packet=packet,
+                                          device=cuda)
+        _equal(seeded, base)
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+def test_key_planned_tracer_on_card(wide_scenes, cuda, sweep):
+    scene, tris = wide_scenes[16]
+    o, d = _rays(tris[0], n=16384, seed=4)
+    kw = dict(packet=512, sweep=sweep, sort="morton", tris=tris, device=cuda)
+    _equal(make_tracer(scene, plan="key", **kw)(o, d),
+           tuple(x.cpu() for x in make_tracer(scene, **kw)(o, d)))
+
+
+def _plain_wide(records, groups, rays, width, depth, **kw):
+    return wide_mod.wide_trace_plain(wide_mod.wide_table(records), groups,
+                                     rays, width, **kw)
+
+
+@pytest.mark.parametrize("entries", [False, True])
+def test_render_depth_gradients_on_card(wide_scenes, cuda, monkeypatch,
+                                        entries):
+    """render_depth_fast on the card: depth equal, and the a, b, c and
+    origin gradients of bench.py's loss within 1e-5 (relative to the
+    largest entry), to the same loss with the plain walk as the hard pass
+    on the card."""
+    scene, tris = wide_scenes[16]
+    o, d = _rays(tris[0], n=16384, seed=6)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    target = torch.rand(len(o), generator=torch.Generator().manual_seed(3),
+                        dtype=torch.float32).to(cuda) * 60.0
+    p = -(-len(o) // 2048)
+    sg = (torch.from_numpy(_entry_pairs(scene, p, "random", seed=1))
+          if entries else None)
+
+    def run():
+        a, b, c, oo = (torch.from_numpy(x).to(cuda).requires_grad_()
+                       for x in (*tris, o))
+        dd = torch.from_numpy(d).to(cuda)
+        depth, hit = render_depth_fast(scene, Ray(oo, dd, 1.0 / dd), a, b, c,
+                                       start_g=sg, device=cuda)
+        loss = torch.where(hit, (depth - target) ** 2, 0.0).sum() * 1e-9
+        loss.backward()
+        return depth.detach(), hit, [x.grad for x in (a, b, c, oo)]
+
+    before = wide_mod.launches
+    depth, hit, grads = run()
+    assert wide_mod.launches == before + 1
+    monkeypatch.setattr(trace_mod, "wide_trace", _plain_wide)
+    depth_p, hit_p, grads_p = run()
+    assert torch.equal(hit, hit_p) and torch.equal(_bits(depth), _bits(depth_p))
+    assert 0.3 < hit.float().mean() < 0.7
+    for g, gp in zip(grads, grads_p):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, gp, rtol=1e-5,
+                                   atol=1e-5 * float(gp.abs().max()))

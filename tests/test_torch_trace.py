@@ -189,10 +189,25 @@ def test_empty_and_unported(world):
                {"pre_gate": np.ones(p)}, {"wide": False}):
         trace_closest_hit_tight(st, rays, device=CPU, **kw)
     trace_closest_hit_tight(st._replace(gnodes=None), rays, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_closest_hit_tight(st, rays, device=CPU, start_g=np.zeros(p))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_tracer(st, plan="key", device=CPU)
+    # subtree entries and the key plan are ported: they run and change no
+    # result
+    plain = trace_closest_hit_tight(st, rays, device=CPU)
+    gn = st.gnodes.shape[1]
+    for sg in (np.zeros(p), np.arange(p) % gn,
+               np.stack([np.arange(p) % gn, np.full(p, gn - 1)], 1)):
+        got = trace_closest_hit_tight(st, rays, device=CPU, start_g=sg)
+        for x, y in zip(got, plain):
+            assert torch.equal(x, y)
+    keyed = make_tracer(st, plan="key", sort="morton", device=CPU)(o, d)
+    for x, y in zip(keyed, make_tracer(st, sort="morton", device=CPU)(o, d)):
+        assert torch.equal(x, y)
+    # ... on the group walk only, and with ids of the wide table
+    with pytest.raises(ValueError, match="start_g"):
+        trace_closest_hit_tight(st, rays, device=CPU, wide=False,
+                                start_g=np.zeros(p))
+    with pytest.raises(ValueError, match="Gn"):
+        trace_closest_hit_tight(st, rays, device=CPU,
+                                start_g=np.full(p, gn))
     with pytest.raises(ValueError, match="packet"):
         make_tracer(st, packet=1000, device=CPU)
     with pytest.raises(ValueError, match="hints"):
