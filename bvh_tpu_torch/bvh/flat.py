@@ -1,4 +1,4 @@
-"""The flat, stackless BVH in its host (numpy) form.
+"""The flat, stackless BVH, in its host (numpy) or its tensor form.
 
 Layout invariants (depth-first, as ``bvh_tpu/bvh/flat.py``):
 
@@ -18,12 +18,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 LEAF = -1  # entry value marking a leaf node
 
 
 class FlatBvh(NamedTuple):
-    """SoA node arrays (numpy)."""
+    """SoA node arrays: numpy (the host builders) or tensors (``to_device``,
+    ``bvh/lbvh.py::build_lbvh``, ``bvh/refit.py``); the fields are the
+    same."""
 
     aabb_min: np.ndarray  # [N, D] node AABB lower corner
     aabb_max: np.ndarray  # [N, D] node AABB upper corner
@@ -35,6 +40,24 @@ class FlatBvh(NamedTuple):
     @property
     def num_nodes(self) -> int:
         return self.entry.shape[0]
+
+    def to_device(self, dtype=None, device=None) -> "FlatBvh":
+        """The node arrays as tensors on ``device`` (None: the card);
+        ``dtype`` converts the float fields."""
+        dev = resolve_device(device)
+
+        def conv(x):
+            x = torch.as_tensor(x).to(dev)
+            if dtype is not None and x.is_floating_point():
+                x = x.to(dtype)
+            return x
+
+        return FlatBvh(*(conv(x) for x in self))
+
+    def to_host(self) -> "FlatBvh":
+        """The node arrays as numpy arrays."""
+        return FlatBvh(*(x.cpu().numpy() if torch.is_tensor(x)
+                         else np.asarray(x) for x in self))
 
     @staticmethod
     def empty(d: int = 3, dtype=np.float32) -> "FlatBvh":

@@ -61,6 +61,13 @@
 // walk's order, so the result is the plain version's bit for bit. All 32
 // lanes stay in the loop until every walk is done.
 //
+// Counting builds (COUNT true, chosen by the wrapper when it is given
+// counter outputs; the reference's count_visits): each point's own walk,
+// the steps its lane takes (here) and not the warp's union: group tests
+// (or node visits) and fired leaves, written beside its result, which is
+// the timed build's bit for bit. The timed builds are compiled without the
+// counters.
+//
 // Numerics: built with -fmad=false and IEEE division, every sum written in
 // one fixed order, so the kernels agree bit for bit with their plain
 // PyTorch versions. min/max propagate NaN like torch.minimum/maximum: empty
@@ -286,10 +293,12 @@ __device__ __forceinline__ void warp_narrow(Point& p, unsigned F,
 // groups once, in DFS order. Then the fired leaf slots of those lanes,
 // lowest first: for each, the lanes that fired it narrowphase its cluster
 // together (warp_narrow).
-template <int W>
+template <int W, bool COUNT>
 __global__ void __launch_bounds__(128)
     nearest_wide_kernel(WideTables tb, const float* __restrict__ pts, int n,
-                        float* __restrict__ d2_out, int* __restrict__ id_out) {
+                        float* __restrict__ d2_out, int* __restrict__ id_out,
+                        int* __restrict__ steps_out,
+                        int* __restrict__ fires_out) {
   const float inf = __int_as_float(SENT);
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -305,6 +314,7 @@ __global__ void __launch_bounds__(128)
   // 0, a done lane ~0)
   int ng = valid ? 0 : -1;
   unsigned long long key = valid ? 0ull : ~0ull;
+  int n_steps = 0, n_fires = 0;  // the counting build's
   while (true) {
     const unsigned khi = (unsigned)(key >> 32), klo = (unsigned)key;
     const unsigned mhi = __reduce_min_sync(FULL, khi);
@@ -334,6 +344,10 @@ __global__ void __launch_bounds__(128)
     if (here && tb.refine) p.vb = ref;
     const int lmask = (int)__ldg(col + 7 * K * Gn);
     const int lm = m & lmask;
+    if (COUNT && here) {
+      ++n_steps;
+      n_fires += __popc(lm);
+    }
     for (unsigned todo = __reduce_or_sync(FULL, (unsigned)lm); todo;
          todo &= todo - 1) {
       const int k = __ffs(todo) - 1;
@@ -381,7 +395,13 @@ __global__ void __launch_bounds__(128)
       }
     }
   }
-  if (valid) store_point(p, W, i, d2_out, id_out);
+  if (valid) {
+    store_point(p, W, i, d2_out, id_out);
+    if (COUNT) {
+      steps_out[i] = n_steps;
+      fires_out[i] = n_fires;
+    }
+  }
 }
 
 // The entry/exit walk, a warp of 32 points at a time. Each lane keeps its
@@ -395,13 +415,15 @@ __global__ void __launch_bounds__(128)
 // order. A fired leaf is narrowphased by the whole warp for the lanes that
 // fired it (warp_narrow). All 32 lanes stay in the loop until every cursor
 // is done (a lane past n starts done).
-template <int W>
+template <int W, bool COUNT>
 __global__ void __launch_bounds__(128)
     nearest_entry_exit_kernel(const float* __restrict__ nodes, int Nn,
                               const float* __restrict__ groups, int refine,
                               const float* __restrict__ pts, int n,
                               float* __restrict__ d2_out,
-                              int* __restrict__ id_out) {
+                              int* __restrict__ id_out,
+                              int* __restrict__ steps_out,
+                              int* __restrict__ fires_out) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = i < n;
@@ -409,6 +431,7 @@ __global__ void __launch_bounds__(128)
   if (valid) p = load_point(pts, n, i);
   // node rows: box lo (3), box hi (3), entry, exit, each [Nn]
   int cursor = valid ? 0 : Nn;
+  int n_steps = 0, n_fires = 0;  // the counting build's
   while (true) {
     const unsigned cmin = __reduce_min_sync(
         FULL, cursor < Nn ? (unsigned)cursor : 0xFFFFFFFFu);
@@ -426,6 +449,10 @@ __global__ void __launch_bounds__(128)
       fired = d2min < p.vb;
     }
     const bool leaf = entry < 0.0f;  // the same for the whole warp
+    if (COUNT && here) {
+      ++n_steps;
+      n_fires += fired && leaf;
+    }
     if (leaf) {
       const unsigned F = __ballot_sync(FULL, fired);
       if (F)
@@ -434,42 +461,75 @@ __global__ void __launch_bounds__(128)
     }
     if (here) cursor = (leaf || !fired) ? (int)exit_ : (int)entry;
   }
-  if (valid) store_point(p, W, i, d2_out, id_out);
+  if (valid) {
+    store_point(p, W, i, d2_out, id_out);
+    if (COUNT) {
+      steps_out[i] = n_steps;
+      fires_out[i] = n_fires;
+    }
+  }
 }
 
 template <int W>
 int launch_wide(const WideTables& tb, const float* pts, int n, float* d2_out,
-                int* id_out, cudaStream_t stream) {
+                int* id_out, int* steps_out, int* fires_out,
+                cudaStream_t stream) {
   const int block = 128;
-  nearest_wide_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
-      tb, pts, n, d2_out, id_out);
+  const int grid = (n + block - 1) / block;
+  if (steps_out != nullptr) {
+    nearest_wide_kernel<W, true><<<grid, block, 0, stream>>>(
+        tb, pts, n, d2_out, id_out, steps_out, fires_out);
+  } else {
+    nearest_wide_kernel<W, false><<<grid, block, 0, stream>>>(
+        tb, pts, n, d2_out, id_out, steps_out, fires_out);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int W>
 int launch_entry_exit(const float* nodes, int Nn, const float* groups,
                       int refine, const float* pts, int n, float* d2_out,
-                      int* id_out, cudaStream_t stream) {
+                      int* id_out, int* steps_out, int* fires_out,
+                      cudaStream_t stream) {
   const int block = 128;
-  nearest_entry_exit_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
-      nodes, Nn, groups, refine, pts, n, d2_out, id_out);
+  const int grid = (n + block - 1) / block;
+  if (steps_out != nullptr) {
+    nearest_entry_exit_kernel<W, true><<<grid, block, 0, stream>>>(
+        nodes, Nn, groups, refine, pts, n, d2_out, id_out, steps_out,
+        fires_out);
+  } else {
+    nearest_entry_exit_kernel<W, false><<<grid, block, 0, stream>>>(
+        nodes, Nn, groups, refine, pts, n, d2_out, id_out, steps_out,
+        fires_out);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// steps_out and fires_out: null (the timed builds), or each point's group
+// tests (node visits) and leaf fires [n] (the counting builds).
 extern "C" int nearest_wide_launch(const float* gnodes, int Gn,
                                    const float* groups, int width, int refine,
                                    const float* pts, int n, float* d2_out,
-                                   int* id_out, void* stream) {
+                                   int* id_out, int* steps_out,
+                                   int* fires_out, void* stream) {
   if (n <= 0) return 0;
   WideTables tb{gnodes, groups, Gn, refine};
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
-    case 16: return launch_wide<16>(tb, pts, n, d2_out, id_out, st);
-    case 32: return launch_wide<32>(tb, pts, n, d2_out, id_out, st);
-    case 64: return launch_wide<64>(tb, pts, n, d2_out, id_out, st);
-    case 128: return launch_wide<128>(tb, pts, n, d2_out, id_out, st);
+    case 16:
+      return launch_wide<16>(tb, pts, n, d2_out, id_out, steps_out,
+                             fires_out, st);
+    case 32:
+      return launch_wide<32>(tb, pts, n, d2_out, id_out, steps_out,
+                             fires_out, st);
+    case 64:
+      return launch_wide<64>(tb, pts, n, d2_out, id_out, steps_out,
+                             fires_out, st);
+    case 128:
+      return launch_wide<128>(tb, pts, n, d2_out, id_out, steps_out,
+                              fires_out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -478,22 +538,23 @@ extern "C" int nearest_entry_exit_launch(const float* nodes, int Nn,
                                          const float* groups, int width,
                                          int refine, const float* pts, int n,
                                          float* d2_out, int* id_out,
+                                         int* steps_out, int* fires_out,
                                          void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch_entry_exit<16>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                   id_out, st);
+                                   id_out, steps_out, fires_out, st);
     case 32:
       return launch_entry_exit<32>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                   id_out, st);
+                                   id_out, steps_out, fires_out, st);
     case 64:
       return launch_entry_exit<64>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                   id_out, st);
+                                   id_out, steps_out, fires_out, st);
     case 128:
-      return launch_entry_exit<128>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                    id_out, st);
+      return launch_entry_exit<128>(nodes, Nn, groups, refine, pts, n,
+                                    d2_out, id_out, steps_out, fires_out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

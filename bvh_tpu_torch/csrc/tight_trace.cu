@@ -66,20 +66,28 @@
 // hints are the same for all its lanes, and a gated-off warp returns at
 // once.
 //
+// The counting build (COUNT true, chosen by the wrapper when it is given
+// counter outputs; the reference's count_visits) writes each ray's node
+// visits (slab tests) and leaf fires (hinted leaves not counted) beside its
+// result, which is the timed build's bit for bit. The timed build is
+// compiled without the counters.
+//
 // Numerics: see trace_common.cuh.
 
 #include "trace_common.cuh"
 
 namespace {
 
-template <int W>
+template <int W, bool COUNT>
 __global__ void __launch_bounds__(128)
     tight_trace_kernel(const float4* __restrict__ recs, int nn, int packed,
                        const float* __restrict__ groups, int mode,
                        const float* __restrict__ rays, int n,
                        const int* __restrict__ hints, int n_hints,
                        const int* __restrict__ gate, int packet,
-                       float* __restrict__ t_out, int* __restrict__ id_out) {
+                       float* __restrict__ t_out, int* __restrict__ id_out,
+                       int* __restrict__ visits_out,
+                       int* __restrict__ fires_out) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = i - lane;  // the warp's first ray
@@ -109,11 +117,16 @@ __global__ void __launch_bounds__(128)
 
   int cursor = 0;
   bool walking = valid && nn > 0 && !(r.vb == neg_inf());
+  int n_visits = 0, n_fires = 0;  // the counting build's
   while (__any_sync(FULL, walking)) {
     const Node nd = read_node(recs, packed, walking ? cursor : 0);
     const bool leaf = nd.entry < 0.0f;
     const bool hit = slab_fires(r, nd.ax, nd.ay, nd.az, nd.bx, nd.by, nd.bz);
     const bool fired = walking && hit;
+    if (COUNT) {
+      n_visits += walking;
+      n_fires += leaf && fired;
+    }
     if (walking) cursor = (leaf || !fired) ? (int)nd.exit_ : (int)nd.entry;
     bool fired_leaf = leaf && fired;  // the lane's leaf to test this step
     warp_leaves<W>(r, groups, mode, lane,
@@ -126,18 +139,32 @@ __global__ void __launch_bounds__(128)
                    });
     walking = walking && cursor < nn && !(r.vb == neg_inf());
   }
-  if (valid) store_ray(r, W, i, t_out, id_out);
+  if (valid) {
+    store_ray(r, W, i, t_out, id_out);
+    if (COUNT) {
+      visits_out[i] = n_visits;
+      fires_out[i] = n_fires;
+    }
+  }
 }
 
 template <int W>
 int launch(const float* recs, int nn, int packed, const float* groups,
            int mode, const float* rays, int n, const int* hints, int n_hints,
            const int* gate, int packet, float* t_out, int* id_out,
-           cudaStream_t stream) {
+           int* visits_out, int* fires_out, cudaStream_t stream) {
   const int block = 128;
-  tight_trace_kernel<W><<<(n + block - 1) / block, block, 0, stream>>>(
-      reinterpret_cast<const float4*>(recs), nn, packed, groups, mode, rays,
-      n, hints, n_hints, gate, packet, t_out, id_out);
+  const int grid = (n + block - 1) / block;
+  const float4* r4 = reinterpret_cast<const float4*>(recs);
+  if (visits_out != nullptr) {
+    tight_trace_kernel<W, true><<<grid, block, 0, stream>>>(
+        r4, nn, packed, groups, mode, rays, n, hints, n_hints, gate, packet,
+        t_out, id_out, visits_out, fires_out);
+  } else {
+    tight_trace_kernel<W, false><<<grid, block, 0, stream>>>(
+        r4, nn, packed, groups, mode, rays, n, hints, n_hints, gate, packet,
+        t_out, id_out, visits_out, fires_out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -147,28 +174,35 @@ int launch(const float* recs, int nn, int packed, const float* groups,
 // layout (ops/sweep.py::node_records).
 extern "C" int tight_trace_rec_floats() { return NODE_REC; }
 
-// recs: the node-major table [nn, NODE_REC] (ops/sweep.py::node_records).
+// recs: the node-major table [nn, NODE_REC] (ops/sweep.py::node_records);
+// visits_out and fires_out: null (the timed build), or each ray's node
+// visits and leaf fires [n] (the counting build).
 extern "C" int tight_trace_launch(const float* recs, int nn, int packed,
                                   const float* groups, int width,
                                   const float* rays, int n, const int* hints,
                                   int n_hints, const int* gate, int packet,
                                   int mode, float* t_out, int* id_out,
+                                  int* visits_out, int* fires_out,
                                   void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch<16>(recs, nn, packed, groups, mode, rays, n, hints,
-                        n_hints, gate, packet, t_out, id_out, st);
+                        n_hints, gate, packet, t_out, id_out, visits_out,
+                        fires_out, st);
     case 32:
       return launch<32>(recs, nn, packed, groups, mode, rays, n, hints,
-                        n_hints, gate, packet, t_out, id_out, st);
+                        n_hints, gate, packet, t_out, id_out, visits_out,
+                        fires_out, st);
     case 64:
       return launch<64>(recs, nn, packed, groups, mode, rays, n, hints,
-                        n_hints, gate, packet, t_out, id_out, st);
+                        n_hints, gate, packet, t_out, id_out, visits_out,
+                        fires_out, st);
     case 128:
       return launch<128>(recs, nn, packed, groups, mode, rays, n, hints,
-                         n_hints, gate, packet, t_out, id_out, st);
+                         n_hints, gate, packet, t_out, id_out, visits_out,
+                         fires_out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

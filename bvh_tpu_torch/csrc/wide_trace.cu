@@ -62,6 +62,12 @@
 // hints and subtree entries are the same for all its lanes, and a gated-off
 // warp returns at once.
 //
+// The counting build (COUNT true, chosen by the wrapper when it is given
+// counter outputs; the reference's count_visits) writes each ray's group
+// tests (slab tests of a group's 16 children) and leaf fires (fired leaf
+// slots, hinted leaves not counted) beside its result, which is the timed
+// build's bit for bit. The timed build is compiled without the counters.
+//
 // Numerics: see trace_common.cuh; payloads and the leaf mask are float
 // VALUES and convert with (int).
 
@@ -106,7 +112,7 @@ __device__ __forceinline__ void leaf_slot(const float* __restrict__ rec,
   c = (int)(-__ldg(rec + PAY + k) - 1.0f);
 }
 
-template <int W, bool SUBTREE>
+template <int W, bool SUBTREE, bool COUNT>
 __global__ void __launch_bounds__(128)
     wide_trace_kernel(const float* __restrict__ recs,
                       const float* __restrict__ groups, int mode,
@@ -114,7 +120,9 @@ __global__ void __launch_bounds__(128)
                       const int* __restrict__ hints, int n_hints,
                       const int* __restrict__ gate,
                       const int* __restrict__ start_g, int packet,
-                      float* __restrict__ t_out, int* __restrict__ id_out) {
+                      float* __restrict__ t_out, int* __restrict__ id_out,
+                      int* __restrict__ tests_out,
+                      int* __restrict__ fires_out) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = i - lane;  // the warp's first ray
@@ -155,12 +163,17 @@ __global__ void __launch_bounds__(128)
   // the group the lane enters this step: the first phase's start
   int g = phase == 1 ? sg : phase == 2 ? sg2 : 0;
   bool entering = valid, start = true;
+  int n_tests = 0, n_fires = 0;  // the counting build's
   while (true) {
     const float* rec = recs + (size_t)g * REC;
     int m = 0, lmask = 0;
     if (entering) {
       m = slab16(r, rec);
       lmask = (int)__ldg(rec + LMASK);
+      if (COUNT) {
+        ++n_tests;
+        n_fires += __popc(m & lmask);
+      }
     }
     // the fired leaves, lowest slot first, tested by the whole warp
     int lm = m & lmask;
@@ -219,25 +232,42 @@ __global__ void __launch_bounds__(128)
     }
     if (!__any_sync(FULL, entering)) break;
   }
-  if (valid) store_ray(r, W, i, t_out, id_out);
+  if (valid) {
+    store_ray(r, W, i, t_out, id_out);
+    if (COUNT) {
+      tests_out[i] = n_tests;
+      fires_out[i] = n_fires;
+    }
+  }
+}
+
+template <int W, bool SUBTREE, bool COUNT>
+void run(int grid, int block, cudaStream_t stream, const float* recs,
+         const float* groups, int mode, const float* rays, int n,
+         const int* hints, int n_hints, const int* gate, const int* start_g,
+         int packet, float* t_out, int* id_out, int* tests_out,
+         int* fires_out) {
+  wide_trace_kernel<W, SUBTREE, COUNT><<<grid, block, 0, stream>>>(
+      recs, groups, mode, rays, n, hints, n_hints, gate, start_g, packet,
+      t_out, id_out, tests_out, fires_out);
 }
 
 template <int W>
 int launch(const float* recs, const float* groups, int mode,
            const float* rays, int n, const int* hints, int n_hints,
            const int* gate, const int* start_g, int packet, float* t_out,
-           int* id_out, cudaStream_t stream) {
+           int* id_out, int* tests_out, int* fires_out, cudaStream_t stream) {
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  if (start_g != nullptr) {
-    wide_trace_kernel<W, true><<<grid, block, 0, stream>>>(
-        recs, groups, mode, rays, n, hints, n_hints, gate, start_g, packet,
-        t_out, id_out);
-  } else {
-    wide_trace_kernel<W, false><<<grid, block, 0, stream>>>(
-        recs, groups, mode, rays, n, hints, n_hints, gate, start_g, packet,
-        t_out, id_out);
-  }
+  // the build: with subtree entries or not, counting or timed
+  using Run = decltype(&run<W, false, false>);
+  const Run fn = start_g != nullptr
+                     ? (tests_out != nullptr ? &run<W, true, true>
+                                             : &run<W, true, false>)
+                     : (tests_out != nullptr ? &run<W, false, true>
+                                             : &run<W, false, false>);
+  fn(grid, block, stream, recs, groups, mode, rays, n, hints, n_hints, gate,
+     start_g, packet, t_out, id_out, tests_out, fires_out);
   return (int)cudaGetLastError();
 }
 
@@ -249,28 +279,34 @@ extern "C" int wide_trace_rec_floats() { return REC; }
 
 // recs: the group-major table [Gn, REC] (ops/wide.py::group_records);
 // start_g: null, or the packets' subtree entries [p, 2] (closest and
-// bounded modes).
+// bounded modes); tests_out and fires_out: null (the timed build), or each
+// ray's group tests and leaf fires [n] (the counting build).
 extern "C" int wide_trace_launch(const float* recs, const float* groups,
                                  int width, const float* rays, int n,
                                  const int* hints, int n_hints,
                                  const int* gate, const int* start_g,
                                  int packet, int mode, float* t_out,
-                                 int* id_out, void* stream) {
+                                 int* id_out, int* tests_out, int* fires_out,
+                                 void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch<16>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                        start_g, packet, t_out, id_out, st);
+                        start_g, packet, t_out, id_out, tests_out, fires_out,
+                        st);
     case 32:
       return launch<32>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                        start_g, packet, t_out, id_out, st);
+                        start_g, packet, t_out, id_out, tests_out, fires_out,
+                        st);
     case 64:
       return launch<64>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                        start_g, packet, t_out, id_out, st);
+                        start_g, packet, t_out, id_out, tests_out, fires_out,
+                        st);
     case 128:
       return launch<128>(recs, groups, mode, rays, n, hints, n_hints, gate,
-                         start_g, packet, t_out, id_out, st);
+                         start_g, packet, t_out, id_out, tests_out,
+                         fires_out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

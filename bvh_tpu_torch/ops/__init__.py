@@ -1,8 +1,10 @@
 """The port's trace and nearest-triangle paths: host scene tables (tight,
-legacy cluster and chained scenes), the coherence sorts, and the
-hand-written CUDA kernels (group walk, entry/exit walk, sweep gate, legacy
-cluster walk, the two nearest walks) with their plain PyTorch versions,
-and the seeders and subtree-entry planners of the group walk.
+legacy cluster and chained scenes), scene builds, refits and mask+delta
+updates on the device, the coherence sorts, and the hand-written CUDA
+kernels (group walk, entry/exit walk, sweep gate, legacy cluster walk, the
+two nearest walks) with their plain PyTorch versions and counting builds
+(the visit counters), and the seeders and subtree-entry planners of the
+group walk.
 The legacy walk's wrapper is ``ops.cluster_trace.cluster_trace``: the
 module keeps the name, so the package does not re-export the function."""
 
@@ -12,17 +14,21 @@ from .cluster import (ChainedScene, ClusterScene, TightScene,
                       chained_scene_from_parts, cluster_scene_from_arrays,
                       collapse_upper, pack_node_table_bf16, scene_from_arrays,
                       unpack_node_table_bf16)
-from .nearest import (nearest_chained, nearest_entry_exit,
+from .device_build import (build_chained_scene_device,
+                           build_tight_scene_device, make_refitter)
+from .nearest import (count_visits_nearest, nearest_chained, nearest_entry_exit,
                       nearest_entry_exit_plain, nearest_tight, nearest_wide,
                       nearest_wide_plain, sort_points_device)
 from .ordered import trace_k_closest, trace_k_closest_chained
 from .sweep import sweep_gate, sweep_gate_plain
 from .tight import tight_trace, tight_trace_plain
-from .trace import (compute_seed_hints, make_key_planner, make_planner,
+from .trace import (compute_seed_hints, count_visits_tight,
+                    count_visits_wide, make_key_planner, make_planner,
                     make_seeder, make_tracer, sort_rays, sort_rays_device,
                     trace_any_hit_chained, trace_any_hit_tight,
                     trace_closest_hit, trace_closest_hit_chained,
                     trace_closest_hit_seeded, trace_closest_hit_tight)
+from .update import make_chained_updater, make_updater
 from .wide import wide_trace, wide_trace_plain
 
 __all__ = [
@@ -30,17 +36,25 @@ __all__ = [
     "ClusterScene",
     "TightScene",
     "build_chained_scene",
+    "build_chained_scene_device",
     "build_cluster_scene",
     "build_tight_scene",
+    "build_tight_scene_device",
     "build_wide_table",
     "chained_scene_from_parts",
     "cluster_scene_from_arrays",
     "collapse_upper",
     "compute_seed_hints",
+    "count_visits_nearest",
+    "count_visits_tight",
+    "count_visits_wide",
+    "make_chained_updater",
     "make_key_planner",
     "make_planner",
+    "make_refitter",
     "make_seeder",
     "make_tracer",
+    "make_updater",
     "nearest_chained",
     "nearest_entry_exit",
     "nearest_entry_exit_plain",

@@ -27,6 +27,7 @@ import heapq
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..bvh.sah_build import build_sah
 from ..config import DEFAULT_CONFIG
@@ -670,39 +671,52 @@ def _sweep_table(flat, sweep_cut: int, config, use_native: bool,
     return _pad_node_table(tab, target=_bucket(int(tab.shape[1]), 64))
 
 
+def _cross(u, v):
+    """u × v of [n, 3] rows, each component one product pair (np.cross's
+    arithmetic)."""
+    return torch.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1],
+                        u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                        u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], dim=1)
+
+
 def bilinear_blocks(av, e1, e2):
     """Per-triangle Moller-Trumbore bilinear forms [n, 4, 16] (block, row):
     the (det, u, v, t) rows whose product with the reference kernel's ray
     vector [d, m - cc x d, o - cc, 1, 0...] gives det, u·det, v·det and
-    t·det, from the cluster-relative a' and the edges."""
-    p = np.cross(e2, e1)
-    q = np.cross(e2, av)
-    r = np.cross(e1, av)
-    nrm = np.cross(e1, e2)
-    an = (av * nrm).sum(axis=1)[..., None]
-    z3 = np.zeros_like(p)
-    z1 = np.zeros_like(an)
-    z7 = np.concatenate([z3, z3, z1], axis=1)
-    det = np.concatenate([p, z3, z7, z3], axis=1)
-    u = np.concatenate([-q, e2, z7, z3], axis=1)
-    v = np.concatenate([r, -e1, z7, z3], axis=1)
-    t = np.concatenate([z3, z3, nrm, -an, z3, z3], axis=1)
-    return np.stack([det, u, v, t], axis=1)
+    t·det, from the cluster-relative a' and the edges. numpy rows give a
+    numpy array, tensors a tensor on their device."""
+    av_t, e1_t, e2_t = (torch.as_tensor(x) for x in (av, e1, e2))
+    p = _cross(e2_t, e1_t)
+    q = _cross(e2_t, av_t)
+    r = _cross(e1_t, av_t)
+    nrm = _cross(e1_t, e2_t)
+    an = ((av_t[:, 0] * nrm[:, 0] + av_t[:, 1] * nrm[:, 1])
+          + av_t[:, 2] * nrm[:, 2])[:, None]
+    z3 = torch.zeros_like(p)
+    z7 = p.new_zeros((p.shape[0], 7))
+    det = torch.cat([p, z3, z7, z3], dim=1)
+    u = torch.cat([-q, e2_t, z7, z3], dim=1)
+    v = torch.cat([r, -e1_t, z7, z3], dim=1)
+    t = torch.cat([z3, z3, nrm, -an, z3, z3], dim=1)
+    out = torch.stack([det, u, v, t], dim=1)
+    return out if torch.is_tensor(av) else out.numpy()
 
 
 def pack_bgroups(blocks, C: int, W: int):
     """Packs [C·W, 4, 16] bilinear blocks into rows [Gb, 16, row_w]: per
     cluster a [16, 4W] matrix (column block·W + triangle), ``128 // 4W``
-    clusters to a 128-lane row (2 at W=16, else one cluster a row)."""
-    b = blocks.reshape(C, W, 4, 16).transpose(0, 2, 1, 3).reshape(C, 4 * W, 16)
+    clusters to a 128-lane row (2 at W=16, else one cluster a row). numpy
+    blocks give a numpy array, a tensor a tensor."""
+    bt = torch.as_tensor(blocks)
+    b = bt.reshape(C, W, 4, 16).permute(0, 2, 1, 3).reshape(C, 4 * W, 16)
     per_row = max(128 // (4 * W), 1)
-    row_w = 4 * W * per_row
     Gb = -(-C // per_row)
     pad = Gb * per_row - C
     if pad:
-        b = np.concatenate([b, np.zeros((pad, 4 * W, 16), b.dtype)], axis=0)
-    return (b.reshape(Gb, per_row, 4 * W, 16).transpose(0, 3, 1, 2)
-            .reshape(Gb, 16, row_w))
+        b = torch.cat([b, b.new_zeros((pad, 4 * W, 16))])
+    out = (b.reshape(Gb, per_row, 4 * W, 16).permute(0, 3, 1, 2)
+           .reshape(Gb, 16, 4 * W * per_row).contiguous())
+    return out if torch.is_tensor(blocks) else out.numpy()
 
 
 def _bf16_round_down(x: np.ndarray) -> np.ndarray:

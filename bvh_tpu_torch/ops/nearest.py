@@ -41,9 +41,9 @@ import torch
 from ..bvh.lbvh import morton_codes
 from ..device import resolve_device
 from ._build import load_cuda_library
-from .trace import _chain_ids, _check_packet, _dev
-from .wide import (K, SENT, WIDE_DMAX, check_depth, decode_keys, dfs_walk,
-                   fired_leaves, fold_slots)
+from .trace import _chain_ids, _check_packet, _dev, packet_sums
+from .wide import (K, SENT, WIDE_DMAX, check_depth, count_outputs,
+                   decode_keys, dfs_walk, fired_leaves, fold_slots)
 
 _INF = float("inf")
 N_ROWS = 4  # point rows: x, y, z, d_max^2
@@ -70,8 +70,12 @@ LEAF_OPS = 11
 # cursor select.
 STEP_OPS = 2
 
-wide_launches = 0  # kernel launches, counted in ``nearest_wide``
-entry_exit_launches = 0  # kernel launches, counted in ``nearest_entry_exit``
+# launches of the timed builds, counted in ``nearest_wide`` and
+# ``nearest_entry_exit``, and of their counting builds (``counts=True``)
+wide_launches = 0
+entry_exit_launches = 0
+wide_count_launches = 0
+entry_exit_count_launches = 0
 
 
 def walk_ops(wide: bool, width: int, steps: float, fires: float) -> float:
@@ -96,7 +100,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.nearest_wide_launch, lib.nearest_entry_exit_launch):
         fn.restype = ci
-        fn.argtypes = [vp, ci, vp, ci, ci, vp, ci, vp, vp, vp]
+        fn.argtypes = [vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp, vp]
     return lib
 
 
@@ -116,60 +120,80 @@ def _check(name: str, table, rows: int, groups, pts, width: int) -> None:
         raise ValueError(f"width must be 16/32/64/128, got {width}")
 
 
-def _launch(fn, table, groups, pts, width: int, refine: bool):
+def _launch(fn, table, groups, pts, width: int, refine: bool,
+            counts: bool = False):
     n = pts.shape[1]
     d2 = torch.empty(n, dtype=torch.float32, device=pts.device)
     lane_id = torch.empty(n, dtype=torch.int32, device=pts.device)
+    steps, fires = count_outputs(n, pts.device, counts)
     rc = fn(table.data_ptr(), table.shape[1], groups.data_ptr(), width,
             int(refine), pts.data_ptr(), n, d2.data_ptr(), lane_id.data_ptr(),
+            0 if steps is None else steps.data_ptr(),
+            0 if fires is None else fires.data_ptr(),
             torch.cuda.current_stream(pts.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nearest kernel launch failed: CUDA error {rc}")
+    if counts:
+        return d2, lane_id, steps.to(torch.int64), fires.to(torch.int64)
     return d2, lane_id
 
 
 def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
-                 width: int, depth: int, refine: bool = True):
-    """Nearest triangle of every point by the group walk: ``(d2, lane_id)``.
+                 width: int, depth: int, refine: bool = True,
+                 counts: bool = False):
+    """Nearest triangle of every point by the group walk: ``(d2, lane_id)``;
+    with ``counts``, ``(d2, lane_id, group_tests, leaf_fires)``, each
+    point's own walk's (int64), as ``nearest_wide_plain(counts=True)``
+    gives them.
 
     ``depth`` is the wide tree's group depth (``TightScene.gdepth``).
     ``refine``: tighten the bound with the boxes' farthest corners (off for
     masked scenes, whose boxes may hold no live triangle).
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
-    launches the kernel.
+    launches the kernel: with ``counts`` its counting build (a debug build,
+    not a timed one; its results are the timed build's bit for bit).
     """
-    global wide_launches
+    global wide_launches, wide_count_launches
     _check("gnodes", gnodes, 7 * K + 1, groups, pts, width)
     check_depth(depth)
     if pts.device.type == "cpu":
-        return nearest_wide_plain(gnodes, groups, pts, width, refine=refine)
+        return nearest_wide_plain(gnodes, groups, pts, width, refine=refine,
+                                  counts=counts)
     if pts.device.type != "cuda":
         raise ValueError(f"no nearest_wide kernel for device {pts.device}")
     out = _launch(load().nearest_wide_launch, gnodes, groups, pts, width,
-                  refine)
-    wide_launches += 1
+                  refine, counts)
+    if counts:
+        wide_count_launches += 1
+    else:
+        wide_launches += 1
     return out
 
 
 def nearest_entry_exit(smem_nodes: torch.Tensor, groups: torch.Tensor,
-                       pts: torch.Tensor, width: int, refine: bool = True):
+                       pts: torch.Tensor, width: int, refine: bool = True,
+                       counts: bool = False):
     """Nearest triangle of every point by the entry/exit walk over
-    ``smem_nodes [8, Nn]``: ``(d2, lane_id)``, as ``nearest_wide``.
+    ``smem_nodes [8, Nn]``: ``(d2, lane_id)``, as ``nearest_wide``; with
+    ``counts`` also each point's node visits and leaf fires.
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
-    launches the kernel.
+    launches the kernel (with ``counts``, its counting build).
     """
-    global entry_exit_launches
+    global entry_exit_launches, entry_exit_count_launches
     _check("smem_nodes", smem_nodes, 8, groups, pts, width)
     if pts.device.type == "cpu":
         return nearest_entry_exit_plain(smem_nodes, groups, pts, width,
-                                        refine=refine)
+                                        refine=refine, counts=counts)
     if pts.device.type != "cuda":
         raise ValueError(f"no nearest_entry_exit kernel for device {pts.device}")
     out = _launch(load().nearest_entry_exit_launch, smem_nodes, groups, pts,
-                  width, refine)
-    entry_exit_launches += 1
+                  width, refine, counts)
+    if counts:
+        entry_exit_count_launches += 1
+    else:
+        entry_exit_launches += 1
     return out
 
 
@@ -511,3 +535,50 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
         return best_id, best_d
     comb = torch.stack([best_id, best_d.view(torch.int32)], dim=1)[inv]
     return comb[:, 0].contiguous(), comb[:, 1].contiguous().view(torch.float32)
+
+
+def count_visits_nearest(scene, points, packet: int = 2048,
+                         wide: bool | None = None, device=None):
+    """Steps and leaf fires of ``nearest_tight``'s walk, per packet of
+    ``packet`` points in the given order (no sort): ``(steps, fires)``,
+    int64 tensors [ceil(n / packet)] on ``device`` (None: the card). The
+    walk is the scene's default (``wide=None``: the group walk where the
+    scene has ``gnodes``), without a radius, refining its bound unless the
+    scene is masked, as ``nearest_tight`` walks it.
+
+    A packet's count is the sum over its points of each point's own walk's
+    count: steps are the groups whose 16 children the point tests (the
+    entry/exit walk: the nodes it tests), fires the leaves it narrowphases
+    (``nearest_*_plain(counts=True)``). The kernels walk a warp of 32
+    points over the union of their nodes; a point's count is what its own
+    walk tests, not what its warp steps through. The reference counts one
+    shared cursor a packet, so its numbers are of another unit. On the card
+    this launches the kernel's counting build (a debug build, never timed),
+    whose results are the timed build's bit for bit."""
+    _check_packet(packet)
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev).reshape(-1, 3)
+    if pts.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        return z, z
+    if scene.packed_nodes is not None:
+        raise ValueError("nearest walks read f32 node tables (build with "
+                         "packed=False)")
+    if wide is None:
+        wide = scene.gnodes is not None
+    elif wide and scene.gnodes is None:
+        raise ValueError("scene built without wide tables (gnodes)")
+    rows = point_rows(pts, None)
+    W = int(scene.width)
+    groups = _dev(scene.groups, dev)
+    if wide:
+        _, _, steps, fires = nearest_wide(_dev(scene.gnodes, dev), groups,
+                                          rows, W, int(scene.gdepth),
+                                          refine=not scene.masked,
+                                          counts=True)
+    else:
+        _, _, steps, fires = nearest_entry_exit(_dev(scene.smem_nodes, dev),
+                                                groups, rows, W,
+                                                refine=not scene.masked,
+                                                counts=True)
+    return packet_sums(steps, packet), packet_sums(fires, packet)

@@ -25,7 +25,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ._build import load_cuda_library
@@ -49,25 +48,28 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def node_records(table: np.ndarray) -> np.ndarray:
+def node_records(table):
     """The kernels' node-major copy of an entry/exit table: [Nn, NODE_REC]
     float32, one 32-byte record a node, read as two float4. From an f32
     table ``[8, Nn]`` (``smem_nodes``, ``sweep_nodes``): box lo (3), box hi
     (3), entry, exit. From a packed table ``[5, Nn]`` (``packed_nodes``):
     the raw words of rows 0-2 (each axis's bf16 pair, unpacked by the
-    kernel), 0 (3), entry, exit. The values are the table's own. Callers
+    kernel), 0 (3), entry, exit. The values are the table's own. A numpy
+    table gives a numpy array, a tensor a tensor on its device. Callers
     upload it once a table with ``ops/trace.py::_dev(table, device,
     node_records)``."""
-    rows = table.shape[0]
+    t = torch.as_tensor(table)
+    rows = t.shape[0]
     if rows not in (5, 8):
         raise ValueError(f"an entry/exit table has 5 or 8 rows, got {rows}")
-    rec = np.zeros((table.shape[1], NODE_REC), np.float32)
+    rec = torch.zeros((t.shape[1], NODE_REC), dtype=torch.float32,
+                      device=t.device)
     if rows == 8:
-        rec[:] = table.T
+        rec[:] = t.t()
     else:
-        rec[:, 0:3] = table[0:3].T
-        rec[:, 6:8] = table[3:5].T
-    return rec
+        rec[:, 0:3] = t[0:3].t()
+        rec[:, 6:8] = t[3:5].t()
+    return rec if torch.is_tensor(table) else rec.numpy()
 
 
 def node_table(records: torch.Tensor, packed: bool) -> torch.Tensor:

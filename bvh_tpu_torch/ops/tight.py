@@ -45,15 +45,16 @@ import torch
 
 from ._build import load_cuda_library
 from .sweep import NODE_REC, check_records, node_table, unpack_nodes
-from .wide import (N_ROWS, SENT, check_options, decode_keys, fold_keys,
-                   mode_code, narrow_keys, run_hints)
+from .wide import (N_ROWS, SENT, check_options, count_outputs, decode_keys,
+                   fold_keys, mode_code, narrow_keys, run_hints)
 
 # float32 operations per node visit beyond its slab test (``wide.SLAB_OPS``):
 # the leaf test and the cursor select
 STEP_OPS = 2
 
-launches = 0  # kernel launches, counted in ``tight_trace``
+launches = 0  # launches of the timed build, counted in ``tight_trace``
 any_launches = 0  # of those, the launches in any-hit mode
+count_launches = 0  # launches of the counting build (``counts=True``)
 
 
 @functools.cache
@@ -63,7 +64,7 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tight_trace_launch.restype = ci
     lib.tight_trace_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, ci, vp,
-                                       ci, ci, vp, vp, vp]
+                                       ci, ci, vp, vp, vp, vp, vp]
     lib.tight_trace_rec_floats.restype = ci
     if lib.tight_trace_rec_floats() != NODE_REC:
         raise RuntimeError("tight_trace.cu's node record is not "
@@ -91,9 +92,12 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
                 rays: torch.Tensor, width: int, packed: bool = False,
                 gate: torch.Tensor | None = None, packet: int = 8192,
                 bounded: bool = False, mode: str = "closest",
-                hints: torch.Tensor | None = None):
+                hints: torch.Tensor | None = None, counts: bool = False):
     """Closest or any hit of every ray by the entry/exit walk:
-    ``(t, lane_id)``, as ``ops.wide.wide_trace`` returns them.
+    ``(t, lane_id)``, as ``ops.wide.wide_trace`` returns them; with
+    ``counts``, ``(t, lane_id, node_visits, leaf_fires)`` per ray (int64;
+    hinted leaves not counted), as ``tight_trace_plain(counts=True)``
+    gives them.
 
     ``records``: the entry/exit table in the kernel's layout
     (``ops/sweep.py::node_records`` of ``smem_nodes [8, Nn]``, or of
@@ -104,29 +108,37 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
     them off, and every other slot must then hold a leaf's id.
 
     On a CPU tensor this runs the plain version (over
-    ``ops/sweep.py::node_table``); on a CUDA tensor it launches the kernel.
+    ``ops/sweep.py::node_table``); on a CUDA tensor it launches the kernel:
+    with ``counts`` its counting build (a debug build, not a timed one; its
+    ``t`` and ``lane_id`` are the timed build's bit for bit).
     """
-    global launches, any_launches
+    global launches, any_launches, count_launches
     _check(records, groups, rays, width, gate, hints, packet)
     code = mode_code(mode, bounded)
     if rays.device.type == "cpu":
         return tight_trace_plain(node_table(records, packed), groups, rays,
                                  width, packed=packed, gate=gate,
                                  packet=packet, bounded=bounded, mode=mode,
-                                 hints=hints)
+                                 hints=hints, counts=counts)
     if rays.device.type != "cuda":
         raise ValueError(f"no tight_trace kernel for device {rays.device}")
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     lane_id = torch.empty(n, dtype=torch.int32, device=rays.device)
+    visits, fires = count_outputs(n, rays.device, counts)
     rc = load().tight_trace_launch(
         records.data_ptr(), records.shape[0], int(packed), groups.data_ptr(),
         width, rays.data_ptr(), n, 0 if hints is None else hints.data_ptr(),
         0 if hints is None else hints.shape[1],
         0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),
-        lane_id.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+        lane_id.data_ptr(), 0 if visits is None else visits.data_ptr(),
+        0 if fires is None else fires.data_ptr(),
+        torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tight_trace kernel launch failed: CUDA error {rc}")
+    if counts:
+        count_launches += 1
+        return t, lane_id, visits.to(torch.int64), fires.to(torch.int64)
     launches += 1
     any_launches += code == 2
     return t, lane_id

@@ -48,23 +48,40 @@ _INF = float("inf")
 
 # Device copies of host-built scene tables, keyed by (array identity,
 # device, layout): without it every call would copy the tables to the card
-# again. An entry is dropped when its numpy array is garbage-collected.
+# again; and the layouts of tensor tables (device builds, refits, updates),
+# made once a tensor. An entry is dropped when its array is
+# garbage-collected.
 _DEVICE_TABLE_CACHE: dict[tuple, tuple] = {}
 
 
 def _dev(arr, device: torch.device, layout=None):
-    """A host numpy table as a tensor on ``device``, copied once; with
-    ``layout`` (a numpy function of the table, such as
-    ``wide.group_records`` or ``sweep.node_records``), that function's
-    result, made once."""
-    key = (id(arr), str(device), layout)
-    ent = _DEVICE_TABLE_CACHE.get(key)
-    if ent is not None and ent[0]() is arr:
-        return ent[1]
-    host = arr if layout is None else layout(arr)
-    ten = torch.as_tensor(np.ascontiguousarray(host)).to(device)
+    """A scene table as a tensor on ``device``; with ``layout`` (a function
+    of the table, such as ``wide.group_records`` or
+    ``sweep.node_records``), that function's result.
+
+    A numpy table is copied once. A tensor stays on its device when that is
+    ``device`` (no copy), and its layout is made there, once a tensor (again
+    after an in-place change), so that a table made on the card never goes
+    through the host."""
+    if torch.is_tensor(arr):
+        if layout is None:
+            return arr.to(device)
+        key = (id(arr), str(device), layout)
+        ent = _DEVICE_TABLE_CACHE.get(key)
+        if ent is not None and ent[0]() is arr and ent[2] == arr._version:
+            return ent[1]
+        ten = layout(arr.to(device)).contiguous()
+        version = arr._version
+    else:
+        key = (id(arr), str(device), layout)
+        ent = _DEVICE_TABLE_CACHE.get(key)
+        if ent is not None and ent[0]() is arr:
+            return ent[1]
+        host = arr if layout is None else layout(arr)
+        ten = torch.as_tensor(np.ascontiguousarray(host)).to(device)
+        version = None
     ref = weakref.ref(arr, lambda _r, k=key, c=_DEVICE_TABLE_CACHE: c.pop(k, None))
-    _DEVICE_TABLE_CACHE[key] = (ref, ten)
+    _DEVICE_TABLE_CACHE[key] = (ref, ten, version)
     return ten
 
 
@@ -763,6 +780,90 @@ def make_key_planner(scene, packet: int = 8192, grid_bits: int = 5,
         return torch.stack([e1, e2], dim=1).to(torch.int32).contiguous()
 
     return plan
+
+
+# ---- visit counters ---------------------------------------------------------
+
+def packet_sums(x: torch.Tensor, packet: int) -> torch.Tensor:
+    """Per-ray counts ``x [n]`` summed over packets of ``packet`` rays (or
+    points) in their order: int64 [ceil(n / packet)]."""
+    p = -(-x.shape[0] // packet)
+    out = torch.zeros(p * packet, dtype=torch.int64, device=x.device)
+    out[:x.shape[0]] = x
+    return out.view(p, packet).sum(dim=1)
+
+
+def _count_rows(rays: Ray, packet: int, dev):
+    _check_packet(packet)
+    rays = Ray(*(x.to(dev) for x in rays))
+    tm = torch.full((rays.origin.shape[0],), _INF, dtype=torch.float32,
+                    device=dev)
+    return _ray_rows(rays, tm)
+
+
+def count_visits_tight(scene, rays: Ray, packet: int = 2048, device=None):
+    """Node visits and leaf fires of the entry/exit walk, per packet of
+    ``packet`` rays in the given order: ``(visits, fires)``, int64 tensors
+    [ceil(n / packet)] on ``device`` (None: the card). The walk is
+    ungated, unbounded and without hints, over the packed table where the
+    scene has one (as the reference counts it).
+
+    A packet's count is the sum over its rays of each ray's own walk's
+    count: a ray's visits are the nodes it slab-tests, its fires the leaves
+    it narrowphases (``tight_trace_plain(counts=True)``). The reference
+    walks one shared cursor a packet and counts that cursor's steps, so its
+    numbers are of another unit (about a packet's union of nodes); the
+    port's serial unit is a ray's step. On the card this launches the
+    kernel's counting build (a debug build, never timed), whose results
+    are the timed build's bit for bit."""
+    dev = resolve_device(device)
+    if rays.origin.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        return z, z
+    rows = _count_rows(rays, packet, dev)
+    table, packed = _entry_exit_table(scene)
+    _, _, visits, fires = tight_trace(
+        _dev(table, dev, node_records), _dev(scene.groups, dev), rows,
+        width=int(scene.width), packed=packed, packet=packet, counts=True)
+    return packet_sums(visits, packet), packet_sums(fires, packet)
+
+
+def count_visits_wide(scene, rays: Ray, packet: int = 2048, start_g=None,
+                      exp: str = "", device=None):
+    """Iterations, leaf fires and group tests of the group walk, per packet
+    of ``packet`` rays in the given order: ``(iterations, fires,
+    group_tests)``, int64 tensors [ceil(n / packet)] on ``device`` (None:
+    the card). The walk is ungated, unbounded and without hints;
+    ``start_g`` (as in ``trace_closest_hit_tight``) costs the walk with
+    subtree entries. ``exp`` names the reference's experimental walks,
+    which are not ported: anything but "" raises.
+
+    A packet's count is the sum over its rays of each ray's own walk's
+    count (``wide_trace_plain(counts=True)``): group tests are the groups
+    whose 16 children a ray slab-tests, fires the leaf slots it
+    narrowphases, and a ray's iterations are its group tests plus its
+    fires, the port's serial units (one step of the lock-step loop, one
+    leaf test). The reference counts one shared cursor a packet (its
+    iterations are fired children plus pops of that cursor), so its
+    numbers are of another unit. On the card this launches the kernel's
+    counting build (a debug build, never timed), whose results are the
+    timed build's bit for bit."""
+    if exp:
+        raise ValueError(f"the experimental walk {exp!r} is not ported")
+    walk_wide = _choose_walk(scene, True)
+    dev = resolve_device(device)
+    r = rays.origin.shape[0]
+    if r == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        return z, z, z
+    rows = _count_rows(rays, packet, dev)
+    sg = _start_g(scene, start_g, walk_wide, r, packet, dev)
+    _, _, tests, fires = wide_trace(
+        _dev(scene.gnodes, dev, group_records), _dev(scene.groups, dev),
+        rows, width=int(scene.width), depth=int(scene.gdepth), packet=packet,
+        start_g=sg, counts=True)
+    tests, fires = packet_sums(tests, packet), packet_sums(fires, packet)
+    return tests + fires, fires, tests
 
 
 # ---- the legacy ClusterScene trace ------------------------------------------

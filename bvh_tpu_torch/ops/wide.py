@@ -49,7 +49,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ._build import load_cuda_library
@@ -80,9 +79,10 @@ REC = 128  # floats per group in the kernel's group-major table
 
 MODES = {"closest": 0, "any": 2}  # the kernels' mode codes (1: bounded)
 
-launches = 0  # kernel launches, counted in ``wide_trace``
+launches = 0  # launches of the timed build, counted in ``wide_trace``
 any_launches = 0  # of those, the launches in any-hit mode
 subtree_launches = 0  # of those, the launches with subtree entries
+count_launches = 0  # launches of the counting build (``counts=True``)
 
 
 @functools.cache
@@ -96,7 +96,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wide_trace_launch.restype = ci
     lib.wide_trace_launch.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci,
-                                      ci, vp, vp, vp]
+                                      ci, vp, vp, vp, vp, vp]
     lib.wide_trace_rec_floats.restype = ci
     if lib.wide_trace_rec_floats() != REC:
         raise RuntimeError("wide_trace.cu's group record is not "
@@ -104,20 +104,22 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def group_records(gnodes: np.ndarray) -> np.ndarray:
+def group_records(gnodes):
     """The kernel's group-major copy of a scene's ``gnodes [7K+1, Gn]``:
     [Gn, REC] float32, one 512-byte record a group holding its 16 child
     boxes (amin (3), amax (3) at 6k, read as float4 and in three 128-byte
     lines), the payloads at 6K + k and the leaf mask at 7K; the rest is 0.
-    The values are the table's own. Callers upload it once a table with
+    The values are the table's own. A numpy table gives a numpy array, a
+    tensor a tensor on its device. Callers upload it once a table with
     ``ops/trace.py::_dev(gnodes, device, group_records)``."""
-    gn = gnodes.shape[1]
-    box = gnodes[:7 * K].reshape(K, 7, gn)
-    rec = np.zeros((gn, REC), np.float32)
-    rec[:, :6 * K] = box[:, :6].transpose(2, 0, 1).reshape(gn, 6 * K)
-    rec[:, 6 * K:7 * K] = box[:, 6].T
-    rec[:, 7 * K] = gnodes[7 * K]
-    return rec
+    g = torch.as_tensor(gnodes)
+    gn = g.shape[1]
+    box = g[:7 * K].reshape(K, 7, gn)
+    rec = torch.zeros((gn, REC), dtype=torch.float32, device=g.device)
+    rec[:, :6 * K] = box[:, :6].permute(2, 0, 1).reshape(gn, 6 * K)
+    rec[:, 6 * K:7 * K] = box[:, 6].t()
+    rec[:, 7 * K] = g[7 * K]
+    return rec if torch.is_tensor(gnodes) else rec.numpy()
 
 
 def wide_table(records: torch.Tensor) -> torch.Tensor:
@@ -193,8 +195,11 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
                gate: torch.Tensor | None = None, packet: int = 8192,
                bounded: bool = False, mode: str = "closest",
                hints: torch.Tensor | None = None,
-               start_g: torch.Tensor | None = None):
-    """Closest or any hit of every ray: ``(t, lane_id)``.
+               start_g: torch.Tensor | None = None, counts: bool = False):
+    """Closest or any hit of every ray: ``(t, lane_id)``; with ``counts``,
+    ``(t, lane_id, group_tests, leaf_fires)``, each ray's group tests and
+    fired leaf slots (int64; hinted leaves not counted), as
+    ``wide_trace_plain(counts=True)`` gives them.
 
     ``records`` is the wide table in the kernel's layout
     (``group_records``), ``depth`` the wide tree's group depth
@@ -214,9 +219,11 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     id must be below Gn, as ``ops/trace.py`` checks.
 
     On a CPU tensor this runs the plain version (over ``wide_table``); on a
-    CUDA tensor it launches the kernel.
+    CUDA tensor it launches the kernel: with ``counts`` its counting build
+    (a debug build, not a timed one; its ``t`` and ``lane_id`` are the
+    timed build's bit for bit).
     """
-    global launches, any_launches, subtree_launches
+    global launches, any_launches, subtree_launches, count_launches
     _check(records, groups, rays, width, depth, gate, hints, packet, start_g)
     code = mode_code(mode, bounded)
     if start_g is not None and code == 2:
@@ -224,25 +231,42 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     if rays.device.type == "cpu":
         return wide_trace_plain(wide_table(records), groups, rays, width,
                                 gate=gate, packet=packet, bounded=bounded,
-                                mode=mode, hints=hints, start_g=start_g)
+                                mode=mode, hints=hints, start_g=start_g,
+                                counts=counts)
     if rays.device.type != "cuda":
         raise ValueError(f"no wide_trace kernel for device {rays.device}")
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     lane_id = torch.empty(n, dtype=torch.int32, device=rays.device)
+    tests, fires = count_outputs(n, rays.device, counts)
     rc = load().wide_trace_launch(
         records.data_ptr(), groups.data_ptr(), width,
         rays.data_ptr(), n, 0 if hints is None else hints.data_ptr(),
         0 if hints is None else hints.shape[1],
         0 if gate is None else gate.data_ptr(),
         0 if start_g is None else start_g.data_ptr(), packet, code, t.data_ptr(),
-        lane_id.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+        lane_id.data_ptr(), 0 if tests is None else tests.data_ptr(),
+        0 if fires is None else fires.data_ptr(),
+        torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_trace kernel launch failed: CUDA error {rc}")
+    if counts:
+        count_launches += 1
+        return t, lane_id, tests.to(torch.int64), fires.to(torch.int64)
     launches += 1
     any_launches += code == 2
     subtree_launches += start_g is not None
     return t, lane_id
+
+
+def count_outputs(n: int, device, counts: bool):
+    """The counting build's int32 outputs, two [n] counters zeroed (a ray
+    of a gated-off packet keeps 0), or ``(None, None)`` for the timed
+    build."""
+    if not counts:
+        return None, None
+    return (torch.zeros(n, dtype=torch.int32, device=device),
+            torch.zeros(n, dtype=torch.int32, device=device))
 
 
 def _ctz16(low: torch.Tensor) -> torch.Tensor:

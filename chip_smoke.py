@@ -86,6 +86,25 @@ final line):
    against its plain version and against itself without entries on the
    leg's own rows (bit for bit); planned and unplanned timed in turns,
    the diff leg in parts, work per ray and bounds.
+13. dynamic scenes and the visit counters (bench.py's update_shapes_flat,
+   tight_refit, refit_quality and roofline legs at full size, last):
+   update_shapes on the 120k scene's SAH tree after moving half of its
+   triangles (equal to the CPU's, consistent and tight); make_refitter on
+   the same vertices (tables equal to the CPU's); at 1%, 10% and 50% churn
+   the refit scene, a host rebuild and make_updater's chained scene, each
+   tracing the 2,097,152 reference rays (octmorton, packet 8192, no sweep)
+   with 4,096 of them and 4,096 aimed rays (exact recompute; the chained
+   scene with the sweep gate) against brute force over the moved
+   triangles, the refit precision class counted apart;
+   build_tight_scene_device (grid and LBVH upper trees, equal to the
+   CPU's) on the 120k scene and build_chained_scene_device on 1,008,000
+   triangles, each tracing the aimed rays against brute force; nearest
+   over the 10% update (both walks); count_visits_wide and
+   count_visits_tight (a wide=False build) on the sorted reference rays
+   and count_visits_nearest on the update's masked static part; every
+   counting build against the timed build and the plain version's counts
+   (bit for bit) on those rows and on the aimed rows; times, rays/s,
+   device breakdowns, ns per serial unit and bounds.
 
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
 hinted, packed), the group walk's any mode and hints, the sweep on a
@@ -115,9 +134,14 @@ from bvh_tpu_torch import (Ray, native, point_triangle_distance_squared,
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import camera_rays as package_camera_rays
 from bvh_tpu_torch.diff import render_depth_fast
+from bvh_tpu_torch.bvh import build_sah, update_shapes
 from bvh_tpu_torch.ops import (_build, build_chained_scene,
+                               build_chained_scene_device,
                                build_cluster_scene, build_tight_scene,
-                               make_key_planner, make_planner, make_tracer,
+                               build_tight_scene_device, count_visits_nearest,
+                               count_visits_tight, count_visits_wide,
+                               make_key_planner, make_planner,
+                               make_refitter, make_tracer, make_updater,
                                nearest_chained, nearest_tight,
                                sort_points_device, sort_rays,
                                trace_any_hit_chained, trace_any_hit_tight,
@@ -195,10 +219,13 @@ def is_port_kernel(key: str) -> bool:
 
 
 def port_launches() -> int:
-    """Launches of the port's kernels so far, over every wrapper's count."""
+    """Launches of the port's kernels so far, over every wrapper's count
+    (the counting builds' included)."""
     return (wide_mod.launches + sweep_mod.launches + tight_mod.launches
             + near_mod.wide_launches + near_mod.entry_exit_launches
-            + ct_mod.launches)
+            + ct_mod.launches + wide_mod.count_launches
+            + tight_mod.count_launches + near_mod.wide_count_launches
+            + near_mod.entry_exit_count_launches)
 
 
 def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
@@ -254,6 +281,10 @@ def reset_counts() -> None:
     near_mod.wide_launches = 0
     near_mod.entry_exit_launches = 0
     ct_mod.launches = 0
+    wide_mod.count_launches = 0
+    tight_mod.count_launches = 0
+    near_mod.wide_count_launches = 0
+    near_mod.entry_exit_count_launches = 0
 
 
 def build_all() -> dict:
@@ -2076,6 +2107,471 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
     return err
 
 
+# ---- phase 13: dynamic scenes and the visit counters ------------------------
+
+REFIT_FRACS = ((0.01, "1pct"), (0.1, "10pct"), (0.5, "50pct"))
+
+
+def bits_equal(x, y) -> bool:
+    """Two tensors bit for bit (NaN in place), on any devices."""
+    x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+    if x.is_floating_point():
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return x.shape == y.shape and torch.equal(x, y)
+
+
+def scenes_equal(s1, s2) -> bool:
+    """Two TightScenes' tables bit for bit and their other fields equal."""
+    for name in s1._fields:
+        x, y = getattr(s1, name), getattr(s2, name)
+        if x is None or y is None:
+            if not (x is None and y is None):
+                return False
+        elif torch.is_tensor(x) or isinstance(x, np.ndarray):
+            if not bits_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def flat_consistent(h, mn, mx) -> bool:
+    """A host FlatBvh is consistent and tight over shape boxes (mn, mx):
+    every leaf holds its shape's box, every internal node the join of its
+    two children's."""
+    leaf = h.entry < 0
+    i = np.nonzero(~leaf)[0]
+    left = i + 1
+    right = h.exit[left]
+    return (np.array_equal(h.aabb_min[leaf], mn[h.shape[leaf]])
+            and np.array_equal(h.aabb_max[leaf], mx[h.shape[leaf]])
+            and np.array_equal(h.aabb_min[i], np.minimum(h.aabb_min[left],
+                                                         h.aabb_min[right]))
+            and np.array_equal(h.aabb_max[i], np.maximum(h.aabb_max[left],
+                                                         h.aabb_max[right])))
+
+
+def brute_agreement(o, d, t_trace, tris_dev, seed: int) -> dict:
+    """``check_vs_brute``'s numbers on 4,096 sampled rays without its
+    bounds: the mask agreement, the largest relative t error, and the rays
+    outside either bound."""
+    idx = np.random.default_rng(seed).choice(len(o), N_SAMPLE, replace=False)
+    t_bf = brute_force(o[idx], d[idx], tris_dev).cpu().numpy()
+    t_tr = t_trace[idx]
+    hit_bf, hit_tr = np.isfinite(t_bf), np.isfinite(t_tr)
+    both = hit_bf & hit_tr
+    rel = np.zeros(N_SAMPLE)
+    rel[both] = np.abs(t_tr[both] - t_bf[both]) / t_bf[both]
+    off = (hit_bf != hit_tr) | (rel > 2e-4)
+    return {"sampled": N_SAMPLE, "mask_agreement": float((hit_bf == hit_tr)
+                                                          .mean()),
+            "max_rel_t_err": float(rel.max()), "rays_outside": int(off.sum()),
+            "hit_fraction_sampled": float(hit_bf.mean())}
+
+
+def plain_counts(kind: str, tables: tuple, rows, width: int, **kw):
+    """A walk's plain version with ``counts=True`` over chunks of
+    PLAIN_CHUNK // W rays or points (each walks on its own): ``kind`` is
+    "wide", "tight", "nearest_wide" or "nearest_entry_exit"."""
+    fn = {"wide": wide_mod.wide_trace_plain,
+          "tight": tight_mod.tight_trace_plain,
+          "nearest_wide": near_mod.nearest_wide_plain,
+          "nearest_entry_exit": near_mod.nearest_entry_exit_plain}[kind]
+    chunk = PLAIN_CHUNK // width
+    parts = [fn(*tables, rows[:, s:s + chunk].contiguous(), width,
+                counts=True, **kw)
+             for s in range(0, rows.shape[1], chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def hold_counting_build(name: str, counted, timed, plain) -> dict:
+    """A counting build's (t or d2, lane, count, fires) against the timed
+    build's (t or d2, lane) and the plain version's four outputs: fails
+    unless all agree bit for bit; returns the comparison."""
+    same_timed = bits_equal(counted[0], timed[0]) and bits_equal(counted[1],
+                                                                 timed[1])
+    same_plain = all(bits_equal(x, y) for x, y in zip(counted, plain))
+    fin = torch.isfinite(counted[0]) & torch.isfinite(plain[0])
+    err = (float((counted[0][fin] - plain[0][fin]).abs().max())
+           if fin.any() else 0.0)
+    check(same_timed, f"{name}: the counting build's results differ from the "
+                      "timed build's")
+    check(same_plain, f"{name}: the counting build differs from the plain "
+                      "version's results or counts")
+    return {"equal_to_timed": same_timed, "equal_to_plain": same_plain,
+            "max_abs_err": err, "count_total": int(counted[2].sum()),
+            "fires_total": int(counted[3].sum())}
+
+
+def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
+                  n_cubes: int = 84000, max_part: int = 100_000) -> list:
+    """Phase 13: bench.py's dynamic-scene legs and its roofline at full size
+    on the 120k scene, with the visit counters: update_shapes_flat,
+    tight_refit, refit_quality (the refit scene, a host rebuild and
+    make_updater's chained scene at 1%, 10% and 50% churn), device builds
+    (grid and LBVH upper trees on the 120k scene, the 1,008,000-triangle
+    chain), nearest over an update, and count_visits_* on the headline
+    rows. Returns the four counting builds' entries of the ``kernels``
+    line."""
+    a, b, c = tris
+    n_tris = a.shape[0]
+    W = int(scene.width)
+    o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    ao_dev, ad_dev = torch.from_numpy(ao).to(dev), torch.from_numpy(ad).to(dev)
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
+    n_rays = o.shape[0]
+
+    # ---- set-up (not timed): bench.py's inputs ------------------------
+    t0 = time.perf_counter()
+    mn, mx = tb.tri_aabbs(a, b, c)
+    a2, b2, c2, _ = tb.randomly_transform_scene(a, b, c, amount=n_tris // 2,
+                                                seed=9)
+    mn2, mx2 = tb.tri_aabbs(a2, b2, c2)
+    flat, _ = build_sah(mn, mx)
+    flat_dev = flat.to_device(device=dev)
+    mn2_dev, mx2_dev = (torch.from_numpy(x).to(dev) for x in (mn2, mx2))
+    v2 = tuple(torch.from_numpy(x).to(dev) for x in (a2, b2, c2))
+    refitter = make_refitter(scene, device=dev)
+    churn = {}
+    for frac, label in REFIT_FRACS:
+        amount = int(n_tris * frac)
+        am, bm, cm, moved = tb.randomly_transform_scene(a, b, c,
+                                                        amount=amount, seed=13)
+        t1 = time.perf_counter()
+        host = build_tight_scene(am, bm, cm)
+        churn[label] = {
+            "amount": amount, "tris": (am, bm, cm),
+            "verts": tuple(torch.from_numpy(x).to(dev) for x in (am, bm, cm)),
+            "moved": torch.from_numpy(moved.astype(np.int32)).to(dev),
+            "updater": make_updater(scene, max_moved=amount, device=dev),
+            "host_rebuild": host, "host_build_s": time.perf_counter() - t1}
+    sa, sb, sc_ = tb.create_n_cubes(n_cubes)
+    sparse_dev = tuple(torch.from_numpy(x).to(dev) for x in (sa, sb, sc_))
+    sao, sad = tb.aimed_rays(sa, len(ao))
+    sao_dev, sad_dev = (torch.from_numpy(x).to(dev) for x in (sao, sad))
+    perm_s, inv_s = sort_rays_device(sao_dev, sad_dev, mode="morton")
+    t1 = time.perf_counter()
+    scene_ee = build_tight_scene(a, b, c, wide=False)
+    ee_build_s = time.perf_counter() - t1
+    rows_r = trace_rows(o_dev, d_dev, "octmorton")  # the roofline's rows
+    perm_r, _ = sort_rays_device(o_dev, d_dev, mode="octmorton")
+    rays_roof = Ray.create(o_dev[perm_r], d_dev[perm_r])
+    pts = torch.from_numpy(tb.create_rays(
+        N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)
+    n_near = N_POINTS // 4  # the counting builds' nearest rows
+    pts_s = pts[sort_points_device(pts)[0][:n_near]]
+    setup_s = time.perf_counter() - t0
+
+    def trace_q(sc):
+        """bench.py's refit_quality run: the reference rays, octmorton
+        sorted inside the call, packet 8192, no sweep; t in ray order."""
+        perm, inv = sort_rays_device(o_dev, d_dev, mode="octmorton")
+        od = torch.cat([o_dev, d_dev], dim=1)[perm]
+        rays = Ray.create(od[:, 0:3], od[:, 3:6])
+        if hasattr(sc, "parts"):
+            out = trace_closest_hit_chained(sc, rays, packet=8192,
+                                            sweep=False)
+        else:
+            out = trace_closest_hit_tight(sc, rays, packet=8192, sweep=False)
+        return out.t[inv]
+
+    idx_a = np.random.default_rng(21).choice(len(ao), N_SAMPLE, replace=False)
+    idx_a_dev = torch.from_numpy(idx_a).to(dev)
+
+    def aimed_sample(sc, tris_m):
+        """4,096 of the aimed rays through ``sc`` with the exact winner
+        recompute (the chained scenes with the sweep gate on)."""
+        rays = Ray.create(ao_dev[idx_a_dev], ad_dev[idx_a_dev])
+        if hasattr(sc, "parts"):
+            return trace_closest_hit_chained(sc, rays, tris=tris_m,
+                                             packet=1024).t
+        return trace_closest_hit_tight(sc, rays, tris=tris_m, packet=1024).t
+
+    # ---- the main path of phase 13: every count zero before, read after
+    reset_counts()
+    flat_new = update_shapes(flat_dev, mn2_dev, mx2_dev)
+    refit_scene = refitter(*v2)
+    quality = {}
+    for label, ch in churn.items():
+        ch["refit"] = refitter(*ch["verts"])
+        ch["update"] = ch["updater"](*ch["verts"], ch["moved"])
+        for cell in ("refit", "host_rebuild", "update"):
+            quality[(label, cell)] = (trace_q(ch[cell]),
+                                      aimed_sample(ch[cell], ch["verts"]))
+    dev_scenes = {"grid": build_tight_scene_device(*tris_dev),
+                  "lbvh": build_tight_scene_device(*tris_dev, upper="lbvh")}
+    dev_chain = build_chained_scene_device(*sparse_dev, max_part=max_part)
+    dev_hits = {}
+    for kind, sc in dev_scenes.items():
+        dev_hits[kind] = make_tracer(sc, packet=8192, sort="morton",
+                                     tris=tris)(ao_dev, ad_dev).t
+    h = trace_closest_hit_chained(dev_chain, Ray.create(sao_dev, sad_dev),
+                                  tris=sparse_dev, packet=8192, perm=perm_s)
+    dev_hits["chain"] = h.t[inv_s]
+    upd10 = churn["10pct"]["update"]
+    near_upd = nearest_chained(upd10, pts)
+    near_static_ee = nearest_tight(upd10.parts[0], pts, wide=False)
+    roof_w = count_visits_wide(scene, rays_roof, packet=8192)
+    roof_t = count_visits_tight(scene_ee, rays_roof, packet=8192)
+    roof_n = {wide: count_visits_nearest(upd10.parts[0], pts_s, packet=8192,
+                                         wide=wide) for wide in (True, False)}
+    torch.cuda.synchronize()
+    launches = {"wide_trace": wide_mod.launches,
+                "tight_trace": tight_mod.launches,
+                "sweep_gate": sweep_mod.launches,
+                "nearest_wide": near_mod.wide_launches,
+                "nearest_tight": near_mod.entry_exit_launches,
+                "wide_trace_count": wide_mod.count_launches,
+                "tight_trace_count": tight_mod.count_launches,
+                "nearest_wide_count": near_mod.wide_count_launches,
+                "nearest_tight_count": near_mod.entry_exit_count_launches}
+    emit("dynamic_main_path_launches", **launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on phase 13's main path")
+
+    # ---- checks ---------------------------------------------------------
+    flat_cpu = update_shapes(flat.to_device(device="cpu"),
+                             torch.from_numpy(mn2), torch.from_numpy(mx2))
+    same_flat = all(bits_equal(x, y) for x, y in zip(flat_new, flat_cpu))
+    check(same_flat, "update_shapes on the card differs from the CPU's")
+    check(flat_consistent(flat_new.to_host(), mn2, mx2),
+          "update_shapes: the tree is not consistent and tight")
+    refit_cpu = make_refitter(scene, device="cpu")(a2, b2, c2)
+    check(scenes_equal(refit_scene, refit_cpu),
+          "tight_refit on the card differs from the CPU's")
+    for kind in ("grid", "lbvh"):
+        check(scenes_equal(dev_scenes[kind], build_tight_scene_device(
+            *tris, upper=kind, device="cpu")),
+            f"device build ({kind}) on the card differs from the CPU's")
+    n_parts = -(-sa.shape[0] // max_part)
+    check(len(dev_chain.parts) == n_parts,
+          f"the device chain has {len(dev_chain.parts)} parts, not {n_parts}")
+    checks = {}
+    refit_class = {}
+    for (label, cell), (t_q, t_s) in quality.items():
+        tris_m = churn[label]["verts"]
+        t_q, t_s = t_q.cpu().numpy(), t_s.cpu().numpy()
+        check(t_q.shape == (n_rays,) and t_s.shape == (N_SAMPLE,),
+              f"refit_quality {label}/{cell}: output shape")
+        rnd = brute_agreement(o, d, t_q, tris_m, 40 + len(checks))
+        bf_s = brute_force(ao[idx_a], ad[idx_a], tris_m).cpu().numpy()
+        hit_s, hit_b = np.isfinite(t_s), np.isfinite(bf_s)
+        both = hit_s & hit_b
+        rel = np.abs(t_s[both] - bf_s[both]) / bf_s[both]
+        aimed = {"sampled": N_SAMPLE,
+                 "mask_agreement": float((hit_s == hit_b).mean()),
+                 "max_rel_t_err": float(rel.max()) if both.any() else 0.0,
+                 "rays_outside": int((hit_s != hit_b).sum()
+                                     + (rel > 2e-4).sum()),
+                 "hit_fraction_sampled": float(hit_b.mean())}
+        checks[f"{label}_{cell}"] = {"random": rnd, "aimed": aimed}
+        if cell == "refit":
+            # the refit precision class (rows re-encoded against moved
+            # cluster centres): counted, bounded by the reference's ~1%
+            refit_class[label] = rnd["rays_outside"] + aimed["rays_outside"]
+            check(aimed["mask_agreement"] >= 0.99
+                  and rnd["mask_agreement"] >= 0.99,
+                  f"refit_quality {label}/refit: beyond its precision class")
+        else:
+            for leg_, r in (("random", rnd), ("aimed", aimed)):
+                check(r["mask_agreement"] >= 0.9999
+                      and r["max_rel_t_err"] <= 2e-4,
+                      f"refit_quality {label}/{cell}/{leg_}: {r}")
+    dev_checks = {kind: check_vs_brute(f"device_build_{kind}", ao, ad,
+                                       dev_hits[kind].cpu().numpy(), tris_dev,
+                                       50 + i)
+                  for i, kind in enumerate(("grid", "lbvh"))}
+    dev_checks["chain"] = check_vs_brute("device_build_chain", sao, sad,
+                                         dev_hits["chain"].cpu().numpy(),
+                                         sparse_dev, 53)
+    sid_u, dist_u = near_upd
+    sid_e, dist_e = near_static_ee
+    moved10 = churn["10pct"]["verts"]
+    near_check = check_nearest_vs_brute("nearest_update_10pct", pts, sid_u,
+                                        dist_u, moved10, 54)
+    emit("dynamic_path", card=card, setup_s=setup_s,
+         sah_nodes=int(flat.num_nodes), entry_exit_build_s=ee_build_s,
+         host_build_s={k: v["host_build_s"] for k, v in churn.items()},
+         update_shapes_equal_cpu=same_flat, tight_refit_equal_cpu=True,
+         device_builds_equal_cpu=True, refit_quality_checks=checks,
+         refit_class_rays=refit_class, device_build_checks=dev_checks,
+         nearest_update=near_check,
+         static_entry_exit_hits=int((sid_e >= 0).sum()))
+
+    # ---- the counting builds against the timed builds and plain counts
+    t0 = time.perf_counter()
+    gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
+    rec = records(scene, dev)
+    ee_tab, ee_grp = _dev(scene_ee.smem_nodes, dev), _dev(scene_ee.groups, dev)
+    ee_rec = node_recs(scene_ee.smem_nodes, dev)
+    static = upd10.parts[0]
+    s_grp = _dev(static.groups, dev)
+    s_gn, s_sn = _dev(static.gnodes, dev), _dev(static.smem_nodes, dev)
+    prow = near_mod.point_rows(pts_s, None)
+    runs = {
+        "wide_trace_count": (
+            lambda: wide_mod.wide_trace(rec, grp, rows_r, W, scene.gdepth,
+                                        counts=True),
+            lambda: wide_mod.wide_trace(rec, grp, rows_r, W, scene.gdepth),
+            lambda: plain_counts("wide", (gn, grp), rows_r, W, packet=8192)),
+        "tight_trace_count": (
+            lambda: tight_mod.tight_trace(ee_rec, ee_grp, rows_r, W,
+                                          counts=True),
+            lambda: tight_mod.tight_trace(ee_rec, ee_grp, rows_r, W),
+            lambda: plain_counts("tight", (ee_tab, ee_grp), rows_r, W,
+                                 packet=8192)),
+        "nearest_wide_count": (
+            lambda: near_mod.nearest_wide(s_gn, s_grp, prow, W,
+                                          static.gdepth, refine=False,
+                                          counts=True),
+            lambda: near_mod.nearest_wide(s_gn, s_grp, prow, W,
+                                          static.gdepth, refine=False),
+            lambda: plain_counts("nearest_wide", (s_gn, s_grp), prow, W,
+                                 refine=False)),
+        "nearest_tight_count": (
+            lambda: near_mod.nearest_entry_exit(s_sn, s_grp, prow, W,
+                                                refine=False, counts=True),
+            lambda: near_mod.nearest_entry_exit(s_sn, s_grp, prow, W,
+                                                refine=False),
+            lambda: plain_counts("nearest_entry_exit", (s_sn, s_grp), prow,
+                                 W, refine=False))}
+    holds = {}
+    for name, (counted, timed, plain) in runs.items():
+        holds[name] = hold_counting_build(name, counted(), timed(), plain())
+    # the trace walks' counting builds again on the aimed rows (morton
+    # sorted), where every ray fires leaves
+    rows_a = trace_rows(ao_dev, ad_dev, "morton")
+    holds["wide_trace_count/aimed"] = hold_counting_build(
+        "wide_trace_count/aimed",
+        wide_mod.wide_trace(rec, grp, rows_a, W, scene.gdepth, counts=True),
+        wide_mod.wide_trace(rec, grp, rows_a, W, scene.gdepth),
+        plain_counts("wide", (gn, grp), rows_a, W, packet=8192))
+    holds["tight_trace_count/aimed"] = hold_counting_build(
+        "tight_trace_count/aimed",
+        tight_mod.tight_trace(ee_rec, ee_grp, rows_a, W, counts=True),
+        tight_mod.tight_trace(ee_rec, ee_grp, rows_a, W),
+        plain_counts("tight", (ee_tab, ee_grp), rows_a, W, packet=8192))
+    # the counters' totals equal the counting builds' per-ray sums
+    check(int(roof_w[2].sum()) == holds["wide_trace_count"]["count_total"]
+          and int(roof_w[1].sum()) == holds["wide_trace_count"]["fires_total"],
+          "count_visits_wide's totals differ from the counting build's")
+    check(int(roof_t[0].sum()) == holds["tight_trace_count"]["count_total"],
+          "count_visits_tight's totals differ from the counting build's")
+    check(int(roof_n[True][0].sum())
+          == holds["nearest_wide_count"]["count_total"],
+          "count_visits_nearest's totals differ from the counting build's")
+    emit("counting_builds_vs_timed_and_plain",
+         seconds=time.perf_counter() - t0, holds=holds)
+
+    # ---- timings ----------------------------------------------------------
+    e2e = {"update_shapes_flat": cuda_ms(
+               lambda: update_shapes(flat_dev, mn2_dev, mx2_dev)),
+           "tight_refit": cuda_ms(lambda: refitter.core(*v2)),
+           "device_build_grid": cuda_ms(
+               lambda: build_tight_scene_device(*tris_dev), reps=5),
+           "device_build_lbvh": cuda_ms(
+               lambda: build_tight_scene_device(*tris_dev, upper="lbvh"),
+               reps=5),
+           "device_build_chain_1m": cuda_ms(
+               lambda: build_chained_scene_device(*sparse_dev,
+                                                  max_part=max_part), reps=3),
+           "update_10pct": cuda_ms(lambda: churn["10pct"]["updater"](
+               *churn["10pct"]["verts"], churn["10pct"]["moved"]))}
+    q_ms, q_break = {}, {}
+    for label, ch in churn.items():
+        for cell in ("refit", "host_rebuild", "update"):
+            key = f"{label}_{cell}"
+            ms = cuda_ms(lambda sc=ch[cell]: trace_q(sc), reps=5)
+            q_ms[key] = {"ms": ms, "rays_per_s": n_rays / (ms * 1e-3)}
+            q_break[key] = device_breakdown(lambda sc=ch[cell]: trace_q(sc),
+                                            ms)
+    emit("refit_quality", card=card, legs=q_ms, breakdown=q_break)
+    kernel_ms, plain_ms = {}, {}
+    for name, (counted, timed, plain) in runs.items():
+        kernel_ms[name] = cuda_ms(counted)
+        kernel_ms[name.removesuffix("_count")] = cuda_ms(timed)
+        plain_ms[name] = cuda_ms(plain, reps=3, warmup=0)
+    # the roofline: totals per packet, device ns per serial unit of the
+    # ungated walks on these rows, and the bounds from the same counts
+    n_p = int(roof_w[0].shape[0])
+    tests_pr = holds["wide_trace_count"]["count_total"] / n_rays
+    wfires_pr = holds["wide_trace_count"]["fires_total"] / n_rays
+    visits_pr = holds["tight_trace_count"]["count_total"] / n_rays
+    tfires_pr = holds["tight_trace_count"]["fires_total"] / n_rays
+    ray_bytes = wide_mod.N_ROWS * 4 * n_rays + 16 * n_rays
+    bounds = {
+        "wide_trace_count": walk_bound(
+            n_rays, W, tests_pr, wfires_pr, True,
+            ray_bytes + rec.nbytes + grp.nbytes, n_tris),
+        "tight_trace_count": walk_bound(
+            n_rays, W, visits_pr, tfires_pr, False,
+            ray_bytes + ee_rec.nbytes + ee_grp.nbytes, n_tris)}
+    for name, wide, table in (("nearest_wide_count", True, s_gn),
+                              ("nearest_tight_count", False, s_sn)):
+        steps_pp = holds[name]["count_total"] / n_near
+        fires_pp = holds[name]["fires_total"] / n_near
+        ops = (n_near * near_mod.walk_ops(wide, W, steps_pp, fires_pp)
+               + n_tris * near_mod.TRI_ONCE_OPS)
+        nbytes = ((near_mod.N_ROWS * 4 + 16) * n_near + table.nbytes
+                  + s_grp.nbytes)
+        bms, by = roofline(ops, nbytes)
+        bounds[name] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
+                        "bound_by": by, "steps_per_point": steps_pp,
+                        "fires_per_point": fires_pp}
+    iters_tot = int(roof_w[0].sum())
+    roof = {
+        "wide": {"config": "ungated group walk (the counters' configuration)",
+                 "packets": n_p, "serial_unit": "iterations (group tests "
+                 "plus leaf fires of each ray's own walk)",
+                 "iterations_total": iters_tot,
+                 "fires_total": int(roof_w[1].sum()),
+                 "group_tests_total": int(roof_w[2].sum()),
+                 "iterations_per_packet": iters_tot / n_p,
+                 "kernel_ms": kernel_ms["wide_trace"],
+                 "ns_per_serial_unit": kernel_ms["wide_trace"] * 1e6
+                 / iters_tot,
+                 "bound_ms": bounds["wide_trace_count"]["bound_ms"],
+                 "ops_ms_at_issue_rate": bounds["wide_trace_count"]["ops"]
+                 / issue * 1e3},
+        "tight": {"config": "ungated entry/exit walk on a wide=False build",
+                  "packets": int(roof_t[0].shape[0]),
+                  "serial_unit": "node visits of each ray's own walk",
+                  "visits_total": int(roof_t[0].sum()),
+                  "fires_total": int(roof_t[1].sum()),
+                  "visits_per_packet": int(roof_t[0].sum())
+                  / int(roof_t[0].shape[0]),
+                  "kernel_ms": kernel_ms["tight_trace"],
+                  "ns_per_serial_unit": kernel_ms["tight_trace"] * 1e6
+                  / int(roof_t[0].sum()),
+                  "bound_ms": bounds["tight_trace_count"]["bound_ms"],
+                  "ops_ms_at_issue_rate": bounds["tight_trace_count"]["ops"]
+                  / issue * 1e3},
+        "nearest_static_10pct": {
+            wide: {"steps_total": int(v[0].sum()),
+                   "fires_total": int(v[1].sum()), "points": n_near}
+            for wide, v in (("wide", roof_n[True]),
+                            ("entry_exit", roof_n[False]))}}
+    emit("dynamic_timings", card=card, end_to_end_ms=e2e,
+         kernel_ms=kernel_ms, plain_ms=plain_ms, roofline=roof,
+         bounds=bounds)
+    replaces = {"wide_trace_count": "bvh_tpu/ops/trace.py:1199",
+                "tight_trace_count": "bvh_tpu/ops/trace.py:677",
+                "nearest_wide_count": "bvh_tpu/ops/nearest.py:476",
+                "nearest_tight_count": "bvh_tpu/ops/nearest.py:228"}
+    sources = {"wide_trace_count": "wide_trace.cu",
+               "tight_trace_count": "tight_trace.cu",
+               "nearest_wide_count": "nearest.cu",
+               "nearest_tight_count": "nearest.cu"}
+    return [{"name": name, "route": "cuda",
+             "source": f"bvh_tpu_torch/csrc/{sources[name]}",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": holds[name]["max_abs_err"],
+             "ms": kernel_ms[name], "plain_ms": plain_ms[name],
+             "bound_ms": bounds[name]["bound_ms"],
+             "bound_by": bounds[name]["bound_by"], "library_ms": None}
+            for name in runs]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2304,6 +2800,11 @@ def main() -> None:
     # its profile of a backward pass follows every other leg's -----------
     kernels.append(planned_phase(dev, card, scene, (a, b, c), ao, ad, ao_dev,
                                  ad_dev, h_aim, issue, dict(p2["max_abs_err"])))
+
+    # ---- phase 13: dynamic scenes and the visit counters, last ----------
+    t0 = time.perf_counter()
+    kernels += dynamic_phase(dev, card, scene, (a, b, c), o, d, ao, ad, issue)
+    emit("dynamic_phase", seconds=time.perf_counter() - t0)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,8 @@ points whose signatures the two share: ``ops.trace._walk`` (the group walk,
 its gate passed in, no sweep; the entry/exit walk with ``wide=False``),
 ``ops.sweep.sweep_gate`` over the package's own device copy of the node
 table (``ops.trace._dev`` with the package's ``node_records`` where it has
-one), ``ops.nearest.nearest_entry_exit`` and ``ops.trace.trace_closest_hit``
+one), ``ops.nearest.nearest_wide`` and ``nearest_entry_exit``, and
+``ops.trace.trace_closest_hit``
 (the legacy walk with the ray rows before it and the hit record after it).
 ``--only`` limits the runs to one module's kernel (``wide_trace``,
 ``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``), so that a copy
@@ -37,7 +38,8 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
 * the entry/exit walk on the aimed rays over a wide=False build and a
   packed=True build, each gated by its sweep at packet 8192, and the any-hit
   rows of ``shadow_aimed_entry_exit`` (t_max 1.2x each ray's hit);
-* the entry/exit nearest walk on the 1,048,576 sorted random points;
+* both nearest walks (group and entry/exit) on the 1,048,576 sorted random
+  points;
 * the legacy walk on the 1,048,576 aimed rays, sorted, on the
   ``ClusterScene``.
 
@@ -229,6 +231,10 @@ def runs(dev, names) -> dict:
     if "nearest" in names:
         rows_p, _ = cs.nearest_rows(*cs.nearest_points(dense, dev))
         sn, grp = _dev(scene.smem_nodes, dev), _dev(scene.groups, dev)
+        gn = _dev(scene.gnodes, dev)
+        out["nearest_wide/random"] = ("nearest", lambda ops: ops[
+            "nearest"].nearest_wide(gn, grp, rows_p, scene.width,
+                                    scene.gdepth))
         out["nearest_tight/random"] = ("nearest", lambda ops: ops[
             "nearest"].nearest_entry_exit(sn, grp, rows_p, scene.width))
     if "cluster_trace" in names:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
-on the same tensors (bit for bit), and the whole traces (closest hit on
-both walks, any hit, the legacy cluster trace, chained scenes, k-closest)
-and the nearest queries on the card against the CPU. Every test here needs
+on the same tensors (bit for bit), their counting builds against the timed
+builds and the plain walks' counts, the whole traces (closest hit on both
+walks, any hit, the legacy cluster trace, chained scenes, k-closest) and
+the nearest queries on the card against the CPU, and the device builds,
+refits and updates on the card against the CPU. Every test here needs
 an NVIDIA GPU and skips elsewhere; the file imports no JAX, so it runs
 where JAX is not installed:
 
@@ -15,8 +17,13 @@ import torch
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import render_depth_fast
-from bvh_tpu_torch.ops import (build_chained_scene, build_cluster_scene,
-                               build_tight_scene, make_key_planner,
+from bvh_tpu_torch.ops import (build_chained_scene,
+                               build_chained_scene_device,
+                               build_cluster_scene, build_tight_scene,
+                               build_tight_scene_device, count_visits_nearest,
+                               count_visits_tight, count_visits_wide,
+                               make_chained_updater, make_key_planner,
+                               make_refitter, make_updater,
                                make_planner, make_seeder, make_tracer,
                                nearest_chained, nearest_tight, sort_rays,
                                sort_rays_device,
@@ -1204,3 +1211,292 @@ def test_render_depth_gradients_on_card(wide_scenes, cuda, monkeypatch,
         assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g, gp, rtol=1e-5,
                                    atol=1e-5 * float(gp.abs().max()))
+
+
+# ---- counting builds (the visit counters) -----------------------------------
+
+def _walk_kw(scene, rows, dev, mode, packet, tight=False):
+    """The options of a walk in ``mode`` (closest, bounded, any, gated,
+    hinted, start_g) at ``packet``."""
+    p = -(-rows.shape[1] // packet)
+    kw = dict(packet=packet, bounded=mode in ("bounded", "any"),
+              mode="any" if mode == "any" else "closest")
+    if mode == "gated":
+        g = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, dev), rows, packet)
+        g[::2] = 0
+        kw["gate"] = g
+    if mode == "hinted":
+        ids = (np.nonzero(scene.smem_nodes[6] < 0)[0] if tight
+               else scene.gslot)
+        kw["hints"] = torch.from_numpy(_hints(ids, p, k=5, seed=p)).to(dev)
+    if mode == "start_g":
+        kw["start_g"] = torch.from_numpy(
+            _entry_pairs(scene, p, "random", seed=p)).to(dev)
+    return kw
+
+
+COUNT_MODES = ["closest", "bounded", "any", "gated", "hinted", "start_g"]
+
+
+@pytest.mark.parametrize("mode", COUNT_MODES)
+@pytest.mark.parametrize("packet", [128, 8192])
+@pytest.mark.parametrize("width", [16, 128])
+def test_wide_counting_build(wide_scenes, cuda, width, packet, mode):
+    """The group walk's counting build on 65,537 unsorted rays: t and lanes
+    bit-equal to the timed build's, each ray's group tests and fires equal
+    to the plain walk's; the timed build's launch count does not move."""
+    scene, (a, b, c) = wide_scenes[width]
+    rays, tm = _mixed_rays(a, 65537, packet + width, cuda, mesh=width == 128)
+    bound = tm if mode in ("bounded", "any") else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)
+    kw = _walk_kw(scene, rows, cuda, mode, packet)
+    rec, grp = _rec(scene, cuda), _dev(scene.groups, cuda)
+    tk, ik = wide_mod.wide_trace(rec, grp, rows, width, scene.gdepth, **kw)
+    before, counted = wide_mod.launches, wide_mod.count_launches
+    tc, ic, tests, fires = wide_mod.wide_trace(rec, grp, rows, width,
+                                               scene.gdepth, counts=True,
+                                               **kw)
+    assert wide_mod.launches == before
+    assert wide_mod.count_launches == counted + 1
+    tp, ip, tests_p, fires_p = wide_mod.wide_trace_plain(
+        _dev(scene.gnodes, cuda), grp, rows, width, counts=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tc), _bits(tk)) and torch.equal(ic, ik)
+    assert torch.equal(_bits(tc), _bits(tp)) and torch.equal(ic, ip)
+    assert tests.dtype == torch.int64
+    assert torch.equal(tests, tests_p) and torch.equal(fires, fires_p)
+    assert int(fires.sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["closest", "bounded", "any", "gated",
+                                  "hinted", "packed"])
+@pytest.mark.parametrize("width", [16, 128])
+def test_tight_counting_build(wide_scenes, packed_scenes, cuda, width, mode):
+    """The entry/exit walk's counting build, as the group walk's."""
+    scene, (a, b, c) = wide_scenes[width]
+    packed = mode == "packed"
+    if packed:
+        scene = packed_scenes[width]
+    rays, tm = _mixed_rays(a, 65537, 3 + width, cuda, mesh=width == 128)
+    bound = tm if mode in ("bounded", "any") else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)
+    kw = _walk_kw(scene, rows, cuda, mode, 128, tight=True)
+    host = scene.packed_nodes if packed else scene.smem_nodes
+    rec, grp = _nrec(host, cuda), _dev(scene.groups, cuda)
+    tk, ik = tight_mod.tight_trace(rec, grp, rows, width, packed=packed, **kw)
+    before, counted = tight_mod.launches, tight_mod.count_launches
+    tc, ic, visits, fires = tight_mod.tight_trace(rec, grp, rows, width,
+                                                  packed=packed, counts=True,
+                                                  **kw)
+    assert tight_mod.launches == before
+    assert tight_mod.count_launches == counted + 1
+    tp, ip, visits_p, fires_p = tight_mod.tight_trace_plain(
+        _dev(host, cuda), grp, rows, width, packed=packed, counts=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tc), _bits(tk)) and torch.equal(ic, ik)
+    assert torch.equal(_bits(tc), _bits(tp)) and torch.equal(ic, ip)
+    assert torch.equal(visits, visits_p) and torch.equal(fires, fires_p)
+    assert int(fires.sum()) > 0
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("walk", ["wide", "entry_exit"])
+@pytest.mark.parametrize("width", [16, 128])
+def test_nearest_counting_build(wide_scenes, cuda, width, walk, refine):
+    """Both nearest walks' counting builds on 65,537 unsorted points (a
+    third with a radius): results bit-equal to the timed builds', each
+    point's own walk's steps and fires equal to the plain walk's."""
+    scene, (a, b, c) = wide_scenes[width]
+    rng = np.random.default_rng(width)
+    cen = (a + b + c) / 3.0
+    m = 65537
+    pts = np.concatenate([
+        cen[rng.integers(0, len(cen), m // 2)]
+        + rng.normal(scale=3.0, size=(m // 2, 3)),
+        rng.uniform(a.min(axis=0) - 50, a.max(axis=0) + 50,
+                    (m - m // 2, 3))]).astype(np.float32)
+    d_max = np.where(np.arange(m) % 3 == 0, 5.0, np.inf).astype(np.float32)
+    pts, d_max = _shuffled(m, pts, d_max, seed=width)
+    rows = _near_rows(pts, d_max, cuda)
+    grp = _dev(scene.groups, cuda)
+    if walk == "wide":
+        table = _dev(scene.gnodes, cuda)
+        args = (scene.gdepth,)
+        fn, plain = near_mod.nearest_wide, near_mod.nearest_wide_plain
+        name = "wide"
+    else:
+        table = _dev(scene.smem_nodes, cuda)
+        args = ()
+        fn = near_mod.nearest_entry_exit
+        plain = near_mod.nearest_entry_exit_plain
+        name = "entry_exit"
+    dk, ik = fn(table, grp, rows, width, *args, refine=refine)
+    before = getattr(near_mod, f"{name}_launches")
+    counted = getattr(near_mod, f"{name}_count_launches")
+    dc, ic, steps, fires = fn(table, grp, rows, width, *args, refine=refine,
+                              counts=True)
+    assert getattr(near_mod, f"{name}_launches") == before
+    assert getattr(near_mod, f"{name}_count_launches") == counted + 1
+    dp, ip, steps_p, fires_p = plain(table, grp, rows, width, refine=refine,
+                                     counts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dc), _bits(dk)) and torch.equal(ic, ik)
+    assert torch.equal(_bits(dc), _bits(dp)) and torch.equal(ic, ip)
+    assert torch.equal(steps, steps_p) and torch.equal(fires, fires_p)
+
+
+def test_counters_on_card_match_cpu(wide_scenes, cuda):
+    """count_visits_* on the card equal the CPU's on the same inputs."""
+    scene, (a, b, c) = wide_scenes[16]
+    o, d = _rays(a, n=20000, seed=4)
+    rays = Ray.create(o, d, device="cpu")
+    sg = _entry_pairs(scene, -(-20000 // 2048), "random", seed=4)
+    for fn, kw in ((count_visits_wide, {}),
+                   (count_visits_wide, {"start_g": sg}),
+                   (count_visits_tight, {})):
+        _equal(fn(scene, _to(rays, cuda), **kw),
+               fn(scene, rays, device="cpu", **kw))
+    for wide in (True, False):
+        _equal(count_visits_nearest(scene, o, wide=wide),
+               count_visits_nearest(scene, o, wide=wide, device="cpu"))
+
+
+def test_nan_boxes_never_fire_on_card(wide_scenes, cuda):
+    """A delta part with no live triangle holds only NaN boxes: on the card
+    the group walk, the entry/exit walk and the sweep gate fire nothing
+    and test the root alone, the chain's root gate closes every packet,
+    and neither nearest walk finds a triangle, each equal to its plain
+    version."""
+    scene, (a, b, c) = wide_scenes[16]
+    ch = make_updater(scene, max_moved=300)(a, b, c,
+                                            np.full(300, -1, np.int32))
+    delta = ch.parts[1]
+    assert bool(torch.isnan(delta.smem_nodes[:6]).all())
+    rays, _ = _mixed_rays(a, 4097, 5, cuda)
+    rows = _ray_rows(rays, torch.full((4097,), np.inf, device=cuda))
+    _, _, tests, fires = wide_mod.wide_trace(
+        _rec(delta, cuda), delta.groups, rows, 16, delta.gdepth, counts=True)
+    assert int(fires.sum()) == 0 and bool((tests == 1).all())
+    _, ik, visits, fires = tight_mod.tight_trace(
+        _nrec(delta.smem_nodes, cuda), delta.groups, rows, 16, counts=True)
+    assert int(fires.sum()) == 0 and bool((visits == 1).all())
+    assert bool((ik == -1).all())
+    assert not bool(sweep_mod.sweep_gate(_nrec(delta.smem_nodes, cuda),
+                                         rows, 128).any())
+    assert not bool(trace_mod._part_root_gate(rows, delta.smem_nodes[:6, 0],
+                                              rows[6], 128).any())
+    pts = torch.from_numpy(np.concatenate([a, b])[::7].copy()).to(cuda)
+    prow = near_mod.point_rows(pts, None)
+    for walk in ("wide", "entry_exit"):
+        table = delta.gnodes if walk == "wide" else delta.smem_nodes
+        fn = getattr(near_mod, f"nearest_{walk}")
+        args = (delta.gdepth,) if walk == "wide" else ()
+        d2, ik, _, fires = fn(table, delta.groups, prow, 16, *args,
+                              counts=True)
+        assert int(fires.sum()) == 0 and bool((ik == -1).all())
+        assert bool(torch.isinf(d2).all())
+
+
+# ---- device builds, refits and updates on the card --------------------------
+
+def _tables_equal(sc_k, sc_c):
+    """Two TightScenes' tensor tables bit for bit (NaN in place), the
+    other fields equal."""
+    for name in sc_k._fields:
+        x, y = getattr(sc_k, name), getattr(sc_c, name)
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+            assert torch.equal(_bits(x), _bits(y)), name
+        elif isinstance(x, np.ndarray):
+            assert np.array_equal(x, y, equal_nan=True), name
+        else:
+            assert x == y, name
+
+
+@pytest.mark.parametrize("kw", [{}, {"upper": "lbvh"}, {"bmat": True},
+                                {"width": 32}])
+def test_device_build_on_card_matches_cpu(cuda, kw):
+    cubes = tb.create_n_cubes(500)
+    a, b, c = (x[:5990] for x in cubes)  # not a multiple of 16
+    sc_k = build_tight_scene_device(a, b, c, **kw)
+    assert sc_k.groups.device.type == "cuda"
+    _tables_equal(sc_k, build_tight_scene_device(a, b, c, device="cpu", **kw))
+    o, d = _rays(cubes[0], n=8192, seed=2)
+    rays = Ray.create(o, d, device="cpu")
+    _equal(trace_closest_hit_tight(sc_k, _to(rays, cuda)),
+           trace_closest_hit_tight(
+               build_tight_scene_device(a, b, c, device="cpu", **kw), rays,
+               device="cpu"))
+
+
+def test_device_chained_build_on_card_matches_cpu(cuda):
+    a, b, c = tb.create_n_cubes(500)
+    ch_k = build_chained_scene_device(a, b, c, max_part=2000)
+    ch_c = build_chained_scene_device(a, b, c, max_part=2000, device="cpu")
+    assert len(ch_k.parts) == 3
+    for pk, pc in zip(ch_k.parts, ch_c.parts):
+        _tables_equal(pk, pc)
+    for ik, ic in zip(ch_k.orig_ids, ch_c.orig_ids):
+        assert torch.equal(ik.cpu(), ic)
+    o, d = _rays(a, n=8192, seed=3)
+    rays = Ray.create(o, d, device="cpu")
+    _equal(trace_closest_hit_chained(ch_k, _to(rays, cuda)),
+           trace_closest_hit_chained(ch_c, rays, device="cpu"))
+
+
+@pytest.mark.parametrize("bmat", [False, True])
+def test_refitter_on_card_matches_cpu(cuda, bmat):
+    a, b, c = tb.create_n_cubes(500)
+    scene = build_tight_scene(a, b, c, bmat=bmat)
+    a2, b2, c2, _ = tb.randomly_transform_scene(a, b, c, len(a) // 2, seed=9)
+    re_k = make_refitter(scene)(a2, b2, c2)
+    re_c = make_refitter(scene, device="cpu")(a2, b2, c2)
+    _tables_equal(re_k, re_c)
+    o, d = _rays(a2, n=8192, seed=5)
+    rays = Ray.create(o, d, device="cpu")
+    _equal(trace_closest_hit_tight(re_k, _to(rays, cuda)),
+           trace_closest_hit_tight(re_c, rays, device="cpu"))
+
+
+@pytest.mark.parametrize("case", ["update", "growth", "chained"])
+def test_updater_on_card_matches_cpu(cuda, case):
+    a, b, c = tb.create_n_cubes(500)
+    n = a.shape[0]
+    rng = np.random.default_rng(13)
+    a2, b2, c2, moved = tb.randomly_transform_scene(a, b, c, 600, seed=13)
+    ids = np.full(700, -1, np.int32)
+    ids[:600] = moved[:600]
+    alive = None
+    if case == "chained":
+        scene = build_chained_scene(a, b, c, max_part=2500)
+        upd = (make_chained_updater(scene, max_moved=700),
+               make_chained_updater(scene, max_moved=700, device="cpu"))
+    else:
+        scene = build_tight_scene(a, b, c)
+        extra = 0 if case == "update" else 100
+        upd = (make_updater(scene, max_moved=600, max_added=extra + 100),
+               make_updater(scene, max_moved=600, max_added=extra + 100,
+                            device="cpu"))
+        if case == "growth":
+            new = [x[:100] + np.float32(3.0) for x in (a, b, c)]
+            a2, b2, c2 = (np.concatenate([x, y]) for x, y in
+                          zip((a2, b2, c2), new))
+            ids[600:] = np.arange(n, n + 100)
+            alive = rng.random(700) < 0.9
+    args = (a2, b2, c2, ids) + (() if alive is None else (alive,))
+    ch_k, ch_c = upd[0](*args), upd[1](*args)
+    assert len(ch_k.parts) == len(ch_c.parts)
+    for pk, pc in zip(ch_k.parts, ch_c.parts):
+        _tables_equal(pk, pc)
+    for ik, ic in zip(ch_k.orig_ids, ch_c.orig_ids):
+        assert torch.equal(torch.as_tensor(ik).cpu(), torch.as_tensor(ic))
+    o, d = _rays(a, n=8192, seed=7)
+    rays = Ray.create(o, d, device="cpu")
+    _equal(trace_closest_hit_chained(ch_k, _to(rays, cuda)),
+           trace_closest_hit_chained(ch_c, rays, device="cpu"))
+    tm = torch.full((8192,), 60.0)
+    _equal(trace_any_hit_chained(ch_k, _to(rays, cuda), t_max=tm.to(cuda)),
+           trace_any_hit_chained(ch_c, rays, t_max=tm, device="cpu"))
+    pts = np.concatenate([a2, b2])[::11]
+    _equal(nearest_chained(ch_k, pts), nearest_chained(ch_c, pts,
+                                                       device="cpu"))
