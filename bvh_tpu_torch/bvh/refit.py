@@ -37,6 +37,26 @@ def _sparse_levels(m0: torch.Tensor, x0: torch.Tensor, levels: int):
     return torch.cat(mins), torch.cat(maxs)
 
 
+def interval_rows(lo: torch.Tensor, hi: torch.Tensor, n: int):
+    """Where ``_sparse_levels``' stacked table over ``n`` columns holds the
+    intervals [lo, hi) (int64 tensors): the level k = floor(log2(hi - lo))
+    from clz (level 0 for an empty interval), and the rows of the two
+    windows of 2^k columns that start at lo and end at hi, clamped to the
+    table."""
+    k = 31 - clz32((hi - lo).clamp_min(1))
+    return k, k * n + lo, k * n + torch.clamp_max(hi - (1 << k), n - 1)
+
+
+def interval_join(m0: torch.Tensor, x0: torch.Tensor, levels: int,
+                  rows_lo: torch.Tensor, rows_hi: torch.Tensor):
+    """The column-wise min of ``m0`` and max of ``x0`` over the intervals
+    whose rows ``interval_rows`` gave (``levels`` at least their largest
+    level)."""
+    allm, allx = _sparse_levels(m0, x0, levels)
+    return (torch.minimum(allm[rows_lo], allm[rows_hi]),
+            torch.maximum(allx[rows_lo], allx[rows_hi]))
+
+
 def refit(flat: FlatBvh, shape_min: torch.Tensor,
           shape_max: torch.Tensor) -> FlatBvh:
     """Every node box recomputed from (possibly moved) shape AABBs
@@ -55,15 +75,9 @@ def refit(flat: FlatBvh, shape_min: torch.Tensor,
     m0 = torch.where(is_leaf[:, None], shape_min[sid], inf)
     x0 = torch.where(is_leaf[:, None], shape_max[sid], -inf)
     levels = max(int(n - 1).bit_length(), 0)  # the longest interval is n
-    allm, allx = _sparse_levels(m0, x0, levels)
-
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    ex = flat.exit.to(torch.int64)
-    kcol = 31 - clz32((ex - idx).clamp_min(1))
-    flat_lo = kcol * n + idx
-    flat_hi = kcol * n + torch.clamp_max(ex - (1 << kcol), n - 1)
-    amin = torch.minimum(allm[flat_lo], allm[flat_hi])
-    amax = torch.maximum(allx[flat_lo], allx[flat_hi])
+    _, rows_lo, rows_hi = interval_rows(idx, flat.exit.to(torch.int64), n)
+    amin, amax = interval_join(m0, x0, levels, rows_lo, rows_hi)
     return flat._replace(aabb_min=amin, aabb_max=amax)
 
 

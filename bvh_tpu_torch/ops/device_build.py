@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..bvh.lbvh import build_lbvh, morton_codes
-from ..bvh.refit import _sparse_levels
+from ..bvh.refit import interval_join, interval_rows
 from ..device import resolve_device
 from .cluster import (TIGHT, ChainedScene, TightScene, bilinear_blocks,
                       pack_bgroups)
@@ -452,13 +452,10 @@ def make_refitter(scene: TightScene, device=None):
 
     is_leaf = entry < 0
     leaf_cluster = np.where(is_leaf, (-entry - 1).astype(np.int64), 0)
-    # sparse-table constants: column i covers [i, exit), from level k and
-    # the two windows starting at i and exit - 2^k
-    length = np.maximum(exit_ - np.arange(nn), 1)
-    kcol = np.floor(np.log2(length)).astype(np.int64)
+    # sparse-table constants: column i covers [i, exit)
+    kcol, flat_lo, flat_hi = interval_rows(torch.arange(nn),
+                                           torch.from_numpy(exit_), nn)
     k_max = int(kcol.max())
-    flat_lo = kcol * nn + np.arange(nn)
-    flat_hi = kcol * nn + np.minimum(exit_ - (1 << kcol), nn - 1)
     has_bmat = getattr(scene, "bgroups", None) is not None
 
     def t(x):
@@ -495,12 +492,11 @@ def make_refitter(scene: TightScene, device=None):
         if len(leaf_order) != len(set(leaf_order)):
             raise ValueError("the group tree holds a cluster twice")
         occ = leaf_slot | interior_slot
-        s_lo, s_hi = slot_lo[occ], slot_hi[occ]
-        kseg = np.floor(np.log2(s_hi - s_lo)).astype(np.int64)
+        kseg, gseg_lo, gseg_hi = interval_rows(
+            torch.from_numpy(slot_lo[occ]), torch.from_numpy(slot_hi[occ]),
+            len(leaf_order))
         kseg_max = int(kseg.max())
-        n_ord = len(leaf_order)
-        gseg_lo = t(kseg * n_ord + s_lo)
-        gseg_hi = t(kseg * n_ord + s_hi - (1 << kseg))
+        gseg_lo, gseg_hi = t(gseg_lo), t(gseg_hi)
         kk, gg = np.nonzero(occ)
         rows6 = (7 * kk)[:, None] + np.arange(6)[None, :]
         scat_idx = t((rows6 * Gn + gg[:, None]).reshape(-1))
@@ -543,9 +539,7 @@ def make_refitter(scene: TightScene, device=None):
         # reduction over its DFS interval
         lmin0 = torch.where(is_leaf_t[:, None], cl_min[leaf_cluster_t], _INF)
         lmax0 = torch.where(is_leaf_t[:, None], cl_max[leaf_cluster_t], -_INF)
-        allm, allx = _sparse_levels(lmin0, lmax0, k_max)
-        tmin = torch.minimum(allm[flat_lo_t], allm[flat_hi_t])
-        tmax = torch.maximum(allx[flat_lo_t], allx[flat_hi_t])
+        tmin, tmax = interval_join(lmin0, lmax0, k_max, flat_lo_t, flat_hi_t)
         if nn > nn_logical:
             # shape-bucket pad columns stay as they were (their intervals
             # hold no leaf, so the reduction would invert them)
@@ -557,10 +551,9 @@ def make_refitter(scene: TightScene, device=None):
         if has_bmat:
             out.append(pack_bgroups(bilinear_blocks(av, e1, e2), C_pad, W))
         if has_wide:
-            am, ax = _sparse_levels(cl_min[leaf_order_t], cl_max[leaf_order_t],
-                                    kseg_max)
-            smin = torch.minimum(am[gseg_lo], am[gseg_hi])
-            smax = torch.maximum(ax[gseg_lo], ax[gseg_hi])
+            smin, smax = interval_join(cl_min[leaf_order_t],
+                                       cl_max[leaf_order_t], kseg_max,
+                                       gseg_lo, gseg_hi)
             gn = gn_flat.clone()
             gn[scat_idx] = torch.cat([smin, smax], dim=1).reshape(-1)
             out.append(gn.view(gn_np.shape))

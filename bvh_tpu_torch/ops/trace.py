@@ -63,23 +63,19 @@ def _dev(arr, device: torch.device, layout=None):
     ``device`` (no copy), and its layout is made there, once a tensor (again
     after an in-place change), so that a table made on the card never goes
     through the host."""
-    if torch.is_tensor(arr):
-        if layout is None:
-            return arr.to(device)
-        key = (id(arr), str(device), layout)
-        ent = _DEVICE_TABLE_CACHE.get(key)
-        if ent is not None and ent[0]() is arr and ent[2] == arr._version:
-            return ent[1]
+    tensor = torch.is_tensor(arr)
+    if tensor and layout is None:
+        return arr.to(device)
+    version = arr._version if tensor else None
+    key = (id(arr), str(device), layout)
+    ent = _DEVICE_TABLE_CACHE.get(key)
+    if ent is not None and ent[0]() is arr and ent[2] == version:
+        return ent[1]
+    if tensor:
         ten = layout(arr.to(device)).contiguous()
-        version = arr._version
     else:
-        key = (id(arr), str(device), layout)
-        ent = _DEVICE_TABLE_CACHE.get(key)
-        if ent is not None and ent[0]() is arr:
-            return ent[1]
         host = arr if layout is None else layout(arr)
         ten = torch.as_tensor(np.ascontiguousarray(host)).to(device)
-        version = None
     ref = weakref.ref(arr, lambda _r, k=key, c=_DEVICE_TABLE_CACHE: c.pop(k, None))
     _DEVICE_TABLE_CACHE[key] = (ref, ten, version)
     return ten

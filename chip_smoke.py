@@ -2110,6 +2110,10 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
 # ---- phase 13: dynamic scenes and the visit counters ------------------------
 
 REFIT_FRACS = ((0.01, "1pct"), (0.1, "10pct"), (0.5, "50pct"))
+# the refit precision class: sampled rays (random and aimed together) whose
+# hit mask may flip against brute force at one churn level; 1 of 8,192 was
+# seen on an H100 (PERF.md section 6)
+REFIT_CLASS_MAX = 4
 
 
 def bits_equal(x, y) -> bool:
@@ -2367,11 +2371,14 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         checks[f"{label}_{cell}"] = {"random": rnd, "aimed": aimed}
         if cell == "refit":
             # the refit precision class (rows re-encoded against moved
-            # cluster centres): counted, bounded by the reference's ~1%
+            # cluster centres): grazing hits whose mask flips, counted and
+            # bounded; every ray both hit keeps t within 2e-4
             refit_class[label] = rnd["rays_outside"] + aimed["rays_outside"]
-            check(aimed["mask_agreement"] >= 0.99
-                  and rnd["mask_agreement"] >= 0.99,
-                  f"refit_quality {label}/refit: beyond its precision class")
+            check(refit_class[label] <= REFIT_CLASS_MAX
+                  and rnd["max_rel_t_err"] <= 2e-4
+                  and aimed["max_rel_t_err"] <= 2e-4,
+                  f"refit_quality {label}/refit: beyond its precision "
+                  f"class: {checks[f'{label}_{cell}']}")
         else:
             for leg_, r in (("random", rnd), ("aimed", aimed)):
                 check(r["mask_agreement"] >= 0.9999

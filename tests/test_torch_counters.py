@@ -10,11 +10,21 @@ cursor a packet. Tolerances:
   rows: equal, summed by packet in the given order (a partial last packet
   included); the wrappers' ``t``/``d2`` and lanes equal those without
   counting, bit for bit.
-* Against the reference (its reciprocal made exact): every ray the
-  reference's shared cursor takes into a node or a leaf also takes it in
-  its own walk, under a bound at least as loose, so per packet the
-  reference's node visits (entry/exit walk), group tests (group walk) and
-  leaf fires are at most the port's; the walks' results equal.
+* Against the reference (its reciprocal made exact), on packets whose
+  rays (points) are all one ray (point), where the shared cursor walks
+  what each lane walks: exactly packet x the reference's count, for the
+  entry/exit walk's node visits, the nearest walks' steps and every
+  walk's leaf fires. The reference's group-walk iterations count the
+  entered groups plus one pop per frame of its mask stack, and its group
+  tests one masked test per iteration on top of the root's; on a
+  two-level table (one frame, the root's) a ray's group tests in the port
+  are then exactly the reference's iterations, and the reference's group
+  tests are its iterations + 1.
+* Against the reference on ordinary packets: every ray the reference's
+  shared cursor takes into a node or a leaf also takes it in its own
+  walk, under a bound at least as loose, so per packet the reference's
+  node visits (entry/exit walk), group tests (group walk) and leaf fires
+  are at most the port's.
 * NaN boxes (the empty columns of a device build) never fire in any walk:
   over a delta part with no live triangle every ray tests the root alone
   and fires nothing, the sweep gate stays 0 and no point finds a
@@ -30,6 +40,7 @@ from jax.experimental import pallas as pl
 
 import bvh_tpu
 from bvh_tpu.ops import cluster as cluster_j
+from bvh_tpu.ops.nearest import count_visits_nearest as count_nearest_j
 from bvh_tpu.ops.trace import count_visits_tight as count_tight_j
 from bvh_tpu.ops.trace import count_visits_wide as count_wide_j
 from bvh_tpu_torch import Ray
@@ -236,6 +247,55 @@ def test_counts_bound_the_references(exact_reciprocal):
         ref = np.asarray(ref)
         assert ref.shape == tuple(port.shape) and (ref > 0).all()
         assert (ref <= port.numpy()).all()
+
+
+@pytest.mark.parametrize("walk", ["wide", "tight", "nearest_wide",
+                                  "nearest_tight"])
+def test_counts_equal_the_references_on_uniform_packets(walk,
+                                                        exact_reciprocal):
+    """Packets of one ray (point) repeated: the port's sums are exactly
+    packet x the reference's counts (see the module notes)."""
+    a, b, c = tb.create_n_cubes(60)
+    sj = cluster_j.build_tight_scene(a, b, c)
+    st = build_tight_scene(a, b, c)
+    assert st.gdepth == 2
+    if walk.startswith("nearest"):
+        rng = np.random.default_rng(4)
+        cen = (a + b + c) / np.float32(3)
+        x = np.concatenate([
+            cen[rng.integers(0, len(cen), 6)] + rng.normal(scale=5.0,
+                                                           size=(6, 3)),
+            rng.uniform(-1.2e5, 1.2e5, (2, 3))]).astype(np.float32)
+        pts = np.repeat(x, PACKET, axis=0)
+        wide = walk == "nearest_wide"
+        ref = count_nearest_j(sj, pts, packet=PACKET, interpret=True,
+                              wide=wide)
+        port = count_visits_nearest(st, pts, packet=PACKET, wide=wide,
+                                    device=CPU)
+        pairs = list(zip(ref, port))
+    else:
+        o1, d1 = tb.aimed_rays(a, 8, seed=6)
+        o2, d2 = tb.create_rays(4, seed=tb.seed_state_after(3))
+        o = np.repeat(np.concatenate([o1, o2]), PACKET, axis=0)
+        d = np.repeat(np.concatenate([d1, d2]), PACKET, axis=0)
+        rj = bvh_tpu.Ray.create(jnp.asarray(o), jnp.asarray(d))
+        rt = Ray.create(o, d, device=CPU)
+        if walk == "wide":
+            it_j, f_j, g_j = (np.asarray(x) for x in count_wide_j(
+                sj, rj, packet=PACKET, interpret=True))
+            _, f_p, g_p = count_visits_wide(st, rt, packet=PACKET,
+                                            device=CPU)
+            assert np.array_equal(g_j, it_j + 1)
+            pairs = [(it_j, g_p), (f_j, f_p)]
+        else:
+            pairs = list(zip(count_tight_j(sj, rj, packet=PACKET,
+                                           interpret=True),
+                             count_visits_tight(st, rt, packet=PACKET,
+                                                device=CPU)))
+    for ref, got in pairs:
+        ref = np.asarray(ref)
+        assert ref.shape == tuple(got.shape) and (ref > 0).all()
+        assert np.array_equal(PACKET * ref, got.numpy())
 
 
 def test_nan_boxes_never_fire():
