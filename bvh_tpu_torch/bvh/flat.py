@@ -41,6 +41,25 @@ class FlatBvh(NamedTuple):
     def num_nodes(self) -> int:
         return self.entry.shape[0]
 
+    @property
+    def num_shapes(self) -> int:
+        return (self.num_nodes + 1) // 2
+
+    @property
+    def ndim_space(self) -> int:
+        return self.aabb_min.shape[-1]
+
+    def is_leaf(self):
+        return self.entry == LEAF
+
+    def right_child(self):
+        """The right child of each internal node i, exit[i + 1] (DFS
+        layout), as the arrays' type; leaves give exit[0]."""
+        hi = max(self.num_nodes - 1, 0)
+        if torch.is_tensor(self.entry):
+            return self.exit[self.entry.clamp(0, hi).long()]
+        return np.asarray(self.exit)[np.clip(np.asarray(self.entry), 0, hi)]
+
     def to_device(self, dtype=None, device=None) -> "FlatBvh":
         """The node arrays as tensors on ``device`` (None: the card);
         ``dtype`` converts the float fields."""
@@ -64,3 +83,26 @@ class FlatBvh(NamedTuple):
         z = np.zeros((0, d), dtype)
         zi = np.zeros((0,), np.int32)
         return FlatBvh(z, z, zi, zi, zi, zi)
+
+    def pretty_print(self, max_nodes: int = 64) -> str:
+        """An indented dump of the tree, at most ``max_nodes`` lines."""
+        h = self.to_host()
+        n = h.num_nodes
+        lines: list[str] = []
+
+        def rec(i: int, depth: int):
+            if i >= n or len(lines) >= max_nodes:
+                return
+            pad = "  " * depth
+            if h.entry[i] == LEAF:
+                lines.append(f"{pad}shape\t{h.shape[i]}")
+            else:
+                left = h.entry[i]
+                lines.append(f"{pad}{np.round(h.aabb_min[i], 3)} "
+                             f"{np.round(h.aabb_max[i], 3)}")
+                rec(left, depth + 1)
+                rec(h.exit[left], depth + 1)
+
+        if n:
+            rec(0, 0)
+        return "\n".join(lines)

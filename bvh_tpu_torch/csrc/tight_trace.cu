@@ -72,13 +72,18 @@
 // result, which is the timed build's bit for bit. The timed build is
 // compiled without the counters.
 //
+// The FRAME build (FRAME true, chosen by the wrapper when the scene carries
+// a_lo: device builds with wide=False, LBVH builds, refits) tests leaves in
+// the exact cluster frame (trace_common.cuh, warp_leaves); a_lo is the
+// kernel's last parameter, so the builds without FRAME keep their code.
+//
 // Numerics: see trace_common.cuh.
 
 #include "trace_common.cuh"
 
 namespace {
 
-template <int W, bool COUNT>
+template <int W, bool COUNT, bool FRAME>
 __global__ void __launch_bounds__(128)
     tight_trace_kernel(const float4* __restrict__ recs, int nn, int packed,
                        const float* __restrict__ groups, int mode,
@@ -87,7 +92,8 @@ __global__ void __launch_bounds__(128)
                        const int* __restrict__ gate, int packet,
                        float* __restrict__ t_out, int* __restrict__ id_out,
                        int* __restrict__ visits_out,
-                       int* __restrict__ fires_out) {
+                       int* __restrict__ fires_out,
+                       const float* __restrict__ a_lo) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = i - lane;  // the warp's first ray
@@ -105,7 +111,7 @@ __global__ void __launch_bounds__(128)
   if (hints != nullptr && hints[(size_t)pkt * n_hints] >= 0) {
     const int* h = hints + (size_t)pkt * n_hints;
     int j = 0;
-    warp_leaves<W>(r, groups, mode, lane,
+    warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
                    [&](int& c, float& ccx, float& ccy, float& ccz) {
                      if (!valid || j == n_hints) return false;
                      const Node nd = read_node(recs, packed, h[j++]);
@@ -129,7 +135,7 @@ __global__ void __launch_bounds__(128)
     }
     if (walking) cursor = (leaf || !fired) ? (int)nd.exit_ : (int)nd.entry;
     bool fired_leaf = leaf && fired;  // the lane's leaf to test this step
-    warp_leaves<W>(r, groups, mode, lane,
+    warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
                    [&](int& c, float& ccx, float& ccy, float& ccz) {
                      if (!fired_leaf) return false;
                      fired_leaf = false;
@@ -148,23 +154,33 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+template <int W, bool COUNT, bool FRAME>
+void run(int grid, int block, cudaStream_t stream, const float4* recs, int nn,
+         int packed, const float* groups, int mode, const float* rays, int n,
+         const int* hints, int n_hints, const int* gate, int packet,
+         float* t_out, int* id_out, int* visits_out, int* fires_out,
+         const float* a_lo) {
+  tight_trace_kernel<W, COUNT, FRAME><<<grid, block, 0, stream>>>(
+      recs, nn, packed, groups, mode, rays, n, hints, n_hints, gate, packet,
+      t_out, id_out, visits_out, fires_out, a_lo);
+}
+
 template <int W>
 int launch(const float* recs, int nn, int packed, const float* groups,
            int mode, const float* rays, int n, const int* hints, int n_hints,
            const int* gate, int packet, float* t_out, int* id_out,
-           int* visits_out, int* fires_out, cudaStream_t stream) {
+           int* visits_out, int* fires_out, const float* a_lo,
+           cudaStream_t stream) {
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  const float4* r4 = reinterpret_cast<const float4*>(recs);
-  if (visits_out != nullptr) {
-    tight_trace_kernel<W, true><<<grid, block, 0, stream>>>(
-        r4, nn, packed, groups, mode, rays, n, hints, n_hints, gate, packet,
-        t_out, id_out, visits_out, fires_out);
-  } else {
-    tight_trace_kernel<W, false><<<grid, block, 0, stream>>>(
-        r4, nn, packed, groups, mode, rays, n, hints, n_hints, gate, packet,
-        t_out, id_out, visits_out, fires_out);
-  }
+  // the build: counting or timed, in the exact cluster frame or not
+  const bool frame = a_lo != nullptr;
+  const auto fn = visits_out != nullptr
+                      ? (frame ? &run<W, true, true> : &run<W, true, false>)
+                      : (frame ? &run<W, false, true> : &run<W, false, false>);
+  fn(grid, block, stream, reinterpret_cast<const float4*>(recs), nn, packed,
+     groups, mode, rays, n, hints, n_hints, gate, packet, t_out, id_out,
+     visits_out, fires_out, a_lo);
   return (int)cudaGetLastError();
 }
 
@@ -176,33 +192,34 @@ extern "C" int tight_trace_rec_floats() { return NODE_REC; }
 
 // recs: the node-major table [nn, NODE_REC] (ops/sweep.py::node_records);
 // visits_out and fires_out: null (the timed build), or each ray's node
-// visits and leaf fires [n] (the counting build).
+// visits and leaf fires [n] (the counting build); a_lo: null, or the
+// scene's exact-frame table [G, 3, 128] (the FRAME build).
 extern "C" int tight_trace_launch(const float* recs, int nn, int packed,
                                   const float* groups, int width,
                                   const float* rays, int n, const int* hints,
                                   int n_hints, const int* gate, int packet,
                                   int mode, float* t_out, int* id_out,
                                   int* visits_out, int* fires_out,
-                                  void* stream) {
+                                  const float* a_lo, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch<16>(recs, nn, packed, groups, mode, rays, n, hints,
                         n_hints, gate, packet, t_out, id_out, visits_out,
-                        fires_out, st);
+                        fires_out, a_lo, st);
     case 32:
       return launch<32>(recs, nn, packed, groups, mode, rays, n, hints,
                         n_hints, gate, packet, t_out, id_out, visits_out,
-                        fires_out, st);
+                        fires_out, a_lo, st);
     case 64:
       return launch<64>(recs, nn, packed, groups, mode, rays, n, hints,
                         n_hints, gate, packet, t_out, id_out, visits_out,
-                        fires_out, st);
+                        fires_out, a_lo, st);
     case 128:
       return launch<128>(recs, nn, packed, groups, mode, rays, n, hints,
                          n_hints, gate, packet, t_out, id_out, visits_out,
-                         fires_out, st);
+                         fires_out, a_lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -232,11 +232,28 @@ __device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
   return key;
 }
 
+// The rounding error of x - y: hi + lo == x - y exactly, with hi the
+// rounded difference (Knuth's TwoSum of x and -y; the order of
+// ops/cluster_trace.py::two_diff and of cluster_trace.cu).
+__device__ __forceinline__ float two_diff_lo(float x, float y) {
+  const float hi = x - y;
+  const float bv = hi - x;
+  const float av = hi - bv;
+  return (x - av) - (y + bv);
+}
+
 // The rows of cluster c in groups [G, 16, 128]: lanes (c mod 128/W)*W + j.
 __device__ __forceinline__ const float* cluster_tile(
     const float* __restrict__ groups, int W, int c) {
   const int per_row = 128 / W;
   return groups + (size_t)(c / per_row) * 16 * 128 + (c % per_row) * W;
+}
+
+// Cluster c's lanes in a_lo [G, 3, 128] (the layout of groups' a' rows).
+__device__ __forceinline__ const float* cluster_tile3(
+    const float* __restrict__ a_lo, int W, int c) {
+  const int per_row = 128 / W;
+  return a_lo + (size_t)(c / per_row) * 3 * 128 + (c % per_row) * W;
 }
 
 // Folds cluster c's smallest key km into the ray: it replaces the best key
@@ -269,9 +286,19 @@ __device__ __forceinline__ void fold_key(RayState& r, int km, int c, int W,
 // test uses), the key minimum is taken over the SPAN lanes, and the owner
 // folds it. A lane's leaves are folded in its own order, so the result is
 // that of testing them one by one in the lane, bit for bit.
-template <int W, typename Next>
+//
+// FRAME (scenes that carry a_lo [G, 3, 128], laid out as the a' rows of
+// groups: device builds, their refits and update deltas, whose Morton
+// clusters may lie ~1e5 from their frame origin): the exact cluster frame of
+// the legacy walk. The owner also broadcasts the rounding error lo of
+// o - cc (two_diff), and each lane forms tv = ((o' - a') + lo) - a_lo from
+// its triangle's a_lo, the part of a - cc that the stored a' leaves out. A
+// build without FRAME reads no a_lo and compiles to the code it had before
+// the flag.
+template <int W, bool FRAME, typename Next>
 __device__ __forceinline__ void warp_leaves(RayState& r,
                                             const float* __restrict__ groups,
+                                            const float* __restrict__ a_lo,
                                             int mode, int lane, Next next) {
   constexpr int SPAN = W < 32 ? W : 32;  // lanes per pair
   constexpr int TPL = W / SPAN;          // triangles per lane
@@ -296,14 +323,26 @@ __device__ __forceinline__ void warp_leaves(RayState& r,
     const float Dx = __shfl_sync(FULL, r.dx, src),
                 Dy = __shfl_sync(FULL, r.dy, src),
                 Dz = __shfl_sync(FULL, r.dz, src);
+    float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;
+    if (FRAME) {
+      Lx = __shfl_sync(FULL, two_diff_lo(r.ox, ccx), src);
+      Ly = __shfl_sync(FULL, two_diff_lo(r.oy, ccy), src);
+      Lz = __shfl_sync(FULL, two_diff_lo(r.oz, ccz), src);
+    }
     const float* tile = cluster_tile(groups, W, C);
     int k = SENT;
 #pragma unroll
     for (int s = 0; s < TPL; ++s) {
       const int j = j0 + SPAN * s;
       const Tri t = load_tri(tile, j);
-      const int key =
-          tri_key(t, Ox - t.a0, Oy - t.a1, Oz - t.a2, Dx, Dy, Dz, W, j, SENT);
+      float tvx = Ox - t.a0, tvy = Oy - t.a1, tvz = Oz - t.a2;
+      if (FRAME) {
+        const float* al = cluster_tile3(a_lo, W, C) + j;
+        tvx = (tvx + Lx) - __ldg(al);
+        tvy = (tvy + Ly) - __ldg(al + 128);
+        tvz = (tvz + Lz) - __ldg(al + 2 * 128);
+      }
+      const int key = tri_key(t, tvx, tvy, tvz, Dx, Dy, Dz, W, j, SENT);
       k = key < k ? key : k;
     }
     if (SPAN == 32) {

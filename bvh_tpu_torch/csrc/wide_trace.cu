@@ -68,6 +68,11 @@
 // slots, hinted leaves not counted) beside its result, which is the timed
 // build's bit for bit. The timed build is compiled without the counters.
 //
+// The FRAME build (FRAME true, chosen by the wrapper when the scene carries
+// a_lo: device builds, refits and update deltas) tests leaves in the exact
+// cluster frame (trace_common.cuh, warp_leaves); a_lo is the kernel's last
+// parameter, so the builds without FRAME keep their code.
+//
 // Numerics: see trace_common.cuh; payloads and the leaf mask are float
 // VALUES and convert with (int).
 
@@ -112,7 +117,7 @@ __device__ __forceinline__ void leaf_slot(const float* __restrict__ rec,
   c = (int)(-__ldg(rec + PAY + k) - 1.0f);
 }
 
-template <int W, bool SUBTREE, bool COUNT>
+template <int W, bool SUBTREE, bool COUNT, bool FRAME>
 __global__ void __launch_bounds__(128)
     wide_trace_kernel(const float* __restrict__ recs,
                       const float* __restrict__ groups, int mode,
@@ -122,7 +127,8 @@ __global__ void __launch_bounds__(128)
                       const int* __restrict__ start_g, int packet,
                       float* __restrict__ t_out, int* __restrict__ id_out,
                       int* __restrict__ tests_out,
-                      int* __restrict__ fires_out) {
+                      int* __restrict__ fires_out,
+                      const float* __restrict__ a_lo) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = i - lane;  // the warp's first ray
@@ -140,7 +146,7 @@ __global__ void __launch_bounds__(128)
   if (hints != nullptr && hints[(size_t)pkt * n_hints] >= 0) {
     const int* h = hints + (size_t)pkt * n_hints;
     int j = 0;
-    warp_leaves<W>(r, groups, mode, lane,
+    warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
                    [&](int& c, float& ccx, float& ccy, float& ccz) {
                      if (!valid || j == n_hints) return false;
                      const int slot = h[j++];
@@ -177,7 +183,7 @@ __global__ void __launch_bounds__(128)
     }
     // the fired leaves, lowest slot first, tested by the whole warp
     int lm = m & lmask;
-    warp_leaves<W>(r, groups, mode, lane,
+    warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
                    [&](int& c, float& ccx, float& ccy, float& ccz) {
                      if (lm == 0) return false;
                      const int k = __ffs(lm) - 1;
@@ -241,33 +247,40 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int W, bool SUBTREE, bool COUNT>
+template <int W, bool SUBTREE, bool COUNT, bool FRAME>
 void run(int grid, int block, cudaStream_t stream, const float* recs,
          const float* groups, int mode, const float* rays, int n,
          const int* hints, int n_hints, const int* gate, const int* start_g,
          int packet, float* t_out, int* id_out, int* tests_out,
-         int* fires_out) {
-  wide_trace_kernel<W, SUBTREE, COUNT><<<grid, block, 0, stream>>>(
+         int* fires_out, const float* a_lo) {
+  wide_trace_kernel<W, SUBTREE, COUNT, FRAME><<<grid, block, 0, stream>>>(
       recs, groups, mode, rays, n, hints, n_hints, gate, start_g, packet,
-      t_out, id_out, tests_out, fires_out);
+      t_out, id_out, tests_out, fires_out, a_lo);
+}
+
+template <int W, bool SUBTREE, bool COUNT>
+decltype(&run<W, false, false, false>) pick_frame(bool frame) {
+  return frame ? &run<W, SUBTREE, COUNT, true> : &run<W, SUBTREE, COUNT, false>;
 }
 
 template <int W>
 int launch(const float* recs, const float* groups, int mode,
            const float* rays, int n, const int* hints, int n_hints,
            const int* gate, const int* start_g, int packet, float* t_out,
-           int* id_out, int* tests_out, int* fires_out, cudaStream_t stream) {
+           int* id_out, int* tests_out, int* fires_out, const float* a_lo,
+           cudaStream_t stream) {
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  // the build: with subtree entries or not, counting or timed
-  using Run = decltype(&run<W, false, false>);
-  const Run fn = start_g != nullptr
-                     ? (tests_out != nullptr ? &run<W, true, true>
-                                             : &run<W, true, false>)
-                     : (tests_out != nullptr ? &run<W, false, true>
-                                             : &run<W, false, false>);
+  // the build: with subtree entries or not, counting or timed, in the exact
+  // cluster frame or not
+  const bool frame = a_lo != nullptr;
+  const auto fn = start_g != nullptr
+                      ? (tests_out != nullptr ? pick_frame<W, true, true>(frame)
+                                              : pick_frame<W, true, false>(frame))
+                      : (tests_out != nullptr ? pick_frame<W, false, true>(frame)
+                                              : pick_frame<W, false, false>(frame));
   fn(grid, block, stream, recs, groups, mode, rays, n, hints, n_hints, gate,
-     start_g, packet, t_out, id_out, tests_out, fires_out);
+     start_g, packet, t_out, id_out, tests_out, fires_out, a_lo);
   return (int)cudaGetLastError();
 }
 
@@ -280,33 +293,34 @@ extern "C" int wide_trace_rec_floats() { return REC; }
 // recs: the group-major table [Gn, REC] (ops/wide.py::group_records);
 // start_g: null, or the packets' subtree entries [p, 2] (closest and
 // bounded modes); tests_out and fires_out: null (the timed build), or each
-// ray's group tests and leaf fires [n] (the counting build).
+// ray's group tests and leaf fires [n] (the counting build); a_lo: null, or
+// the scene's exact-frame table [G, 3, 128] (the FRAME build).
 extern "C" int wide_trace_launch(const float* recs, const float* groups,
                                  int width, const float* rays, int n,
                                  const int* hints, int n_hints,
                                  const int* gate, const int* start_g,
                                  int packet, int mode, float* t_out,
                                  int* id_out, int* tests_out, int* fires_out,
-                                 void* stream) {
+                                 const float* a_lo, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch<16>(recs, groups, mode, rays, n, hints, n_hints, gate,
                         start_g, packet, t_out, id_out, tests_out, fires_out,
-                        st);
+                        a_lo, st);
     case 32:
       return launch<32>(recs, groups, mode, rays, n, hints, n_hints, gate,
                         start_g, packet, t_out, id_out, tests_out, fires_out,
-                        st);
+                        a_lo, st);
     case 64:
       return launch<64>(recs, groups, mode, rays, n, hints, n_hints, gate,
                         start_g, packet, t_out, id_out, tests_out, fires_out,
-                        st);
+                        a_lo, st);
     case 128:
       return launch<128>(recs, groups, mode, rays, n, hints, n_hints, gate,
                          start_g, packet, t_out, id_out, tests_out,
-                         fires_out, st);
+                         fires_out, a_lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

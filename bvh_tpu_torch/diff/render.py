@@ -1,22 +1,56 @@
-"""Differentiable closest-hit rendering over a ``TightScene``.
+"""Differentiable closest-hit rendering over a ``FlatBvh`` or a
+``TightScene``.
 
-Counterpart of ``bvh_tpu/diff/render.py::render_hits_fast`` and
-``render_depth_fast``. The walk only picks which triangle each ray hits, so
-it runs without gradients (``ops/trace.py::trace_closest_hit_tight``, the
-card's kernels); the hit's (t, u, v) is then recomputed on the winning
-triangle with Moller-Trumbore in plain tensor operations, and autograd
-differentiates that: gradients hold the hit topology fixed, the usual
-convention away from visibility edges. No backward kernel is needed; the
-backward of the winner gather is a scatter-add into the vertex tables.
+Counterpart of ``bvh_tpu/diff/render.py``: ``render_hits`` and
+``render_depth`` walk the general path (``bvh/traverse.py::
+closest_hit_triangles``), ``render_hits_fast`` and ``render_depth_fast``
+the card's kernels (``ops/trace.py::trace_closest_hit_tight``). The walk
+only picks which triangle each ray hits, so it runs without gradients; the
+hit's (t, u, v) is then recomputed on the winning triangle with
+Moller-Trumbore in plain tensor operations, and autograd differentiates
+that: gradients hold the hit topology fixed, the usual convention away
+from visibility edges. No backward kernel is needed; the backward of the
+winner gather is a scatter-add into the vertex tables.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..bvh.traverse import HitRecord
+from ..bvh.flat import FlatBvh
+from ..bvh.traverse import HitRecord, closest_hit_triangles
 from ..ops.trace import trace_closest_hit_tight
 from ..ray import Ray, ray_intersects_triangle
+
+
+def render_hits(flat: FlatBvh, rays: Ray, tri_a, tri_b, tri_c) -> HitRecord:
+    """The closest hit over ``flat`` (built over the triangles' boxes)
+    with ``t``, ``u`` and ``v`` differentiable with respect to the vertex
+    tables ``tri_*`` [n_tris, 3] and the rays; ``shape_id`` carries no
+    gradient. The walk runs on detached copies in the inputs' dtype and on
+    their device; a miss has ``t`` = +inf, ``u`` = ``v`` = 0 and gives no
+    gradient."""
+    with torch.no_grad():
+        hard = closest_hit_triangles(flat, Ray(*(x.detach() for x in rays)),
+                                     tri_a.detach(), tri_b.detach(),
+                                     tri_c.detach())
+    sid = hard.shape_id
+    g9 = torch.cat([tri_a, tri_b, tri_c], dim=1)[sid.clamp_min(0).long()]
+    inter = ray_intersects_triangle(rays, g9[:, 0:3], g9[:, 3:6], g9[:, 6:9])
+    hit = sid >= 0
+    inf = torch.full_like(inter.distance, float("inf"))
+    return HitRecord(torch.where(hit, inter.distance, inf),
+                     torch.where(hit, inter.u, 0.0),
+                     torch.where(hit, inter.v, 0.0), sid)
+
+
+def render_depth(flat: FlatBvh, rays: Ray, tri_a, tri_b, tri_c,
+                 background: float = 0.0):
+    """Depth image ``(depth, hit)``: the hit distance, ``background`` on a
+    miss, differentiable as in ``render_hits``."""
+    h = render_hits(flat, rays, tri_a, tri_b, tri_c)
+    hit = h.shape_id >= 0
+    return torch.where(hit, h.t, background), hit
 
 
 def render_hits_fast(scene, rays: Ray, tri_a, tri_b, tri_c, packet: int = 2048,

@@ -4,7 +4,7 @@ updates on the device, the coherence sorts, and the hand-written CUDA
 kernels (group walk, entry/exit walk, sweep gate, legacy cluster walk, the
 two nearest walks) with their plain PyTorch versions and counting builds
 (the visit counters), and the seeders and subtree-entry planners of the
-group walk.
+group walk, and the scene validators.
 The legacy walk's wrapper is ``ops.cluster_trace.cluster_trace``: the
 module keeps the name, so the package does not re-export the function."""
 
@@ -29,12 +29,14 @@ from .trace import (compute_seed_hints, count_visits_tight,
                     trace_closest_hit, trace_closest_hit_chained,
                     trace_closest_hit_seeded, trace_closest_hit_tight)
 from .update import make_chained_updater, make_updater
+from .validate_scene import assert_tight_scene, check_tight_scene
 from .wide import wide_trace, wide_trace_plain
 
 __all__ = [
     "ChainedScene",
     "ClusterScene",
     "TightScene",
+    "assert_tight_scene",
     "build_chained_scene",
     "build_chained_scene_device",
     "build_cluster_scene",
@@ -42,6 +44,7 @@ __all__ = [
     "build_tight_scene_device",
     "build_wide_table",
     "chained_scene_from_parts",
+    "check_tight_scene",
     "cluster_scene_from_arrays",
     "collapse_upper",
     "compute_seed_hints",

@@ -41,9 +41,19 @@ CLUSTER_VERSION = 1  # newest ``__version__`` of a saved ClusterScene understood
 
 
 class TightScene(NamedTuple):
-    """Host tables of a scene for the tight-cluster trace (numpy).
+    """Tables of a scene for the tight-cluster trace: numpy (host builds)
+    or tensors (device builds, refits, updates).
 
-    Same fields as the reference's ``TightScene``.
+    The reference's ``TightScene`` fields, then ``a_lo``, the port's own:
+    None, or [G, 3, 128] float32 laid out as the a' rows of ``groups``,
+    the part of each triangle's ``a - cc`` that the stored ``a'`` (rounded
+    to float32) leaves out (0 in pad lanes). The device builds, their
+    refits and the updaters' delta parts write it, because their Morton
+    clusters may lie up to ~1e5 from the frame origin cc, where ``a'`` and
+    ``o - cc`` round at ~0.004 of a unit; the trace walks then test leaves
+    in the exact cluster frame (``ops/wide.py::narrow_keys``'s ``frame``,
+    the kernels' FRAME builds). Host builds keep their leaf boxes a few
+    units around their triangles and carry None.
     """
 
     smem_nodes: np.ndarray  # [8, Nn] f32: amin(3), amax(3), entry, exit
@@ -59,6 +69,7 @@ class TightScene(NamedTuple):
     gslot: np.ndarray | None = None  # [C] i32 cluster -> g*K + k
     gdepth: int = 0  # wide-tree group-stack depth
     masked: bool = False  # lanes masked out after build
+    a_lo: np.ndarray | None = None  # [G, 3, 128] f32: (a - cc) - a'
 
     @property
     def num_tris(self) -> int:

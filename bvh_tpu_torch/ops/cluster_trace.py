@@ -59,7 +59,7 @@ import torch
 
 from ._build import load_cuda_library
 from .sweep import check_nodes
-from .wide import narrow_keys
+from .wide import narrow_keys, two_diff
 
 CW = 128  # triangles per cluster
 LEGACY_SENT = 0x7F000000  # the legacy kernel's "no hit" key
@@ -77,16 +77,6 @@ _INF = float("inf")
 launches = 0  # kernel launches, counted in ``cluster_trace``
 
 
-def two_diff(o, cc):
-    """``o - cc`` as a float pair ``(hi, lo)``: ``hi`` the rounded
-    difference and ``lo`` its rounding error, so that ``hi + lo == o - cc``
-    exactly (Knuth's TwoSum of ``o`` and ``-cc``; the kernel's order)."""
-    hi = o - cc
-    bv = hi - o
-    av = hi - bv
-    return hi, (o - av) - (cc + bv)
-
-
 @functools.cache
 def load() -> ctypes.CDLL:
     """Builds (first call) and loads ``csrc/cluster_trace.cu``."""
@@ -102,9 +92,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def check_f32(rays) -> None:
+    """Refuses rays that are not float32: the trace kernels and their plain
+    versions work in float32, and a float64 ray is not cast silently (the
+    general path, ``bvh/traverse.py``, takes float64)."""
+    if rays.origin.dtype != torch.float32:
+        raise ValueError(f"the trace kernels take float32 rays, got "
+                         f"{rays.origin.dtype} (use bvh.traverse for float64)")
+
+
 def ray_rows(rays) -> torch.Tensor:
     """The legacy kernel's ray rows [9, n] of a ``Ray``: inv (unclamped), d,
-    o."""
+    o; float32 rays only."""
+    check_f32(rays)
     o, d, inv = rays
     return torch.stack([*inv.unbind(1), *d.unbind(1), *o.unbind(1)])
 

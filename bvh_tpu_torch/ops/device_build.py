@@ -228,8 +228,11 @@ def _grid_upper(cl_min: torch.Tensor, cl_max: torch.Tensor, fanout: int = 16,
 def _build_core(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                 width: int = TIGHT, upper: str = "grid", bmat: bool = False,
                 valid_in: torch.Tensor | None = None, wide: bool = False):
-    """The tables of a device build: ``(smem_nodes, groups, tri_map[,
-    bgroups][, gnodes])`` on the vertices' device.
+    """The tables of a device build: ``(smem_nodes, groups, tri_map, a_lo,
+    bgroups, gnodes)`` on the vertices' device (``bgroups`` None without
+    ``bmat``, ``gnodes`` None without ``wide``). ``a_lo`` is the scene's
+    exact-frame table (``TightScene.a_lo``): a Morton cluster may span
+    distant triangles, so its frame origin lies up to ~1e5 from them.
 
     ``valid_in``: optional [n] bool; triangles marked False are left out
     (they sort last, their lanes are degenerate and their ``tri_map``
@@ -297,27 +300,44 @@ def _build_core(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
     # group rows: cluster-relative a', e1, e2 (padding lanes degenerate)
     ccl = cc.repeat_interleave(W, dim=0)
-    av = torch.where(v3, a_s - ccl, 0.0)
+    av, a_lo = _rel_rows(a_s, ccl, v3)
     e1 = torch.where(v3, b_s - a_s, 0.0)
     e2 = torch.where(v3, c_s - a_s, 0.0)
-    rows = torch.zeros((G * 128, 16), dtype=torch.float32, device=dev)
-    rows[:n_pad, 0:3] = av
-    rows[:n_pad, 3:6] = e1
-    rows[:n_pad, 6:9] = e2
-    groups = rows.view(G, 128, 16).permute(0, 2, 1).contiguous()
+    groups, a_lo = _group_rows(G, av, e1, e2, a_lo)
     tri_map = torch.full((G * 128,), -1, dtype=torch.int32, device=dev)
     tri_map[:n_pad] = order_p.to(torch.int32)
-    out = [smem_nodes, groups, tri_map]
+    bgroups = None
     if bmat:
         C_pad = G * (128 // W)
         pad_l = C_pad * W - n_pad
         if pad_l:
             z = torch.zeros((pad_l, 3), dtype=torch.float32, device=dev)
             av, e1, e2 = (torch.cat([x, z]) for x in (av, e1, e2))
-        out.append(pack_bgroups(bilinear_blocks(av, e1, e2), C_pad, W))
-    if gnodes is not None:
-        out.append(gnodes)
-    return tuple(out)
+        bgroups = pack_bgroups(bilinear_blocks(av, e1, e2), C_pad, W)
+    return smem_nodes, groups, tri_map, a_lo, bgroups, gnodes
+
+
+def _rel_rows(a_l: torch.Tensor, ccl: torch.Tensor, valid: torch.Tensor):
+    """The rows ``a' = a - cc`` (float32) and their exact-frame remainder
+    ``a_lo = (a - cc) - a'`` (computed in float64, rounded once to
+    float32), 0 where ``valid`` [lanes, 1] is False."""
+    av = torch.where(valid, a_l - ccl, 0.0)
+    a_lo = (a_l.double() - ccl.double()) - av.double()
+    return av, torch.where(valid, a_lo.float(), 0.0)
+
+
+def _group_rows(G: int, av, e1, e2, a_lo):
+    """``groups [G, 16, 128]`` from the lanes' rows a', e1, e2 and
+    ``a_lo`` as [G, 3, 128] (lanes past the rows' end: 0)."""
+    n = av.shape[0]
+    rows = torch.zeros((G * 128, 16), dtype=torch.float32, device=av.device)
+    rows[:n, 0:3] = av
+    rows[:n, 3:6] = e1
+    rows[:n, 6:9] = e2
+    lo = torch.zeros((G * 128, 3), dtype=torch.float32, device=av.device)
+    lo[:n] = a_lo
+    return (rows.view(G, 128, 16).permute(0, 2, 1).contiguous(),
+            lo.view(G, 128, 3).permute(0, 2, 1).contiguous())
 
 
 def _vertices(a, b, c, dev):
@@ -355,16 +375,16 @@ def build_tight_scene_device(a, b, c, width: int = TIGHT, upper: str = "grid",
     bmat = bool(bmat)
     C = -(-n // width)
     wide = upper == "grid" and not bmat and _grid_wide_ok(C)
-    out = _build_core(a, b, c, width, upper, bmat, wide=wide)
-    gnodes = gslot = None
+    smem_nodes, groups, tri_map, a_lo, bgroups, gnodes = _build_core(
+        a, b, c, width, upper, bmat, wide=wide)
+    gslot = None
     gdepth = 0
     if wide:
-        gnodes = out[-1]
         _, _, _, gslot_np, gdepth = _grid_wide_meta(C)
         gslot = _dev(gslot_np, dev)
-    return TightScene(out[0], out[1], out[2], C, _num_nodes(C, upper), width,
-                      out[3] if bmat else None, gnodes=gnodes, gslot=gslot,
-                      gdepth=gdepth)
+    return TightScene(smem_nodes, groups, tri_map, C, _num_nodes(C, upper),
+                      width, bgroups, gnodes=gnodes, gslot=gslot,
+                      gdepth=gdepth, a_lo=a_lo)
 
 
 def build_chained_scene_device(a, b, c, max_part: int = 200_000,
@@ -404,11 +424,11 @@ def build_chained_scene_device(a, b, c, max_part: int = 200_000,
     for p in range(P):
         sel = order_p[p * sz:(p + 1) * sz]
         safe = sel.clamp_min(0).to(torch.int64)
-        out = _build_core(a[safe], b[safe], c[safe], width, upper, False,
-                          valid_in=sel >= 0, wide=wide)
-        parts.append(TightScene(out[0], out[1], out[2], C, nn, width,
-                                gnodes=out[-1] if wide else None,
-                                gslot=gslot, gdepth=gdepth))
+        sn, grp, tm, a_lo, _, gn = _build_core(a[safe], b[safe], c[safe],
+                                               width, upper, False,
+                                               valid_in=sel >= 0, wide=wide)
+        parts.append(TightScene(sn, grp, tm, C, nn, width, gnodes=gn,
+                                gslot=gslot, gdepth=gdepth, a_lo=a_lo))
         ids.append(sel)
     return ChainedScene(tuple(parts), tuple(ids))
 
@@ -428,14 +448,15 @@ def make_refitter(scene: TightScene, device=None):
     drops ``sweep_nodes`` (its boxes would be stale) and ``packed_nodes``
     (no device bf16 rounding), as the reference does; it keeps ``bgroups``
     in step where the scene has them. ``refit.core(a, b, c)`` returns the
-    tables alone.
+    tables alone: ``(smem_nodes, groups, a_lo, bgroups, gnodes)``, None for
+    a table the scene does not carry.
 
-    Precision class: the rows are re-encoded against the refit cluster
+    Exact frame: the rows are re-encoded against the refit cluster
     centres; where churn drags a cluster's box (its members moved apart),
-    the frame shift a - cc grows, and with it the leaf test's rounding, so
-    a few grazing hits may differ from a fresh build's (the reference's
-    documented class). ``ops/update.py::make_updater`` never re-encodes
-    its static rows.
+    the frame shift a - cc grows to ~1e5, where ``a'`` and ``o - cc``
+    round at ~0.004 of a unit. The refit scene therefore carries ``a_lo``
+    (``TightScene.a_lo``), and the walks test its leaves in the exact
+    cluster frame.
     """
     dev = resolve_device(device)
     sn = _np(scene.smem_nodes)
@@ -526,14 +547,10 @@ def make_refitter(scene: TightScene, device=None):
 
         # group rows, cluster-relative to the refit centres
         ccl = cc.repeat_interleave(W, dim=0)
-        av = torch.where(valid_t, a_l - ccl, 0.0)
+        av, a_lo = _rel_rows(a_l, ccl, valid_t)
         e1 = torch.where(valid_t, b_l - a_l, 0.0)
         e2 = torch.where(valid_t, c_l - a_l, 0.0)
-        rows = torch.zeros((n_lanes, 16), dtype=torch.float32, device=dev)
-        rows[:, 0:3] = av
-        rows[:, 3:6] = e1
-        rows[:, 6:9] = e2
-        groups = rows.view(G, 128, 16).permute(0, 2, 1).contiguous()
+        groups, a_lo = _group_rows(G, av, e1, e2, a_lo)
 
         # upper boxes: a leaf takes its cluster's box, an internal node the
         # reduction over its DFS interval
@@ -547,25 +564,25 @@ def make_refitter(scene: TightScene, device=None):
             tmax = torch.where(pad_col, pad_max, tmax)
         smem_nodes = torch.cat([tmin.t(), tmax.t(), entry_t[None],
                                 exit_t[None]])
-        out = [smem_nodes, groups]
+        bgroups = gnodes = None
         if has_bmat:
-            out.append(pack_bgroups(bilinear_blocks(av, e1, e2), C_pad, W))
+            bgroups = pack_bgroups(bilinear_blocks(av, e1, e2), C_pad, W)
         if has_wide:
             smin, smax = interval_join(cl_min[leaf_order_t],
                                        cl_max[leaf_order_t], kseg_max,
                                        gseg_lo, gseg_hi)
             gn = gn_flat.clone()
             gn[scat_idx] = torch.cat([smin, smax], dim=1).reshape(-1)
-            out.append(gn.view(gn_np.shape))
-        return tuple(out)
+            gnodes = gn.view(gn_np.shape)
+        return smem_nodes, groups, a_lo, bgroups, gnodes
 
     def refit(a, b, c) -> TightScene:
-        out = refit_core(a, b, c)
-        return TightScene(out[0], out[1], tri_map, C, nn_logical, W,
-                          out[2] if has_bmat else None,
-                          gnodes=out[-1] if has_wide else None,
+        smem_nodes, groups, a_lo, bgroups, gnodes = refit_core(a, b, c)
+        return TightScene(smem_nodes, groups, tri_map, C, nn_logical, W,
+                          bgroups, gnodes=gnodes,
                           gslot=scene.gslot if has_wide else None,
-                          gdepth=int(scene.gdepth) if has_wide else 0)
+                          gdepth=int(scene.gdepth) if has_wide else 0,
+                          a_lo=a_lo)
 
     refit.core = refit_core
     return refit

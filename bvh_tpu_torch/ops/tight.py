@@ -45,8 +45,9 @@ import torch
 
 from ._build import load_cuda_library
 from .sweep import NODE_REC, check_records, node_table, unpack_nodes
-from .wide import (N_ROWS, SENT, check_options, count_outputs, decode_keys,
-                   fold_keys, mode_code, narrow_keys, run_hints)
+from .wide import (N_ROWS, SENT, check_a_lo, check_options, count_outputs,
+                   decode_keys, exact_frame, fold_keys, mode_code, narrow_keys,
+                   run_hints)
 
 # float32 operations per node visit beyond its slab test (``wide.SLAB_OPS``):
 # the leaf test and the cursor select
@@ -54,6 +55,7 @@ STEP_OPS = 2
 
 launches = 0  # launches of the timed build, counted in ``tight_trace``
 any_launches = 0  # of those, the launches in any-hit mode
+frame_launches = 0  # of those, the launches of the FRAME build (``a_lo``)
 count_launches = 0  # launches of the counting build (``counts=True``)
 
 
@@ -64,7 +66,7 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tight_trace_launch.restype = ci
     lib.tight_trace_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, ci, vp,
-                                       ci, ci, vp, vp, vp, vp, vp]
+                                       ci, ci, vp, vp, vp, vp, vp, vp]
     lib.tight_trace_rec_floats.restype = ci
     if lib.tight_trace_rec_floats() != NODE_REC:
         raise RuntimeError("tight_trace.cu's node record is not "
@@ -72,7 +74,7 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def _check(records, groups, rays, width, gate, hints, packet):
+def _check(records, groups, rays, width, gate, hints, packet, a_lo):
     for name, x in (("groups", groups), ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
@@ -86,13 +88,15 @@ def _check(records, groups, rays, width, gate, hints, packet):
     if width not in (16, 32, 64, 128):
         raise ValueError(f"width must be 16/32/64/128, got {width}")
     check_options(rays, gate, hints, packet)
+    check_a_lo(a_lo, groups, rays)
 
 
 def tight_trace(records: torch.Tensor, groups: torch.Tensor,
                 rays: torch.Tensor, width: int, packed: bool = False,
                 gate: torch.Tensor | None = None, packet: int = 8192,
                 bounded: bool = False, mode: str = "closest",
-                hints: torch.Tensor | None = None, counts: bool = False):
+                hints: torch.Tensor | None = None, counts: bool = False,
+                a_lo: torch.Tensor | None = None):
     """Closest or any hit of every ray by the entry/exit walk:
     ``(t, lane_id)``, as ``ops.wide.wide_trace`` returns them; with
     ``counts``, ``(t, lane_id, node_visits, leaf_fires)`` per ray (int64;
@@ -105,21 +109,23 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
     ``bounded`` and ``mode`` as in ``wide_trace``. ``hints``: optional
     int32 [ceil(n / packet), n_hints] node-table ids of leaves narrowphased
     first for the rays of each packet; -1 in a packet's first slot turns
-    them off, and every other slot must then hold a leaf's id.
+    them off, and every other slot must then hold a leaf's id. ``a_lo``:
+    the scene's exact-frame table, as ``wide_trace`` takes it (the FRAME
+    build).
 
     On a CPU tensor this runs the plain version (over
     ``ops/sweep.py::node_table``); on a CUDA tensor it launches the kernel:
     with ``counts`` its counting build (a debug build, not a timed one; its
     ``t`` and ``lane_id`` are the timed build's bit for bit).
     """
-    global launches, any_launches, count_launches
-    _check(records, groups, rays, width, gate, hints, packet)
+    global launches, any_launches, frame_launches, count_launches
+    _check(records, groups, rays, width, gate, hints, packet, a_lo)
     code = mode_code(mode, bounded)
     if rays.device.type == "cpu":
         return tight_trace_plain(node_table(records, packed), groups, rays,
                                  width, packed=packed, gate=gate,
                                  packet=packet, bounded=bounded, mode=mode,
-                                 hints=hints, counts=counts)
+                                 hints=hints, counts=counts, a_lo=a_lo)
     if rays.device.type != "cuda":
         raise ValueError(f"no tight_trace kernel for device {rays.device}")
     n = rays.shape[1]
@@ -133,6 +139,7 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
         0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),
         lane_id.data_ptr(), 0 if visits is None else visits.data_ptr(),
         0 if fires is None else fires.data_ptr(),
+        0 if a_lo is None else a_lo.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tight_trace kernel launch failed: CUDA error {rc}")
@@ -141,6 +148,7 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
         return t, lane_id, visits.to(torch.int64), fires.to(torch.int64)
     launches += 1
     any_launches += code == 2
+    frame_launches += a_lo is not None
     return t, lane_id
 
 
@@ -149,12 +157,13 @@ def tight_trace_plain(nodes: torch.Tensor, groups: torch.Tensor,
                       gate: torch.Tensor | None = None, packet: int = 8192,
                       bounded: bool = False, mode: str = "closest",
                       hints: torch.Tensor | None = None,
-                      counts: bool = False):
+                      counts: bool = False,
+                      a_lo: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch (any device).
 
     Returns ``(t, lane_id)``, or with ``counts=True``
     ``(t, lane_id, node_visits, leaf_fires)`` per ray (int64; hinted leaves
-    are not counted).
+    are not counted). ``a_lo`` as in ``tight_trace``.
     """
     W = width
     dev = rays.device
@@ -176,8 +185,9 @@ def tight_trace_plain(nodes: torch.Tensor, groups: torch.Tensor,
     def narrow(r, node):
         """Leaf tests of rays r against the leaves at node-table ids node."""
         c = (-table[6, node] - 1.0).to(torch.int64)
-        cc = frame[:, node]
-        km = narrow_keys(rays, tiles, W, r, c, cc[0], cc[1], cc[2])
+        cc = tuple(frame[:, node])
+        km = narrow_keys(rays, tiles, W, r, c, *cc,
+                         frame=exact_frame(rays, r, cc, a_lo))
         fold_keys(r, km, c.to(torch.int32), bk, bc, vb, W, bounded, tmx)
 
     live = torch.arange(n if nn > 0 else 0, device=dev)

@@ -38,7 +38,7 @@ from ..bvh.traverse import HitRecord
 from ..device import resolve_device
 from ..ray import Ray, ray_intersects_triangle
 from .cluster import wide_group_meta
-from .cluster_trace import cluster_trace
+from .cluster_trace import check_f32, cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
 from .sweep import node_records, sweep_gate
 from .tight import tight_trace
@@ -122,7 +122,9 @@ def sort_rays_device(origins, directions, bits: int = 6, mode: str = "octant",
 
 def _ray_rows(rays: Ray, tm: torch.Tensor) -> torch.Tensor:
     """The kernels' ray rows [13, n]: o·inv (3), inv clamped to ±1e30 (3),
-    t_max, d (3), o (3)."""
+    t_max, d (3), o (3). The kernels take float32 rays: float64 ones raise
+    (no silent cast)."""
+    check_f32(rays)
     o, d, inv = rays
     inv_c = torch.clamp(inv, -1.0e30, 1.0e30)
     return torch.stack([*(o * inv_c).unbind(1), *inv_c.unbind(1), tm,
@@ -249,15 +251,25 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
         else:
             gate = sweep_gate(_dev(table, dev, node_records), rows, packet,
                               packed=packed, pre_gate=pre_gate)
+    a_lo = _a_lo(scene, dev)
     if wide:
         return wide_trace(_dev(scene.gnodes, dev, group_records),
                           _dev(scene.groups, dev), rows, width=int(scene.width),
                           depth=int(scene.gdepth), gate=gate, packet=packet,
                           bounded=bounded, mode=mode, hints=hints,
-                          start_g=start_g)
+                          start_g=start_g, a_lo=a_lo)
     return tight_trace(_dev(table, dev, node_records), _dev(scene.groups, dev),
                        rows, width=int(scene.width), packed=packed, gate=gate,
-                       packet=packet, bounded=bounded, mode=mode, hints=hints)
+                       packet=packet, bounded=bounded, mode=mode, hints=hints,
+                       a_lo=a_lo)
+
+
+def _a_lo(scene, dev):
+    """The scene's exact-frame table on ``dev`` (``TightScene.a_lo``), with
+    which the walks test leaves in the exact cluster frame; None for a
+    scene that carries none (host builds)."""
+    a_lo = getattr(scene, "a_lo", None)
+    return None if a_lo is None else _dev(a_lo, dev).contiguous()
 
 
 def _shape_ids(scene, t, lane_id):
@@ -820,7 +832,8 @@ def count_visits_tight(scene, rays: Ray, packet: int = 2048, device=None):
     table, packed = _entry_exit_table(scene)
     _, _, visits, fires = tight_trace(
         _dev(table, dev, node_records), _dev(scene.groups, dev), rows,
-        width=int(scene.width), packed=packed, packet=packet, counts=True)
+        width=int(scene.width), packed=packed, packet=packet, counts=True,
+        a_lo=_a_lo(scene, dev))
     return packet_sums(visits, packet), packet_sums(fires, packet)
 
 
@@ -857,7 +870,7 @@ def count_visits_wide(scene, rays: Ray, packet: int = 2048, start_g=None,
     _, _, tests, fires = wide_trace(
         _dev(scene.gnodes, dev, group_records), _dev(scene.groups, dev),
         rows, width=int(scene.width), depth=int(scene.gdepth), packet=packet,
-        start_g=sg, counts=True)
+        start_g=sg, counts=True, a_lo=_a_lo(scene, dev))
     tests, fires = packet_sums(tests, packet), packet_sums(fires, packet)
     return tests + fires, fires, tests
 

@@ -171,9 +171,10 @@ def make_updater(scene: TightScene, max_moved: int, delta_width: int = TIGHT,
         return ChainedScene(parts=tuple(parts), orig_ids=tuple(ids))
 
     def _delta_part(out) -> TightScene:
-        return TightScene(out[0], out[1], out[2], Cd, nn_d, W,
-                          gnodes=out[-1] if wide_d else None,
-                          gslot=gslot_d, gdepth=gdepth_d)
+        smem_nodes, groups, tri_map, a_lo, _, gnodes = out
+        return TightScene(smem_nodes, groups, tri_map, Cd, nn_d, W,
+                          gnodes=gnodes, gslot=gslot_d, gdepth=gdepth_d,
+                          a_lo=a_lo)
 
     update.core = update_core
     update.delta_part = _delta_part

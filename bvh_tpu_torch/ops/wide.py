@@ -39,7 +39,11 @@ cluster frame, m = o×d and cc×d at 1e5, and so loses up to ~0.01 of a unit
 at triangle edges (rays hit across an edge, or through a crack between two
 triangles). The regrouped form is exact to the rounding of the triangle's
 own size; results differ from the reference only in its grazing-edge and
-near-tie classes.
+near-tie classes. Scenes that carry ``a_lo`` (device builds, refits,
+update deltas, whose clusters may lie ~1e5 from their frame origin) are
+tested in the exact cluster frame by the kernel's FRAME build
+(``exact_frame``): tv = ((o' - a') + lo) - a_lo, with lo the rounding
+error of o' and a_lo that of a'.
 Output per ray: ``t`` float32 (the key's bits with the lane bits cleared,
 +inf on a miss) and ``lane_id`` int32 (cluster·W + lane, -1 on a miss).
 """
@@ -74,6 +78,11 @@ SLAB_OPS = 25
 TRI_OPS = 44
 TRI_ONCE_OPS = 9
 LEAF_OPS = 9
+# the FRAME builds' extra operations: per (ray, triangle) test the add of
+# lo and the subtraction of a_lo on three axes; per fired leaf the rounding
+# error of o - cc (``two_diff`` beyond the rounded difference, 5 an axis)
+FRAME_TRI_OPS = 6
+FRAME_LEAF_OPS = 15
 N_ROWS = 13  # ray rows: o*inv (3), inv (3), t_max, d (3), o (3)
 REC = 128  # floats per group in the kernel's group-major table
 
@@ -82,6 +91,7 @@ MODES = {"closest": 0, "any": 2}  # the kernels' mode codes (1: bounded)
 launches = 0  # launches of the timed build, counted in ``wide_trace``
 any_launches = 0  # of those, the launches in any-hit mode
 subtree_launches = 0  # of those, the launches with subtree entries
+frame_launches = 0  # of those, the launches of the FRAME build (``a_lo``)
 count_launches = 0  # launches of the counting build (``counts=True``)
 
 
@@ -96,7 +106,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wide_trace_launch.restype = ci
     lib.wide_trace_launch.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci,
-                                      ci, vp, vp, vp, vp, vp]
+                                      ci, vp, vp, vp, vp, vp, vp]
     lib.wide_trace_rec_floats.restype = ci
     if lib.wide_trace_rec_floats() != REC:
         raise RuntimeError("wide_trace.cu's group record is not "
@@ -165,8 +175,20 @@ def check_options(rays: torch.Tensor, gate, hints, packet: int,
                          f"on {rays.device}")
 
 
+def check_a_lo(a_lo, groups, rays) -> None:
+    """Checks a scene's exact-frame table: contiguous float32 [G, 3, 128]
+    on the rays' device, G the groups'."""
+    if a_lo is None:
+        return
+    if (a_lo.dtype != torch.float32 or not a_lo.is_contiguous()
+            or a_lo.device != rays.device
+            or tuple(a_lo.shape) != (groups.shape[0], 3, 128)):
+        raise ValueError(f"a_lo must be a contiguous float32 "
+                         f"[{groups.shape[0]}, 3, 128] tensor on {rays.device}")
+
+
 def _check(records, groups, rays, width, depth, gate, hints, packet,
-           start_g):
+           start_g, a_lo):
     for name, x in (("records", records), ("groups", groups), ("rays", rays)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
@@ -182,6 +204,7 @@ def _check(records, groups, rays, width, depth, gate, hints, packet,
         raise ValueError(f"width must be 16/32/64/128, got {width}")
     check_depth(depth)
     check_options(rays, gate, hints, packet, start_g)
+    check_a_lo(a_lo, groups, rays)
 
 
 def check_depth(depth: int) -> None:
@@ -195,7 +218,8 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
                gate: torch.Tensor | None = None, packet: int = 8192,
                bounded: bool = False, mode: str = "closest",
                hints: torch.Tensor | None = None,
-               start_g: torch.Tensor | None = None, counts: bool = False):
+               start_g: torch.Tensor | None = None, counts: bool = False,
+               a_lo: torch.Tensor | None = None):
     """Closest or any hit of every ray: ``(t, lane_id)``; with ``counts``,
     ``(t, lane_id, group_tests, leaf_fires)``, each ray's group tests and
     fired leaf slots (int64; hinted leaves not counted), as
@@ -216,15 +240,20 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     each packet (closest and bounded modes; ids <= 0 inert), walked before
     the walk from the root (see the module's docstring). Like the hints,
     its ids are not read back here (that would wait for the card): every
-    id must be below Gn, as ``ops/trace.py`` checks.
+    id must be below Gn, as ``ops/trace.py`` checks. ``a_lo``: the scene's
+    exact-frame table [G, 3, 128] (``TightScene.a_lo``), or None; given, the
+    leaves are tested in the exact cluster frame (``narrow_keys``'s
+    ``frame``) by the kernel's FRAME build.
 
     On a CPU tensor this runs the plain version (over ``wide_table``); on a
     CUDA tensor it launches the kernel: with ``counts`` its counting build
     (a debug build, not a timed one; its ``t`` and ``lane_id`` are the
     timed build's bit for bit).
     """
-    global launches, any_launches, subtree_launches, count_launches
-    _check(records, groups, rays, width, depth, gate, hints, packet, start_g)
+    global launches, any_launches, subtree_launches, frame_launches
+    global count_launches
+    _check(records, groups, rays, width, depth, gate, hints, packet, start_g,
+           a_lo)
     code = mode_code(mode, bounded)
     if start_g is not None and code == 2:
         raise ValueError("start_g takes the closest and bounded modes")
@@ -232,7 +261,7 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
         return wide_trace_plain(wide_table(records), groups, rays, width,
                                 gate=gate, packet=packet, bounded=bounded,
                                 mode=mode, hints=hints, start_g=start_g,
-                                counts=counts)
+                                counts=counts, a_lo=a_lo)
     if rays.device.type != "cuda":
         raise ValueError(f"no wide_trace kernel for device {rays.device}")
     n = rays.shape[1]
@@ -247,6 +276,7 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
         0 if start_g is None else start_g.data_ptr(), packet, code, t.data_ptr(),
         lane_id.data_ptr(), 0 if tests is None else tests.data_ptr(),
         0 if fires is None else fires.data_ptr(),
+        0 if a_lo is None else a_lo.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_trace kernel launch failed: CUDA error {rc}")
@@ -256,6 +286,7 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     launches += 1
     any_launches += code == 2
     subtree_launches += start_g is not None
+    frame_launches += a_lo is not None
     return t, lane_id
 
 
@@ -290,11 +321,12 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     [G, 128, 16] (lane-major); rows ``row0`` to ``row0 + 5`` of ``rays``
     hold d (3) and o (3).
 
-    ``frame``: the legacy walk's exact cluster frame ``(lo, alo)``: ``lo =
+    ``frame``: the exact cluster frame ``(lo, alo)`` (the legacy walk's,
+    and the FRAME builds' of the group and entry/exit walks): ``lo =
     (lox, loy, loz)``, the rounding error of each pair's ``o - cc``
-    (``cluster_trace.two_diff``), and ``alo`` [G, 128, 3], the part of each
-    triangle's ``a - cc`` that ``a'`` leaves out (``ClusterScene.a_lo``
-    lane-major); then ``tv = ((o' - a') + lo) - alo``."""
+    (``two_diff``), and ``alo`` [G, 128, 3], the part of each
+    triangle's ``a - cc`` that ``a'`` leaves out (``ClusterScene.a_lo`` or
+    ``TightScene.a_lo``, lane-major); then ``tv = ((o' - a') + lo) - alo``."""
     dev = rays.device
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
@@ -325,6 +357,29 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     sent = torch.full((), sent, dtype=torch.int32, device=dev)
     key = torch.where(ok, (t.view(torch.int32) & -W) | lanes[None, :], sent)
     return torch.minimum(key.amin(dim=1), sent)
+
+
+def exact_frame(rays: torch.Tensor, r: torch.Tensor, cc: tuple,
+                a_lo: torch.Tensor | None):
+    """``narrow_keys``'s ``frame`` for the (ray ``r[i]``, frame origin
+    ``cc``) pairs of a scene with the exact-frame table ``a_lo``
+    [G, 3, 128]: each pair's rounding error of o - cc (``two_diff``; o in
+    rows 10-12 of ``rays``) and ``a_lo`` lane-major; None without
+    ``a_lo``."""
+    if a_lo is None:
+        return None
+    lo = tuple(two_diff(rays[10 + j, r], cc[j])[1] for j in range(3))
+    return lo, a_lo.permute(0, 2, 1)
+
+
+def two_diff(o, cc):
+    """``o - cc`` as a float pair ``(hi, lo)``: ``hi`` the rounded
+    difference and ``lo`` its rounding error, so that ``hi + lo == o - cc``
+    exactly (Knuth's TwoSum of ``o`` and ``-cc``; the kernels' order)."""
+    hi = o - cc
+    bv = hi - o
+    av = hi - bv
+    return hi, (o - av) - (cc + bv)
 
 
 def new_bound(nt: torch.Tensor, vb: torch.Tensor, tmx: torch.Tensor | None,
@@ -472,14 +527,16 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
                      bounded: bool = False, counts: bool = False,
                      mode: str = "closest",
                      hints: torch.Tensor | None = None,
-                     start_g: torch.Tensor | None = None):
+                     start_g: torch.Tensor | None = None,
+                     a_lo: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch (any device).
 
     Returns ``(t, lane_id)``, or with ``counts=True``
     ``(t, lane_id, group_tests, leaf_fires)``: per ray, the groups whose 16
     children it tested and the leaf clusters it narrowphased over every
     walk (int64; hinted leaves are not counted). ``start_g``: the packets'
-    subtree entries, walked as the module's docstring says.
+    subtree entries, walked as the module's docstring says. ``a_lo``: the
+    scene's exact-frame table, as ``wide_trace`` takes it.
     """
     W = width
     dev = rays.device
@@ -503,8 +560,9 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
         gg: each pair's best key and cluster."""
         c = (-pay_all[kk, gg] - 1.0).to(torch.int64)
         ax, ay, az, bx, by, bz = (box[kk, j, gg] for j in range(6))
-        km = narrow_keys(rays, tiles, W, rr, c, (ax + bx) * 0.5,
-                         (ay + by) * 0.5, (az + bz) * 0.5)
+        cc = ((ax + bx) * 0.5, (ay + by) * 0.5, (az + bz) * 0.5)
+        km = narrow_keys(rays, tiles, W, rr, c, *cc,
+                         frame=exact_frame(rays, rr, cc, a_lo))
         return km, c.to(torch.int32)
 
     def narrow_hint(r, slot):

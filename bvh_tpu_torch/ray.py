@@ -1,42 +1,54 @@
 """Rays and ray-primitive intersection on tensors.
 
 Counterpart of ``bvh_tpu/ray.py``. A ``Ray`` holds tensors
-``(origin, direction, inv_direction)`` of shape ``[..., 3]``. Numerics
+``(origin, direction, inv_direction)`` of shape ``[..., D]``, float32 or
+float64 (the slab tests take any D; the triangle test is 3-D). Numerics
 follow the reference:
 
 * slab test: NaN in either corner product => miss (ray in an AABB face
   plane), hit iff ``tmax >= max(tmin, 0)``;
 * entry/exit slice: ``tmin = max(inf.max(), 0)``, miss when ``tmin > tmax``
   or NaN;
-* Moller-Trumbore with backface culling (``det < eps`` => miss) and distance
-  ``+inf`` on a miss.
+* Moller-Trumbore with backface culling (``det < eps``, the dtype's
+  machine epsilon, => miss) and distance ``+inf`` on a miss.
+
+The CUDA trace entry points (``ops/``) take float32 rays and raise on
+float64 ones; the general path (``bvh/traverse.py``) takes either.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .device import resolve_device
 
-_EPS32 = float(torch.finfo(torch.float32).eps)
+def _is_f64(x) -> bool:
+    return getattr(x, "dtype", None) in (torch.float64, np.float64)
 
 
 class Ray(NamedTuple):
-    """A batch of rays; tensors of shape [..., 3]. ``inv_direction`` is cached."""
+    """A batch of rays; tensors of shape [..., D]. ``inv_direction`` is
+    cached."""
 
     origin: torch.Tensor
     direction: torch.Tensor
     inv_direction: torch.Tensor
 
     @staticmethod
-    def create(origin, direction, device=None) -> "Ray":
+    def create(origin, direction, device=None, dtype=None) -> "Ray":
         """Builds a ray batch on ``device`` (None: the card); ``direction``
-        is normalized as the reference's ``Ray::new``."""
+        is normalized as the reference's ``Ray::new``. ``dtype``: None keeps
+        a float64 input (numpy or tensor) as float64 and makes every other
+        input float32."""
         dev = resolve_device(device)
-        origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
-        direction = torch.as_tensor(direction, dtype=torch.float32, device=dev)
+        if dtype is None:
+            dtype = (torch.float64 if _is_f64(origin) or _is_f64(direction)
+                     else torch.float32)
+        origin = torch.as_tensor(origin, dtype=dtype, device=dev)
+        direction = torch.as_tensor(direction, dtype=dtype, device=dev)
         if origin.shape != direction.shape:
             raise ValueError(
                 f"origin {tuple(origin.shape)} and direction "
@@ -48,6 +60,10 @@ class Ray(NamedTuple):
     def take(self, idx: torch.Tensor) -> "Ray":
         """The rays at ``idx`` along the batch axis."""
         return Ray(self.origin[idx], self.direction[idx], self.inv_direction[idx])
+
+    def at(self, t: torch.Tensor) -> torch.Tensor:
+        """The points ``origin + direction * t``."""
+        return self.origin + self.direction * t[..., None]
 
 
 class Intersection(NamedTuple):
@@ -98,7 +114,8 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
-    """Batched Moller-Trumbore with backface culling (3-D only).
+    """Batched Moller-Trumbore with backface culling (3-D only; float32 or
+    float64, eps the dtype's machine epsilon).
 
     The selects mirror the reference's branches: ``det < eps`` => miss with
     (u, v) = (0, 0); u out of [0, 1] => miss with v = 0; v < 0 or
@@ -108,8 +125,9 @@ def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
     a_to_c = c - a
     u_vec = _cross(ray.direction, a_to_c)
     det = _dot(a_to_b, u_vec)
+    eps = torch.finfo(det.dtype).eps
 
-    cull = det < _EPS32
+    cull = det < eps
     # culled lanes never use inv_det's value; the guard keeps inf*0 NaNs
     # out of the (u, v) report
     inv_det = 1.0 / torch.where(cull, torch.ones_like(det), det)
@@ -123,7 +141,7 @@ def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
     v_bad = (v < 0.0) | (u + v > 1.0)
 
     dist = _dot(a_to_c, v_vec) * inv_det
-    miss = cull | u_bad | v_bad | (dist <= _EPS32)
+    miss = cull | u_bad | v_bad | (dist <= eps)
     distance = torch.where(miss, torch.full_like(dist, float("inf")), dist)
     zero = torch.zeros_like(u)
     return Intersection(distance, torch.where(cull, zero, u),

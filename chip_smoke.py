@@ -1,6 +1,7 @@
 """Drives the PyTorch/CUDA port's closest-hit, any-hit, k-closest and
 nearest-triangle paths (tight, legacy cluster and chained scenes), its
-subtree-entry planners and its differentiable rendering on one NVIDIA card.
+subtree-entry planners, its differentiable rendering, its dynamic scenes
+and its general pure-tensor path on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -104,7 +105,34 @@ final line):
    and count_visits_nearest on the update's masked static part; every
    counting build against the timed build and the plain version's counts
    (bit for bit) on those rows and on the aimed rows; times, rays/s,
-   device breakdowns, ns per serial unit and bounds.
+   device breakdowns, ns per serial unit and bounds. The device builds,
+   refits and update deltas carry the exact cluster frame (``a_lo``), so
+   their traces run the FRAME builds of the group walk and the entry/exit
+   walk (launch counts checked); a far-frame leg traces 1,048,576 rays
+   from [-60, 60]^3 aimed at centroids ~1e5 away through the grid device
+   build, against float32 and float64 brute force (and counts the flips of
+   the same trace without the frame, a measurement only); the refit leg is
+   held to the rebuild's bounds (``REFIT_CLASS_MAX`` = 0); every FRAME
+   build, timed and counting, against its plain version on the grid
+   build's aimed and far rows, the LBVH build's (entry/exit walk) and the
+   1% refit scene's random rows (bit for bit); rows 1 and 3 timed with and
+   without FRAME on the same rows, in turns.
+14. the general pure-tensor path at full size (``bvh/traverse.py``,
+   ``bvh/ordered.py``, ``diff/render.py``; no kernel): the 120k scene as a
+   build_sah FlatBvh (239,999 nodes) on the card; closest_hit_triangles on
+   the 1,048,576 aimed rays (brute force; equal to make_tracer's trace
+   outside the near-tie and grazing-edge classes), any_hit_triangles on
+   the shadow rows (t_max 1.2x the hit; against trace_any_hit_tight),
+   nearest_to_triangles on 262,144 of phase 7's points (brute force;
+   nearest_tight outside the tie class), traverse_all with ray, box and
+   ball queries on 65,536 queries (brute_force_collect on 256),
+   nearest_traverse on 65,536 rays (traverse's shapes, ascending),
+   render_depth forward and backward on the morton-sorted aimed rays
+   (render_depth_fast: equal outside the classes, gradients within
+   DIFF_GRAD_RTOL of the largest) and a float64 closest hit on
+   tests/test_f64_2d.py's scene (float64 brute force at rtol 1e-12); each
+   timed (median of 7), with its lock-step steps, host reads and idle
+   share (not measured above PROFILE_MAX_STEPS steps a call).
 
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
 hinted, packed), the group walk's any mode and hints, the sweep on a
@@ -119,6 +147,7 @@ The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -129,12 +158,17 @@ import time
 import numpy as np
 import torch
 
-from bvh_tpu_torch import (Ray, native, point_triangle_distance_squared,
+from bvh_tpu_torch import (Aabb, AabbQuery, Ball, BallQuery, Ray, RayQuery,
+                           native, point_triangle_distance_squared,
                            ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import camera_rays as package_camera_rays
-from bvh_tpu_torch.diff import render_depth_fast
-from bvh_tpu_torch.bvh import build_sah, update_shapes
+from bvh_tpu_torch.diff import (render_depth, render_depth_fast, render_hits,
+                                render_hits_fast)
+from bvh_tpu_torch.bvh import (any_hit_triangles, brute_force_closest_hit,
+                               brute_force_collect, build_sah,
+                               closest_hit_triangles, nearest_to_triangles,
+                               nearest_traverse, traverse_all, update_shapes)
 from bvh_tpu_torch.ops import (_build, build_chained_scene,
                                build_chained_scene_device,
                                build_cluster_scene, build_tight_scene,
@@ -157,6 +191,10 @@ from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows, sort_rays_device
 from bvh_tpu_torch.render import hit_frames, make_pathtracer, shadow_rays
+
+# the general path's module (``bvh_tpu_torch.bvh.traverse`` names the
+# function): its lock-step step and host-read counters
+trav_mod = importlib.import_module("bvh_tpu_torch.bvh.traverse")
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth
@@ -275,9 +313,11 @@ def reset_counts() -> None:
     wide_mod.launches = 0
     wide_mod.any_launches = 0
     wide_mod.subtree_launches = 0
+    wide_mod.frame_launches = 0
     sweep_mod.launches = 0
     tight_mod.launches = 0
     tight_mod.any_launches = 0
+    tight_mod.frame_launches = 0
     near_mod.wide_launches = 0
     near_mod.entry_exit_launches = 0
     ct_mod.launches = 0
@@ -989,14 +1029,17 @@ def main_rays(a):
 
 
 def walk_bound(n: int, width: int, steps: float, fires: float, wide: bool,
-               nbytes: float, n_tris: int):
+               nbytes: float, n_tris: int, frame: bool = False):
     """Operations of ``n`` rays' trace walks (``steps`` group tests or node
     visits and ``fires`` narrowphased leaves per ray) over a scene of
-    ``n_tris`` triangles, and the least time for them and ``nbytes``."""
+    ``n_tris`` triangles, and the least time for them and ``nbytes``;
+    ``frame``: the FRAME build's leaf tests."""
     step = (wide_mod.K * wide_mod.SLAB_OPS if wide
             else wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
-    ops = (n * (steps * step + fires * (wide_mod.LEAF_OPS
-                                        + width * wide_mod.TRI_OPS))
+    leaf = wide_mod.LEAF_OPS + width * wide_mod.TRI_OPS
+    if frame:
+        leaf += wide_mod.FRAME_LEAF_OPS + width * wide_mod.FRAME_TRI_OPS
+    ops = (n * (steps * step + fires * leaf)
            + n_tris * wide_mod.TRI_ONCE_OPS)
     bms, by = roofline(ops, nbytes)
     return {"ops": ops, "bytes": nbytes, "bound_ms": bms, "bound_by": by}
@@ -2111,9 +2154,11 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
 
 REFIT_FRACS = ((0.01, "1pct"), (0.1, "10pct"), (0.5, "50pct"))
 # the refit precision class: sampled rays (random and aimed together) whose
-# hit mask may flip against brute force at one churn level; 1 of 8,192 was
-# seen on an H100 (PERF.md section 6)
-REFIT_CLASS_MAX = 4
+# hit mask flips against brute force at one churn level. It was the rows'
+# far cluster frame (1 of 8,192 rays on an H100 before the refit scene
+# carried a_lo); with the exact frame none flips, and the refit leg is held
+# to the rebuild's bounds (PERF.md section 6)
+REFIT_CLASS_MAX = 0
 
 
 def bits_equal(x, y) -> bool:
@@ -2207,6 +2252,66 @@ def hold_counting_build(name: str, counted, timed, plain) -> dict:
             "fires_total": int(counted[3].sum())}
 
 
+def far_aimed_rays(a, b, c, n: int, seed: int):
+    """``n`` rays from [-60, 60]^3 aimed at triangle centroids up to ~1.4e5
+    away (the CPU tests' ``_aimed`` recipe), every fourth turned away,
+    numpy."""
+    rng = np.random.default_rng(seed)
+    centers = (a + b + c) / np.float32(3)
+    o = rng.uniform(-60.0, 60.0, (n, 3)).astype(np.float32)
+    d = (centers[rng.integers(0, len(a), n)] - o).astype(np.float32)
+    d[::4] = -d[::4]
+    return o, d
+
+
+def brute_force64(o, d, tris_dev, chunk: int = 16):
+    """Closest t of every ray over all triangles in float64 (directions
+    normalized in float32, as the port's rays carry them)."""
+    rays = Ray.create(o, d)
+    o64, d64 = rays.origin.double(), rays.direction.double()
+    a, b, c = (x.double()[None] for x in tris_dev)
+    out = []
+    for s in range(0, o64.shape[0], chunk):
+        dd = d64[s:s + chunk, None]
+        r = Ray(o64[s:s + chunk, None], dd, 1.0 / dd)
+        out.append(ray_intersects_triangle(r, a, b, c).distance.amin(dim=1))
+    return torch.cat(out)
+
+
+def check_far_frame(leg: str, o, d, t_trace, tris_dev, seed: int,
+                    t_rounded=None) -> dict:
+    """A leg whose rays hit ~1e5 from their origins, on 4,096 sampled rays,
+    against float32 and float64 brute force: where the trace and float32
+    brute force disagree on the mask, float64 must side with the trace; the
+    mask agrees with float64 brute force at >= 0.9999 and t within 2e-4 of
+    both. ``t_rounded``: the same rays' trace without the exact frame (a
+    measurement only), whose flips against float64 are counted."""
+    idx = np.random.default_rng(seed).choice(len(o), N_SAMPLE, replace=False)
+    t_bf = brute_force(o[idx], d[idx], tris_dev).cpu().numpy()
+    t64 = brute_force64(o[idx], d[idx], tris_dev).cpu().numpy()
+    t_tr = t_trace[idx]
+    hit_tr, hit_bf, hit64 = (np.isfinite(x) for x in (t_tr, t_bf, t64))
+    flips = np.nonzero(hit_tr != hit_bf)[0]
+    both = hit_tr & hit64 & hit_bf
+    rel = float(np.max(np.abs(t_tr[both] - t64[both]) / t64[both]))         if both.any() else 0.0
+    rel32 = float(np.max(np.abs(t_tr[both] - t_bf[both]) / t_bf[both]))         if both.any() else 0.0
+    res = {"leg": leg, "sampled": N_SAMPLE,
+           "mask_agreement_f32": float((hit_tr == hit_bf).mean()),
+           "mask_agreement_f64": float((hit_tr == hit64).mean()),
+           "flips_vs_f32": [{"ray": int(idx[i]), "trace_hits": bool(hit_tr[i]),
+                             "f64_hits": bool(hit64[i])} for i in flips],
+           "max_rel_t_err_f64": rel, "max_rel_t_err_f32": rel32,
+           "hit_fraction_sampled": float(hit64.mean())}
+    if t_rounded is not None:
+        res["rounded_frame_flips_vs_f64"] = int(
+            (np.isfinite(t_rounded[idx]) != hit64).sum())
+    check(bool((hit_tr[flips] == hit64[flips]).all()),
+          f"{leg}: float64 brute force sides against the trace: {res}")
+    check(res["mask_agreement_f64"] >= 0.9999 and rel <= 2e-4
+          and rel32 <= 2e-4, f"{leg}: {res}")
+    return res
+
+
 def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
                   n_cubes: int = 84000, max_part: int = 100_000) -> list:
     """Phase 13: bench.py's dynamic-scene legs and its roofline at full size
@@ -2264,6 +2369,8 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)
     n_near = N_POINTS // 4  # the counting builds' nearest rows
     pts_s = pts[sort_points_device(pts)[0][:n_near]]
+    fo, fd = far_aimed_rays(a, b, c, len(ao), seed=17)
+    fo_dev, fd_dev = torch.from_numpy(fo).to(dev), torch.from_numpy(fd).to(dev)
     setup_s = time.perf_counter() - t0
 
     def trace_q(sc):
@@ -2309,6 +2416,9 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     for kind, sc in dev_scenes.items():
         dev_hits[kind] = make_tracer(sc, packet=8192, sort="morton",
                                      tris=tris)(ao_dev, ad_dev).t
+    # the far-frame leg: the exact cluster frame at ~1e5
+    dev_hits["far"] = make_tracer(dev_scenes["grid"], packet=8192,
+                                  sort="morton", tris=tris)(fo_dev, fd_dev).t
     h = trace_closest_hit_chained(dev_chain, Ray.create(sao_dev, sad_dev),
                                   tris=sparse_dev, packet=8192, perm=perm_s)
     dev_hits["chain"] = h.t[inv_s]
@@ -2328,7 +2438,9 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
                 "wide_trace_count": wide_mod.count_launches,
                 "tight_trace_count": tight_mod.count_launches,
                 "nearest_wide_count": near_mod.wide_count_launches,
-                "nearest_tight_count": near_mod.entry_exit_count_launches}
+                "nearest_tight_count": near_mod.entry_exit_count_launches,
+                "wide_trace_frame": wide_mod.frame_launches,
+                "tight_trace_frame": tight_mod.frame_launches}
     emit("dynamic_main_path_launches", **launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on phase 13's main path")
@@ -2370,20 +2482,15 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
                  "hit_fraction_sampled": float(hit_b.mean())}
         checks[f"{label}_{cell}"] = {"random": rnd, "aimed": aimed}
         if cell == "refit":
-            # the refit precision class (rows re-encoded against moved
-            # cluster centres): grazing hits whose mask flips, counted and
-            # bounded; every ray both hit keeps t within 2e-4
+            # the refit precision class: rays outside the rebuild's bounds
             refit_class[label] = rnd["rays_outside"] + aimed["rays_outside"]
-            check(refit_class[label] <= REFIT_CLASS_MAX
-                  and rnd["max_rel_t_err"] <= 2e-4
-                  and aimed["max_rel_t_err"] <= 2e-4,
+            check(refit_class[label] <= REFIT_CLASS_MAX,
                   f"refit_quality {label}/refit: beyond its precision "
                   f"class: {checks[f'{label}_{cell}']}")
-        else:
-            for leg_, r in (("random", rnd), ("aimed", aimed)):
-                check(r["mask_agreement"] >= 0.9999
-                      and r["max_rel_t_err"] <= 2e-4,
-                      f"refit_quality {label}/{cell}/{leg_}: {r}")
+        for leg_, r in (("random", rnd), ("aimed", aimed)):
+            check(r["mask_agreement"] >= 0.9999
+                  and r["max_rel_t_err"] <= 2e-4,
+                  f"refit_quality {label}/{cell}/{leg_}: {r}")
     dev_checks = {kind: check_vs_brute(f"device_build_{kind}", ao, ad,
                                        dev_hits[kind].cpu().numpy(), tris_dev,
                                        50 + i)
@@ -2391,6 +2498,13 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     dev_checks["chain"] = check_vs_brute("device_build_chain", sao, sad,
                                          dev_hits["chain"].cpu().numpy(),
                                          sparse_dev, 53)
+    # the same rays without the exact frame: a measurement, never a path
+    t_rounded = make_tracer(dev_scenes["grid"]._replace(a_lo=None),
+                            packet=8192, sort="morton",
+                            tris=tris)(fo_dev, fd_dev).t.cpu().numpy()
+    dev_checks["far_frame"] = check_far_frame(
+        "device_build_far_frame", fo, fd, dev_hits["far"].cpu().numpy(),
+        tris_dev, 55, t_rounded)
     sid_u, dist_u = near_upd
     sid_e, dist_e = near_static_ee
     moved10 = churn["10pct"]["verts"]
@@ -2469,6 +2583,90 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
           "count_visits_nearest's totals differ from the counting build's")
     emit("counting_builds_vs_timed_and_plain",
          seconds=time.perf_counter() - t0, holds=holds)
+
+    # ---- the FRAME builds against their plain versions -----------------
+    t0 = time.perf_counter()
+    g_sc, l_sc = dev_scenes["grid"], dev_scenes["lbvh"]
+    refit1 = churn["1pct"]["refit"]
+    rows_f = trace_rows(fo_dev, fd_dev, "morton")
+    rows_q = rows_r[:, :1 << 18].contiguous()
+
+    def wide_f(sc, rows, **kw):
+        return wide_mod.wide_trace(records(sc, dev), sc.groups, rows, W,
+                                   sc.gdepth, a_lo=sc.a_lo, **kw)
+
+    def wide_fp(sc, rows, **kw):
+        return wide_plain_chunked(sc.gnodes, sc.groups, rows, W,
+                                  a_lo=sc.a_lo, **kw)
+
+    def tight_f(sc, rows, **kw):
+        return tight_mod.tight_trace(node_recs(sc.smem_nodes, dev), sc.groups,
+                                     rows, W, a_lo=sc.a_lo, **kw)
+
+    def tight_fp(sc, rows, **kw):
+        return tight_plain_chunked(sc.smem_nodes, sc.groups, rows, W,
+                                   a_lo=sc.a_lo, **kw)
+
+    frame_cases = {
+        "wide_trace_frame/grid_aimed": (wide_f, wide_fp, g_sc, rows_a),
+        "wide_trace_frame/grid_far": (wide_f, wide_fp, g_sc, rows_f),
+        "wide_trace_frame/refit_1pct_random": (wide_f, wide_fp, refit1,
+                                                rows_q),
+        "tight_trace_frame/lbvh_aimed": (tight_f, tight_fp, l_sc, rows_a),
+        "tight_trace_frame/lbvh_far": (tight_f, tight_fp, l_sc, rows_f)}
+    frame_err = {"wide_trace_frame": 0.0, "tight_trace_frame": 0.0}
+    frame_holds = {}
+    for case, (kf, pf, sc, rows) in frame_cases.items():
+        check(sc.a_lo is not None, f"{case}: the scene carries no a_lo")
+        tk, ik = kf(sc, rows)
+        tp, ip = pf(sc, rows)
+        same = bits_equal(tk, tp) and bits_equal(ik, ip)
+        check(same, f"{case}: the FRAME build differs from its plain version")
+        fin = torch.isfinite(tk)
+        name_ = case.split("/")[0]
+        frame_err[name_] = max(frame_err[name_], float(
+            (tk[fin] - tp[fin]).abs().max()) if fin.any() else 0.0)
+        frame_holds[case] = {"rays": int(rows.shape[1]), "bit_equal": same,
+                             "hits": int(fin.sum())}
+    # the FRAME counting builds, against the FRAME timed builds and plain
+    for name_, kf, pf, sc in (("wide_trace_frame", wide_f, wide_fp, g_sc),
+                              ("tight_trace_frame", tight_f, tight_fp, l_sc)):
+        frame_holds[f"{name_}_count/aimed"] = hold_counting_build(
+            f"{name_}_count/aimed", kf(sc, rows_a, counts=True),
+            kf(sc, rows_a), pf(sc, rows_a, counts=True))
+    # row 1 (and 3) with and without FRAME on the same rows: without it
+    # a_lo is ignored (a measuring run, never a path)
+    rec_g, rec_l = records(g_sc, dev), node_recs(l_sc.smem_nodes, dev)
+    frame_turns = {
+        "wide": in_turns({
+            "frame": lambda: wide_f(g_sc, rows_a),
+            "without_frame": lambda: wide_mod.wide_trace(
+                rec_g, g_sc.groups, rows_a, W, g_sc.gdepth)}),
+        "tight": in_turns({
+            "frame": lambda: tight_f(l_sc, rows_a),
+            "without_frame": lambda: tight_mod.tight_trace(
+                rec_l, l_sc.groups, rows_a, W)})}
+    for v in frame_turns.values():
+        v["ratio"] = v["frame"]["ms"] / v["without_frame"]["ms"]
+    frame_plain_ms = {
+        "wide_trace_frame": cuda_ms(lambda: wide_fp(g_sc, rows_a), reps=3,
+                                    warmup=0),
+        "tight_trace_frame": cuda_ms(lambda: tight_fp(l_sc, rows_a), reps=3,
+                                     warmup=0)}
+    n_a = rows_a.shape[1]
+    ray_bytes_a = wide_mod.N_ROWS * 4 * n_a + 16 * n_a
+    frame_bounds = {}
+    for name_, wide_, sc, table in (("wide_trace_frame", True, g_sc, rec_g),
+                                    ("tight_trace_frame", False, l_sc, rec_l)):
+        hold = frame_holds[f"{name_}_count/aimed"]
+        frame_bounds[name_] = walk_bound(
+            n_a, W, hold["count_total"] / n_a, hold["fires_total"] / n_a,
+            wide_, ray_bytes_a + table.nbytes + sc.groups.nbytes
+            + sc.a_lo.nbytes, n_tris, frame=True)
+    emit("frame_builds_vs_plain", card=card,
+         seconds=time.perf_counter() - t0, holds=frame_holds,
+         in_turns=frame_turns, plain_ms=frame_plain_ms, bounds=frame_bounds,
+         max_abs_err=frame_err)
 
     # ---- timings ----------------------------------------------------------
     e2e = {"update_shapes_flat": cuda_ms(
@@ -2569,14 +2767,314 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
                "tight_trace_count": "tight_trace.cu",
                "nearest_wide_count": "nearest.cu",
                "nearest_tight_count": "nearest.cu"}
-    return [{"name": name, "route": "cuda",
-             "source": f"bvh_tpu_torch/csrc/{sources[name]}",
-             "replaces": replaces[name], "launches": launches[name],
-             "max_abs_err": holds[name]["max_abs_err"],
-             "ms": kernel_ms[name], "plain_ms": plain_ms[name],
-             "bound_ms": bounds[name]["bound_ms"],
-             "bound_by": bounds[name]["bound_by"], "library_ms": None}
-            for name in runs]
+    entries = [{"name": name, "route": "cuda",
+                "source": f"bvh_tpu_torch/csrc/{sources[name]}",
+                "replaces": replaces[name], "launches": launches[name],
+                "max_abs_err": holds[name]["max_abs_err"],
+                "ms": kernel_ms[name], "plain_ms": plain_ms[name],
+                "bound_ms": bounds[name]["bound_ms"],
+                "bound_by": bounds[name]["bound_by"], "library_ms": None}
+               for name in runs]
+    # the FRAME builds: ms on the grid (LBVH) device build's aimed rows
+    for name_, src, line in (("wide_trace_frame", "wide_trace.cu", 1178),
+                             ("tight_trace_frame", "tight_trace.cu", 650)):
+        kind = "wide" if name_.startswith("wide") else "tight"
+        entries.append({
+            "name": name_, "route": "cuda",
+            "source": f"bvh_tpu_torch/csrc/{src}",
+            "replaces": f"bvh_tpu/ops/trace.py:{line}",
+            "launches": launches[name_], "max_abs_err": frame_err[name_],
+            "ms": frame_turns[kind]["frame"]["ms"],
+            "plain_ms": frame_plain_ms[name_],
+            "bound_ms": frame_bounds[name_]["bound_ms"],
+            "bound_by": frame_bounds[name_]["bound_by"], "library_ms": None})
+    return entries
+
+
+# ---- phase 14: the general pure-tensor path ---------------------------------
+
+N_QUERIES = 1 << 16  # queries of the traverse and ordered legs
+N_GENERAL_POINTS = 1 << 18  # points of the nearest leg
+# lock-step steps above which a leg's profile is not taken: ~130 kernel
+# records a step, and the profiler's processing of ~5e5 records (3,776
+# steps of the nearest leg) took longer than the leg's 60 s on an H100
+PROFILE_MAX_STEPS = 1000
+N_COLLECT = 256  # queries a leg checks against brute_force_collect
+
+
+def general_call(fn):
+    """One call of ``fn``, synchronized: its result, and its lock-step steps
+    and host reads (``bvh/traverse.py``'s counters) and seconds."""
+    trav_mod.steps = trav_mod.host_reads = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"steps": trav_mod.steps, "host_reads": trav_mod.host_reads,
+                 "first_call_s": time.perf_counter() - t0}
+
+
+def general_idle(fn, e2e_ms: float, steps: int) -> dict:
+    """The idle share of one call of ``fn``, a general-path leg that was
+    already run (no warm-up call): its device time (torch.profiler, device
+    events only) against the call's unprofiled time ``e2e_ms``; not
+    measured for a call of more than PROFILE_MAX_STEPS lock-step
+    steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if steps > PROFILE_MAX_STEPS:
+        return {"kernels_ms": "not measured", "idle_share": "not measured",
+                "reason": f"{steps} lock-step steps (PROFILE_MAX_STEPS)"}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        return {"kernels_ms": "not measured", "idle_share": "not measured"}
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    return {"kernels_ms": busy, "e2e_ms": e2e_ms,
+            "idle_share": 1.0 - busy / e2e_ms,
+            "launches": sum(e.count for e in events)}
+
+
+def collect_mask(hits, count, n_shapes: int):
+    """A traverse's hit lists as a bool mask [queries, n_shapes]."""
+    m = torch.zeros((hits.shape[0], n_shapes), dtype=torch.bool,
+                    device=hits.device)
+    r, k = torch.nonzero(hits >= 0, as_tuple=True)
+    m[r, hits[r, k].long()] = True
+    return m
+
+
+def f64_scene():
+    """tests/test_f64_2d.py's float64 scene: create_n_cubes(40) and two
+    triangles 1e-9 apart at x = 2e5, with its two rays at them and 16 rays
+    aimed at cubes (seed 7), numpy float64."""
+    rng = np.random.default_rng(7)
+    a, b, c = (x.astype(np.float64) for x in tb.create_n_cubes(40))
+    base = np.array([[0.0, 0.0, 0.0], [0.0, 4.0, 0.0], [0.0, 0.0, 4.0]])
+    sh = np.array([[2e5, 0, 0], [2e5 + 1e-9, 0, 0]])
+    a, b, c = (np.concatenate([x, base[k] + sh])
+               for k, x in enumerate((a, b, c)))
+    o = rng.uniform(-500, 500, size=(16, 3))
+    centers = a[:40 * 12].reshape(-1, 12, 3).mean(axis=1)
+    d = centers[rng.integers(0, 40, size=16)] + 0.1 - o
+    o = np.concatenate([[[2e5 + 50.0, 1.0, 1.0]] * 2, o])
+    d = np.concatenate([[[-1.0, 0.0, 0.0]] * 2, d])
+    return (a, b, c), o, d
+
+
+def general_phase(dev, card: str, scene, tris, ao, ad, h_aim, pts) -> dict:
+    """Phase 14: the general pure-tensor path at full size on the 120k
+    scene as a ``build_sah`` FlatBvh (239,999 nodes): closest hit on the
+    aimed rays (against brute force and make_tracer's trace), any hit on
+    the shadow rows (t_max = 1.2x the hit; against trace_any_hit_tight),
+    nearest triangle on 262,144 of phase 7's points (against brute force
+    and nearest_tight), traverse with ray, box and ball queries (against
+    brute_force_collect), nearest_traverse, render_depth forward and
+    backward (against render_depth_fast) and a float64 closest hit
+    (against float64 brute force); each timed, with its lock-step steps,
+    host reads and idle share."""
+    a, b, c = tris
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
+    n_tris = a.shape[0]
+    mn, mx = tb.tri_aabbs(a, b, c)
+    t0 = time.perf_counter()
+    flat_h, _ = build_sah(mn, mx)
+    build_s = time.perf_counter() - t0
+    flat = flat_h.to_device(device=dev)
+    check(flat.num_nodes == 2 * n_tris - 1, "general path: SAH node count")
+    mn_dev, mx_dev = torch.from_numpy(mn).to(dev), torch.from_numpy(mx).to(dev)
+    ao_dev, ad_dev = torch.from_numpy(ao).to(dev), torch.from_numpy(ad).to(dev)
+    rays = Ray.create(ao_dev, ad_dev)
+    n = rays.origin.shape[0]
+    tm = h_aim.t * 1.2  # the shadow rows; misses keep +inf
+    q_rays = Ray(*(x[:N_QUERIES] for x in rays))
+    rng = np.random.default_rng(31)
+    cen = (a + b + c) / np.float32(3)
+    pq = (cen[rng.integers(0, n_tris, N_QUERIES)]
+          + rng.normal(scale=2.0, size=(N_QUERIES, 3))).astype(np.float32)
+    pq_dev = torch.from_numpy(pq).to(dev)
+    queries = {
+        "ray": RayQuery(q_rays),
+        "aabb": AabbQuery(Aabb.with_bounds(pq_dev - 3.0, pq_dev + 3.0,
+                                           device=dev)),
+        "ball": BallQuery(Ball.create(pq_dev, torch.full(
+            (N_QUERIES,), 4.0, device=dev), device=dev))}
+    pts_n = pts[:N_GENERAL_POINTS]
+    (a64, b64, c64), o64, d64 = f64_scene()
+    mn64, mx64 = tb.tri_aabbs(a64, b64, c64)
+    flat64 = build_sah(mn64, mx64)[0].to_device(device=dev)
+    tris64 = tuple(torch.from_numpy(x).to(dev) for x in (a64, b64, c64))
+    rays64 = Ray.create(o64, d64, device=dev)
+    check(rays64.origin.dtype == torch.float64, "f64 rays")
+    perm, _ = sort_rays_device(ao_dev, ad_dev, mode="morton")
+    aimed = Ray.create(ao_dev[perm], ad_dev[perm])
+
+    def fwd_bwd(render, w):
+        """bench.py's diff_fwd_bwd loss over the hits ``w`` selects, and its
+        gradients with respect to a, b and c."""
+        av, bv, cv = (x.detach().requires_grad_() for x in tris_dev)
+        depth, hit = render(aimed, av, bv, cv)
+        loss = torch.where(hit & w, depth ** 2, 0.0).sum() * 1e-9
+        loss.backward()
+        return loss.detach(), depth.detach(), hit, (av.grad, bv.grad, cv.grad)
+
+    def general(r, *t):
+        return render_depth(flat, r, *t)
+
+    def fast(r, *t):
+        return render_depth_fast(scene, r, *t, packet=8192)
+
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    legs = {
+        "closest_hit_triangles": lambda: closest_hit_triangles(
+            flat, rays, *tris_dev),
+        "any_hit_triangles": lambda: any_hit_triangles(flat, rays, *tris_dev,
+                                                       t_max=tm),
+        "nearest_to_triangles": lambda: nearest_to_triangles(flat, pts_n,
+                                                             *tris_dev),
+        "traverse_ray": lambda: traverse_all(flat, queries["ray"]),
+        "traverse_aabb": lambda: traverse_all(flat, queries["aabb"]),
+        "traverse_ball": lambda: traverse_all(flat, queries["ball"]),
+        "nearest_traverse": lambda: nearest_traverse(flat, q_rays,
+                                                     max_hits=32),
+        "render_depth_fwd_bwd": lambda: fwd_bwd(general, every),
+        "closest_hit_f64": lambda: closest_hit_triangles(flat64, rays64,
+                                                         *tris64)}
+    # the phase's main path: the general path launches none of the port's
+    # kernels (the reference computes it outside any Pallas kernel)
+    reset_counts()
+    out, counts = {}, {}
+    for leg, fn in legs.items():
+        out[leg], counts[leg] = general_call(fn)
+    check(port_launches() == 0, "the general path launched a port kernel")
+
+    # ---- checks ----------------------------------------------------------
+    checks = {}
+    h = out["closest_hit_triangles"]
+    check(h.t.shape == (n,) and bool(((h.shape_id >= 0)
+                                      == torch.isfinite(h.t)).all()),
+          "closest_hit_triangles: shapes or ids")
+    checks["closest_brute"] = check_vs_brute(
+        "general_closest", ao, ad, h.t.cpu().numpy(), tris_dev, 60)
+    diffs, outside = classify_differences(h, h_aim, int(scene.width))
+    check(outside == 0, f"closest_hit_triangles differs from make_tracer on "
+          f"{outside} rays outside the near-tie and grazing-edge classes")
+    checks["closest_vs_make_tracer"] = {
+        "differing": len(diffs), "classes": {
+            k: sum(x["class"] == k for x in diffs)
+            for k in ("near-tie", "grazing-edge")}}
+    occ = trace_any_hit_tight(scene, rays, t_max=tm, packet=8192)
+    found = out["any_hit_triangles"]
+    agree = float((occ == found).float().mean())
+    checks["any_vs_trace_any_hit_tight"] = {
+        "agreement": agree, "differing": int((occ != found).sum()),
+        "occluded_fraction": float(found.float().mean())}
+    check(agree >= 0.9999, f"any_hit_triangles: {checks['any_vs_trace_any_hit_tight']}")
+    sid_g, dist_g = out["nearest_to_triangles"]
+    checks["nearest_brute"] = check_nearest_vs_brute(
+        "general_nearest", pts_n, sid_g, dist_g, tris_dev, 61)
+    sid_k, dist_k = nearest_tight(scene, pts_n)
+    dif = torch.nonzero((sid_g != sid_k) | (dist_g != dist_k))[:, 0]
+    check(ties_only(pts_n[dif], sid_g[dif], dist_g[dif], sid_k[dif],
+                    dist_k[dif], tris_dev),
+          "nearest_to_triangles differs from nearest_tight outside the tie "
+          "class")
+    checks["nearest_vs_nearest_tight"] = {
+        "ids_differ": int((sid_g != sid_k).sum()),
+        "distance_bits_differ": int((dist_g != dist_k).sum()),
+        "max_abs_distance_diff": float((dist_g - dist_k).abs().max())}
+    sample = torch.from_numpy(np.random.default_rng(62).choice(
+        N_QUERIES, N_COLLECT, replace=False)).to(dev)
+    for kind, q in queries.items():
+        hits, cnt = out[f"traverse_{kind}"]
+        qs = trav_mod._take(q, sample, N_QUERIES)
+        want = brute_force_collect(qs, mn_dev, mx_dev)
+        got = collect_mask(hits[sample], cnt[sample], n_tris)
+        check(torch.equal(got, want) and torch.equal(
+            cnt[sample].long(), want.sum(1)),
+            f"traverse {kind}: differs from brute_force_collect")
+        checks[f"traverse_{kind}"] = {
+            "sampled": N_COLLECT, "mean_count": float(cnt.float().mean()),
+            "max_count": int(cnt.max()), "buffer": int(hits.shape[1])}
+    ids, dist, cnt = out["nearest_traverse"]
+    hits_r, cnt_r = out["traverse_ray"]
+    fits = cnt_r <= 32
+    check(torch.equal(cnt, cnt_r) and torch.equal(
+        collect_mask(ids[fits], cnt[fits], n_tris),
+        collect_mask(hits_r[fits], cnt_r[fits], n_tris)),
+        "nearest_traverse: its shapes differ from traverse's")
+    fin = torch.isfinite(dist[:, 1:]) & torch.isfinite(dist[:, :-1])
+    check(bool((dist[:, 1:] >= dist[:, :-1])[fin].all()),
+          "nearest_traverse: distances not ascending")
+    checks["nearest_traverse"] = {"rays": N_QUERIES,
+                                  "overflowing": int((~fits).sum())}
+    # render_depth against render_depth_fast: equal depth outside the
+    # classes; gradients of the loss over the rays both hit on the same
+    # triangle within DIFF_GRAD_RTOL of the largest
+    with torch.no_grad():
+        hg = render_hits(flat, aimed, *tris_dev)
+        hf = render_hits_fast(scene, aimed, *tris_dev, packet=8192)
+    diffs, outside = classify_differences(hg, hf, int(scene.width))
+    check(outside == 0, f"render_depth differs from render_depth_fast on "
+          f"{outside} rays outside the classes")
+    same = hg.shape_id == hf.shape_id
+    loss_g, depth_g, hit_g, grads_g = out["render_depth_fwd_bwd"]
+    check(torch.equal(torch.where(hit_g, depth_g, float("inf")), hg.t),
+          "render_depth: depth differs from render_hits")
+    _, _, _, g_gen = fwd_bwd(general, same)
+    _, _, _, g_fast = fwd_bwd(fast, same)
+    grad_err = []
+    for g, gf in zip(g_gen, g_fast):
+        scale, e = float(gf.abs().max()), float((g - gf).abs().max())
+        grad_err.append({"max_abs_diff": e, "max_abs": scale})
+        check(bool(torch.isfinite(g).all()) and e <= DIFF_GRAD_RTOL * scale,
+              f"render_depth: gradients differ from render_depth_fast by {e} "
+              f"(largest {scale})")
+    checks["render_depth_vs_fast"] = {"differing": len(diffs),
+                                      "rays_in_gradients": int(same.sum()),
+                                      "gradients": grad_err}
+    h64 = out["closest_hit_f64"]
+    w64 = brute_force_closest_hit(rays64, *tris64)
+    rel64 = float(((h64.t - w64.t).abs() / w64.t.abs())[torch.isfinite(
+        w64.t)].max())
+    check(h64.t.dtype == torch.float64 and torch.equal(
+        torch.isfinite(h64.t), torch.isfinite(w64.t)) and rel64 <= 1e-12
+        and int(h64.shape_id[0]) == a64.shape[0] - 1
+        and abs(float(h64.t[0]) - (50.0 - 1e-9)) < 1e-9,
+        f"closest_hit f64: rel err {rel64}, ids {h64.shape_id[:2].tolist()}")
+    checks["closest_hit_f64"] = {"rays": int(o64.shape[0]),
+                                 "max_rel_t_err": rel64,
+                                 "t_near_pair": float(h64.t[0])}
+    emit("general_path", card=card, sah_nodes=int(flat.num_nodes),
+         sah_build_s=build_s, checks=checks, calls=counts)
+
+    # ---- timings ------------------------------------------------------------
+    units = {"closest_hit_triangles": ("rays", n),
+             "any_hit_triangles": ("rays", n),
+             "nearest_to_triangles": ("points", N_GENERAL_POINTS),
+             "traverse_ray": ("queries", N_QUERIES),
+             "traverse_aabb": ("queries", N_QUERIES),
+             "traverse_ball": ("queries", N_QUERIES),
+             "nearest_traverse": ("rays", N_QUERIES),
+             "render_depth_fwd_bwd": ("rays", n),
+             "closest_hit_f64": ("rays", int(o64.shape[0]))}
+    # each leg ran once above (its warm-up); 7 timed calls and a profile
+    timings = {}
+    for leg, fn in legs.items():
+        t0 = time.perf_counter()
+        ms = cuda_ms(fn, warmup=0)
+        unit, count = units[leg]
+        timings[leg] = {"ms": ms, f"{unit}_per_s": count / (ms * 1e-3),
+                        **counts[leg],
+                        "breakdown": general_idle(fn, ms,
+                                                  counts[leg]["steps"])}
+        timings[leg]["leg_s"] = time.perf_counter() - t0
+        check(timings[leg]["leg_s"] <= 60.0, f"{leg}: over 60 s")
+    emit("general_timings", card=card, legs=timings)
+    return timings
 
 
 def main() -> None:
@@ -2812,6 +3310,13 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels += dynamic_phase(dev, card, scene, (a, b, c), o, d, ao, ad, issue)
     emit("dynamic_phase", seconds=time.perf_counter() - t0)
+
+    # ---- phase 14: the general pure-tensor path at full size ------------
+    t0 = time.perf_counter()
+    pr_dev = torch.from_numpy(tb.create_rays(
+        N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)  # phase 7's
+    general_phase(dev, card, scene, (a, b, c), ao, ad, h_aim, pr_dev)
+    emit("general_phase", seconds=time.perf_counter() - t0)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

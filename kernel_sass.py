@@ -1,0 +1,133 @@
+"""Compares the compiled code of two trees' kernels that share
+``trace_common.cuh`` on the card's toolchain: the SASS of every kernel
+instantiation and its registers.
+
+    python3 kernel_sass.py --old _archive/old/bvh_tpu_torch
+
+``--old`` (and ``--new``, default this checkout's ``bvh_tpu_torch``) name a
+package directory whose ``csrc/`` holds ``wide_trace.cu``, ``tight_trace.cu``,
+``sweep.cu``, ``cluster_trace.cu`` and ``trace_common.cuh``. Each source is compiled to a cubin with the flags
+of ``ops/_build.py::NVCC_FLAGS`` (the library flags dropped), its SASS read
+with ``cuobjdump -sass`` and its resource use with ``cuobjdump
+-res-usage``. An old instantiation is paired with the new one whose
+template arguments are the old ones followed only by false (flags the
+new tree added, off); the two must have the same instructions, line for
+line, and the same registers. The new tree's other instantiations (a flag
+on) are listed with their registers. Prints one JSON object and exits 1
+when a pair differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+from bvh_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+
+SOURCES = ("wide_trace.cu", "tight_trace.cu", "sweep.cu", "cluster_trace.cu")
+OFF = ("false", "(bool)0")  # a template flag off, as cu++filt prints it
+
+
+def _tool(name: str) -> str:
+    """A CUDA toolkit binary beside ``nvcc``."""
+    return str(Path(_nvcc()).parent / name)
+
+
+def _cubin(src: Path, out: Path) -> None:
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")]
+    subprocess.run([_nvcc(), *flags, "-cubin", str(src), "-o", str(out)],
+                   check=True, capture_output=True, text=True)
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    out = subprocess.run([_tool("cu++filt")], input="\n".join(names),
+                         check=True, capture_output=True,
+                         text=True).stdout.splitlines()
+    return dict(zip(names, out))
+
+
+def _kernels(cubin: Path) -> dict[str, dict]:
+    """Each kernel's (template name -> instructions, registers)."""
+    dump = _tool("cuobjdump")
+    sass = subprocess.run([dump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    res = subprocess.run([dump, "-res-usage", str(cubin)], check=True,
+                         capture_output=True, text=True).stdout
+    code: dict[str, list[str]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            code[name] = []
+        elif name is not None:
+            # an instruction without its address and encoding comments
+            ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip()
+            ins = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", ins).strip()
+            if ins:
+                code[name].append(ins)
+    regs = {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"Function (\S+):\s*REG:(\d+)", res)}
+    pretty = _demangle(list(code))
+    out = {}
+    for mangled, lines in code.items():
+        m = re.search(r"(\w+_kernel)(?:<([^>]*)>)?", pretty[mangled])
+        targs = m.group(2)
+        key = (m.group(1), tuple(a.strip() for a in targs.split(","))
+               if targs else ())
+        out[key] = {"sass": lines, "regs": regs.get(mangled)}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True, type=Path)
+    ap.add_argument("--new", type=Path,
+                    default=Path(__file__).resolve().parent / "bvh_tpu_torch")
+    args = ap.parse_args()
+    report, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in SOURCES:
+            built = {}
+            for tree in ("old", "new"):
+                out = Path(tmp) / f"{tree}_{src}.cubin"
+                _cubin(getattr(args, tree) / "csrc" / src, out)
+                built[tree] = _kernels(out)
+            pairs, extra = [], []
+            for (kname, targs), new in sorted(built["new"].items()):
+                old_key = None
+                for n in range(len(targs), -1, -1):
+                    if all(a in OFF for a in targs[n:]) and \
+                            (kname, targs[:n]) in built["old"]:
+                        old_key = (kname, targs[:n])
+                        break
+                if old_key is None:
+                    extra.append({"kernel": f"{kname}<{', '.join(targs)}>",
+                                  "regs": new["regs"]})
+                    continue
+                old = built["old"][old_key]
+                same = old["sass"] == new["sass"] and old["regs"] == new["regs"]
+                ok &= same
+                pairs.append({"old": f"{kname}<{', '.join(old_key[1])}>",
+                              "new": f"{kname}<{', '.join(targs)}>",
+                              "sass_equal": old["sass"] == new["sass"],
+                              "instructions": len(new["sass"]),
+                              "regs_old": old["regs"], "regs_new": new["regs"]})
+            unpaired = [f"{k}<{', '.join(a)}>" for k, a in built["old"]
+                        if not any(p["old"] == f"{k}<{', '.join(a)}>"
+                                   for p in pairs)]
+            ok &= not unpaired
+            report[src] = {"pairs": pairs, "new_only": extra,
+                           "old_unpaired": unpaired}
+    print(json.dumps({"ok": ok, "sources": report}))
+    sys.exit(0 if ok else 1)
+
+
+if __name__ == "__main__":
+    main()

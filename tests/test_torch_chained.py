@@ -89,7 +89,7 @@ def exact_reciprocal(monkeypatch):
 def _assert_chain_equal(cj, ct):
     assert len(cj.parts) == len(ct.parts) and len(ct.orig_ids) == len(ct.parts)
     for pj, pt in zip(cj.parts, ct.parts):
-        assert pt._fields == pj._fields
+        assert pt._fields == pj._fields + ("a_lo",)
         for name in pj._fields:
             x, y = getattr(pj, name), getattr(pt, name)
             if x is None or y is None:

@@ -1500,3 +1500,146 @@ def test_updater_on_card_matches_cpu(cuda, case):
     pts = np.concatenate([a2, b2])[::11]
     _equal(nearest_chained(ch_k, pts), nearest_chained(ch_c, pts,
                                                        device="cpu"))
+
+
+# ---- the exact cluster frame (FRAME builds) ---------------------------------
+
+@pytest.fixture(scope="module")
+def frame_scenes(cuda):
+    """Device grid builds of create_n_cubes(300) at W=16 and W=128 (tables
+    copied to numpy; Morton clusters span distant cubes, so frame origins
+    lie up to ~1e5 from their triangles), with 65,537 unsorted rays from
+    [-60, 60]^3 aimed at centroids ~1e5 away (a quarter turned away) and a
+    t_max between 0 and 2e5."""
+    a, b, c = tb.create_n_cubes(300)
+    rng = np.random.default_rng(17)
+    m = 65537
+    o = rng.uniform(-60.0, 60.0, (m, 3)).astype(np.float32)
+    d = (((a + b + c) / np.float32(3))[rng.integers(0, len(a), m)]
+         - o).astype(np.float32)
+    d[::4] = -d[::4]
+    rays = Ray.create(o, d, device=cuda)
+    tm = torch.from_numpy(rng.uniform(0.0, 2e5, m).astype(np.float32)).to(cuda)
+    out = {}
+    for width in (16, 128):
+        sc = build_tight_scene_device(a, b, c, width=width, device="cpu")
+        sc = sc._replace(**{f: getattr(sc, f).numpy() for f in
+                            ("smem_nodes", "groups", "tri_map", "gnodes",
+                             "gslot", "a_lo")})
+        out[width] = sc
+    return out, rays, tm
+
+
+FRAME_CASES = [(walk, mode) for walk in ("wide", "tight")
+               for mode in ("closest", "bounded", "any", "gated", "hinted",
+                            "count")] + [("wide", "start_g")]
+
+
+@pytest.mark.parametrize("walk,mode", FRAME_CASES)
+@pytest.mark.parametrize("width", [16, 128])
+def test_frame_build_matches_plain(frame_scenes, cuda, width, walk, mode):
+    """The FRAME builds of the group walk and the entry/exit walk (a scene's
+    ``a_lo`` given) bit-equal to their plain versions with the same
+    ``a_lo``, in every mode and in the counting builds; a timed FRAME
+    launch is counted in ``frame_launches``."""
+    scenes, rays, tm = frame_scenes
+    scene = scenes[width]
+    tight = walk == "tight"
+    bound = tm if mode in ("bounded", "any") else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)
+    kw = _walk_kw(scene, rows, cuda, "closest" if mode == "count" else mode,
+                  128, tight=tight)
+    counts = mode == "count"
+    a_lo, grp = _dev(scene.a_lo, cuda), _dev(scene.groups, cuda)
+    mod = tight_mod if tight else wide_mod
+    before = mod.frame_launches
+    if tight:
+        got = tight_mod.tight_trace(_nrec(scene.smem_nodes, cuda), grp, rows,
+                                    width, counts=counts, a_lo=a_lo, **kw)
+        want = tight_mod.tight_trace_plain(_dev(scene.smem_nodes, cuda), grp,
+                                           rows, width, counts=counts,
+                                           a_lo=a_lo, **kw)
+    else:
+        got = wide_mod.wide_trace(_rec(scene, cuda), grp, rows, width,
+                                  scene.gdepth, counts=counts, a_lo=a_lo,
+                                  **kw)
+        want = wide_mod.wide_trace_plain(_dev(scene.gnodes, cuda), grp, rows,
+                                         width, counts=counts, a_lo=a_lo,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert mod.frame_launches == before + (0 if counts else 1)
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    assert bool(torch.isfinite(got[0]).any())
+    if mode == "closest":
+        # the exact frame changes results on these rays
+        if tight:
+            t0, _ = tight_mod.tight_trace(_nrec(scene.smem_nodes, cuda), grp,
+                                          rows, width, **kw)
+        else:
+            t0, _ = wide_mod.wide_trace(_rec(scene, cuda), grp, rows, width,
+                                        scene.gdepth, **kw)
+        assert not torch.equal(_bits(t0), _bits(got[0]))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_frame_build_warp_schedule(frame_scenes, cuda, n):
+    """Partial warps of the FRAME builds against the plain versions."""
+    scenes, rays, tm = frame_scenes
+    scene = scenes[16]
+    rows = _ray_rows(rays, torch.full_like(tm, np.inf))[:, :n].contiguous()
+    a_lo, grp = _dev(scene.a_lo, cuda), _dev(scene.groups, cuda)
+    got = wide_mod.wide_trace(_rec(scene, cuda), grp, rows, 16, scene.gdepth,
+                              packet=128, a_lo=a_lo)
+    want = wide_mod.wide_trace_plain(_dev(scene.gnodes, cuda), grp, rows, 16,
+                                     packet=128, a_lo=a_lo)
+    got_t = tight_mod.tight_trace(_nrec(scene.smem_nodes, cuda), grp, rows,
+                                  16, packet=128, a_lo=a_lo)
+    want_t = tight_mod.tight_trace_plain(_dev(scene.smem_nodes, cuda), grp,
+                                         rows, 16, packet=128, a_lo=a_lo)
+    torch.cuda.synchronize()
+    for x, y in zip(got + got_t, want + want_t):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+# ---- the general pure-tensor path on the card -----------------------------
+
+def test_general_path_on_card_matches_cpu(cuda):
+    """The lock-step traversals on the card (each window of steps replayed
+    as a captured CUDA graph) against the same calls on the CPU: closest
+    hit, any hit, traverse and the ordered walk bit for bit; nearest with
+    equal ids outside ties and distances within rtol 1e-6 (the box and
+    triangle distances sum over the axes, in another order on the card)."""
+    from bvh_tpu_torch import Ball, BallQuery, RayQuery
+    from bvh_tpu_torch.bvh import (any_hit_triangles, build_sah,
+                                   closest_hit_triangles, nearest_traverse,
+                                   nearest_to_triangles, traverse_all)
+    a, b, c = tb.create_n_cubes(200)
+    flat = build_sah(*tb.tri_aabbs(a, b, c))[0]
+    o, d = _rays(a, n=4096, seed=4)
+    rays = Ray.create(o, d, device="cpu")
+    tris = tuple(torch.from_numpy(x) for x in (a, b, c))
+    fc, fk = flat.to_device(device="cpu"), flat.to_device(device=cuda)
+    tk = tuple(x.to(cuda) for x in tris)
+    rk = _to(rays, cuda)
+    hc = closest_hit_triangles(fc, rays, *tris)
+    _equal(closest_hit_triangles(fk, rk, *tk), hc)
+    tm = torch.where(torch.isfinite(hc.t), hc.t * 0.9, 50.0)
+    _equal(any_hit_triangles(fk, rk, *tk, t_max=tm.to(cuda)),
+           any_hit_triangles(fc, rays, *tris, t_max=tm))
+    _equal(nearest_traverse(fk, rk, max_hits=16),
+           nearest_traverse(fc, rays, max_hits=16))
+    ball = Ball.create(rays.origin, 40.0, device="cpu")
+    _equal(traverse_all(fk, BallQuery(Ball(*(x.to(cuda) for x in ball)))),
+           traverse_all(fc, BallQuery(ball)))
+    _equal(traverse_all(fk, RayQuery(rk)), traverse_all(fc, RayQuery(rays)))
+    pts = rays.origin[:1024]
+    sk, dk = nearest_to_triangles(fk, pts.to(cuda), *tk)
+    sc, dc = nearest_to_triangles(fc, pts, *tris)
+    torch.cuda.synchronize()
+    assert torch.allclose(dk.cpu(), dc, rtol=1e-6, atol=0)
+    from bvh_tpu_torch import point_triangle_distance_squared as d2
+    diff = torch.nonzero(sk.cpu() != sc)[:, 0]
+    for s in (sk.cpu()[diff].long(), sc[diff].long()):
+        got = d2(pts[diff], *(x[s] for x in tris))
+        assert torch.allclose(got, dc[diff] ** 2, rtol=1e-5, atol=0)

@@ -55,6 +55,7 @@ from bvh_tpu.ops.trace import trace_any_hit_chained as any_chained_j
 from bvh_tpu.ops.trace import trace_closest_hit_chained as closest_chained_j
 from bvh_tpu.ops.trace import trace_closest_hit_tight as closest_tight_j
 from bvh_tpu_torch import Ray, ray_intersects_triangle
+from bvh_tpu_torch import point_triangle_distance_squared as point_d2
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.bvh import build_lbvh, build_sah, refit, update_shapes
 from bvh_tpu_torch.bvh.lbvh import clz32
@@ -62,6 +63,7 @@ from bvh_tpu_torch.ops import (build_chained_scene, build_chained_scene_device,
                                build_tight_scene, build_tight_scene_device,
                                count_visits_tight, make_chained_updater,
                                make_refitter, make_updater, nearest_chained,
+                               nearest_tight,
                                trace_any_hit_chained,
                                trace_closest_hit_chained,
                                trace_closest_hit_tight)
@@ -97,9 +99,10 @@ def _np(x):
 
 
 def assert_scene_equal(sj, st):
-    """Every field of two TightScenes equal (arrays: dtype, shape, values
-    with NaN in place)."""
-    assert st._fields == sj._fields
+    """Every field of the reference's TightScene equal in the port's
+    (arrays: dtype, shape, values with NaN in place); the port's own
+    ``a_lo`` is held by ``test_a_lo_is_the_exact_remainder``."""
+    assert st._fields == sj._fields + ("a_lo",)
     for name in sj._fields:
         x, y = getattr(sj, name), getattr(st, name)
         if x is None or y is None:
@@ -301,21 +304,29 @@ def _near_aimed(a, n, seed, dist=40.0, aim=0.19):
 def test_device_scene_traces(upper, exact_recip):
     """The reference's device-build rays (a quarter turned away) through
     the device-built scene: brute force, the reference's walk on the same
-    tables (grid), and the group walk equal to the entry/exit walk."""
+    tables (grid), and the group walk equal to the entry/exit walk.
+
+    The scene's walks test leaves in the exact cluster frame (``a_lo``),
+    the reference in its rounded far frame, whose raw t lies up to a few
+    hundred ulps off on these rays; so the reference is held against the
+    port's walk over the same tables without ``a_lo`` (its own frame), and
+    the exact-frame walk against brute force."""
     a, b, c = tb.create_n_cubes(40)
     st = build_tight_scene_device(a, b, c, upper=upper, device=CPU)
     o, d = _near_aimed(a, 512, seed=17)
     d[::4] = -d[::4]
     rays = Ray.create(o, d, device=CPU)
     ht = trace_closest_hit_tight(st, rays, packet=256, device=CPU)
-    hj = None
+    check_trace(ht, o, d, (a, b, c), W=st.width)
     if upper == "grid":
         sj = db_j.build_tight_scene_device(a, b, c, upper=upper)
         hj = closest_tight_j(sj, bvh_tpu.Ray.create(o, d), packet=PACKET,
                              interpret=True)
         assert _same(trace_closest_hit_tight(st, rays, packet=256,
                                              wide=False, device=CPU), ht)
-    check_trace(ht, o, d, (a, b, c), hj, st.width)
+        h_rounded = trace_closest_hit_tight(st._replace(a_lo=None), rays,
+                                            packet=256, device=CPU)
+        check_trace(h_rounded, o, d, (a, b, c), hj, st.width)
 
 
 def test_build_chained_scene_device_equal():
@@ -682,3 +693,158 @@ def test_frame_stays_on_its_device(moved, monkeypatch):
     rec = trace_mod._dev(dev.gnodes, CPU, trace_mod.group_records)
     assert trace_mod._dev(dev.gnodes, CPU, trace_mod.group_records) is rec
     assert trace_mod._dev(dev.smem_nodes, CPU) is dev.smem_nodes
+
+
+# ---- the exact cluster frame of device-built, refit and delta scenes --------
+
+def _oracle64(o, d, a, b, c):
+    """Closest hit of each ray in float64 Moller-Trumbore with backface
+    culling, over the float32-normalized directions the port's rays carry
+    (``Ray.create``): ``(t, shape_id)``, +inf and -1 on a miss."""
+    dn = Ray.create(o, d, device=CPU).direction.numpy().astype(np.float64)
+    o = o.astype(np.float64)[:, None]
+    a, b, c = (x.astype(np.float64)[None] for x in (a, b, c))
+    e1, e2 = b - a, c - a
+    p = np.cross(dn[:, None], e2)
+    det = (e1 * p).sum(-1)
+    s = o - a
+    q = np.cross(s, e1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = (s * p).sum(-1) / det
+        v = (dn[:, None] * q).sum(-1) / det
+        t = (e2 * q).sum(-1) / det
+    ok = (det > 0) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+    t = np.where(ok, t, np.inf)
+    best = t.min(axis=1)
+    return best, np.where(np.isfinite(best), t.argmin(axis=1), -1)
+
+
+@pytest.mark.parametrize("upper", ["grid", "lbvh"])
+def test_far_frame_rays(upper, exact_recip):
+    """A device build of create_n_cubes(40), whose Morton clusters span two
+    cubes ~1e5 apart, traced with rays from [-60, 60]^3 aimed at its
+    centroids (every fourth turned away): with the exact cluster frame
+    (``a_lo``) the hit mask equals a float64 oracle's on every ray, with
+    no edge-class allowance. Rays 7, 37 and 70, which the rounded frame
+    missed, hit the oracle's triangles at brute force's t within 2e-4: 37
+    and 70 brute force's triangles, 7 triangle 27, where float32 brute
+    force takes triangle 35, which the float64 test misses by 6.7e-5 of
+    its barycentric range. The reference's trace over its equal tables
+    (its frame rounded) misses rays 37 and 197, which the port and the
+    oracle hit; elsewhere its mask is the port's."""
+    a, b, c = tb.create_n_cubes(40)
+    st = build_tight_scene_device(a, b, c, upper=upper, device=CPU)
+    assert st.a_lo is not None
+    o, d = _aimed(a, b, c, 512, seed=17)
+    d[::4] = -d[::4]
+    rays = Ray.create(o, d, device=CPU)
+    ht = trace_closest_hit_tight(st, rays, packet=256, device=CPU)
+    if upper == "grid":
+        assert _same(trace_closest_hit_tight(st, rays, packet=256,
+                                             wide=False, device=CPU), ht)
+    t, s = ht.t.numpy(), ht.shape_id.numpy()
+    t64, s64 = _oracle64(o, d, a, b, c)
+    assert np.array_equal(np.isfinite(t), np.isfinite(t64))
+    bt, bs = _brute(o, d, a, b, c)
+    for i in (7, 37, 70):
+        assert np.isfinite(t[i]) and s[i] == s64[i], i
+        assert abs(np.float64(t[i]) - bt[i]) <= 2e-4 * bt[i], i
+    assert (s[37], s[70]) == (bs[37], bs[70]) and (s[7], bs[7]) == (27, 35)
+    check_trace(ht, o, d, (a, b, c))
+    rounded = trace_closest_hit_tight(st._replace(a_lo=None), rays,
+                                      packet=256, device=CPU)
+    assert not np.isfinite(rounded.t.numpy()[[7, 37, 70]]).any()
+    if upper == "grid":
+        sj = db_j.build_tight_scene_device(a, b, c)
+        hj = closest_tight_j(sj, bvh_tpu.Ray.create(o, d), packet=PACKET,
+                             interpret=True)
+        hit_j = np.isfinite(np.asarray(hj.t))
+        assert np.array_equal(np.nonzero(hit_j != np.isfinite(t))[0],
+                              [37, 197])
+        assert np.isfinite(t[[37, 197]]).all() and not hit_j[[37, 197]].any()
+
+
+def _frame_parts(case):
+    """(parts, lane -> triangle id per part, vertices) of a device build,
+    an LBVH build, a device chain, a refit and an update's delta parts."""
+    a, b, c = tb.create_n_cubes(40)
+    if case in ("grid", "lbvh"):
+        sc = build_tight_scene_device(a, b, c, upper=case, device=CPU)
+        return [sc], [_np(sc.tri_map)], (a, b, c)
+    if case == "chained":
+        ch = build_chained_scene_device(a, b, c, max_part=160, device=CPU)
+        ids = [_np(i)[_np(p.tri_map)] for p, i in zip(ch.parts, ch.orig_ids)]
+        for x, p in zip(ids, ch.parts):
+            x[_np(p.tri_map) < 0] = -1
+        return list(ch.parts), ids, (a, b, c)
+    a2, b2, c2, moved_ids = tb.randomly_transform_scene(a, b, c, len(a) // 3,
+                                                        seed=11)
+    scene = build_tight_scene(a, b, c, use_native=False)
+    if case == "refit":
+        rt = make_refitter(scene, device=CPU)(a2, b2, c2)
+        return [rt], [_np(rt.tri_map)], (a2, b2, c2)
+    ch = make_updater(scene, max_moved=len(moved_ids), device=CPU)(
+        a2, b2, c2, moved_ids.astype(np.int32))
+    assert ch.parts[0].a_lo is None
+    parts, ids = [], []
+    for p, i in zip(ch.parts[1:], ch.orig_ids[1:]):
+        tm = _np(p.tri_map)
+        ids.append(np.where(tm >= 0, _np(i)[np.maximum(tm, 0)], -1))
+        parts.append(p)
+    return parts, ids, (a2, b2, c2)
+
+
+@pytest.mark.parametrize("case", ["grid", "lbvh", "chained", "refit", "delta"])
+def test_a_lo_is_the_exact_remainder(case):
+    """``a_lo`` of every lane is (a - cc) - a' computed in float64 and rounded
+    once to float32, cc the frame origin the walks use (the cluster's leaf
+    box centre in float32) and a' the stored row; 0 in pad lanes."""
+    parts, ids, (a, b, c) = _frame_parts(case)
+    for sc, tid in zip(parts, ids):
+        W = int(sc.width)
+        sn = _np(sc.smem_nodes)
+        leaf = sn[6] < 0
+        col = np.zeros(int(sc.num_clusters), np.int64)
+        col[(-sn[6, leaf] - 1).astype(np.int64)] = np.nonzero(leaf)[0]
+        rows = _np(sc.groups).transpose(0, 2, 1).reshape(-1, 16)
+        got = _np(sc.a_lo).transpose(0, 2, 1).reshape(-1, 3)
+        lanes = np.nonzero(tid >= 0)[0]
+        cc = (sn[0:3, col[lanes // W]] + sn[3:6, col[lanes // W]]).T * \
+            np.float32(0.5)
+        want = np.zeros_like(got)
+        want[lanes] = ((a[tid[lanes]].astype(np.float64) - cc)
+                       - rows[lanes, 0:3]).astype(np.float32)
+        assert got.dtype == np.float32
+        assert np.array_equal(got, want)
+        if case in ("refit", "delta"):
+            # moved triangles make a - cc inexact in float32
+            assert (np.abs(got[lanes]) > 0).any()
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_nearest_far_frame(wide):
+    """Both nearest walks on a device grid build of create_n_cubes(40)
+    (frame origins up to ~1e5 from their triangles), points within a few
+    units of the cubes, against brute force at the port's nearest bound
+    |dist - bd| <= 1e-5 bd + 1e-2, for the reported distance and for the
+    exact distance of the reported triangle. (The walks round p - cc in
+    the far frame, so where two triangles lie within ~1e-3 of the same
+    distance they may take the farther one: point 326 takes triangle 302
+    at d^2 = 1.35375 for 307 at 1.35277, inside that bound; ROADMAP queue
+    3, item 7.)"""
+    a, b, c = tb.create_n_cubes(40)
+    st = build_tight_scene_device(a, b, c, device=CPU)
+    rng = np.random.default_rng(23)
+    centers = a.reshape(-1, 12, 3).mean(axis=1)
+    pts = (np.repeat(centers, 13, axis=0)
+           + rng.normal(scale=1.5, size=(40 * 13, 3))).astype(np.float32)
+    sid, dist = nearest_tight(st, pts, wide=wide, device=CPU)
+    sid, dist = sid.numpy(), dist.numpy().astype(np.float64)
+    d2 = np.stack([point_d2(torch.from_numpy(pts),
+                            *(torch.from_numpy(x[k:k + 1]) for x in (a, b, c)))
+                   .numpy() for k in range(a.shape[0])], 1).astype(np.float64)
+    bd = np.sqrt(d2.min(axis=1))
+    assert (sid >= 0).all()
+    assert (np.abs(dist - bd) <= 1e-5 * bd + 1e-2).all()
+    own = np.sqrt(d2[np.arange(len(pts)), sid])
+    assert (np.abs(own - bd) <= 1e-5 * bd + 1e-2).all()
