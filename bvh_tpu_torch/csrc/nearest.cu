@@ -61,6 +61,18 @@
 // walk's order, so the result is the plain version's bit for bit. All 32
 // lanes stay in the loop until every walk is done.
 //
+// FRAME builds (FRAME true, chosen by the wrapper when the scene carries
+// a_lo [G, 3, 128]: device builds, their refits and update deltas, whose
+// Morton clusters may lie ~1e5 from their frame origin): the exact cluster
+// frame of the trace walks (trace_common.cuh, warp_leaves). The point's lane
+// also forms lo, the rounding error of p - cc (two_diff_lo), and the lanes
+// serving it take q = ((p' - a') + lo) - a_lo[j], the part of a - cc that
+// the stored a' leaves out read from a_lo, so the cascade sees p - a to a
+// few ulps of |p - a| where the rounded frame lost up to an ulp of 1e5.
+// Only the leaf test takes the frame: the box tests (box_d2min, box_d2max)
+// work in global coordinates. a_lo is each kernel's last parameter, so the
+// builds without FRAME read none and keep their code.
+//
 // Counting builds (COUNT true, chosen by the wrapper when it is given
 // counter outputs; the reference's count_visits): each point's own walk,
 // the steps its lane takes (here) and not the warp's union: group tests
@@ -105,6 +117,16 @@ struct NTri {
   float a0, a1, a2, e10, e11, e12, e20, e21, e22, aa, ab, bb;
 };
 
+// The rounding error of x - y: hi + lo == x - y exactly, with hi the
+// rounded difference (Knuth's TwoSum of x and -y; trace_common.cuh's
+// two_diff_lo, in the same order).
+__device__ __forceinline__ float two_diff_lo(float x, float y) {
+  const float hi = x - y;
+  const float bv = hi - x;
+  const float av = hi - bv;
+  return (x - av) - (y + bv);
+}
+
 __device__ __forceinline__ NTri load_ntri(const float* __restrict__ tile,
                                           int j) {
   NTri t;
@@ -132,11 +154,22 @@ __device__ __forceinline__ NTri load_ntri(const float* __restrict__ tile,
 // computed where the region needs them, so a warp whose lanes all land at
 // vertices skips both. v and w are the values the plain version's
 // torch.where chain selects, bit for bit.
-template <int W>
+//
+// FRAME: (lx, ly, lz) is the rounding error of p - cc and (alx, aly, alz)
+// the triangle's a_lo, and q = ((p' - a') + lo) - a_lo; without FRAME they
+// are not read.
+template <int W, bool FRAME>
 __device__ __forceinline__ int pair_key(const NTri& t, int j, float opx,
-                                        float opy, float opz) {
+                                        float opy, float opz, float lx,
+                                        float ly, float lz, float alx,
+                                        float aly, float alz) {
   const float inf = __int_as_float(SENT);
   float qx = opx - t.a0, qy = opy - t.a1, qz = opz - t.a2;
+  if (FRAME) {
+    qx = (qx + lx) - alx;
+    qy = (qy + ly) - aly;
+    qz = (qz + lz) - alz;
+  }
   float d1 = (t.e10 * qx + t.e11 * qy) + t.e12 * qz;
   float d2 = (t.e20 * qx + t.e21 * qy) + t.e22 * qz;
   float d3 = d1 - t.aa, d4 = d2 - t.ab, d5 = d1 - t.ab, d6 = d2 - t.bb;
@@ -229,10 +262,13 @@ struct WideTables {
 // in F, the whole warp together: SPAN = min(W, 32) lanes per point, each
 // holding W / SPAN of the cluster's triangles (loaded once, coalesced, with
 // their |e1|^2, e1.e2 and |e2|^2), 32 / SPAN points a pass. A point's key
-// minimum is taken over its SPAN lanes; its own lane folds it.
-template <int W>
+// minimum is taken over its SPAN lanes; its own lane folds it. FRAME: the
+// exact cluster frame, with the lanes' a_lo read once beside their
+// triangles.
+template <int W, bool FRAME>
 __device__ __forceinline__ void warp_narrow(Point& p, unsigned F,
                                             const float* __restrict__ groups,
+                                            const float* __restrict__ a_lo,
                                             int c, float ccx, float ccy,
                                             float ccz, int lane) {
   constexpr int SPAN = W < 32 ? W : 32;  // lanes per point
@@ -245,8 +281,28 @@ __device__ __forceinline__ void warp_narrow(Point& p, unsigned F,
   NTri tr[TPL];
 #pragma unroll
   for (int s = 0; s < TPL; ++s) tr[s] = load_ntri(tile, j0 + SPAN * s);
+  float al[TPL][3];
+  if (FRAME) {
+    // cluster c's lanes in a_lo [G, 3, 128] (the layout of the a' rows)
+    const float* alt =
+        a_lo + (size_t)(c / per_row) * 3 * 128 + (c % per_row) * W;
+#pragma unroll
+    for (int s = 0; s < TPL; ++s) {
+      const int j = j0 + SPAN * s;
+      al[s][0] = __ldg(alt + j);
+      al[s][1] = __ldg(alt + 128 + j);
+      al[s][2] = __ldg(alt + 2 * 128 + j);
+    }
+  }
   // this lane's point in the cluster frame, read by the lanes serving it
   const float opx = p.px - ccx, opy = p.py - ccy, opz = p.pz - ccz;
+  // FRAME: the rounding error of p - cc, read the same way
+  float lox = 0.0f, loy = 0.0f, loz = 0.0f;
+  if (FRAME) {
+    lox = two_diff_lo(p.px, ccx);
+    loy = two_diff_lo(p.py, ccy);
+    loz = two_diff_lo(p.pz, ccz);
+  }
   while (F) {
     const int f0 = __ffs(F) - 1;
     F &= F - 1;
@@ -261,10 +317,19 @@ __device__ __forceinline__ void warp_narrow(Point& p, unsigned F,
     const float Ox = __shfl_sync(FULL, opx, src),
                 Oy = __shfl_sync(FULL, opy, src),
                 Oz = __shfl_sync(FULL, opz, src);
+    float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;
+    if (FRAME) {
+      Lx = __shfl_sync(FULL, lox, src);
+      Ly = __shfl_sync(FULL, loy, src);
+      Lz = __shfl_sync(FULL, loz, src);
+    }
     int k = SENT;
 #pragma unroll
     for (int s = 0; s < TPL; ++s) {
-      int key = pair_key<W>(tr[s], j0 + SPAN * s, Ox, Oy, Oz);
+      int key = pair_key<W, FRAME>(tr[s], j0 + SPAN * s, Ox, Oy, Oz, Lx, Ly,
+                                   Lz, FRAME ? al[s][0] : 0.0f,
+                                   FRAME ? al[s][1] : 0.0f,
+                                   FRAME ? al[s][2] : 0.0f);
       k = key < k ? key : k;
     }
     if (SPAN == 32) {
@@ -293,12 +358,13 @@ __device__ __forceinline__ void warp_narrow(Point& p, unsigned F,
 // groups once, in DFS order. Then the fired leaf slots of those lanes,
 // lowest first: for each, the lanes that fired it narrowphase its cluster
 // together (warp_narrow).
-template <int W, bool COUNT>
+template <int W, bool COUNT, bool FRAME>
 __global__ void __launch_bounds__(128)
     nearest_wide_kernel(WideTables tb, const float* __restrict__ pts, int n,
                         float* __restrict__ d2_out, int* __restrict__ id_out,
                         int* __restrict__ steps_out,
-                        int* __restrict__ fires_out) {
+                        int* __restrict__ fires_out,
+                        const float* __restrict__ a_lo) {
   const float inf = __int_as_float(SENT);
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -357,8 +423,8 @@ __global__ void __launch_bounds__(128)
       float bx = __ldg(ch + 3 * Gn), by = __ldg(ch + 4 * Gn),
             bz = __ldg(ch + 5 * Gn);
       int c = (int)(-__ldg(ch + 6 * Gn) - 1.0f);
-      warp_narrow<W>(p, F, tb.groups, c, (ax + bx) * 0.5f, (ay + by) * 0.5f,
-                     (az + bz) * 0.5f, lane);
+      warp_narrow<W, FRAME>(p, F, tb.groups, a_lo, c, (ax + bx) * 0.5f,
+                            (ay + by) * 0.5f, (az + bz) * 0.5f, lane);
     }
     if (here) {
       // descend into g if it has fired interior children, then find the
@@ -415,7 +481,7 @@ __global__ void __launch_bounds__(128)
 // order. A fired leaf is narrowphased by the whole warp for the lanes that
 // fired it (warp_narrow). All 32 lanes stay in the loop until every cursor
 // is done (a lane past n starts done).
-template <int W, bool COUNT>
+template <int W, bool COUNT, bool FRAME>
 __global__ void __launch_bounds__(128)
     nearest_entry_exit_kernel(const float* __restrict__ nodes, int Nn,
                               const float* __restrict__ groups, int refine,
@@ -423,7 +489,8 @@ __global__ void __launch_bounds__(128)
                               float* __restrict__ d2_out,
                               int* __restrict__ id_out,
                               int* __restrict__ steps_out,
-                              int* __restrict__ fires_out) {
+                              int* __restrict__ fires_out,
+                              const float* __restrict__ a_lo) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = i < n;
@@ -456,8 +523,9 @@ __global__ void __launch_bounds__(128)
     if (leaf) {
       const unsigned F = __ballot_sync(FULL, fired);
       if (F)
-        warp_narrow<W>(p, F, groups, (int)(-entry - 1.0f), (ax + bx) * 0.5f,
-                       (ay + by) * 0.5f, (az + bz) * 0.5f, lane);
+        warp_narrow<W, FRAME>(p, F, groups, a_lo, (int)(-entry - 1.0f),
+                              (ax + bx) * 0.5f, (ay + by) * 0.5f,
+                              (az + bz) * 0.5f, lane);
     }
     if (here) cursor = (leaf || !fired) ? (int)exit_ : (int)entry;
   }
@@ -470,66 +538,83 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The build: counting or timed, in the exact cluster frame or not.
+template <int W, bool COUNT, bool FRAME>
+void run_wide(int grid, cudaStream_t stream, const WideTables& tb,
+              const float* pts, int n, float* d2_out, int* id_out,
+              int* steps_out, int* fires_out, const float* a_lo) {
+  nearest_wide_kernel<W, COUNT, FRAME><<<grid, 128, 0, stream>>>(
+      tb, pts, n, d2_out, id_out, steps_out, fires_out, a_lo);
+}
+
 template <int W>
 int launch_wide(const WideTables& tb, const float* pts, int n, float* d2_out,
                 int* id_out, int* steps_out, int* fires_out,
-                cudaStream_t stream) {
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  if (steps_out != nullptr) {
-    nearest_wide_kernel<W, true><<<grid, block, 0, stream>>>(
-        tb, pts, n, d2_out, id_out, steps_out, fires_out);
-  } else {
-    nearest_wide_kernel<W, false><<<grid, block, 0, stream>>>(
-        tb, pts, n, d2_out, id_out, steps_out, fires_out);
-  }
+                const float* a_lo, cudaStream_t stream) {
+  const int grid = (n + 127) / 128;
+  const bool frame = a_lo != nullptr;
+  const auto fn =
+      steps_out != nullptr
+          ? (frame ? &run_wide<W, true, true> : &run_wide<W, true, false>)
+          : (frame ? &run_wide<W, false, true> : &run_wide<W, false, false>);
+  fn(grid, stream, tb, pts, n, d2_out, id_out, steps_out, fires_out, a_lo);
   return (int)cudaGetLastError();
+}
+
+template <int W, bool COUNT, bool FRAME>
+void run_entry_exit(int grid, cudaStream_t stream, const float* nodes, int Nn,
+                    const float* groups, int refine, const float* pts, int n,
+                    float* d2_out, int* id_out, int* steps_out,
+                    int* fires_out, const float* a_lo) {
+  nearest_entry_exit_kernel<W, COUNT, FRAME><<<grid, 128, 0, stream>>>(
+      nodes, Nn, groups, refine, pts, n, d2_out, id_out, steps_out,
+      fires_out, a_lo);
 }
 
 template <int W>
 int launch_entry_exit(const float* nodes, int Nn, const float* groups,
                       int refine, const float* pts, int n, float* d2_out,
                       int* id_out, int* steps_out, int* fires_out,
-                      cudaStream_t stream) {
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  if (steps_out != nullptr) {
-    nearest_entry_exit_kernel<W, true><<<grid, block, 0, stream>>>(
-        nodes, Nn, groups, refine, pts, n, d2_out, id_out, steps_out,
-        fires_out);
-  } else {
-    nearest_entry_exit_kernel<W, false><<<grid, block, 0, stream>>>(
-        nodes, Nn, groups, refine, pts, n, d2_out, id_out, steps_out,
-        fires_out);
-  }
+                      const float* a_lo, cudaStream_t stream) {
+  const int grid = (n + 127) / 128;
+  const bool frame = a_lo != nullptr;
+  const auto fn = steps_out != nullptr
+                      ? (frame ? &run_entry_exit<W, true, true>
+                               : &run_entry_exit<W, true, false>)
+                      : (frame ? &run_entry_exit<W, false, true>
+                               : &run_entry_exit<W, false, false>);
+  fn(grid, stream, nodes, Nn, groups, refine, pts, n, d2_out, id_out,
+     steps_out, fires_out, a_lo);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // steps_out and fires_out: null (the timed builds), or each point's group
-// tests (node visits) and leaf fires [n] (the counting builds).
+// tests (node visits) and leaf fires [n] (the counting builds); a_lo: null,
+// or the scene's exact-frame table [G, 3, 128] (the FRAME builds).
 extern "C" int nearest_wide_launch(const float* gnodes, int Gn,
                                    const float* groups, int width, int refine,
                                    const float* pts, int n, float* d2_out,
                                    int* id_out, int* steps_out,
-                                   int* fires_out, void* stream) {
+                                   int* fires_out, const float* a_lo,
+                                   void* stream) {
   if (n <= 0) return 0;
   WideTables tb{gnodes, groups, Gn, refine};
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch_wide<16>(tb, pts, n, d2_out, id_out, steps_out,
-                             fires_out, st);
+                             fires_out, a_lo, st);
     case 32:
       return launch_wide<32>(tb, pts, n, d2_out, id_out, steps_out,
-                             fires_out, st);
+                             fires_out, a_lo, st);
     case 64:
       return launch_wide<64>(tb, pts, n, d2_out, id_out, steps_out,
-                             fires_out, st);
+                             fires_out, a_lo, st);
     case 128:
       return launch_wide<128>(tb, pts, n, d2_out, id_out, steps_out,
-                              fires_out, st);
+                              fires_out, a_lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -539,22 +624,23 @@ extern "C" int nearest_entry_exit_launch(const float* nodes, int Nn,
                                          int refine, const float* pts, int n,
                                          float* d2_out, int* id_out,
                                          int* steps_out, int* fires_out,
-                                         void* stream) {
+                                         const float* a_lo, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch_entry_exit<16>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                   id_out, steps_out, fires_out, st);
+                                   id_out, steps_out, fires_out, a_lo, st);
     case 32:
       return launch_entry_exit<32>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                   id_out, steps_out, fires_out, st);
+                                   id_out, steps_out, fires_out, a_lo, st);
     case 64:
       return launch_entry_exit<64>(nodes, Nn, groups, refine, pts, n, d2_out,
-                                   id_out, steps_out, fires_out, st);
+                                   id_out, steps_out, fires_out, a_lo, st);
     case 128:
       return launch_entry_exit<128>(nodes, Nn, groups, refine, pts, n,
-                                    d2_out, id_out, steps_out, fires_out, st);
+                                    d2_out, id_out, steps_out, fires_out,
+                                    a_lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

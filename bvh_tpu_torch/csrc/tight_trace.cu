@@ -77,13 +77,22 @@
 // the exact cluster frame (trace_common.cuh, warp_leaves); a_lo is the
 // kernel's last parameter, so the builds without FRAME keep their code.
 //
+// The SKIP build (SKIP true, chosen by the wrapper for skip_narrow; the
+// reference's SKIP_NARROW) is the broadphase-only walk: it tests no leaf
+// and seeds no hint, so the bound stays at t_max, every ray misses, and the
+// walk visits every node whose box the ray meets below t_max. Set against
+// the timed build on the same rows, it measures the leaf tests' share of
+// the walk. Only <W, COUNT, false, true> is built: without leaf tests the
+// frame is never read. The counting build's fires are the leaves tested,
+// 0 here, as the reference counts them.
+//
 // Numerics: see trace_common.cuh.
 
 #include "trace_common.cuh"
 
 namespace {
 
-template <int W, bool COUNT, bool FRAME>
+template <int W, bool COUNT, bool FRAME, bool SKIP>
 __global__ void __launch_bounds__(128)
     tight_trace_kernel(const float4* __restrict__ recs, int nn, int packed,
                        const float* __restrict__ groups, int mode,
@@ -108,7 +117,7 @@ __global__ void __launch_bounds__(128)
   if (valid) r = load_ray(rays, n, i);
   r.bk = SENT;
 
-  if (hints != nullptr && hints[(size_t)pkt * n_hints] >= 0) {
+  if (!SKIP && hints != nullptr && hints[(size_t)pkt * n_hints] >= 0) {
     const int* h = hints + (size_t)pkt * n_hints;
     int j = 0;
     warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
@@ -131,18 +140,20 @@ __global__ void __launch_bounds__(128)
     const bool fired = walking && hit;
     if (COUNT) {
       n_visits += walking;
-      n_fires += leaf && fired;
+      if (!SKIP) n_fires += leaf && fired;
     }
     if (walking) cursor = (leaf || !fired) ? (int)nd.exit_ : (int)nd.entry;
-    bool fired_leaf = leaf && fired;  // the lane's leaf to test this step
-    warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
-                   [&](int& c, float& ccx, float& ccy, float& ccz) {
-                     if (!fired_leaf) return false;
-                     fired_leaf = false;
-                     c = (int)(-nd.entry - 1.0f);
-                     ccx = nd.ccx, ccy = nd.ccy, ccz = nd.ccz;
-                     return true;
-                   });
+    if (!SKIP) {
+      bool fired_leaf = leaf && fired;  // the lane's leaf to test this step
+      warp_leaves<W, FRAME>(r, groups, a_lo, mode, lane,
+                     [&](int& c, float& ccx, float& ccy, float& ccz) {
+                       if (!fired_leaf) return false;
+                       fired_leaf = false;
+                       c = (int)(-nd.entry - 1.0f);
+                       ccx = nd.ccx, ccy = nd.ccy, ccz = nd.ccz;
+                       return true;
+                     });
+    }
     walking = walking && cursor < nn && !(r.vb == neg_inf());
   }
   if (valid) {
@@ -154,13 +165,13 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int W, bool COUNT, bool FRAME>
+template <int W, bool COUNT, bool FRAME, bool SKIP>
 void run(int grid, int block, cudaStream_t stream, const float4* recs, int nn,
          int packed, const float* groups, int mode, const float* rays, int n,
          const int* hints, int n_hints, const int* gate, int packet,
          float* t_out, int* id_out, int* visits_out, int* fires_out,
          const float* a_lo) {
-  tight_trace_kernel<W, COUNT, FRAME><<<grid, block, 0, stream>>>(
+  tight_trace_kernel<W, COUNT, FRAME, SKIP><<<grid, block, 0, stream>>>(
       recs, nn, packed, groups, mode, rays, n, hints, n_hints, gate, packet,
       t_out, id_out, visits_out, fires_out, a_lo);
 }
@@ -169,15 +180,19 @@ template <int W>
 int launch(const float* recs, int nn, int packed, const float* groups,
            int mode, const float* rays, int n, const int* hints, int n_hints,
            const int* gate, int packet, float* t_out, int* id_out,
-           int* visits_out, int* fires_out, const float* a_lo,
+           int* visits_out, int* fires_out, const float* a_lo, int skip,
            cudaStream_t stream) {
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  // the build: counting or timed, in the exact cluster frame or not
-  const bool frame = a_lo != nullptr;
-  const auto fn = visits_out != nullptr
-                      ? (frame ? &run<W, true, true> : &run<W, true, false>)
-                      : (frame ? &run<W, false, true> : &run<W, false, false>);
+  // the build: counting or timed; broadphase only, or in the exact cluster
+  // frame or not
+  const bool count = visits_out != nullptr, frame = a_lo != nullptr;
+  const auto fn = skip    ? (count ? &run<W, true, false, true>
+                                   : &run<W, false, false, true>)
+                  : count ? (frame ? &run<W, true, true, false>
+                                   : &run<W, true, false, false>)
+                          : (frame ? &run<W, false, true, false>
+                                   : &run<W, false, false, false>);
   fn(grid, block, stream, reinterpret_cast<const float4*>(recs), nn, packed,
      groups, mode, rays, n, hints, n_hints, gate, packet, t_out, id_out,
      visits_out, fires_out, a_lo);
@@ -193,33 +208,34 @@ extern "C" int tight_trace_rec_floats() { return NODE_REC; }
 // recs: the node-major table [nn, NODE_REC] (ops/sweep.py::node_records);
 // visits_out and fires_out: null (the timed build), or each ray's node
 // visits and leaf fires [n] (the counting build); a_lo: null, or the
-// scene's exact-frame table [G, 3, 128] (the FRAME build).
+// scene's exact-frame table [G, 3, 128] (the FRAME build); skip: nonzero
+// for the broadphase-only walk (the SKIP build; a_lo is not read).
 extern "C" int tight_trace_launch(const float* recs, int nn, int packed,
                                   const float* groups, int width,
                                   const float* rays, int n, const int* hints,
                                   int n_hints, const int* gate, int packet,
                                   int mode, float* t_out, int* id_out,
                                   int* visits_out, int* fires_out,
-                                  const float* a_lo, void* stream) {
+                                  const float* a_lo, int skip, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 16:
       return launch<16>(recs, nn, packed, groups, mode, rays, n, hints,
                         n_hints, gate, packet, t_out, id_out, visits_out,
-                        fires_out, a_lo, st);
+                        fires_out, a_lo, skip, st);
     case 32:
       return launch<32>(recs, nn, packed, groups, mode, rays, n, hints,
                         n_hints, gate, packet, t_out, id_out, visits_out,
-                        fires_out, a_lo, st);
+                        fires_out, a_lo, skip, st);
     case 64:
       return launch<64>(recs, nn, packed, groups, mode, rays, n, hints,
                         n_hints, gate, packet, t_out, id_out, visits_out,
-                        fires_out, a_lo, st);
+                        fires_out, a_lo, skip, st);
     case 128:
       return launch<128>(recs, nn, packed, groups, mode, rays, n, hints,
                          n_hints, gate, packet, t_out, id_out, visits_out,
-                         fires_out, a_lo, st);
+                         fires_out, a_lo, skip, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,10 @@
 The C++ output is required to be bit-identical to the numpy builder
 (``bvh/sah_build.py``, ``ops/cluster.py``), which holds only with the
 ``-ffp-contract=off`` flag of ``csrc/Makefile`` (``ops/_build.py`` keeps it).
-Unlike the JAX package's binding, nothing here falls back to numpy: a caller
-that asks for the native build gets it or an error.
+Unlike the JAX package's binding, the builds here do not fall back to numpy:
+a caller that asks for the native build gets it or an error. Only
+``build_sah_auto`` chooses, by the JAX package's rules
+(``native_available``: whether the library builds and loads).
 """
 
 from __future__ import annotations
@@ -53,6 +55,18 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def native_available() -> bool:
+    """Whether the host builder library builds (or is built) and loads;
+    False, without raising, where it cannot (no ``g++``, a failed build).
+    The answer is kept for the process."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _f32(x) -> np.ndarray:
     return np.ascontiguousarray(x, np.float32)
 
@@ -61,8 +75,10 @@ def _ptr(arr: np.ndarray, typ):
     return arr.ctypes.data_as(typ)
 
 
-def build_sah_native(shape_min, shape_max, cluster_hint: int = 0):
-    """SAH build over [n, 3] boxes (all host cores).
+def build_sah_native(shape_min, shape_max, nthreads: int = 0,
+                     cluster_hint: int = 0):
+    """SAH build over [n, 3] boxes on ``nthreads`` host threads (0: all
+    cores); the tree does not depend on ``nthreads``.
 
     With ``cluster_hint`` 0 the build is exact: the same outputs as
     ``bvh.sah_build.build_sah``. With ``cluster_hint`` > 0, subtrees of at
@@ -82,7 +98,7 @@ def build_sah_native(shape_min, shape_max, cluster_hint: int = 0):
     s2n = np.empty(n, np.int32)
     args = (_ptr(smin, _FP), _ptr(smax, _FP), n, _ptr(amin, _FP),
             _ptr(amax, _FP), _ptr(entry, _IP), _ptr(exit_, _IP),
-            _ptr(shape, _IP), _ptr(parent, _IP), _ptr(s2n, _IP), 0)
+            _ptr(shape, _IP), _ptr(parent, _IP), _ptr(s2n, _IP), nthreads)
     if cluster_hint > 0:
         rc = load().bvh_build_sah_hint(*args, cluster_hint)
     else:
@@ -90,6 +106,27 @@ def build_sah_native(shape_min, shape_max, cluster_hint: int = 0):
     if rc != 0:
         raise RuntimeError(f"native SAH build failed with code {rc}")
     return FlatBvh(amin, amax, entry, exit_, shape, parent), s2n
+
+
+def build_sah_auto(shape_min, shape_max, config=None, nthreads: int = 0,
+                   cluster_hint: int = 0):
+    """The native SAH build where it applies and the library is available
+    (non-empty float32 [n, 3] boxes), else the numpy builder
+    (``bvh/sah_build.py``), so that float64 boxes keep their resolution and
+    2-D or 4-D boxes build at all. Both give the same tree where both apply
+    (``cluster_hint`` 0); ``cluster_hint`` is the native build's (see
+    ``build_sah_native``), which the numpy build ignores with the same
+    cluster cuts. ``config`` is the numpy build's (default
+    ``DEFAULT_CONFIG``). Returns ``(FlatBvh, shape_to_node)``."""
+    smin = np.asarray(shape_min)
+    if (smin.ndim == 2 and smin.shape[0] > 0 and smin.shape[1] == 3
+            and smin.dtype != np.float64 and native_available()):
+        return build_sah_native(shape_min, shape_max, nthreads,
+                                cluster_hint=cluster_hint)
+    from .bvh.sah_build import build_sah
+    from .config import DEFAULT_CONFIG
+
+    return build_sah(shape_min, shape_max, config or DEFAULT_CONFIG)
 
 
 def tri_aabbs_native(a, b, c):

@@ -29,6 +29,13 @@ nothing lies within the radius) and ``lane_id`` int32 (cluster·W + lane,
 The narrowphase takes d1 = e1·q and d2 = e2·q with q = p' − a' directly,
 where the TPU kernel forms e1·p' − e1·a' through a matrix product; the
 port differs from the reference at rounding level.
+
+Scenes that carry the exact-frame table ``a_lo`` (device builds, refits and
+update deltas, whose clusters may lie ~1e5 from their frame origin) run the
+kernels' FRAME builds: q = ((p' − a') + lo) − a_lo, with lo the rounding
+error of p − cc (``wide.two_diff``), as the trace walks test their leaves.
+The reference rounds p − cc there, so on such scenes the port takes float64
+brute force's triangle where the reference may take a farther one.
 """
 
 from __future__ import annotations
@@ -41,9 +48,9 @@ import torch
 from ..bvh.lbvh import morton_codes
 from ..device import resolve_device
 from ._build import load_cuda_library
-from .trace import _chain_ids, _check_packet, _dev, packet_sums
-from .wide import (K, SENT, WIDE_DMAX, check_depth, count_outputs,
-                   decode_keys, dfs_walk, fired_leaves, fold_slots)
+from .trace import _a_lo, _chain_ids, _check_packet, _dev, packet_sums
+from .wide import (K, SENT, WIDE_DMAX, check_a_lo, check_depth, count_outputs,
+                   decode_keys, dfs_walk, fired_leaves, fold_slots, two_diff)
 
 _INF = float("inf")
 N_ROWS = 4  # point rows: x, y, z, d_max^2
@@ -70,23 +77,36 @@ LEAF_OPS = 11
 # cursor select.
 STEP_OPS = 2
 
+# the FRAME builds' extra operations: per (point, triangle) pair the add
+# of lo and the subtract of a_lo an axis (beside three loads of a_lo);
+FRAME_PAIR_OPS = 6
+# per fired leaf, lo: two_diff's five operations an axis beyond p'.
+FRAME_LEAF_OPS = 15
+
 # launches of the timed builds, counted in ``nearest_wide`` and
-# ``nearest_entry_exit``, and of their counting builds (``counts=True``)
+# ``nearest_entry_exit`` (of those, the FRAME builds' launches, ``a_lo``),
+# and of their counting builds (``counts=True``)
 wide_launches = 0
 entry_exit_launches = 0
+wide_frame_launches = 0
+entry_exit_frame_launches = 0
 wide_count_launches = 0
 entry_exit_count_launches = 0
 
 
-def walk_ops(wide: bool, width: int, steps: float, fires: float) -> float:
+def walk_ops(wide: bool, width: int, steps: float, fires: float,
+             frame: bool = False) -> float:
     """float32 operations of one point's walk with the bound refinement:
     ``steps`` group tests (wide) or node visits (entry/exit) and ``fires``
-    narrowphased leaves."""
+    narrowphased leaves; ``frame``: the FRAME builds' leaf tests."""
     if wide:
         step = K * (BOX_OPS + D2MAX_OPS + 2)
     else:
         step = BOX_OPS + STEP_OPS + D2MAX_OPS + 1
-    return steps * step + fires * (LEAF_OPS + width * PAIR_OPS)
+    leaf = LEAF_OPS + width * PAIR_OPS
+    if frame:
+        leaf += FRAME_LEAF_OPS + width * FRAME_PAIR_OPS
+    return steps * step + fires * leaf
 
 
 @functools.cache
@@ -100,11 +120,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.nearest_wide_launch, lib.nearest_entry_exit_launch):
         fn.restype = ci
-        fn.argtypes = [vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp, vp, vp]
     return lib
 
 
-def _check(name: str, table, rows: int, groups, pts, width: int) -> None:
+def _check(name: str, table, rows: int, groups, pts, width: int,
+           a_lo) -> None:
     for nm, x in ((name, table), ("groups", groups), ("pts", pts)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{nm} must be a contiguous float32 tensor")
@@ -118,10 +139,11 @@ def _check(name: str, table, rows: int, groups, pts, width: int) -> None:
         raise ValueError(f"pts must be [{N_ROWS}, n], got {tuple(pts.shape)}")
     if width not in (16, 32, 64, 128):
         raise ValueError(f"width must be 16/32/64/128, got {width}")
+    check_a_lo(a_lo, groups, pts)
 
 
 def _launch(fn, table, groups, pts, width: int, refine: bool,
-            counts: bool = False):
+            counts: bool = False, a_lo: torch.Tensor | None = None):
     n = pts.shape[1]
     d2 = torch.empty(n, dtype=torch.float32, device=pts.device)
     lane_id = torch.empty(n, dtype=torch.int32, device=pts.device)
@@ -130,6 +152,7 @@ def _launch(fn, table, groups, pts, width: int, refine: bool,
             int(refine), pts.data_ptr(), n, d2.data_ptr(), lane_id.data_ptr(),
             0 if steps is None else steps.data_ptr(),
             0 if fires is None else fires.data_ptr(),
+            0 if a_lo is None else a_lo.data_ptr(),
             torch.cuda.current_stream(pts.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nearest kernel launch failed: CUDA error {rc}")
@@ -140,7 +163,7 @@ def _launch(fn, table, groups, pts, width: int, refine: bool,
 
 def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
                  width: int, depth: int, refine: bool = True,
-                 counts: bool = False):
+                 counts: bool = False, a_lo: torch.Tensor | None = None):
     """Nearest triangle of every point by the group walk: ``(d2, lane_id)``;
     with ``counts``, ``(d2, lane_id, group_tests, leaf_fires)``, each
     point's own walk's (int64), as ``nearest_wide_plain(counts=True)``
@@ -148,52 +171,60 @@ def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
 
     ``depth`` is the wide tree's group depth (``TightScene.gdepth``).
     ``refine``: tighten the bound with the boxes' farthest corners (off for
-    masked scenes, whose boxes may hold no live triangle).
+    masked scenes, whose boxes may hold no live triangle). ``a_lo``: the
+    scene's exact-frame table [G, 3, 128] (``TightScene.a_lo``), with which
+    the leaf tests take the exact cluster frame (the FRAME build).
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the kernel: with ``counts`` its counting build (a debug build,
     not a timed one; its results are the timed build's bit for bit).
     """
-    global wide_launches, wide_count_launches
-    _check("gnodes", gnodes, 7 * K + 1, groups, pts, width)
+    global wide_launches, wide_frame_launches, wide_count_launches
+    _check("gnodes", gnodes, 7 * K + 1, groups, pts, width, a_lo)
     check_depth(depth)
     if pts.device.type == "cpu":
         return nearest_wide_plain(gnodes, groups, pts, width, refine=refine,
-                                  counts=counts)
+                                  counts=counts, a_lo=a_lo)
     if pts.device.type != "cuda":
         raise ValueError(f"no nearest_wide kernel for device {pts.device}")
     out = _launch(load().nearest_wide_launch, gnodes, groups, pts, width,
-                  refine, counts)
+                  refine, counts, a_lo)
     if counts:
         wide_count_launches += 1
     else:
         wide_launches += 1
+        wide_frame_launches += a_lo is not None
     return out
 
 
 def nearest_entry_exit(smem_nodes: torch.Tensor, groups: torch.Tensor,
                        pts: torch.Tensor, width: int, refine: bool = True,
-                       counts: bool = False):
+                       counts: bool = False,
+                       a_lo: torch.Tensor | None = None):
     """Nearest triangle of every point by the entry/exit walk over
     ``smem_nodes [8, Nn]``: ``(d2, lane_id)``, as ``nearest_wide``; with
-    ``counts`` also each point's node visits and leaf fires.
+    ``counts`` also each point's node visits and leaf fires; ``a_lo`` as
+    in ``nearest_wide`` (the FRAME build).
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the kernel (with ``counts``, its counting build).
     """
-    global entry_exit_launches, entry_exit_count_launches
-    _check("smem_nodes", smem_nodes, 8, groups, pts, width)
+    global entry_exit_launches, entry_exit_frame_launches
+    global entry_exit_count_launches
+    _check("smem_nodes", smem_nodes, 8, groups, pts, width, a_lo)
     if pts.device.type == "cpu":
         return nearest_entry_exit_plain(smem_nodes, groups, pts, width,
-                                        refine=refine, counts=counts)
+                                        refine=refine, counts=counts,
+                                        a_lo=a_lo)
     if pts.device.type != "cuda":
         raise ValueError(f"no nearest_entry_exit kernel for device {pts.device}")
     out = _launch(load().nearest_entry_exit_launch, smem_nodes, groups, pts,
-                  width, refine, counts)
+                  width, refine, counts, a_lo)
     if counts:
         entry_exit_count_launches += 1
     else:
         entry_exit_launches += 1
+        entry_exit_frame_launches += a_lo is not None
     return out
 
 
@@ -212,10 +243,13 @@ def _d2max(px, py, pz, ax, ay, az, bx, by, bz):
     return (mx * mx + my * my) + mz * mz
 
 
-def _narrow_plain(pts, tiles, W: int, r, c, ccx, ccy, ccz) -> torch.Tensor:
+def _narrow_plain(pts, tiles, W: int, r, c, ccx, ccy, ccz,
+                  a_lo=None) -> torch.Tensor:
     """Narrowphase of the (point r[i], cluster c[i]) pairs with frame
     origins cc: each pair's smallest packed key over the cluster's W
-    triangles. ``tiles [G, 128, 9]``: rows a', e1, e2 lane-major."""
+    triangles. ``tiles [G, 128, 9]``: rows a', e1, e2 lane-major.
+    ``a_lo`` [G, 3, 128]: the exact cluster frame (the FRAME builds'), q =
+    ((p' - a') + lo) - a_lo with lo the rounding error of p - cc."""
     lanes = torch.arange(W, dtype=torch.int32, device=pts.device)
     per_row = 128 // W
     lane = (c % per_row)[:, None] * W + lanes[None, :]
@@ -225,6 +259,13 @@ def _narrow_plain(pts, tiles, W: int, r, c, ccx, ccy, ccz) -> torch.Tensor:
     qx = (pts[0, r] - ccx)[:, None] - a0
     qy = (pts[1, r] - ccy)[:, None] - a1
     qz = (pts[2, r] - ccz)[:, None] - a2
+    if a_lo is not None:
+        lox, loy, loz = (two_diff(pts[j, r], cc)[1][:, None]
+                         for j, cc in enumerate((ccx, ccy, ccz)))
+        al = a_lo.permute(0, 2, 1)[(c // per_row)[:, None], lane]  # [P, W, 3]
+        qx = (qx + lox) - al[..., 0]
+        qy = (qy + loy) - al[..., 1]
+        qz = (qz + loz) - al[..., 2]
     d1 = (e10 * qx + e11 * qy) + e12 * qz
     d2 = (e20 * qx + e21 * qy) + e22 * qz
     aa = (e10 * e10 + e11 * e11) + e12 * e12
@@ -269,12 +310,14 @@ def _tiles(groups: torch.Tensor) -> torch.Tensor:
 
 def nearest_wide_plain(gnodes: torch.Tensor, groups: torch.Tensor,
                        pts: torch.Tensor, width: int, refine: bool = True,
-                       counts: bool = False):
+                       counts: bool = False,
+                       a_lo: torch.Tensor | None = None):
     """The group-walk kernel's function in plain PyTorch (any device).
 
     Returns ``(d2, lane_id)``, or with ``counts=True``
     ``(d2, lane_id, group_tests, leaf_fires)``: per point, the groups whose
     16 children it tested and the leaf clusters it narrowphased (int64).
+    ``a_lo`` as in ``nearest_wide``.
     """
     W = width
     dev = pts.device
@@ -313,7 +356,7 @@ def nearest_wide_plain(gnodes: torch.Tensor, groups: torch.Tensor,
             c = (-pay_all[kk, gg] - 1.0).to(torch.int64)
             ax, ay, az, bx, by, bz = (box[kk, j, gg] for j in range(6))
             km = _narrow_plain(pts, tiles, W, r[ii], c, (ax + bx) * 0.5,
-                               (ay + by) * 0.5, (az + bz) * 0.5)
+                               (ay + by) * 0.5, (az + bz) * 0.5, a_lo)
             fold_slots(r, ii, kk, km, c.to(torch.int32), bk, bc, vb, W,
                        bounded=True)
         return m & ~lmask
@@ -327,11 +370,13 @@ def nearest_wide_plain(gnodes: torch.Tensor, groups: torch.Tensor,
 
 def nearest_entry_exit_plain(smem_nodes: torch.Tensor, groups: torch.Tensor,
                              pts: torch.Tensor, width: int,
-                             refine: bool = True, counts: bool = False):
+                             refine: bool = True, counts: bool = False,
+                             a_lo: torch.Tensor | None = None):
     """The entry/exit kernel's function in plain PyTorch (any device).
 
     Returns ``(d2, lane_id)``, or with ``counts=True``
-    ``(d2, lane_id, node_visits, leaf_fires)`` per point (int64).
+    ``(d2, lane_id, node_visits, leaf_fires)`` per point (int64). ``a_lo``
+    as in ``nearest_wide``.
     """
     W = width
     dev = pts.device
@@ -366,7 +411,7 @@ def nearest_entry_exit_plain(smem_nodes: torch.Tensor, groups: torch.Tensor,
             km = _narrow_plain(pts, tiles, W, r, c,
                                (ax[narrow] + bx[narrow]) * 0.5,
                                (ay[narrow] + by[narrow]) * 0.5,
-                               (az[narrow] + bz[narrow]) * 0.5)
+                               (az[narrow] + bz[narrow]) * 0.5, a_lo)
             old = bk[r]
             closer = km < old
             nbk = torch.where(closer, km, old)
@@ -427,14 +472,17 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
     >= d_max are ignored, and the radius prunes the walk from the start.
     ``wide``: None takes the group walk exactly when the scene carries
     ``gnodes``; False takes the entry/exit walk; the two give identical
-    results. ``sort``: Morton-sort batches of more than 128 points on the
-    device first (results come back in input order and do not depend on
-    it). ``packet`` is validated (a power of two >= 128) and kept for call
+    distances, and the same triangles but where two lie at exactly the
+    same distance (the walks order their leaves differently). ``sort``:
+    Morton-sort batches of more than 128 points on the device first
+    (results come back in input order and do not depend on it). ``packet`` is validated (a power of two >= 128) and kept for call
     compatibility with the reference; it does not change the per-point
     walk. ``device``: where to run (None: the card).
 
     Masked scenes (the static part of an updater) turn off the bound
     refinement: their boxes may hold no live triangle. Packed scenes raise.
+    Scenes that carry ``a_lo`` (device builds, refits, update deltas) test
+    their leaves in the exact cluster frame (the kernels' FRAME builds).
     """
     if packet < 128 or packet & (packet - 1):
         raise ValueError(f"packet must be a power of two >= 128, got {packet}")
@@ -463,12 +511,15 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
     rows = point_rows(pts, dm)
     W = int(scene.width)
     groups = _dev(scene.groups, dev)
+    a_lo = _a_lo(scene, dev)
     if wide:
         d2, lane_id = nearest_wide(_dev(scene.gnodes, dev), groups, rows, W,
-                                   int(scene.gdepth), refine=not scene.masked)
+                                   int(scene.gdepth), refine=not scene.masked,
+                                   a_lo=a_lo)
     else:
         d2, lane_id = nearest_entry_exit(_dev(scene.smem_nodes, dev), groups,
-                                         rows, W, refine=not scene.masked)
+                                         rows, W, refine=not scene.masked,
+                                         a_lo=a_lo)
     hit = torch.isfinite(d2)
     if dm is not None:
         # the key truncates d2 downward (lane bits), so the exact radius
@@ -498,11 +549,13 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
     The batch is sorted once (``sort``, more than 128 points), then the
     parts run in turn, each point's best distance so far the next part's
     radius; a part's triangle replaces the best only when strictly closer,
-    so ties go to the earlier part. The carried radius is the winner's
-    distance from its truncated key, so a later part's triangle within that
-    truncation of the best may be left out (the key-truncation class). Ids
-    are mapped once at the end, and the un-permute moves int32 bit
-    patterns.
+    so ties go to the earlier part. Each part takes its own frame: a part
+    that carries ``a_lo`` (device-built parts, update deltas) runs the
+    FRAME builds, a host-built part the others. The carried radius is the
+    winner's distance from its truncated key, so a later part's triangle
+    within that truncation of the best may be left out (the key-truncation
+    class). Ids are mapped once at the end, and the un-permute moves int32
+    bit patterns.
     """
     _check_packet(packet)
     dev = resolve_device(device)
@@ -571,14 +624,15 @@ def count_visits_nearest(scene, points, packet: int = 2048,
     rows = point_rows(pts, None)
     W = int(scene.width)
     groups = _dev(scene.groups, dev)
+    a_lo = _a_lo(scene, dev)
     if wide:
         _, _, steps, fires = nearest_wide(_dev(scene.gnodes, dev), groups,
                                           rows, W, int(scene.gdepth),
                                           refine=not scene.masked,
-                                          counts=True)
+                                          counts=True, a_lo=a_lo)
     else:
         _, _, steps, fires = nearest_entry_exit(_dev(scene.smem_nodes, dev),
                                                 groups, rows, W,
                                                 refine=not scene.masked,
-                                                counts=True)
+                                                counts=True, a_lo=a_lo)
     return packet_sums(steps, packet), packet_sums(fires, packet)

@@ -21,6 +21,12 @@ did not fire, else to ``entry``. Modes, keys and bound updates are the
 group walk's (``ops/wide.py``); once an any-hit ray's ``vb`` is -inf no box
 fires again and its walk ends.
 
+``skip_narrow`` (the reference's ``SKIP_NARROW``; the kernel's SKIP build)
+is the broadphase-only walk: no leaf is tested and no hint seeded, so the
+bound stays at ``t_max``, every ray misses, and every node whose box the
+ray meets below ``t_max`` is visited. It measures the leaf tests' share of
+the walk.
+
 Tables: ``smem_nodes [8, Nn]`` (box lo, box hi, entry, exit; a leaf's frame
 origin is its box centre) or ``packed_nodes [5, Nn]`` (``packed=True``:
 rows 0-2 each axis's (min, max) as bf16 halves of one float32 word,
@@ -56,6 +62,7 @@ STEP_OPS = 2
 launches = 0  # launches of the timed build, counted in ``tight_trace``
 any_launches = 0  # of those, the launches in any-hit mode
 frame_launches = 0  # of those, the launches of the FRAME build (``a_lo``)
+skip_launches = 0  # of those, the launches of the SKIP build (``skip_narrow``)
 count_launches = 0  # launches of the counting build (``counts=True``)
 
 
@@ -66,7 +73,7 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tight_trace_launch.restype = ci
     lib.tight_trace_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, ci, vp,
-                                       ci, ci, vp, vp, vp, vp, vp, vp]
+                                       ci, ci, vp, vp, vp, vp, vp, ci, vp]
     lib.tight_trace_rec_floats.restype = ci
     if lib.tight_trace_rec_floats() != NODE_REC:
         raise RuntimeError("tight_trace.cu's node record is not "
@@ -96,7 +103,7 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
                 gate: torch.Tensor | None = None, packet: int = 8192,
                 bounded: bool = False, mode: str = "closest",
                 hints: torch.Tensor | None = None, counts: bool = False,
-                a_lo: torch.Tensor | None = None):
+                a_lo: torch.Tensor | None = None, skip_narrow: bool = False):
     """Closest or any hit of every ray by the entry/exit walk:
     ``(t, lane_id)``, as ``ops.wide.wide_trace`` returns them; with
     ``counts``, ``(t, lane_id, node_visits, leaf_fires)`` per ray (int64;
@@ -111,21 +118,28 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
     first for the rays of each packet; -1 in a packet's first slot turns
     them off, and every other slot must then hold a leaf's id. ``a_lo``:
     the scene's exact-frame table, as ``wide_trace`` takes it (the FRAME
-    build).
+    build). ``skip_narrow``: the broadphase-only walk (the SKIP build),
+    every ray a miss; ``hints`` and ``a_lo`` are not read, and with
+    ``counts`` the fires are 0 (no leaf is tested).
 
     On a CPU tensor this runs the plain version (over
     ``ops/sweep.py::node_table``); on a CUDA tensor it launches the kernel:
     with ``counts`` its counting build (a debug build, not a timed one; its
     ``t`` and ``lane_id`` are the timed build's bit for bit).
     """
-    global launches, any_launches, frame_launches, count_launches
+    global launches, any_launches, frame_launches, skip_launches
+    global count_launches
     _check(records, groups, rays, width, gate, hints, packet, a_lo)
     code = mode_code(mode, bounded)
+    if skip_narrow:
+        # without leaf tests neither the hints nor the frame are read
+        hints = a_lo = None
     if rays.device.type == "cpu":
         return tight_trace_plain(node_table(records, packed), groups, rays,
                                  width, packed=packed, gate=gate,
                                  packet=packet, bounded=bounded, mode=mode,
-                                 hints=hints, counts=counts, a_lo=a_lo)
+                                 hints=hints, counts=counts, a_lo=a_lo,
+                                 skip_narrow=skip_narrow)
     if rays.device.type != "cuda":
         raise ValueError(f"no tight_trace kernel for device {rays.device}")
     n = rays.shape[1]
@@ -139,7 +153,7 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
         0 if gate is None else gate.data_ptr(), packet, code, t.data_ptr(),
         lane_id.data_ptr(), 0 if visits is None else visits.data_ptr(),
         0 if fires is None else fires.data_ptr(),
-        0 if a_lo is None else a_lo.data_ptr(),
+        0 if a_lo is None else a_lo.data_ptr(), int(skip_narrow),
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tight_trace kernel launch failed: CUDA error {rc}")
@@ -149,6 +163,7 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
     launches += 1
     any_launches += code == 2
     frame_launches += a_lo is not None
+    skip_launches += skip_narrow
     return t, lane_id
 
 
@@ -158,12 +173,13 @@ def tight_trace_plain(nodes: torch.Tensor, groups: torch.Tensor,
                       bounded: bool = False, mode: str = "closest",
                       hints: torch.Tensor | None = None,
                       counts: bool = False,
-                      a_lo: torch.Tensor | None = None):
+                      a_lo: torch.Tensor | None = None,
+                      skip_narrow: bool = False):
     """The kernel's function in plain PyTorch (any device).
 
     Returns ``(t, lane_id)``, or with ``counts=True``
     ``(t, lane_id, node_visits, leaf_fires)`` per ray (int64; hinted leaves
-    are not counted). ``a_lo`` as in ``tight_trace``.
+    are not counted). ``a_lo`` and ``skip_narrow`` as in ``tight_trace``.
     """
     W = width
     dev = rays.device
@@ -193,7 +209,8 @@ def tight_trace_plain(nodes: torch.Tensor, groups: torch.Tensor,
     live = torch.arange(n if nn > 0 else 0, device=dev)
     if gate is not None:
         live = live[gate[live // packet] != 0]
-    run_hints(live, hints, packet, narrow)
+    if not skip_narrow:
+        run_hints(live, hints, packet, narrow)
     cursor = torch.zeros(n, dtype=torch.int64, device=dev)
     while live.numel():
         # an any-hit ray whose bound is -inf fires no box again
@@ -217,7 +234,7 @@ def tight_trace_plain(nodes: torch.Tensor, groups: torch.Tensor,
                              torch.maximum(v1, v2))
         fired = (tmax >= torch.maximum(tmin, zero)) & (tmin < vb[live])
         leaf = entry < 0.0
-        hit_leaf = fired & leaf
+        hit_leaf = fired & leaf & (not skip_narrow)
         if counts:
             visits[live] += 1
             fires[live[hit_leaf]] += 1

@@ -236,10 +236,11 @@ def _pre_gate(pre_gate, n: int, packet: int, dev):
 
 
 def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
-          wide: bool, hints=None, pre_gate=None, start_g=None):
+          wide: bool, hints=None, pre_gate=None, start_g=None,
+          skip_narrow: bool = False):
     """The gate (sweep and pre-gate) and the walk over the ray rows:
     ``(t, lane_id)``; ``start_g`` (group walk) the packets' subtree
-    entries."""
+    entries; ``skip_narrow`` the entry/exit walk's broadphase-only build."""
     dev = rows.device
     table, packed = _entry_exit_table(scene)
     gate = pre_gate
@@ -261,7 +262,7 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
     return tight_trace(_dev(table, dev, node_records), _dev(scene.groups, dev),
                        rows, width=int(scene.width), packed=packed, gate=gate,
                        packet=packet, bounded=bounded, mode=mode, hints=hints,
-                       a_lo=a_lo)
+                       a_lo=a_lo, skip_narrow=skip_narrow)
 
 
 def _a_lo(scene, dev):
@@ -298,12 +299,12 @@ def _finish(rays_s: Ray, tris9, t, sid) -> HitRecord:
 
 def _trace(scene, rays_s: Ray, tris9, packet: int, sweep: bool, tm,
            bounded: bool, wide: bool, hints=None, pre_gate=None,
-           start_g=None) -> HitRecord:
+           start_g=None, skip_narrow: bool = False) -> HitRecord:
     """The closest-hit trace on sorted rays ``rays_s``; ``tm`` is the per-ray
     t_max in the same order (+inf when unbounded); ``tris9`` an optional
     [n_tris, 9] vertex table for the exact winner recompute."""
     t, lane_id = _walk(scene, _ray_rows(rays_s, tm), packet, sweep, bounded,
-                       "closest", wide, hints, pre_gate, start_g)
+                       "closest", wide, hints, pre_gate, start_g, skip_narrow)
     if bounded:
         # a leaf hit at t >= t_max (the slab test prunes boxes, not
         # triangles) is a miss
@@ -338,6 +339,7 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
                             hints=None, t_max=None, sweep: bool = False,
                             wide: bool | None = None, pre_gate=None,
                             start_g=None, perm=None,
+                            skip_narrow: bool = False,
                             device=None) -> HitRecord:
     """Closest hit against a ``TightScene``: ``HitRecord(t, u, v, shape_id)``.
 
@@ -361,9 +363,18 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
     tree (``ops/wide.py``), which changes no result; ids <= 0 do nothing.
     Group walk only (not ``wide=False``, packed or bmat scenes). With
     ``perm``, ``hints`` and ``start_g`` address the sorted packets.
+    ``skip_narrow``: the broadphase-only walk (the reference's rules): the
+    entry/exit walk with no leaf test, every ray a miss (t = +inf,
+    shape_id = -1, u = v = 0); ``wide=True`` raises, the sweep does not
+    run, ``hints`` are not read, ``pre_gate`` still gates.
     ``device``: where to run (None: the card).
     """
     _check_packet(packet)
+    if skip_narrow:
+        if wide:
+            raise ValueError("skip_narrow takes the entry/exit walk (wide=None "
+                             "or False)")
+        wide, sweep, hints = False, False, None
     walk_wide = _choose_walk(scene, wide)
     dev = resolve_device(device)
     r = rays.origin.shape[0]
@@ -380,7 +391,7 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
     rays, tm = _prepare(rays, t_max, perm, dev)
     tris9 = None if tris is None else _tris9(tris, dev)
     return _trace(scene, rays, tris9, packet, sweep, tm, t_max is not None,
-                  walk_wide, hints_t, pg, sg)
+                  walk_wide, hints_t, pg, sg, skip_narrow)
 
 
 def trace_any_hit_tight(scene, rays: Ray, t_max=None, packet: int = 2048,

@@ -1,7 +1,7 @@
 """Drives the PyTorch/CUDA port's closest-hit, any-hit, k-closest and
 nearest-triangle paths (tight, legacy cluster and chained scenes), its
-subtree-entry planners, its differentiable rendering, its dynamic scenes
-and its general pure-tensor path on one NVIDIA card.
+subtree-entry planners, its differentiable rendering, its dynamic scenes,
+its general pure-tensor path and its io on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -15,8 +15,10 @@ final line):
    and 65,536 aimed rays, every trace kernel against its plain PyTorch
    version on the same CUDA tensors (closest, bounded and gated walks; the
    gate); with 65,536 points, both nearest kernels against theirs
-   (unbounded, per-point radius, no bound refinement); results must agree
-   bit for bit.
+   (unbounded, per-point radius, no bound refinement), and their FRAME
+   builds (timed and counting) on a device grid build of the same cubes
+   with 65,536 points about its triangles' centroids, sorted and unsorted;
+   results must agree bit for bit.
 3. main path: the 120k-triangle scene (create_n_cubes(10000)), 2,097,152
    reference rays through make_tracer(sort="octmorton", sweep=False), the
    same with sweep=True (identical results), and 1,048,576 aimed rays with
@@ -56,9 +58,14 @@ final line):
    a wide=False build (equal to the aimed leg) and on a packed=True build
    (brute-force bounds), and trace_any_hit_tight with t_max at 1.2x (and
    0.8x) each ray's hit distance on the wide and the wide=False scene;
-   the sweep gate (plain and packed table) and the entry/exit kernel, gated
-   by it as the aimed legs run it, against their plain versions on the
-   legs' own sorted rows, timed there beside the kernel's bound.
+   the broadphase-only walk (trace_closest_hit_tight(skip_narrow=True),
+   the entry/exit kernel's SKIP build) on the aimed and the sorted
+   reference rays, every ray a miss; the sweep gate (plain and packed
+   table) and the entry/exit kernel, gated by it as the aimed legs run it,
+   against their plain versions on the legs' own sorted rows, timed there
+   beside the kernel's bound; the SKIP build against its plain version and
+   timed in turns beside the full walk on the same rows (the difference is
+   the walk's leaf-test time).
 10. legacy: build_cluster_scene over the 120k scene; legacy_random (the
    2,097,152 reference rays) and legacy_aimed (the 1,048,576 aimed rays,
    exact recompute) through trace_closest_hit, each sorted with sort_rays;
@@ -116,7 +123,14 @@ final line):
    build, timed and counting, against its plain version on the grid
    build's aimed and far rows, the LBVH build's (entry/exit walk) and the
    1% refit scene's random rows (bit for bit); rows 1 and 3 timed with and
-   without FRAME on the same rows, in turns.
+   without FRAME on the same rows, in turns. The nearest far-frame leg:
+   262,144 points about the triangle centroids (normal, scale 1.5, seed
+   23) through nearest_tight on the grid device build in both walks (their
+   FRAME builds), 4,096 of them against float64 brute force (the reported
+   triangle the least outside the near-tie class; the same walk without
+   the frame counted apart, a measurement only), both FRAME builds timed
+   and counting against their plain versions, rows 5 and 6 timed with and
+   without FRAME in turns.
 14. the general pure-tensor path at full size (``bvh/traverse.py``,
    ``bvh/ordered.py``, ``diff/render.py``; no kernel): the 120k scene as a
    build_sah FlatBvh (239,999 nodes) on the card; closest_hit_triangles on
@@ -133,9 +147,20 @@ final line):
    tests/test_f64_2d.py's scene (float64 brute force at rtol 1e-12); each
    timed (median of 7), with its lock-step steps, host reads and idle
    share (not measured above PROFILE_MAX_STEPS steps a call).
+15. io (bvh_tpu_torch.io, under 60 s): create_n_cubes(10000) written as
+   OBJ text (positive, negative and i//i indices) and loaded: the
+   generator's arrays, build_tight_scene's tables equal to phase 3's and
+   make_tracer's aimed trace equal to phase 3's aimed leg bit for bit; its
+   first 1,000 cubes written as quads: the fan's triangles; the 120k host
+   scene, the grid device build (with a_lo) and phase 13's 1M chained
+   device build saved and loaded in a temporary directory: tables equal,
+   the far-frame trace and nearest query and the chain's aimed trace equal
+   before and after bit for bit, the FRAME builds launched on the loaded
+   scene; save and load seconds and file sizes.
 
 Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
-hinted, packed), the group walk's any mode and hints, the sweep on a
+hinted, packed; its SKIP build, timed and counting, with every ray a
+miss), the group walk's any mode and hints, the sweep on a
 packed table and with a pre-gate, and the legacy cluster kernel (relative,
 global frame, broadphase only) against their plain versions. The kernels
 that run a warp of rays or points together, the legacy cluster walk, both
@@ -149,9 +174,11 @@ from __future__ import annotations
 
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -163,6 +190,9 @@ from bvh_tpu_torch import (Aabb, AabbQuery, Ball, BallQuery, Ray, RayQuery,
                            ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import camera_rays as package_camera_rays
+from bvh_tpu_torch.io import (load_chained_scene, load_obj_triangles,
+                              load_tight_scene, save_chained_scene,
+                              save_tight_scene)
 from bvh_tpu_torch.diff import (render_depth, render_depth_fast, render_hits,
                                 render_hits_fast)
 from bvh_tpu_torch.bvh import (any_hit_triangles, brute_force_closest_hit,
@@ -318,8 +348,11 @@ def reset_counts() -> None:
     tight_mod.launches = 0
     tight_mod.any_launches = 0
     tight_mod.frame_launches = 0
+    tight_mod.skip_launches = 0
     near_mod.wide_launches = 0
     near_mod.entry_exit_launches = 0
+    near_mod.wide_frame_launches = 0
+    near_mod.entry_exit_frame_launches = 0
     ct_mod.launches = 0
     wide_mod.count_launches = 0
     tight_mod.count_launches = 0
@@ -599,6 +632,35 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
             res[f"wide_{name}_hits"] = int((ik >= 0).sum())
             check(differ == 0,
                   f"{leg}/wide {name}: {differ} rays differ from plain")
+        # the SKIP build (skip_narrow), timed and counting: every ray a
+        # miss, its visits the plain walk's
+        skip_cases = {
+            "skip": (sr, sn, grp, False, rows, {}),
+            "skip_bounded": (sr, sn, grp, False, rows_b, {"bounded": True}),
+            "skip_gated_hinted": (sr, sn, grp, False, rows,
+                                  {"gate": gate, "hints": hints}),
+            "skip_packed": (pr, pn, grp_p, True, rows, {})}
+        for name, (rec_, table, gr, packed, rr, kw) in skip_cases.items():
+            for counts in (False, True):
+                got = tight_mod.tight_trace(rec_, gr, rr, scene.width,
+                                            packed=packed, packet=packet,
+                                            counts=counts, skip_narrow=True,
+                                            **kw)
+                want = tight_mod.tight_trace_plain(
+                    table, gr, rr, scene.width, packed=packed, packet=packet,
+                    counts=counts, skip_narrow=True, **kw)
+                torch.cuda.synchronize()
+                same = all(bits_equal(x, y) for x, y in zip(got, want))
+                miss = (bool(torch.isinf(got[0]).all())
+                        and bool((got[1] == -1).all()))
+                key = f"tight_{name}" + ("_counts" if counts else "")
+                res[key] = {"equal": same, "all_miss": miss}
+                if counts:
+                    res[key].update(visits=int(got[2].sum()),
+                                    fires=int(got[3].sum()))
+                    miss = miss and res[key]["fires"] == 0
+                check(same and miss, f"{leg}/{key}: the SKIP build differs "
+                                     f"from its plain version: {res[key]}")
         out[leg] = res
     return {"legs": out, "max_abs_err": err, "rays": n,
             "triangles": int(a.shape[0])}
@@ -698,42 +760,54 @@ def roofline(ops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def near_kernel(kind: str, sc, rows, refine: bool = True):
+def near_a_lo(sc, dev, frame: bool):
+    """The scene's exact-frame table on ``dev`` for a FRAME build, else
+    None."""
+    return _dev(sc.a_lo, dev).contiguous() if frame else None
+
+
+def near_kernel(kind: str, sc, rows, refine: bool = True,
+                frame: bool = False, counts: bool = False):
     """One launch of the nearest kernel ``kind`` ("wide" or "entry_exit")
-    over ``sc``'s tables."""
+    over ``sc``'s tables; ``frame``: its FRAME build (``sc.a_lo``)."""
     dev = rows.device
     grp = _dev(sc.groups, dev)
+    a_lo = near_a_lo(sc, dev, frame)
     if kind == "wide":
         return near_mod.nearest_wide(_dev(sc.gnodes, dev), grp, rows,
-                                     sc.width, sc.gdepth, refine=refine)
+                                     sc.width, sc.gdepth, refine=refine,
+                                     counts=counts, a_lo=a_lo)
     return near_mod.nearest_entry_exit(_dev(sc.smem_nodes, dev), grp, rows,
-                                       sc.width, refine=refine)
+                                       sc.width, refine=refine,
+                                       counts=counts, a_lo=a_lo)
 
 
 def near_plain(kind: str, sc, rows, refine: bool = True,
-               counts: bool = False):
+               counts: bool = False, frame: bool = False):
     """The plain version of nearest kernel ``kind`` over chunks of
     PLAIN_CHUNK // W points (each point walks on its own), so that its
     batched narrowphase stays within a few GB at W=128."""
     dev = rows.device
     grp = _dev(sc.groups, dev)
+    a_lo = near_a_lo(sc, dev, frame)
     if kind == "wide":
         table, fn = _dev(sc.gnodes, dev), near_mod.nearest_wide_plain
     else:
         table, fn = _dev(sc.smem_nodes, dev), near_mod.nearest_entry_exit_plain
     chunk = PLAIN_CHUNK // sc.width
     parts = [fn(table, grp, rows[:, s:s + chunk].contiguous(), sc.width,
-                refine=refine, counts=counts)
+                refine=refine, counts=counts, a_lo=a_lo)
              for s in range(0, rows.shape[1], chunk)]
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
-def near_compare(kind: str, sc, rows, refine: bool = True):
+def near_compare(kind: str, sc, rows, refine: bool = True,
+                 frame: bool = False):
     """Nearest kernel ``kind`` against its plain version on the same rows:
     (points whose d2 bits or lane ids differ, hits, largest |kernel - plain|
     over finite d2)."""
-    dk, ik = near_kernel(kind, sc, rows, refine)
-    dp, ip = near_plain(kind, sc, rows, refine)
+    dk, ik = near_kernel(kind, sc, rows, refine, frame)
+    dp, ip = near_plain(kind, sc, rows, refine, frame=frame)
     torch.cuda.synchronize()
     differ = int(((dk.view(torch.int32) != dp.view(torch.int32))
                   | (ik != ip)).sum())
@@ -777,6 +851,40 @@ def phase_nearest_kernels(dev) -> dict:
             out[f"{kind}/{case}"] = {"points_differ": differ, "hits": hits}
             check(differ == 0,
                   f"{kind}/{case}: {differ} points differ from plain")
+    # the FRAME builds: a device grid build of the same cubes (its Morton
+    # clusters' frame origins lie up to ~1e5 from their triangles) and
+    # 65,536 points about the triangles' centroids, sorted and unsorted
+    dscene = build_tight_scene_device(
+        *(torch.from_numpy(x).to(dev) for x in (a, b, c)))
+    check(dscene.a_lo is not None, "the device build carries no a_lo")
+    rng = np.random.default_rng(23)
+    pf_u = torch.from_numpy((cen[rng.integers(0, len(cen), n)]
+                             + rng.normal(scale=1.5, size=(n, 3)))
+                            .astype(np.float32)).to(dev)
+    pf = pf_u[sort_points_device(pf_u, device=dev)[0]]
+    err.update(nearest_wide_frame=0.0, nearest_tight_frame=0.0)
+    counters = {"wide": "wide_frame_launches",
+                "entry_exit": "entry_exit_frame_launches"}
+    for case, r in {"frame": near_mod.point_rows(pf, None),
+                    "frame_unsorted": near_mod.point_rows(pf_u, None)}.items():
+        for kind, name in (("wide", "nearest_wide_frame"),
+                           ("entry_exit", "nearest_tight_frame")):
+            before = getattr(near_mod, counters[kind])
+            differ, hits, e = near_compare(kind, dscene, r, frame=True)
+            check(getattr(near_mod, counters[kind]) == before + 1,
+                  f"{kind}/{case}: the FRAME build was not launched")
+            err[name] = max(err[name], e)
+            out[f"{kind}/{case}"] = {"points_differ": differ, "hits": hits}
+            check(differ == 0,
+                  f"{kind}/{case}: {differ} points differ from plain")
+            if case == "frame":
+                # the FRAME counting builds, against the plain counts
+                got = near_kernel(kind, dscene, r, frame=True, counts=True)
+                want = near_plain(kind, dscene, r, counts=True, frame=True)
+                same = all(bits_equal(x, y) for x, y in zip(got, want))
+                out[f"{kind}/frame_counts"] = {"equal": same}
+                check(same, f"{kind}: the FRAME counting build differs from "
+                            "its plain version")
     return {"points": n, "triangles": int(a.shape[0]), "cases": out,
             "max_abs_err": err}
 
@@ -1193,11 +1301,13 @@ def classify_differences(h_a, h_b, W: int, crack=None) -> tuple[list, int]:
 
 
 def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
-                     h_aim, issue: float, err: dict) -> dict:
+                     o_dev, d_dev, h_aim, issue: float, err: dict) -> list:
     """Phase 9: the entry/exit legs on the 120k scene (wide=False and
     packed=True builds through make_tracer; any hit on the wide and the
-    wide=False scene), their checks and timings. Returns the entry/exit
-    kernel's entry of the ``kernels`` line."""
+    wide=False scene; the broadphase-only walk, skip_narrow, on the aimed
+    and the sorted reference rays), their checks and timings. Returns the
+    entry/exit kernel's and its SKIP build's entries of the ``kernels``
+    line."""
     a, b, c = tris_np
     tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris_np)
     n = ao.shape[0]
@@ -1211,6 +1321,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     tr_nw = make_tracer(scene_nw, packet=8192, sort="morton", tris=tris_np)
     tr_pk = make_tracer(scene_pk, packet=8192, sort="morton", tris=tris_np)
     perm, inv = sort_rays_device(ao_dev, ad_dev, mode="morton")
+    perm_r, _ = sort_rays_device(o_dev, d_dev, mode="octmorton")
+    rays_r = Ray.create(o_dev, d_dev).take(perm_r)  # the sorted reference rays
     t_hit = h_aim.t
 
     def shadow(sc, factor):
@@ -1223,6 +1335,12 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
         "aimed_packed": lambda: tr_pk(ao_dev, ad_dev),
         "shadow_aimed": lambda: shadow(scene_w, 1.2),
         "shadow_aimed_entry_exit": lambda: shadow(scene_nw, 1.2),
+        # the broadphase-only walk (no leaf test: every ray a miss)
+        "skip_narrow_aimed": lambda: trace_closest_hit_tight(
+            scene_nw, Ray.create(ao_dev, ad_dev), packet=8192, perm=perm,
+            skip_narrow=True),
+        "skip_narrow_random": lambda: trace_closest_hit_tight(
+            scene_nw, rays_r, packet=8192, skip_narrow=True),
     }
     # the entry/exit main path: every count is zero before and read after
     reset_counts()
@@ -1230,6 +1348,7 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     torch.cuda.synchronize()
     launches = {"tight_trace": tight_mod.launches,
                 "tight_trace_any": tight_mod.any_launches,
+                "tight_trace_skip": tight_mod.skip_launches,
                 "wide_trace_any": wide_mod.any_launches,
                 "sweep_gate": sweep_mod.launches}
     emit("entry_exit_launches", **launches)
@@ -1258,6 +1377,14 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
     sh_mism = int((occ_bf != s_w[idx_d]).sum())
     check(sh_mism == 0, f"shadow_aimed: {sh_mism} sampled rays disagree with "
           "brute-force occlusion")
+    skip_res = {}
+    for leg in ("skip_narrow_aimed", "skip_narrow_random"):
+        h = res[leg]
+        miss = (bool(torch.isinf(h.t).all()) and bool((h.t > 0).all())
+                and bool((h.shape_id == -1).all())
+                and not bool(h.u.any()) and not bool(h.v.any()))
+        skip_res[leg] = {"rays": int(h.t.shape[0]), "all_miss": miss}
+        check(miss, f"{leg}: a ray of the broadphase-only walk hit")
     emit("entry_exit", triangles=int(a.shape[0]), rays=n, build_s=build_s,
          nodes=int(scene_nw.smem_nodes.shape[1]),
          aimed_entry_exit={"rays_differ_from_wide": len(diffs),
@@ -1267,7 +1394,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
                        "wide_equals_entry_exit": True,
                        "all_clear_at_0_8": True,
                        "brute_force": {"sampled": N_SAMPLE,
-                                       "mismatches": sh_mism}})
+                                       "mismatches": sh_mism}},
+         skip_narrow=skip_res)
 
     e2e = {}
     for leg, fn in legs.items():
@@ -1350,19 +1478,82 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
                        wide_mod.N_ROWS * 4 * n + table.nbytes + groups.nbytes
                        + 8 * n, len(tris_np[0]))
         bounds[leg] = {**b, "ops_ms_at_issue_rate": b["ops"] / issue * 1e3}
+    # the SKIP build: against its plain version on the aimed and the
+    # reference rows (ungated, unbounded), timed in turns beside the full
+    # walk on the same rows; the full walk's ms less the SKIP build's is
+    # the walk's leaf-test time
+    rec_nw, grp_nw = node_recs(scene_nw.smem_nodes, dev), _dev(scene_nw.groups,
+                                                              dev)
+    tab_nw = _dev(scene_nw.smem_nodes, dev)
+    rows_r = _ray_rows(rays_r, torch.full((rays_r.origin.shape[0],),
+                                          float("inf"), device=dev))
+    skip_rows = {"aimed": rows, "random": rows_r}
+    skip_turns, skip_plain_ms, skip_work, skip_bounds = {}, {}, {}, {}
+    for leg, rr in skip_rows.items():
+        tk, ik = tight_mod.tight_trace(rec_nw, grp_nw, rr, W, packet=8192,
+                                       skip_narrow=True)
+        tp, ip = tight_plain_chunked(tab_nw, grp_nw, rr, W, skip_narrow=True)
+        torch.cuda.synchronize()
+        differ = same_bits(tk, ik, tp, ip)
+        vs_plain[f"skip/{leg}"] = {"rays_differ": differ,
+                                   "hits": int((ik >= 0).sum())}
+        check(differ == 0 and bool(torch.isinf(tk).all()),
+              f"skip/{leg}: {differ} rays differ from plain")
+        turns = in_turns({
+            "full": lambda rr=rr: tight_mod.tight_trace(rec_nw, grp_nw, rr, W,
+                                                        packet=8192),
+            "skip": lambda rr=rr: tight_mod.tight_trace(
+                rec_nw, grp_nw, rr, W, packet=8192, skip_narrow=True)})
+        turns["leaf_test_ms"] = turns["full"]["ms"] - turns["skip"]["ms"]
+        turns["leaf_test_share"] = turns["leaf_test_ms"] / turns["full"]["ms"]
+        skip_turns[leg] = turns
+        if leg == "aimed":
+            skip_plain_ms[leg] = cuda_ms(lambda rr=rr: tight_plain_chunked(
+                tab_nw, grp_nw, rr, W, skip_narrow=True), reps=3, warmup=0)
+        # node visits of every 32nd ray's walk, with and without leaf tests
+        sample = rr[:, ::32].contiguous()
+        _, _, v_s, _ = tight_mod.tight_trace_plain(tab_nw, grp_nw, sample, W,
+                                                   counts=True,
+                                                   skip_narrow=True)
+        _, _, v_f, f_f = tight_mod.tight_trace_plain(tab_nw, grp_nw, sample,
+                                                     W, counts=True)
+        m = rr.shape[1]
+        v_pr = float(v_s.float().mean())
+        skip_work[leg] = {"node_visits_skip": v_pr,
+                          "node_visits_full": float(v_f.float().mean()),
+                          "leaf_fires_full": float(f_f.float().mean())}
+        # the SKIP build's least work: its slab tests and cursor moves, the
+        # rows and the node records read once, the outputs written once
+        ops = m * v_pr * (wide_mod.SLAB_OPS + tight_mod.STEP_OPS)
+        nbytes = wide_mod.N_ROWS * 4 * m + rec_nw.nbytes + 8 * m
+        bms, by = roofline(ops, nbytes)
+        skip_bounds[leg] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
+                            "bound_by": by,
+                            "ops_ms_at_issue_rate": ops / issue * 1e3}
     emit("entry_exit_timings", card=card, end_to_end=e2e,
          kernels_vs_plain={"seconds": vs_s, "runs": vs_plain},
          kernel_ms=kernel_ms, plain_ms=plain_ms, work_per_ray=work,
          bounds=bounds, sweep_gate={"ms": sweep_ms, "plain_ms": sweep_plain_ms,
-                                    "bounds": sweep_bounds})
+                                    "bounds": sweep_bounds},
+         skip_narrow={"in_turns": skip_turns, "plain_ms": skip_plain_ms,
+                      "work_per_ray": skip_work, "bounds": skip_bounds})
     key = "aimed_entry_exit"
-    return {"name": "tight_trace", "route": "cuda",
-            "source": "bvh_tpu_torch/csrc/tight_trace.cu",
-            "replaces": "bvh_tpu/ops/trace.py:650",
-            "launches": launches["tight_trace"],
-            "max_abs_err": err["tight_trace"], "ms": kernel_ms[key],
-            "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
-            "bound_by": bounds[key]["bound_by"], "library_ms": None}
+    return [{"name": "tight_trace", "route": "cuda",
+             "source": "bvh_tpu_torch/csrc/tight_trace.cu",
+             "replaces": "bvh_tpu/ops/trace.py:650",
+             "launches": launches["tight_trace"],
+             "max_abs_err": err["tight_trace"], "ms": kernel_ms[key],
+             "plain_ms": plain_ms[key], "bound_ms": bounds[key]["bound_ms"],
+             "bound_by": bounds[key]["bound_by"], "library_ms": None},
+            {"name": "tight_trace_skip", "route": "cuda",
+             "source": "bvh_tpu_torch/csrc/tight_trace.cu",
+             "replaces": "bvh_tpu/ops/trace.py:740",
+             "launches": launches["tight_trace_skip"], "max_abs_err": 0.0,
+             "ms": skip_turns["aimed"]["skip"]["ms"],
+             "plain_ms": skip_plain_ms["aimed"],
+             "bound_ms": skip_bounds["aimed"]["bound_ms"],
+             "bound_by": skip_bounds["aimed"]["bound_by"],
+             "library_ms": None}]
 
 
 def in_turns(fns: dict, rounds: int = 2) -> dict:
@@ -2159,6 +2350,10 @@ REFIT_FRACS = ((0.01, "1pct"), (0.1, "10pct"), (0.5, "50pct"))
 # carried a_lo); with the exact frame none flips, and the refit leg is held
 # to the rebuild's bounds (PERF.md section 6)
 REFIT_CLASS_MAX = 0
+N_FAR_POINTS = 1 << 18  # the nearest far-frame leg's points
+# the near-tie class of a nearest query: triangles whose float64 squared
+# distance lies within 2^-20 (8 float32 ulps) of the least
+NEAR_TIE_RTOL = 2.0 ** -20
 
 
 def bits_equal(x, y) -> bool:
@@ -2312,16 +2507,68 @@ def check_far_frame(leg: str, o, d, t_trace, tris_dev, seed: int,
     return res
 
 
+def far_points(a, b, c, n: int, seed: int = 23):
+    """``n`` points scattered (normal, scale 1.5) about triangle centroids
+    (the CPU test's recipe), numpy; in a device build their leaves' frame
+    origins lie up to ~1e5 away."""
+    rng = np.random.default_rng(seed)
+    cen = (a + b + c) / np.float32(3)
+    return (cen[rng.integers(0, len(a), n)]
+            + rng.normal(scale=1.5, size=(n, 3))).astype(np.float32)
+
+
+def nearest_d2_64(p, tris_dev, sid=None):
+    """Float64 squared distances from points ``p`` to all triangles: the
+    least [n] (``sid`` None), or to triangle ``sid`` of each point."""
+    a, b, c = (x.double() for x in tris_dev)
+    p = p.double()
+    if sid is not None:
+        w = sid.to(torch.int64)
+        return point_triangle_distance_squared(p, a[w], b[w], c[w])
+    chunk = max(1, (1 << 21) // a.shape[0])
+    return torch.cat([point_triangle_distance_squared(
+        p[s:s + chunk, None, :], a[None], b[None], c[None]).amin(dim=1)
+        for s in range(0, p.shape[0], chunk)])
+
+
+def check_nearest_far(leg: str, pts_dev, sid, tris_dev, seed: int,
+                      sid_rounded) -> dict:
+    """N_SAMPLE points of a far-frame leg against float64 brute force: each
+    reported triangle's float64 squared distance is the least within the
+    near-tie class (``NEAR_TIE_RTOL``); the rounded frame's triangles
+    (``sid_rounded``, the same walk without ``a_lo``, a measurement only)
+    outside the class are counted."""
+    idx = torch.from_numpy(np.random.default_rng(seed).choice(
+        pts_dev.shape[0], N_SAMPLE, replace=False)).to(pts_dev.device)
+    p, s, sr = pts_dev[idx], sid[idx], sid_rounded[idx]
+    check(bool((s >= 0).all()), f"{leg}: a point found no triangle")
+    best = nearest_d2_64(p, tris_dev)
+    own = nearest_d2_64(p, tris_dev, s)
+    own_r = nearest_d2_64(p, tris_dev, sr)
+    lim = best * (1.0 + NEAR_TIE_RTOL)
+    outside = int((own > lim).sum())
+    res = {"leg": leg, "sampled": N_SAMPLE, "outside_tie_class": outside,
+           "max_rel_excess": float(((own - best) / best.clamp_min(1e-300))
+                                   .max()),
+           "rounded_frame_outside_tie_class": int((own_r > lim).sum()),
+           "rounded_frame_max_rel_excess": float(
+               ((own_r - best) / best.clamp_min(1e-300)).max())}
+    check(outside == 0, f"{leg}: a reported triangle is not float64 brute "
+                        f"force's nearest: {res}")
+    return res
+
+
 def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
-                  n_cubes: int = 84000, max_part: int = 100_000) -> list:
+                  n_cubes: int = 84000, max_part: int = 100_000):
     """Phase 13: bench.py's dynamic-scene legs and its roofline at full size
     on the 120k scene, with the visit counters: update_shapes_flat,
     tight_refit, refit_quality (the refit scene, a host rebuild and
     make_updater's chained scene at 1%, 10% and 50% churn), device builds
     (grid and LBVH upper trees on the 120k scene, the 1,008,000-triangle
     chain), nearest over an update, and count_visits_* on the headline
-    rows. Returns the four counting builds' entries of the ``kernels``
-    line."""
+    rows, and the nearest far-frame leg (both walks on the grid device
+    build). Returns the ``kernels`` line's entries of the counting and
+    FRAME builds, and the scenes and rays phase 15 saves and loads."""
     a, b, c = tris
     n_tris = a.shape[0]
     W = int(scene.width)
@@ -2371,6 +2618,7 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     pts_s = pts[sort_points_device(pts)[0][:n_near]]
     fo, fd = far_aimed_rays(a, b, c, len(ao), seed=17)
     fo_dev, fd_dev = torch.from_numpy(fo).to(dev), torch.from_numpy(fd).to(dev)
+    fp_dev = torch.from_numpy(far_points(a, b, c, N_FAR_POINTS)).to(dev)
     setup_s = time.perf_counter() - t0
 
     def trace_q(sc):
@@ -2429,6 +2677,9 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     roof_t = count_visits_tight(scene_ee, rays_roof, packet=8192)
     roof_n = {wide: count_visits_nearest(upd10.parts[0], pts_s, packet=8192,
                                          wide=wide) for wide in (True, False)}
+    # the nearest far-frame leg: both walks in the exact cluster frame
+    near_far = {wide: nearest_tight(dev_scenes["grid"], fp_dev, wide=wide)
+                for wide in (True, False)}
     torch.cuda.synchronize()
     launches = {"wide_trace": wide_mod.launches,
                 "tight_trace": tight_mod.launches,
@@ -2440,7 +2691,9 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
                 "nearest_wide_count": near_mod.wide_count_launches,
                 "nearest_tight_count": near_mod.entry_exit_count_launches,
                 "wide_trace_frame": wide_mod.frame_launches,
-                "tight_trace_frame": tight_mod.frame_launches}
+                "tight_trace_frame": tight_mod.frame_launches,
+                "nearest_wide_frame": near_mod.wide_frame_launches,
+                "nearest_tight_frame": near_mod.entry_exit_frame_launches}
     emit("dynamic_main_path_launches", **launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on phase 13's main path")
@@ -2510,13 +2763,29 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     moved10 = churn["10pct"]["verts"]
     near_check = check_nearest_vs_brute("nearest_update_10pct", pts, sid_u,
                                         dist_u, moved10, 54)
+    # the nearest far-frame leg against float64 brute force; the same
+    # points without the exact frame (a measurement, never a path)
+    g_round = dev_scenes["grid"]._replace(a_lo=None)
+    far_checks = {}
+    for wide, (sid_f, dist_f) in near_far.items():
+        leg = "nearest_far_frame_" + ("wide" if wide else "entry_exit")
+        check(sid_f.shape == (N_FAR_POINTS,)
+              and bool(torch.isfinite(dist_f).all()), f"{leg}: outputs")
+        sid_r, _ = nearest_tight(g_round, fp_dev, wide=wide)
+        far_checks[leg] = check_nearest_far(leg, fp_dev, sid_f, tris_dev,
+                                            56 + wide, sid_r)
+    sw_, dw_ = near_far[True]
+    se_, de_ = near_far[False]
+    check(bool(torch.equal(dw_.view(torch.int32), de_.view(torch.int32))),
+          "nearest far frame: the two walks' distances differ")
     emit("dynamic_path", card=card, setup_s=setup_s,
          sah_nodes=int(flat.num_nodes), entry_exit_build_s=ee_build_s,
          host_build_s={k: v["host_build_s"] for k, v in churn.items()},
          update_shapes_equal_cpu=same_flat, tight_refit_equal_cpu=True,
          device_builds_equal_cpu=True, refit_quality_checks=checks,
          refit_class_rays=refit_class, device_build_checks=dev_checks,
-         nearest_update=near_check,
+         nearest_update=near_check, nearest_far_frame=far_checks,
+         nearest_far_frame_walks_ids_differ=int((sw_ != se_).sum()),
          static_entry_exit_hits=int((sid_e >= 0).sum()))
 
     # ---- the counting builds against the timed builds and plain counts
@@ -2634,6 +2903,25 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         frame_holds[f"{name_}_count/aimed"] = hold_counting_build(
             f"{name_}_count/aimed", kf(sc, rows_a, counts=True),
             kf(sc, rows_a), pf(sc, rows_a, counts=True))
+    # both nearest FRAME builds, timed and counting, on the far points'
+    # sorted rows of the grid build
+    rows_fp = near_mod.point_rows(fp_dev[sort_points_device(fp_dev)[0]],
+                                  None)
+    for kind, name_ in (("wide", "nearest_wide_frame"),
+                        ("entry_exit", "nearest_tight_frame")):
+        dk, ik = near_kernel(kind, g_sc, rows_fp, frame=True)
+        dp, ip = near_plain(kind, g_sc, rows_fp, frame=True)
+        same = bits_equal(dk, dp) and bits_equal(ik, ip)
+        check(same, f"{name_}: the FRAME build differs from its plain version")
+        frame_err[name_] = finite_err(dk, dp)
+        frame_holds[f"{name_}/grid_far_points"] = {
+            "points": int(rows_fp.shape[1]), "bit_equal": same,
+            "hits": int((ik >= 0).sum())}
+        frame_holds[f"{name_}_count/far_points"] = hold_counting_build(
+            f"{name_}_count/far_points",
+            near_kernel(kind, g_sc, rows_fp, frame=True, counts=True),
+            (dk, ik), near_plain(kind, g_sc, rows_fp, counts=True,
+                                 frame=True))
     # row 1 (and 3) with and without FRAME on the same rows: without it
     # a_lo is ignored (a measuring run, never a path)
     rec_g, rec_l = records(g_sc, dev), node_recs(l_sc.smem_nodes, dev)
@@ -2645,14 +2933,27 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         "tight": in_turns({
             "frame": lambda: tight_f(l_sc, rows_a),
             "without_frame": lambda: tight_mod.tight_trace(
-                rec_l, l_sc.groups, rows_a, W)})}
+                rec_l, l_sc.groups, rows_a, W)}),
+        # rows 6 and 5: both nearest walks on the far points' rows
+        "nearest_wide": in_turns({
+            "frame": lambda: near_kernel("wide", g_sc, rows_fp, frame=True),
+            "without_frame": lambda: near_kernel("wide", g_sc, rows_fp)}),
+        "nearest_tight": in_turns({
+            "frame": lambda: near_kernel("entry_exit", g_sc, rows_fp,
+                                         frame=True),
+            "without_frame": lambda: near_kernel("entry_exit", g_sc,
+                                                 rows_fp)})}
     for v in frame_turns.values():
         v["ratio"] = v["frame"]["ms"] / v["without_frame"]["ms"]
     frame_plain_ms = {
         "wide_trace_frame": cuda_ms(lambda: wide_fp(g_sc, rows_a), reps=3,
                                     warmup=0),
         "tight_trace_frame": cuda_ms(lambda: tight_fp(l_sc, rows_a), reps=3,
-                                     warmup=0)}
+                                     warmup=0),
+        "nearest_wide_frame": cuda_ms(lambda: near_plain(
+            "wide", g_sc, rows_fp, frame=True), reps=3, warmup=0),
+        "nearest_tight_frame": cuda_ms(lambda: near_plain(
+            "entry_exit", g_sc, rows_fp, frame=True), reps=3, warmup=0)}
     n_a = rows_a.shape[1]
     ray_bytes_a = wide_mod.N_ROWS * 4 * n_a + 16 * n_a
     frame_bounds = {}
@@ -2663,6 +2964,24 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
             n_a, W, hold["count_total"] / n_a, hold["fires_total"] / n_a,
             wide_, ray_bytes_a + table.nbytes + sc.groups.nbytes
             + sc.a_lo.nbytes, n_tris, frame=True)
+    n_fp = rows_fp.shape[1]
+    for kind, name_ in (("wide", "nearest_wide_frame"),
+                        ("entry_exit", "nearest_tight_frame")):
+        hold = frame_holds[f"{name_}_count/far_points"]
+        steps_pp, fires_pp = (hold["count_total"] / n_fp,
+                              hold["fires_total"] / n_fp)
+        wide_ = kind == "wide"
+        ops = (n_fp * near_mod.walk_ops(wide_, W, steps_pp, fires_pp,
+                                        frame=True)
+               + n_tris * near_mod.TRI_ONCE_OPS)
+        table = g_sc.gnodes if wide_ else g_sc.smem_nodes
+        nbytes = ((near_mod.N_ROWS * 4 + 8) * n_fp + table.nbytes
+                  + g_sc.groups.nbytes + g_sc.a_lo.nbytes)
+        bms, by = roofline(ops, nbytes)
+        frame_bounds[name_] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
+                               "bound_by": by, "steps_per_point": steps_pp,
+                               "fires_per_point": fires_pp,
+                               "ops_ms_at_issue_rate": ops / issue * 1e3}
     emit("frame_builds_vs_plain", card=card,
          seconds=time.perf_counter() - t0, holds=frame_holds,
          in_turns=frame_turns, plain_ms=frame_plain_ms, bounds=frame_bounds,
@@ -2775,20 +3094,30 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
                 "bound_ms": bounds[name]["bound_ms"],
                 "bound_by": bounds[name]["bound_by"], "library_ms": None}
                for name in runs]
-    # the FRAME builds: ms on the grid (LBVH) device build's aimed rows
-    for name_, src, line in (("wide_trace_frame", "wide_trace.cu", 1178),
-                             ("tight_trace_frame", "tight_trace.cu", 650)):
-        kind = "wide" if name_.startswith("wide") else "tight"
+    # the FRAME builds: ms on the grid (LBVH) device build's aimed rows, the
+    # nearest walks' on the far points' rows of the grid build
+    for name_, src, replaces, kind in (
+            ("wide_trace_frame", "wide_trace.cu", "trace.py:1178", "wide"),
+            ("tight_trace_frame", "tight_trace.cu", "trace.py:650", "tight"),
+            ("nearest_wide_frame", "nearest.cu", "nearest.py:349",
+             "nearest_wide"),
+            ("nearest_tight_frame", "nearest.cu", "nearest.py:214",
+             "nearest_tight")):
         entries.append({
             "name": name_, "route": "cuda",
             "source": f"bvh_tpu_torch/csrc/{src}",
-            "replaces": f"bvh_tpu/ops/trace.py:{line}",
+            "replaces": f"bvh_tpu/ops/{replaces}",
             "launches": launches[name_], "max_abs_err": frame_err[name_],
             "ms": frame_turns[kind]["frame"]["ms"],
             "plain_ms": frame_plain_ms[name_],
             "bound_ms": frame_bounds[name_]["bound_ms"],
             "bound_by": frame_bounds[name_]["bound_by"], "library_ms": None})
-    return entries
+    keep = {"grid": dev_scenes["grid"], "far_rays": (fo_dev, fd_dev),
+            "far_hits": dev_hits["far"], "far_points": fp_dev,
+            "far_nearest": near_far[True], "chain": dev_chain,
+            "chain_rays": (sao_dev, sad_dev, perm_s),
+            "chain_hits": h, "chain_tris": sparse_dev}
+    return entries, keep
 
 
 # ---- phase 14: the general pure-tensor path ---------------------------------
@@ -3077,6 +3406,161 @@ def general_phase(dev, card: str, scene, tris, ao, ad, h_aim, pts) -> dict:
     return timings
 
 
+# ---- phase 15: io -------------------------------------------------------------
+
+def obj_text(a, b, c, quads: bool = False) -> str:
+    """``create_n_cubes``' triangles (a, b, c; 12 a cube) as Wavefront OBJ
+    text, each cube's 8 corners once as ``v`` lines (9 significant digits,
+    which give the float32 values back). Triangles: every cube's faces as
+    ``f`` lines of three indices, absolute on even cubes and relative
+    (negative) on odd ones, every third cube with ``i//i`` tokens; the
+    loader gives a, b and c back. ``quads``: each of a cube's six faces as
+    one quad (p0, p1, p2, p3) of its triangle pair (p0, p1, p2), (p2, p3,
+    p0), by negative indices: the loader's fan gives the first triangle
+    and the second as (p0, p2, p3), the same triangle from another
+    vertex."""
+    n = a.shape[0] // 12
+    v = np.stack([a, b, c], axis=1).reshape(n, 36, 3)
+    off = v[0] - v[0, 0]  # the cube's corner offsets, the same for every cube
+    _, first, slot = np.unique(np.round(off), axis=0, return_index=True,
+                               return_inverse=True)
+    slot = slot.reshape(12, 3)
+    corners = v[:, first]  # [n, 8, 3]
+    check(np.array_equal(corners[:, slot.reshape(-1)], v),
+          "obj: a cube's triangles are not made of its 8 corners")
+    if quads:
+        check(np.array_equal(slot[1::2, 0], slot[0::2, 2])
+              and np.array_equal(slot[1::2, 2], slot[0::2, 0]),
+              "obj: a cube's triangle pairs are not (p0 p1 p2), (p2 p3 p0)")
+        faces = np.concatenate([slot[0::2], slot[1::2, 1:2]], axis=1)
+    else:
+        faces = slot
+    vlines = np.char.add("v ", np.char.add(np.char.add(
+        np.char.mod("%.9g ", corners[..., 0]), np.char.mod(
+            "%.9g ", corners[..., 1])), np.char.mod("%.9g", corners[..., 2])))
+    out = ["# create_n_cubes(%d) as OBJ text" % n]
+    for k in range(n):
+        out.extend(vlines[k])
+        if quads or k % 2:
+            idx = faces - 8  # relative: this cube's corners are the last 8
+        else:
+            idx = faces + 8 * k + 1
+        tok = idx.astype(str)
+        if k % 3 == 0:
+            tok = np.char.add(np.char.add(tok, "//"), tok)
+        out.extend("f " + " ".join(row) for row in tok)
+    return "\n".join(out) + "\n"
+
+
+def io_phase(dev, card: str, scene, tris, ao_dev, ad_dev, h_aim,
+             keep: dict) -> dict:
+    """Phase 15: ``bvh_tpu_torch.io``. create_n_cubes(10000) written as OBJ
+    text and loaded (the generator's arrays), built (phase 3's tables) and
+    traced on the aimed rays (phase 3's aimed leg bit for bit); its first
+    1,000 cubes as quads (the fan's triangles); the 120k host scene, the
+    grid device build (with ``a_lo``) and phase 13's 1M chained device
+    build saved and loaded in a temporary directory: tables equal, the
+    far-frame rows' traces and nearest queries and the chain's aimed trace
+    equal before and after bit for bit, the FRAME builds launched on the
+    loaded scenes."""
+    a, b, c = tris
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "cubes.obj")
+        with open(path, "w") as fh:
+            fh.write(obj_text(a, b, c))
+        path_q = os.path.join(tmp, "quads.obj")
+        with open(path_q, "w") as fh:
+            fh.write(obj_text(a[:12000], b[:12000], c[:12000], quads=True))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        la, lb, lc = load_obj_triangles(path)
+        load_s = time.perf_counter() - t0
+        check(all(np.array_equal(x, y) and x.dtype == np.float32
+                  for x, y in zip((la, lb, lc), (a, b, c))),
+              "obj: the loaded triangles are not the generator's")
+        qa, qb, qc = load_obj_triangles(path_q)
+        fan = (np.array_equal(qa[0::2], a[:12000:2])
+               and np.array_equal(qb[0::2], b[:12000:2])
+               and np.array_equal(qc[0::2], c[:12000:2])
+               and np.array_equal(qa[1::2], c[1:12000:2])
+               and np.array_equal(qb[1::2], a[1:12000:2])
+               and np.array_equal(qc[1::2], b[1:12000:2]))
+        check(fan, "obj: the quads' fan triangles are not the generator's")
+        t0 = time.perf_counter()
+        sc_obj = build_tight_scene(la, lb, lc)
+        build_s = time.perf_counter() - t0
+        check(scenes_equal(sc_obj, scene),
+              "obj: the scene built from the OBJ differs from phase 3's")
+        h_obj = make_tracer(sc_obj, packet=8192, sort="morton",
+                            tris=(la, lb, lc))(ao_dev, ad_dev)
+        check(records_equal(h_obj, h_aim),
+              "obj: the aimed trace differs from phase 3's aimed leg")
+        res["obj"] = {"triangles": int(la.shape[0]),
+                      "bytes": os.path.getsize(path), "write_s": write_s,
+                      "load_s": load_s, "build_s": build_s,
+                      "quad_triangles": int(qa.shape[0]),
+                      "tables_equal": True, "aimed_equal": True}
+
+        def round_trip(name, obj, save, load):
+            p = os.path.join(tmp, f"{name}.npz")
+            t1 = time.perf_counter()
+            save(p, obj)
+            t2 = time.perf_counter()
+            back = load(p)
+            t3 = time.perf_counter()
+            res[name] = {"save_s": t2 - t1, "load_s": t3 - t2,
+                         "bytes": os.path.getsize(p)}
+            return back
+
+        back = round_trip("host_120k", scene, save_tight_scene,
+                          load_tight_scene)
+        check(scenes_equal(back, scene), "io: the host scene changed")
+        grid = keep["grid"]
+        back_g = round_trip("grid_device_120k", grid, save_tight_scene,
+                            load_tight_scene)
+        check(back_g.a_lo is not None and scenes_equal(back_g, grid),
+              "io: the grid device build changed")
+        fo_dev, fd_dev = keep["far_rays"]
+        before = (wide_mod.frame_launches, near_mod.wide_frame_launches)
+        h_far = make_tracer(back_g, packet=8192, sort="morton",
+                            tris=tris)(fo_dev, fd_dev)
+        near_far = nearest_tight(back_g, keep["far_points"])
+        torch.cuda.synchronize()
+        launched = (wide_mod.frame_launches - before[0],
+                    near_mod.wide_frame_launches - before[1])
+        check(min(launched) > 0, "io: the loaded device build did not run "
+                                 "the FRAME builds")
+        check(bits_equal(h_far.t, keep["far_hits"]),
+              "io: the far-frame trace changed across the round trip")
+        check(all(bits_equal(x, y) for x, y in zip(near_far,
+                                                   keep["far_nearest"])),
+              "io: the far-frame nearest query changed across the round "
+              "trip")
+        res["grid_device_120k"].update(frame_launches=list(launched),
+                                       far_trace_equal=True,
+                                       far_nearest_equal=True)
+        chain = keep["chain"]
+        back_c = round_trip("chain_device_1m", chain, save_chained_scene,
+                            load_chained_scene)
+        check(len(back_c.parts) == len(chain.parts)
+              and all(scenes_equal(x, y)
+                      for x, y in zip(back_c.parts, chain.parts))
+              and all(bits_equal(x, y)
+                      for x, y in zip(back_c.orig_ids, chain.orig_ids)),
+              "io: the chained device build changed")
+        sao_dev, sad_dev, perm_s = keep["chain_rays"]
+        h_c = trace_closest_hit_chained(back_c, Ray.create(sao_dev, sad_dev),
+                                        tris=keep["chain_tris"], packet=8192,
+                                        perm=perm_s)
+        check(records_equal(h_c, keep["chain_hits"]),
+              "io: the chain's aimed trace changed across the round trip")
+        res["chain_device_1m"].update(parts=len(chain.parts),
+                                      aimed_trace_equal=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3293,8 +3777,8 @@ def main() -> None:
     err3 = dict(p2t["max_abs_err"])
     kernels.append(pathtrace_phase(dev, card, scene_d, (ad_, bd_, cd_),
                                    oc_dev, dc_dev, issue, err3))
-    kernels.append(entry_exit_phase(dev, card, scene, (a, b, c), ao, ad,
-                                    ao_dev, ad_dev, h_aim, issue, err3))
+    kernels += entry_exit_phase(dev, card, scene, (a, b, c), ao, ad, ao_dev,
+                                ad_dev, o_dev, d_dev, h_aim, issue, err3)
 
     # ---- phases 10 and 11: the legacy path and chained scenes -----------
     kernels.append(legacy_phase(dev, card, (a, b, c), o, d, ao, ad, h_aim,
@@ -3308,7 +3792,9 @@ def main() -> None:
 
     # ---- phase 13: dynamic scenes and the visit counters, last ----------
     t0 = time.perf_counter()
-    kernels += dynamic_phase(dev, card, scene, (a, b, c), o, d, ao, ad, issue)
+    entries, keep = dynamic_phase(dev, card, scene, (a, b, c), o, d, ao, ad,
+                                  issue)
+    kernels += entries
     emit("dynamic_phase", seconds=time.perf_counter() - t0)
 
     # ---- phase 14: the general pure-tensor path at full size ------------
@@ -3317,6 +3803,13 @@ def main() -> None:
         N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)  # phase 7's
     general_phase(dev, card, scene, (a, b, c), ao, ad, h_aim, pr_dev)
     emit("general_phase", seconds=time.perf_counter() - t0)
+
+    # ---- phase 15: io ------------------------------------------------------
+    t0 = time.perf_counter()
+    io_res = io_phase(dev, card, scene, (a, b, c), ao_dev, ad_dev, h_aim, keep)
+    io_s = time.perf_counter() - t0
+    emit("io", card=card, seconds=io_s, **io_res)
+    check(io_s < 60.0, f"phase 15 took {io_s} s, over its 60 s")
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

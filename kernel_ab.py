@@ -39,7 +39,9 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
   packed=True build, each gated by its sweep at packet 8192, and the any-hit
   rows of ``shadow_aimed_entry_exit`` (t_max 1.2x each ray's hit);
 * both nearest walks (group and entry/exit) on the 1,048,576 sorted random
-  points;
+  points, and ``ops.nearest.nearest_tight`` end to end (sort, walk, id
+  map, un-permute) in both walks on the same points unsorted, as
+  ``chip_smoke.py``'s nearest legs call it;
 * the legacy walk on the 1,048,576 aimed rays, sorted, on the
   ``ClusterScene``.
 
@@ -237,6 +239,10 @@ def runs(dev, names) -> dict:
                                     scene.gdepth))
         out["nearest_tight/random"] = ("nearest", lambda ops: ops[
             "nearest"].nearest_entry_exit(sn, grp, rows_p, scene.width))
+        pts, _ = cs.nearest_points(dense, dev)
+        for key, wide in (("random", None), ("random_entry_exit", False)):
+            out[f"nearest_e2e/{key}"] = ("nearest", lambda ops, wide=wide: ops[
+                "nearest"].nearest_tight(scene, pts, wide=wide))
     if "cluster_trace" in names:
         legacy = build_cluster_scene(a, b, c)
         rays = Ray.create(*cs.sort_legacy(ao, ad, dev)[1], device=dev)

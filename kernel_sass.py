@@ -1,12 +1,12 @@
-"""Compares the compiled code of two trees' kernels that share
-``trace_common.cuh`` on the card's toolchain: the SASS of every kernel
-instantiation and its registers.
+"""Compares the compiled code of two trees' kernels on the card's
+toolchain: the SASS of every kernel instantiation and its registers.
 
     python3 kernel_sass.py --old _archive/old/bvh_tpu_torch
 
 ``--old`` (and ``--new``, default this checkout's ``bvh_tpu_torch``) name a
 package directory whose ``csrc/`` holds ``wide_trace.cu``, ``tight_trace.cu``,
-``sweep.cu``, ``cluster_trace.cu`` and ``trace_common.cuh``. Each source is compiled to a cubin with the flags
+``sweep.cu``, ``cluster_trace.cu`` (the includers of ``trace_common.cuh``)
+and ``nearest.cu``. Each source is compiled to a cubin with the flags
 of ``ops/_build.py::NVCC_FLAGS`` (the library flags dropped), its SASS read
 with ``cuobjdump -sass`` and its resource use with ``cuobjdump
 -res-usage``. An old instantiation is paired with the new one whose
@@ -29,7 +29,8 @@ from pathlib import Path
 
 from bvh_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
 
-SOURCES = ("wide_trace.cu", "tight_trace.cu", "sweep.cu", "cluster_trace.cu")
+SOURCES = ("wide_trace.cu", "tight_trace.cu", "sweep.cu", "cluster_trace.cu",
+           "nearest.cu")
 OFF = ("false", "(bool)0")  # a template flag off, as cu++filt prints it
 
 

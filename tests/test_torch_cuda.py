@@ -1602,6 +1602,206 @@ def test_frame_build_warp_schedule(frame_scenes, cuda, n):
         assert torch.equal(_bits(x), _bits(y))
 
 
+@pytest.fixture(scope="module")
+def frame_points(cuda):
+    """Device grid builds of create_n_cubes(300) at W=16 and W=128 (numpy
+    tables) and 65,537 unsorted points within a few units of the cubes'
+    centres (frame origins up to ~1e5 away), a third with a radius of 2."""
+    a, b, c = tb.create_n_cubes(300)
+    rng = np.random.default_rng(23)
+    m = 65537
+    cen = a.reshape(-1, 12, 3).mean(axis=1)
+    pts = (cen[rng.integers(0, len(cen), m)]
+           + rng.normal(scale=1.5, size=(m, 3))).astype(np.float32)
+    d_max = np.where(np.arange(m) % 3 == 0, 2.0, np.inf).astype(np.float32)
+    scenes = {}
+    for width in (16, 128):
+        sc = build_tight_scene_device(a, b, c, width=width, device="cpu")
+        scenes[width] = sc._replace(**{f: getattr(sc, f).numpy() for f in
+                                       ("smem_nodes", "groups", "gnodes",
+                                        "a_lo")})
+    return scenes, _near_rows(pts, d_max, cuda)
+
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("walk", ["wide", "entry_exit"])
+@pytest.mark.parametrize("width", [16, 128])
+def test_nearest_frame_build_matches_plain(frame_points, cuda, width, walk,
+                                           refine, counts):
+    """The FRAME builds of both nearest walks (the scene's ``a_lo`` given)
+    bit-equal to their plain versions with the same ``a_lo``, timed and
+    counting; a timed FRAME launch is counted in its walk's frame
+    counter; the frame changes the squared distances."""
+    scenes, rows = frame_points
+    scene = scenes[width]
+    a_lo, grp = _dev(scene.a_lo, cuda), _dev(scene.groups, cuda)
+    if walk == "wide":
+        table, extra = _dev(scene.gnodes, cuda), (scene.gdepth,)
+        kernel, plain = near_mod.nearest_wide, near_mod.nearest_wide_plain
+        counter = "wide_frame_launches"
+    else:
+        table, extra = _dev(scene.smem_nodes, cuda), ()
+        kernel = near_mod.nearest_entry_exit
+        plain = near_mod.nearest_entry_exit_plain
+        counter = "entry_exit_frame_launches"
+    before = getattr(near_mod, counter)
+    got = kernel(table, grp, rows, width, *extra, refine=refine,
+                 counts=counts, a_lo=a_lo)
+    want = plain(table, grp, rows, width, refine=refine, counts=counts,
+                 a_lo=a_lo)
+    torch.cuda.synchronize()
+    assert getattr(near_mod, counter) == before + (0 if counts else 1)
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    assert bool((got[1] >= 0).any())
+    if not counts:
+        d0, _ = kernel(table, grp, rows, width, *extra, refine=refine)
+        assert not torch.equal(_bits(d0), _bits(got[0]))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_nearest_frame_build_warp_schedule(frame_points, cuda, n):
+    """Partial warps of both nearest FRAME builds against the plain
+    versions."""
+    scenes, rows = frame_points
+    rows = rows[:, :n].contiguous()
+    for width, scene in scenes.items():
+        a_lo, grp = _dev(scene.a_lo, cuda), _dev(scene.groups, cuda)
+        gn, sn = _dev(scene.gnodes, cuda), _dev(scene.smem_nodes, cuda)
+        got = (near_mod.nearest_wide(gn, grp, rows, width, scene.gdepth,
+                                     a_lo=a_lo)
+               + near_mod.nearest_entry_exit(sn, grp, rows, width, a_lo=a_lo))
+        want = (near_mod.nearest_wide_plain(gn, grp, rows, width, a_lo=a_lo)
+                + near_mod.nearest_entry_exit_plain(sn, grp, rows, width,
+                                                    a_lo=a_lo))
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(_bits(x), _bits(y))
+
+
+def test_nearest_frame_on_card_matches_cpu(frame_points, cuda):
+    """``nearest_tight`` on a device-built scene: the card (FRAME builds)
+    equals the CPU bit for bit, in both walks."""
+    scenes, rows = frame_points
+    pts = rows[:3].T.contiguous()[:8192]
+    for scene in scenes.values():
+        for wide in (None, False):
+            _equal(nearest_tight(scene, pts, wide=wide),
+                   nearest_tight(scene, pts.cpu(), wide=wide, device="cpu"))
+
+
+# ---- the entry/exit walk's broadphase-only build (SKIP) ---------------------
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("mode", ["closest", "bounded", "gated", "hinted"])
+def test_skip_build_matches_plain(case, cuda, mode, counts):
+    """The SKIP build (``skip_narrow``) bit-equal to its plain version, its
+    visit counts included: every ray misses, no fire is counted, no hint
+    is read; a timed launch is counted in ``skip_launches``."""
+    scene, _, _, _, rays, tm = case
+    bound = tm if mode == "bounded" else torch.full_like(tm, np.inf)
+    rows = _ray_rows(rays, bound)
+    kw = _walk_kw(scene, rows, cuda, mode, 1024, tight=True)
+    grp = _dev(scene.groups, cuda)
+    before = tight_mod.skip_launches
+    got = tight_mod.tight_trace(_nrec(scene.smem_nodes, cuda), grp, rows,
+                                scene.width, counts=counts, skip_narrow=True,
+                                **kw)
+    want = tight_mod.tight_trace_plain(_dev(scene.smem_nodes, cuda), grp,
+                                       rows, scene.width, counts=counts,
+                                       skip_narrow=True, **kw)
+    torch.cuda.synchronize()
+    assert tight_mod.skip_launches == before + (0 if counts else 1)
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    assert bool(torch.isinf(got[0]).all()) and bool((got[1] == -1).all())
+    if counts:
+        assert int(got[2].sum()) > 0 and int(got[3].sum()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+def test_skip_build_warp_schedule(wide_scenes, cuda, n):
+    """Partial warps of the SKIP build, with counts, against the plain
+    version; each ray visits at least as many nodes as the full walk."""
+    scene, (a, b, c) = wide_scenes[16]
+    o, d = _shuffled(n, *_rays(a, n=2 * n + 2, seed=5))
+    rows = _ray_rows(Ray.create(o, d, device=cuda),
+                     torch.full((n,), np.inf, device=cuda))
+    rec, grp = _nrec(scene.smem_nodes, cuda), _dev(scene.groups, cuda)
+    got = tight_mod.tight_trace(rec, grp, rows, 16, packet=128, counts=True,
+                                skip_narrow=True)
+    want = tight_mod.tight_trace_plain(_dev(scene.smem_nodes, cuda), grp,
+                                       rows, 16, packet=128, counts=True,
+                                       skip_narrow=True)
+    full = tight_mod.tight_trace(rec, grp, rows, 16, packet=128, counts=True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    assert bool((got[2] >= full[2]).all())
+
+
+def test_skip_narrow_trace_on_card(case, cuda):
+    """``trace_closest_hit_tight(skip_narrow=True)`` on the card: the SKIP
+    build runs, every ray misses, and the record equals the CPU's."""
+    scene, tris, _, _, rays, tm = case
+    before = tight_mod.skip_launches
+    got = trace_closest_hit_tight(scene, rays, tris=tris, t_max=tm,
+                                  skip_narrow=True, sweep=True)
+    torch.cuda.synchronize()
+    assert tight_mod.skip_launches == before + 1
+    assert bool(torch.isinf(got.t).all()) and bool((got.shape_id == -1).all())
+    _equal(got, trace_closest_hit_tight(scene, _to(rays, "cpu"), tris=tris,
+                                        t_max=tm.cpu(), skip_narrow=True,
+                                        device="cpu"))
+
+
+# ---- io: a device build saved, loaded and traced on the card ----------------
+
+def _cpu(out):
+    """A query's outputs copied to the CPU (``_equal``'s reference side)."""
+    return tuple(x.cpu() for x in out)
+
+
+def test_device_build_round_trip_on_card(cuda, tmp_path):
+    """A grid device build made on the card, saved and loaded (numpy tables,
+    ``a_lo`` kept): the loaded scene's traces in both walks and its nearest
+    queries run the FRAME builds and equal the card scene's bit for bit;
+    a device chain likewise."""
+    from bvh_tpu_torch import io as io_t
+    a, b, c = tb.create_n_cubes(300)
+    tris = tuple(torch.from_numpy(x).to(cuda) for x in (a, b, c))
+    scene = build_tight_scene_device(*tris)
+    path = str(tmp_path / "device.npz")
+    io_t.save_tight_scene(path, scene)
+    back = io_t.load_tight_scene(path)
+    assert isinstance(back.a_lo, np.ndarray)
+    rng = np.random.default_rng(17)
+    o = rng.uniform(-60.0, 60.0, (8192, 3)).astype(np.float32)
+    d = (((a + b + c) / np.float32(3))[rng.integers(0, len(a), 8192)]
+         - o).astype(np.float32)
+    rays = Ray.create(o, d, device=cuda)
+    for wide in (None, False):
+        mod = wide_mod if wide is None else tight_mod
+        before = mod.frame_launches
+        h0 = trace_closest_hit_tight(scene, rays, wide=wide)
+        h1 = trace_closest_hit_tight(back, rays, wide=wide)
+        torch.cuda.synchronize()
+        assert mod.frame_launches == before + 2
+        _equal(h1, _cpu(h0))
+    cen = ((a + b + c) / np.float32(3))[np.arange(8192) % len(a)]
+    pts = torch.from_numpy(cen + o * np.float32(0.02)).to(cuda)
+    before = near_mod.wide_frame_launches
+    _equal(nearest_tight(back, pts), _cpu(nearest_tight(scene, pts)))
+    assert near_mod.wide_frame_launches == before + 2
+    ch = build_chained_scene_device(*tris, max_part=1200)
+    io_t.save_chained_scene(str(tmp_path / "chain.npz"), ch)
+    ch_back = io_t.load_chained_scene(str(tmp_path / "chain.npz"))
+    _equal(trace_closest_hit_chained(ch_back, rays),
+           _cpu(trace_closest_hit_chained(ch, rays)))
+    _equal(nearest_chained(ch_back, pts), _cpu(nearest_chained(ch, pts)))
+
+
 # ---- the general pure-tensor path on the card -----------------------------
 
 def test_general_path_on_card_matches_cpu(cuda):

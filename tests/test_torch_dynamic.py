@@ -61,9 +61,10 @@ from bvh_tpu_torch.bvh import build_lbvh, build_sah, refit, update_shapes
 from bvh_tpu_torch.bvh.lbvh import clz32
 from bvh_tpu_torch.ops import (build_chained_scene, build_chained_scene_device,
                                build_tight_scene, build_tight_scene_device,
-                               count_visits_tight, make_chained_updater,
-                               make_refitter, make_updater, nearest_chained,
-                               nearest_tight,
+                               count_visits_nearest, count_visits_tight,
+                               make_chained_updater, make_refitter,
+                               make_updater, nearest_chained, nearest_tight,
+                               nearest_wide_plain,
                                trace_any_hit_chained,
                                trace_closest_hit_chained,
                                trace_closest_hit_tight)
@@ -821,30 +822,80 @@ def test_a_lo_is_the_exact_remainder(case):
             assert (np.abs(got[lanes]) > 0).any()
 
 
+# the near-tie class of a nearest query: triangles whose float64 squared
+# distance lies within 2^-20 (8 float32 ulps) of the least
+NEAR_TIE_RTOL = 2.0 ** -20
+
+
 @pytest.mark.parametrize("wide", [True, False])
 def test_nearest_far_frame(wide):
     """Both nearest walks on a device grid build of create_n_cubes(40)
     (frame origins up to ~1e5 from their triangles), points within a few
-    units of the cubes, against brute force at the port's nearest bound
-    |dist - bd| <= 1e-5 bd + 1e-2, for the reported distance and for the
-    exact distance of the reported triangle. (The walks round p - cc in
-    the far frame, so where two triangles lie within ~1e-3 of the same
-    distance they may take the farther one: point 326 takes triangle 302
-    at d^2 = 1.35375 for 307 at 1.35277, inside that bound; ROADMAP queue
-    3, item 7.)"""
+    units of the cubes: every reported triangle's float64 squared distance
+    is the least over all triangles in float64 outside the near-tie class
+    (within ``NEAR_TIE_RTOL`` of it), and the reported distance is brute
+    force's at the port's nearest bound |dist - bd| <= 1e-5 bd + 1e-2. The
+    walks test leaves in the exact cluster frame (``a_lo``, the FRAME
+    builds on the card); without it they round p - cc in the far frame,
+    and point 326 takes triangle 302 at d^2 = 1.35375 for 307 at 1.35277
+    (a measurement of the rounded frame, never a path)."""
     a, b, c = tb.create_n_cubes(40)
     st = build_tight_scene_device(a, b, c, device=CPU)
+    assert st.a_lo is not None
     rng = np.random.default_rng(23)
     centers = a.reshape(-1, 12, 3).mean(axis=1)
     pts = (np.repeat(centers, 13, axis=0)
            + rng.normal(scale=1.5, size=(40 * 13, 3))).astype(np.float32)
     sid, dist = nearest_tight(st, pts, wide=wide, device=CPU)
     sid, dist = sid.numpy(), dist.numpy().astype(np.float64)
-    d2 = np.stack([point_d2(torch.from_numpy(pts),
-                            *(torch.from_numpy(x[k:k + 1]) for x in (a, b, c)))
-                   .numpy() for k in range(a.shape[0])], 1).astype(np.float64)
-    bd = np.sqrt(d2.min(axis=1))
+    d2 = point_d2(torch.from_numpy(pts).double()[:, None],
+                  *(torch.from_numpy(x).double()[None] for x in (a, b, c))
+                  ).numpy()
+    best = d2.min(axis=1)
+    bd = np.sqrt(best)
     assert (sid >= 0).all()
+    own = d2[np.arange(len(pts)), sid]
+    assert (own <= best * (1.0 + NEAR_TIE_RTOL)).all()
     assert (np.abs(dist - bd) <= 1e-5 * bd + 1e-2).all()
-    own = np.sqrt(d2[np.arange(len(pts)), sid])
-    assert (np.abs(own - bd) <= 1e-5 * bd + 1e-2).all()
+    rounded, _ = nearest_tight(st._replace(a_lo=None), pts, wide=wide,
+                               device=CPU)
+    assert int(rounded[326]) == 302 and int(d2[326].argmin()) == 307
+    assert int(sid[326]) == 307
+
+
+def test_nearest_update_takes_the_delta_frames():
+    """An update's chain (host static part without ``a_lo``, delta parts
+    with it) on create_n_cubes(40) with a third of the triangles moved:
+    ``nearest_chained`` reports float64 brute force's nearest triangle over
+    the moved scene within the near-tie class on every point, and
+    ``count_visits_nearest`` on a delta part walks its frame (the counting
+    plain walk with ``a_lo``)."""
+    a, b, c = tb.create_n_cubes(40)
+    a2, b2, c2, moved_ids = tb.randomly_transform_scene(a, b, c, len(a) // 3,
+                                                        seed=11)
+    scene = build_tight_scene(a, b, c, use_native=False)
+    ch = make_updater(scene, max_moved=len(moved_ids), device=CPU)(
+        a2, b2, c2, moved_ids.astype(np.int32))
+    assert ch.parts[0].a_lo is None
+    assert all(p.a_lo is not None for p in ch.parts[1:])
+    rng = np.random.default_rng(31)
+    centers = (a2 + b2 + c2) / np.float32(3)
+    pts = (centers[rng.integers(0, len(a2), 600)]
+           + rng.normal(scale=2.0, size=(600, 3))).astype(np.float32)
+    sid, _ = nearest_chained(ch, pts, device=CPU)
+    d2 = point_d2(torch.from_numpy(pts).double()[:, None],
+                  *(torch.from_numpy(x).double()[None] for x in (a2, b2, c2))
+                  ).numpy()
+    sid = sid.numpy()
+    assert (sid >= 0).all()
+    own = d2[np.arange(len(pts)), sid]
+    assert (own <= d2.min(axis=1) * (1.0 + NEAR_TIE_RTOL)).all()
+    delta = ch.parts[1]
+    steps, fires = count_visits_nearest(delta, pts, packet=128, device=CPU)
+    rows = torch.stack([*torch.from_numpy(pts).T,
+                        torch.full((len(pts),), float("inf"))])
+    plain = nearest_wide_plain(delta.gnodes, delta.groups, rows,
+                               int(delta.width), refine=not delta.masked,
+                               counts=True, a_lo=delta.a_lo)
+    assert int(steps.sum()) == int(plain[2].sum())
+    assert int(fires.sum()) == int(plain[3].sum())

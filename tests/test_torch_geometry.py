@@ -172,7 +172,8 @@ def _imports(path):
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
     for p in list((REPO / "bvh_tpu_torch").rglob("*.py"))
-    + [REPO / "chip_smoke.py", REPO / "kernel_ab.py"]))
+    + [REPO / "chip_smoke.py", REPO / "kernel_ab.py",
+       REPO / "kernel_sass.py"]))
 def test_no_jax_or_bvh_tpu_import(path):
     for mod in _imports(REPO / path):
         top = mod.split(".")[0]

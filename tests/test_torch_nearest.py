@@ -20,6 +20,13 @@
 * A masked part from the reference's ``make_updater``, carried with
   ``scene_from_arrays``, against the reference on the same part and brute
   force.
+* The exact cluster frame (``a_lo``, the kernels' FRAME builds) on device
+  builds of create_n_cubes(40), whose frame origins lie up to ~1e5 from
+  their triangles: the two plain walks equal bit for bit with and without
+  counts, the wrappers pass ``a_lo`` to them, and ``nearest_chained`` over
+  a device chain takes each part's own frame: every reported triangle's
+  float64 squared distance is the least over all triangles in float64
+  within the near-tie class (2^-20 relative).
 """
 
 import jax.numpy as jnp
@@ -33,8 +40,10 @@ from bvh_tpu.ops.nearest import nearest_tight as nearest_j
 from bvh_tpu.ops.nearest import sort_points_device as sort_points_j
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch import tri
-from bvh_tpu_torch.ops import (build_tight_scene, nearest_tight,
-                               scene_from_arrays, sort_points_device)
+from bvh_tpu_torch.ops import (build_chained_scene_device, build_tight_scene,
+                               build_tight_scene_device, nearest_chained,
+                               nearest_tight, scene_from_arrays,
+                               sort_points_device)
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops.trace import _dev
 from test_torch_scene import reference_native  # noqa: F401  (autouse)
@@ -366,3 +375,103 @@ def test_deep_chain_table(refine):
     np.testing.assert_allclose(dw.numpy(), bd2, rtol=2 * 16 * 2.0 ** -23 + 1e-6)
     with pytest.raises(ValueError, match=r"depth 15 outside 1\.\.14"):
         near_mod.nearest_wide(gn, grp, rows, 16, 15)
+
+
+# ---- the exact cluster frame (a_lo) of device-built scenes -----------------
+
+NEAR_TIE_RTOL = 2.0 ** -20
+
+
+def _far_points(a, n_per: int = 13, seed: int = 23):
+    """Points within a few units of each cube's centre (its triangles' frame
+    origins lie up to ~1e5 away in a device build)."""
+    rng = np.random.default_rng(seed)
+    centers = a.reshape(-1, 12, 3).mean(axis=1)
+    return (np.repeat(centers, n_per, axis=0)
+            + rng.normal(scale=1.5, size=(len(centers) * n_per, 3))
+            ).astype(np.float32)
+
+
+def _brute64(pts, a, b, c):
+    """[n, m] squared distances in float64."""
+    return tri.point_triangle_distance_squared(
+        torch.from_numpy(pts).double()[:, None],
+        *(torch.from_numpy(x).double()[None] for x in (a, b, c))).numpy()
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_frame_walks_agree(refine):
+    """On a device build, the plain group and entry/exit walks with
+    ``a_lo`` equal bit for bit, with and without counts; the wrappers on
+    CPU tensors run them with the frame; the frame changes the result
+    (the rounded frame's point 326)."""
+    a, b, c = tb.create_n_cubes(40)
+    st = build_tight_scene_device(a, b, c, device=CPU)
+    rows = near_mod.point_rows(torch.from_numpy(_far_points(a)), None)
+    gn, sn, grp, alo = st.gnodes, st.smem_nodes, st.groups, st.a_lo
+    dw, iw, _, wf = near_mod.nearest_wide_plain(
+        gn, grp, rows, st.width, refine=refine, counts=True, a_lo=alo)
+    de, ie, _, ef = near_mod.nearest_entry_exit_plain(
+        sn, grp, rows, st.width, refine=refine, counts=True, a_lo=alo)
+    assert torch.equal(dw.view(torch.int32), de.view(torch.int32))
+    assert (iw >= 0).all() and (ie >= 0).all()
+    # the exact frame makes the two triangles of a cube face equally near
+    # a point by their shared edge: the walks, which order their leaves
+    # differently, may then keep either (the near-tie class)
+    tm = np.asarray(st.tri_map)
+    pts = rows[:3].T.contiguous().numpy()
+    d2 = _brute64(pts, a, b, c)
+    k = np.arange(len(pts))
+    for lane in (iw.numpy(), ie.numpy()):
+        assert (d2[k, tm[lane]] <= d2.min(axis=1) * (1 + NEAR_TIE_RTOL)).all()
+    assert (iw != ie).sum() <= len(pts) // 10
+    assert (wf >= 1).all() and (ef >= 1).all()
+    for fn, table, extra, plain in (
+            (near_mod.nearest_wide, gn, (st.gdepth,), iw),
+            (near_mod.nearest_entry_exit, sn, (), ie)):
+        d0, i0 = fn(table, grp, rows, st.width, *extra, refine=refine,
+                    a_lo=alo)
+        assert torch.equal(d0.view(torch.int32), dw.view(torch.int32))
+        assert torch.equal(i0, plain)
+    _, i1 = near_mod.nearest_wide_plain(gn, grp, rows, st.width,
+                                        refine=refine)
+    assert int(tm[i1[326]]) == 302 and int(tm[iw[326]]) == 307
+    with pytest.raises(ValueError, match="a_lo"):
+        near_mod.nearest_wide(gn, grp, rows, st.width, st.gdepth,
+                              a_lo=alo[:, :2].contiguous())
+    with pytest.raises(ValueError, match="a_lo"):
+        near_mod.nearest_entry_exit(sn, grp, rows, st.width,
+                                    a_lo=alo.double())
+
+
+def test_nearest_chained_takes_each_parts_frame(monkeypatch):
+    """A device chain of create_n_cubes(40) in parts of 160 triangles: each
+    part's walk gets that part's own ``a_lo``, and every reported
+    triangle is float64 brute force's nearest within the near-tie class,
+    with and without a radius."""
+    a, b, c = tb.create_n_cubes(40)
+    ch = build_chained_scene_device(a, b, c, max_part=160, device=CPU)
+    assert len(ch.parts) > 1 and all(p.a_lo is not None for p in ch.parts)
+    pts = _far_points(a)
+    seen = []
+    walk = near_mod.nearest_wide
+
+    def spy(*args, **kw):
+        seen.append(kw["a_lo"])
+        return walk(*args, **kw)
+
+    monkeypatch.setattr(near_mod, "nearest_wide", spy)
+    sid, dist = nearest_chained(ch, pts, device=CPU)
+    assert len(seen) == len(ch.parts)
+    assert all(x is p.a_lo for x, p in zip(seen, ch.parts))
+    d2 = _brute64(pts, a, b, c)
+    best = d2.min(axis=1)
+    sid = sid.numpy()
+    assert (sid >= 0).all()
+    assert (d2[np.arange(len(pts)), sid] <= best * (1 + NEAR_TIE_RTOL)).all()
+    bd = np.sqrt(best)
+    np.testing.assert_allclose(dist.numpy(), bd, rtol=1e-5, atol=1e-2)
+    sid_r, _ = nearest_chained(ch, pts, d_max=1.0, device=CPU)
+    inside = bd < 1.0 - 1e-3
+    assert (sid_r.numpy()[inside] >= 0).all()
+    assert (sid_r.numpy()[bd > 1.0 + 1e-3] == -1).all()

@@ -26,6 +26,13 @@ Tolerances:
   ``trace_any_hit_tight`` except where it lies within ``GRAZING_RTOL`` plus
   the reference's approximate reciprocal (2^-8) of t_max.
 * Hints and pre-gates change no result bit outside the gated packets.
+* ``skip_narrow`` (the broadphase-only walk): every ray misses (t = +inf,
+  shape id -1, u = v = 0) in the port and in the reference's
+  ``trace_closest_hit_tight(skip_narrow=True)``; the reference's rules
+  (``wide=True`` raises, no sweep, hints not read, pre-gates kept); on
+  packets of one repeated ray the port's visit sums are exactly packet x
+  the reference's ``_trace_tight(skip_narrow=True, count_visits=True)``
+  count, and both count no fire.
 """
 
 import jax
@@ -38,7 +45,8 @@ from jax.experimental import pallas as pl
 import bvh_tpu
 from bvh_tpu.ops import cluster as cluster_j
 from bvh_tpu.ops.cluster import build_tight_scene as build_j
-from bvh_tpu.ops.trace import _pack_rays_tight, _sweep_tight, compute_seed_hints
+from bvh_tpu.ops.trace import (_pack_rays_tight, _sweep_tight, _trace_tight,
+                               compute_seed_hints)
 from bvh_tpu.ops.trace import make_tracer as make_tracer_j
 from bvh_tpu.ops.trace import trace_any_hit_tight as any_j
 from bvh_tpu.ops.trace import trace_closest_hit_tight as trace_j
@@ -50,6 +58,7 @@ from bvh_tpu_torch.ops import (build_tight_scene, make_tracer,
                                trace_closest_hit_tight)
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
+from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
@@ -575,3 +584,103 @@ def test_least_node_tests_matches_a_brute_count(world, pre):
     gate = sweep_mod.sweep_gate_plain(tab, rows, packet, pre_gate=pg)
     assert 0 < int(gate.sum()) < p  # both kinds of packet are counted
     assert got[0] < int(visits.sum())  # fired packets cost less than before
+
+
+# ---- skip_narrow: the broadphase-only walk ------------------------------------
+
+@pytest.mark.parametrize("kwargs", [{}, {"wide": False}, {"packed": True}])
+@pytest.mark.parametrize("bound", [None, "per_ray"])
+def test_skip_narrow_misses_every_ray(world, kwargs, bound):
+    """Every ray misses, in the port (with the exact recompute asked for,
+    a t_max, hints and the sweep, neither of which it reads) and in the
+    reference's interpret-mode trace."""
+    tris, o, d = world
+    sj, st = build_j(*tris, **kwargs), build_tight_scene(*tris, **kwargs)
+    t_max = None if bound is None else np.linspace(5.0, 2e5, len(o),
+                                                   dtype=np.float32)
+    p = -(-len(o) // PACKET)
+    got = trace_closest_hit_tight(
+        st, Ray.create(o, d, device=CPU), tris=tris, packet=PACKET,
+        t_max=t_max, sweep=True, skip_narrow=True,
+        hints=np.full((p, 2), 7, np.int32), device=CPU)
+    assert torch.isinf(got.t).all() and (got.t > 0).all()
+    assert (got.shape_id == -1).all()
+    assert not got.u.any() and not got.v.any()
+    ref = trace_j(sj, bvh_tpu.Ray.create(o, d), packet=PACKET,
+                  t_max=None if t_max is None else jnp.asarray(t_max),
+                  skip_narrow=True, interpret=True)
+    assert not np.isfinite(np.asarray(ref.t)).any()
+    assert (np.asarray(ref.shape_id) == -1).all()
+
+
+def test_skip_narrow_follows_the_references_rules(world, monkeypatch):
+    """The entry/exit walk's SKIP build whatever the scene's default walk;
+    ``wide=True`` and ``start_g`` raise; the sweep never runs; the
+    pre-gate reaches the walk."""
+    tris, o, d = world
+    st = build_tight_scene(*tris)
+    rays = Ray.create(o, d, device=CPU)
+    with pytest.raises(ValueError, match="skip_narrow"):
+        trace_closest_hit_tight(st, rays, packet=PACKET, wide=True,
+                                skip_narrow=True, device=CPU)
+    p = -(-len(o) // PACKET)
+    with pytest.raises(ValueError, match="start_g"):
+        trace_closest_hit_tight(st, rays, packet=PACKET, skip_narrow=True,
+                                start_g=np.ones(p, np.int32), device=CPU)
+    seen = []
+
+    def no_sweep(*args, **kw):
+        raise AssertionError("skip_narrow ran the sweep gate")
+
+    def walk(*args, **kw):
+        seen.append(kw)
+        return tight_mod.tight_trace(*args, **kw)
+
+    monkeypatch.setattr(trace_mod, "sweep_gate", no_sweep)
+    monkeypatch.setattr(trace_mod, "tight_trace", walk)
+    pg = np.array([1, 0, 1, 0][:p], np.int32)
+    got = trace_closest_hit_tight(st, rays, packet=PACKET, sweep=True,
+                                  skip_narrow=True, pre_gate=pg, device=CPU)
+    assert torch.isinf(got.t).all()
+    (kw,) = seen
+    assert kw["skip_narrow"] and kw["hints"] is None
+    assert torch.equal(kw["gate"], torch.as_tensor(pg))
+
+
+def test_skip_narrow_counts_on_uniform_packets():
+    """Packets of one ray repeated (aimed and reference-random rays): the
+    plain SKIP walk's visit sums are exactly packet x the reference's
+    ``_trace_tight(skip_narrow=True, count_visits=True)`` count, every
+    count at least the full walk's, and neither counts a fire."""
+    a, b, c = tb.create_n_cubes(60)
+    sj = cluster_j.build_tight_scene(a, b, c, wide=False)
+    st = build_tight_scene(a, b, c, wide=False)
+    o1, d1 = tb.aimed_rays(a, 8, seed=6)
+    o2, d2 = tb.create_rays(4, seed=tb.seed_state_after(3))
+    o = np.repeat(np.concatenate([o1, o2]), PACKET, axis=0)
+    d = np.repeat(np.concatenate([d1, d2]), PACKET, axis=0)
+    p, _, slab, lmat = _pack_rays_tight(
+        bvh_tpu.Ray.create(jnp.asarray(o), jnp.asarray(d)), PACKET, None)
+    zeros = jnp.zeros((p,), jnp.int32)
+    sn = jnp.asarray(sj.smem_nodes)
+    out = _trace_tight(sn, zeros, zeros, jnp.asarray(sj.groups), slab, lmat,
+                       num_nodes=int(sn.shape[1]), interpret=True,
+                       packet=PACKET, skip_narrow=True, width=int(sj.width),
+                       count_visits=True)
+    visits_j = np.asarray(out[:, 0, 0]).astype(np.int64)
+    fires_j = np.asarray(out[:, 1, 0]).astype(np.int64)
+    rows = _ray_rows(Ray.create(o, d, device=CPU),
+                     torch.full((len(o),), np.inf))
+    rec = _dev(st.smem_nodes, CPU, sweep_mod.node_records)
+    grp = _dev(st.groups, CPU)
+    t, lane, visits, fires = tight_mod.tight_trace(
+        rec, grp, rows, st.width, packet=PACKET, counts=True,
+        skip_narrow=True)
+    assert torch.isinf(t).all() and (lane == -1).all()
+    sums = visits.view(-1, PACKET).sum(dim=1).numpy()
+    assert (visits_j > 0).all() and np.array_equal(PACKET * visits_j, sums)
+    assert not fires_j.any() and not fires.any()
+    _, _, full, full_fires = tight_mod.tight_trace(rec, grp, rows, st.width,
+                                                   counts=True)
+    assert (visits >= full).all() and (visits > full).any()
+    assert full_fires.sum() > 0
