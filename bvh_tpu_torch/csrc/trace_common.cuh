@@ -216,11 +216,12 @@ __device__ __forceinline__ Tri load_tri(const float* __restrict__ tile,
 // triangle's frame, against triangle t at lane j of a W-wide cluster; sent
 // where it misses. The reciprocal of det is taken only where the test
 // passes, so a warp whose lanes all miss skips it.
-__device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
-                                       float tvz, float dx, float dy, float dz,
-                                       int W, int j, int sent) {
-  float w0 = tvy * dz - tvz * dy, w1 = tvz * dx - tvx * dz,
-        w2 = tvx * dy - tvy * dx;
+// tri_key_w takes w = tv x d formed by the caller (the FRAME builds form it
+// in double).
+__device__ __forceinline__ int tri_key_w(const Tri& t, float tvx, float tvy,
+                                         float tvz, float w0, float w1,
+                                         float w2, float dx, float dy,
+                                         float dz, int W, int j, int sent) {
   float det = (t.p0 * dx + t.p1 * dy) + t.p2 * dz;
   float udet = (t.e20 * w0 + t.e21 * w1) + t.e22 * w2;
   float vdet = -((t.e10 * w0 + t.e11 * w1) + t.e12 * w2);
@@ -230,6 +231,35 @@ __device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
   int key = sent;
   if (ok) key = (__float_as_int(tdet * (1.0f / det)) & ~(W - 1)) | j;
   return key;
+}
+
+__device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
+                                       float tvz, float dx, float dy, float dz,
+                                       int W, int j, int sent) {
+  return tri_key_w(t, tvx, tvy, tvz, tvy * dz - tvz * dy, tvz * dx - tvx * dz,
+                   tvx * dy - tvy * dx, dx, dy, dz, W, j, sent);
+}
+
+// The FRAME builds' tv and w = tv x d (ops/wide.py::narrow_keys(frame64=)):
+// o - cc as the exact double sum of the broadcast pair (o', lo), a - cc as
+// a' + a_lo, their difference and the cross product with d in double, then
+// tv and w rounded to float once each. Formed in float, tv ~ 1e5 would
+// carry a rounding of its own in every triangle and w = tv x d the rounding
+// of products ~1e5, so the two triangles of an edge would see the ray up to
+// ~0.006 of a unit apart, and a seam would open between them. w is of the
+// size of the ray's offset from a', so its one rounding here is small.
+__device__ __forceinline__ int tri_key_frame(const Tri& t, double ox,
+                                             double oy, double oz, float alx,
+                                             float aly, float alz, float dx,
+                                             float dy, float dz, int W, int j,
+                                             int sent) {
+  const double tx = ox - ((double)t.a0 + (double)alx);
+  const double ty = oy - ((double)t.a1 + (double)aly);
+  const double tz = oz - ((double)t.a2 + (double)alz);
+  const double ex = dx, ey = dy, ez = dz;
+  return tri_key_w(t, (float)tx, (float)ty, (float)tz,
+                   (float)(ty * ez - tz * ey), (float)(tz * ex - tx * ez),
+                   (float)(tx * ey - ty * ex), dx, dy, dz, W, j, sent);
 }
 
 // The rounding error of x - y: hi + lo == x - y exactly, with hi the
@@ -289,12 +319,12 @@ __device__ __forceinline__ void fold_key(RayState& r, int km, int c, int W,
 //
 // FRAME (scenes that carry a_lo [G, 3, 128], laid out as the a' rows of
 // groups: device builds, their refits and update deltas, whose Morton
-// clusters may lie ~1e5 from their frame origin): the exact cluster frame of
-// the legacy walk. The owner also broadcasts the rounding error lo of
-// o - cc (two_diff), and each lane forms tv = ((o' - a') + lo) - a_lo from
-// its triangle's a_lo, the part of a - cc that the stored a' leaves out. A
-// build without FRAME reads no a_lo and compiles to the code it had before
-// the flag.
+// clusters may lie ~1e5 from their frame origin): the exact cluster frame.
+// The owner also broadcasts the rounding error lo of o - cc (two_diff), and
+// each lane forms tv = (o - cc) - (a - cc) and w = tv x d in double from the
+// pair (o', lo) and its triangle's (a', a_lo), a_lo being the part of
+// a - cc that the stored a' leaves out (tri_key_frame). A build without
+// FRAME reads no a_lo and compiles to the code it had before the flag.
 template <int W, bool FRAME, typename Next>
 __device__ __forceinline__ void warp_leaves(RayState& r,
                                             const float* __restrict__ groups,
@@ -330,19 +360,24 @@ __device__ __forceinline__ void warp_leaves(RayState& r,
       Lz = __shfl_sync(FULL, two_diff_lo(r.oz, ccz), src);
     }
     const float* tile = cluster_tile(groups, W, C);
+    // FRAME: o - cc exactly (o' + lo fits a double)
+    const double Qx = FRAME ? (double)Ox + (double)Lx : 0.0,
+                 Qy = FRAME ? (double)Oy + (double)Ly : 0.0,
+                 Qz = FRAME ? (double)Oz + (double)Lz : 0.0;
     int k = SENT;
 #pragma unroll
     for (int s = 0; s < TPL; ++s) {
       const int j = j0 + SPAN * s;
       const Tri t = load_tri(tile, j);
-      float tvx = Ox - t.a0, tvy = Oy - t.a1, tvz = Oz - t.a2;
+      int key;
       if (FRAME) {
         const float* al = cluster_tile3(a_lo, W, C) + j;
-        tvx = (tvx + Lx) - __ldg(al);
-        tvy = (tvy + Ly) - __ldg(al + 128);
-        tvz = (tvz + Lz) - __ldg(al + 2 * 128);
+        key = tri_key_frame(t, Qx, Qy, Qz, __ldg(al), __ldg(al + 128),
+                            __ldg(al + 2 * 128), Dx, Dy, Dz, W, j, SENT);
+      } else {
+        key = tri_key(t, Ox - t.a0, Oy - t.a1, Oz - t.a2, Dx, Dy, Dz, W, j,
+                      SENT);
       }
-      const int key = tri_key(t, tvx, tvy, tvz, Dx, Dy, Dz, W, j, SENT);
       k = key < k ? key : k;
     }
     if (SPAN == 32) {

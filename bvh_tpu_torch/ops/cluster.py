@@ -34,6 +34,7 @@ from ..config import DEFAULT_CONFIG
 from ..testbase import tri_aabbs
 
 TIGHT = 16  # default triangles per cluster
+GROUP = 128 // TIGHT  # clusters of TIGHT triangles in a 128-lane group row
 CLUSTER = 128  # triangles per legacy (ClusterScene) cluster
 WIDE_K = 16  # children per wide-tree group (bits of the fired mask)
 TIGHT_VERSION = 3  # newest ``__tight_version__`` of a saved scene understood here

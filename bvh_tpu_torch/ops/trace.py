@@ -42,9 +42,14 @@ from .cluster_trace import check_f32, cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
 from .sweep import node_records, sweep_gate
 from .tight import tight_trace
+from .wide import WIDE_DMAX  # noqa: F401  (a public layout constant)
 from .wide import K, group_records, wide_trace
 
 _INF = float("inf")
+# the reference's layout constants: its default packet (8 sublanes x 128
+# lanes; the entry points here default to 2048, as the reference's do) and
+# the group walk's per-ray stack depth (``wide.WIDE_DMAX``)
+PACKET = 1024
 
 # Device copies of host-built scene tables, keyed by (array identity,
 # device, layout): without it every call would copy the tables to the card

@@ -42,8 +42,9 @@ own size; results differ from the reference only in its grazing-edge and
 near-tie classes. Scenes that carry ``a_lo`` (device builds, refits,
 update deltas, whose clusters may lie ~1e5 from their frame origin) are
 tested in the exact cluster frame by the kernel's FRAME build
-(``exact_frame``): tv = ((o' - a') + lo) - a_lo, with lo the rounding
-error of o' and a_lo that of a'.
+(``exact_frame``, ``narrow_keys(frame64=True)``): tv = (o' + lo) -
+(a' + a_lo) and w = tv × d in float64, with lo the rounding error of o'
+and a_lo that of a', each rounded to float32 once.
 Output per ray: ``t`` float32 (the key's bits with the lane bits cleared,
 +inf on a miss) and ``lane_id`` int32 (cluster·W + lane, -1 on a miss).
 """
@@ -78,11 +79,16 @@ SLAB_OPS = 25
 TRI_OPS = 44
 TRI_ONCE_OPS = 9
 LEAF_OPS = 9
-# the FRAME builds' extra operations: per (ray, triangle) test the add of
-# lo and the subtraction of a_lo on three axes; per fired leaf the rounding
-# error of o - cc (``two_diff`` beyond the rounded difference, 5 an axis)
-FRAME_TRI_OPS = 6
-FRAME_LEAF_OPS = 15
+# the FRAME builds' extra operations, in float32 equivalents (a float64
+# operation counts two: the H100's float64 rate is half its float32 rate):
+# per (ray, triangle) test a' + a_lo (3 in float64, 6 conversions in), the
+# difference (3) and w = tv x d (9) in float64, tv and w rounded (6
+# conversions out), less the float32 tv and w they replace (12); per fired
+# leaf the rounding error lo of o - cc (``two_diff`` beyond the rounded
+# difference, 5 an axis), o - cc = o' + lo in float64 (3, 6 conversions
+# in) and d's 3 conversions
+FRAME_TRI_OPS = (3 + 3 + 9) * 2 + 6 + 6 - 12
+FRAME_LEAF_OPS = 15 + 3 * 2 + 6 + 3
 N_ROWS = 13  # ray rows: o*inv (3), inv (3), t_max, d (3), o (3)
 REC = 128  # floats per group in the kernel's group-major table
 
@@ -314,7 +320,8 @@ def _cross_rows(u0, u1, u2, v0, v1, v2):
 
 def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
                 r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz,
-                sent: int = SENT, row0: int = 7, frame=None):
+                sent: int = SENT, row0: int = 7, frame=None,
+                frame64: bool = False):
     """Leaf tests of the (ray ``r[i]``, cluster ``c[i]``) pairs with frame
     origins ``cc``: each pair's smallest packed key over the cluster's W
     triangles, ``sent`` where none is below it. ``tiles`` is ``groups`` as
@@ -326,7 +333,13 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     (lox, loy, loz)``, the rounding error of each pair's ``o - cc``
     (``two_diff``), and ``alo`` [G, 128, 3], the part of each
     triangle's ``a - cc`` that ``a'`` leaves out (``ClusterScene.a_lo`` or
-    ``TightScene.a_lo``, lane-major); then ``tv = ((o' - a') + lo) - alo``."""
+    ``TightScene.a_lo``, lane-major); then ``tv = ((o' - a') + lo) - alo``
+    in float32 (the legacy walk's form). ``frame64`` (the FRAME builds of
+    the group and entry/exit walks, ``csrc/trace_common.cuh::
+    tri_key_frame``): ``tv = (o' + lo) - (a' + alo)`` and ``w = tv x d`` in
+    float64, each rounded to float32 once, so that the two triangles of an
+    edge see the ray at one place; the rest of the test is float32 as
+    without it."""
     dev = rays.device
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
@@ -338,15 +351,27 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     tri = tiles[(c // per_row)[:, None], lane]  # [P, W, 16]
     a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(9))
     # the bilinear forms around tv = o' - a' (see csrc/trace_common.cuh)
-    tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
-    if frame is not None:
+    if frame is not None and frame64:
         lo, alo = frame
-        lox, loy, loz = (x[:, None] for x in lo)
-        tvx, tvy, tvz = tvx + lox, tvy + loy, tvz + loz
         al = alo[(c // per_row)[:, None], lane]  # [P, W, 3]
-        tvx, tvy, tvz = tvx - al[..., 0], tvy - al[..., 1], tvz - al[..., 2]
+        tv = [(op.double() + lk[:, None].double())
+              - (a.double() + al[..., k].double())
+              for k, (op, lk, a) in enumerate(zip((opx, opy, opz), lo,
+                                                  (a0, a1, a2)))]
+        w0, w1, w2 = (x.float() for x in _cross_rows(
+            *tv, dx.double(), dy.double(), dz.double()))
+        tvx, tvy, tvz = (x.float() for x in tv)
+    else:
+        tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
+        if frame is not None:
+            lo, alo = frame
+            lox, loy, loz = (x[:, None] for x in lo)
+            tvx, tvy, tvz = tvx + lox, tvy + loy, tvz + loz
+            al = alo[(c // per_row)[:, None], lane]  # [P, W, 3]
+            tvx, tvy, tvz = (tvx - al[..., 0], tvy - al[..., 1],
+                             tvz - al[..., 2])
+        w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
     p0, p1, p2 = _cross_rows(e20, e21, e22, e10, e11, e12)  # e2 x e1
-    w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
     det = (p0 * dx + p1 * dy) + p2 * dz
     udet = (e20 * w0 + e21 * w1) + e22 * w2
     vdet = -((e10 * w0 + e11 * w1) + e12 * w2)
@@ -562,7 +587,7 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
         ax, ay, az, bx, by, bz = (box[kk, j, gg] for j in range(6))
         cc = ((ax + bx) * 0.5, (ay + by) * 0.5, (az + bz) * 0.5)
         km = narrow_keys(rays, tiles, W, rr, c, *cc,
-                         frame=exact_frame(rays, rr, cc, a_lo))
+                         frame=exact_frame(rays, rr, cc, a_lo), frame64=True)
         return km, c.to(torch.int32)
 
     def narrow_hint(r, slot):

@@ -117,8 +117,11 @@ final line):
    their traces run the FRAME builds of the group walk and the entry/exit
    walk (launch counts checked); a far-frame leg traces 1,048,576 rays
    from [-60, 60]^3 aimed at centroids ~1e5 away through the grid device
-   build, against float32 and float64 brute force (and counts the flips of
-   the same trace without the frame, a measurement only); the refit leg is
+   build, against float32 and float64 brute force (0 flips against
+   float64; the flips of the same trace without the frame counted, a
+   measurement only), and the shared-edge case (a grid device build of
+   create_n_cubes(500), 8,192 far aimed rays, every ray checked) the same
+   way; the refit leg is
    held to the rebuild's bounds (``REFIT_CLASS_MAX`` = 0); every FRAME
    build, timed and counting, against its plain version on the grid
    build's aimed and far rows, the LBVH build's (entry/exit walk) and the
@@ -157,8 +160,27 @@ final line):
    the far-frame trace and nearest query and the chain's aimed trace equal
    before and after bit for bit, the FRAME builds launched on the loaded
    scene; save and load seconds and file sizes.
+16. parallel (bvh_tpu_torch.parallel on torch.distributed, under 60 s):
+   NCCL at world size 1 (a single-rank group over an in-process store;
+   one card is all there is); on the 120k scene sharded_trace_closest_hit
+   on the 2,097,152 reference rays and, with the exact recompute, on the
+   1,048,576 aimed rays (also through the grid device build, the FRAME
+   build), sharded_trace_any_hit on the shadow rows (t_max 1.2x the hit)
+   of the host scene and of a wide=False build (the entry/exit walk) and
+   multihost_trace_closest_hit on the aimed rays, each bit-equal to the
+   unsharded call and timed in turns with it (ratio printed);
+   ray_scaling_report at {1}; on shard_scene(a, b, c, 1) and 262,144
+   aimed rays sharded_render_depth (equal to render_depth bit for bit,
+   brute-force checked), sharded_loss_and_grads (the unsharded autograd's
+   gradients within DIFF_GRAD_RTOL of the largest) and two
+   sharded_train_step calls towards depth + 0.25 at an lr that moves the
+   vertices by many ulps (loss0 within 1e-3 of 0.0625, loss1 < loss0; the
+   first step's vertices and loss1 against the unsharded autograd step's).
 
-Phase 2 also holds the entry/exit kernel (closest, bounded, any, gated,
+Phase 2 also holds the FRAME builds of the group and entry/exit walks
+(timed and counting) on the far frame's shared-edge case (a grid device
+build of create_n_cubes(500), 8,192 far aimed rays), and the entry/exit
+kernel (closest, bounded, any, gated,
 hinted, packed; its SKIP build, timed and counting, with every ray a
 miss), the group walk's any mode and hints, the sweep on a
 packed table and with a pre-gate, and the legacy cluster kernel (relative,
@@ -195,7 +217,8 @@ from bvh_tpu_torch.io import (load_chained_scene, load_obj_triangles,
                               save_tight_scene)
 from bvh_tpu_torch.diff import (render_depth, render_depth_fast, render_hits,
                                 render_hits_fast)
-from bvh_tpu_torch.bvh import (any_hit_triangles, brute_force_closest_hit,
+from bvh_tpu_torch.bvh import (FlatBvh, any_hit_triangles,
+                               brute_force_closest_hit,
                                brute_force_collect, build_sah,
                                closest_hit_triangles, nearest_to_triangles,
                                nearest_traverse, traverse_all, update_shapes)
@@ -511,6 +534,44 @@ def phase_kernels(dev) -> dict:
     }
     return {"legs": out, "max_abs_err": worst, "plain_ms": plain_ms,
             "rays": n, "triangles": int(a.shape[0])}
+
+
+def phase_frame_kernels(dev) -> dict:
+    """Phase 2's FRAME leg: the group and entry/exit walks' FRAME builds,
+    timed and counting, against their plain versions on the shared-edge
+    case (``shared_edge_case``: a grid device build of create_n_cubes(500),
+    8,192 far aimed rays), unsorted and morton-sorted; bit for bit."""
+    edge = shared_edge_case(dev)
+    sc = edge["scene"]
+    W = int(sc.width)
+    rec, recs = records(sc, dev), node_recs(sc.smem_nodes, dev)
+    out = {}
+    for mode in (None, "morton"):
+        rows = trace_rows(*edge["rays"], mode)
+        for name, kernel, plain in (
+                ("wide_trace_frame",
+                 lambda **kw: wide_mod.wide_trace(rec, sc.groups, rows, W,
+                                                  sc.gdepth, a_lo=sc.a_lo,
+                                                  **kw),
+                 lambda **kw: wide_plain_chunked(sc.gnodes, sc.groups, rows,
+                                                 W, a_lo=sc.a_lo, **kw)),
+                ("tight_trace_frame",
+                 lambda **kw: tight_mod.tight_trace(recs, sc.groups, rows, W,
+                                                    a_lo=sc.a_lo, **kw),
+                 lambda **kw: tight_plain_chunked(sc.smem_nodes, sc.groups,
+                                                  rows, W, a_lo=sc.a_lo,
+                                                  **kw))):
+            key = f"{name}/{mode or 'unsorted'}"
+            timed = kernel()
+            same = all(bits_equal(x, y) for x, y in zip(timed, plain()))
+            check(same, f"{key}: the FRAME build differs from its plain "
+                        "version")
+            out[key] = {"rays": int(rows.shape[1]), "bit_equal": same,
+                        "hits": int(torch.isfinite(timed[0]).sum()),
+                        "counting": hold_counting_build(
+                            f"{key}/count", kernel(counts=True), timed,
+                            plain(counts=True))}
+    return out
 
 
 def random_hints(ids, p: int, k: int, seed: int):
@@ -2474,14 +2535,15 @@ def brute_force64(o, d, tris_dev, chunk: int = 16):
 
 
 def check_far_frame(leg: str, o, d, t_trace, tris_dev, seed: int,
-                    t_rounded=None) -> dict:
-    """A leg whose rays hit ~1e5 from their origins, on 4,096 sampled rays,
-    against float32 and float64 brute force: where the trace and float32
-    brute force disagree on the mask, float64 must side with the trace; the
-    mask agrees with float64 brute force at >= 0.9999 and t within 2e-4 of
-    both. ``t_rounded``: the same rays' trace without the exact frame (a
-    measurement only), whose flips against float64 are counted."""
-    idx = np.random.default_rng(seed).choice(len(o), N_SAMPLE, replace=False)
+                    t_rounded=None, sample: bool = True) -> dict:
+    """A leg whose rays hit ~1e5 from their origins, on 4,096 sampled rays
+    (every ray without ``sample``), against float32 and float64 brute
+    force: the mask equals float64 brute force's on every ray checked (no
+    flip), and t is within 2e-4 of both. ``t_rounded``: the same rays'
+    trace without the exact frame (a measurement only), whose flips
+    against float64 are counted."""
+    idx = (np.random.default_rng(seed).choice(len(o), N_SAMPLE, replace=False)
+           if sample else np.arange(len(o)))
     t_bf = brute_force(o[idx], d[idx], tris_dev).cpu().numpy()
     t64 = brute_force64(o[idx], d[idx], tris_dev).cpu().numpy()
     t_tr = t_trace[idx]
@@ -2490,9 +2552,11 @@ def check_far_frame(leg: str, o, d, t_trace, tris_dev, seed: int,
     both = hit_tr & hit64 & hit_bf
     rel = float(np.max(np.abs(t_tr[both] - t64[both]) / t64[both]))         if both.any() else 0.0
     rel32 = float(np.max(np.abs(t_tr[both] - t_bf[both]) / t_bf[both]))         if both.any() else 0.0
-    res = {"leg": leg, "sampled": N_SAMPLE,
+    res = {"leg": leg, "checked": len(idx),
            "mask_agreement_f32": float((hit_tr == hit_bf).mean()),
            "mask_agreement_f64": float((hit_tr == hit64).mean()),
+           "flips_vs_f64": [int(idx[i]) for i in
+                            np.nonzero(hit_tr != hit64)[0]],
            "flips_vs_f32": [{"ray": int(idx[i]), "trace_hits": bool(hit_tr[i]),
                              "f64_hits": bool(hit64[i])} for i in flips],
            "max_rel_t_err_f64": rel, "max_rel_t_err_f32": rel32,
@@ -2500,11 +2564,21 @@ def check_far_frame(leg: str, o, d, t_trace, tris_dev, seed: int,
     if t_rounded is not None:
         res["rounded_frame_flips_vs_f64"] = int(
             (np.isfinite(t_rounded[idx]) != hit64).sum())
-    check(bool((hit_tr[flips] == hit64[flips]).all()),
-          f"{leg}: float64 brute force sides against the trace: {res}")
-    check(res["mask_agreement_f64"] >= 0.9999 and rel <= 2e-4
-          and rel32 <= 2e-4, f"{leg}: {res}")
+    check(not res["flips_vs_f64"],
+          f"{leg}: the mask differs from float64 brute force's: {res}")
+    check(rel <= 2e-4 and rel32 <= 2e-4, f"{leg}: {res}")
     return res
+
+
+def shared_edge_case(dev) -> dict:
+    """The far frame's shared-edge case: a grid device build of
+    create_n_cubes(500) on ``dev`` with its triangles there, and 8,192
+    ``far_aimed_rays`` (seed 17) as tensors there."""
+    a, b, c = tb.create_n_cubes(500)
+    tris = tuple(torch.from_numpy(x).to(dev) for x in (a, b, c))
+    o, d = far_aimed_rays(a, b, c, 8192, seed=17)
+    return {"scene": build_tight_scene_device(*tris), "tris": tris,
+            "rays": (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))}
 
 
 def far_points(a, b, c, n: int, seed: int = 23):
@@ -2758,6 +2832,21 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     dev_checks["far_frame"] = check_far_frame(
         "device_build_far_frame", fo, fd, dev_hits["far"].cpu().numpy(),
         tris_dev, 55, t_rounded)
+    # the shared-edge case at its own size, every ray checked: a grid
+    # device build of create_n_cubes(500) and 8,192 far aimed rays, where
+    # the float32 form of tv and w missed rays 374, 2843 and 4003
+    edge = shared_edge_case(dev)
+    e_rays = Ray.create(*edge["rays"])
+    t_edge = trace_closest_hit_tight(edge["scene"], e_rays, tris=edge["tris"],
+                                     packet=1024).t.cpu().numpy()
+    t_edge_r = trace_closest_hit_tight(
+        edge["scene"]._replace(a_lo=None), e_rays, tris=edge["tris"],
+        packet=1024).t.cpu().numpy()
+    dev_checks["shared_edges"] = check_far_frame(
+        "device_build_shared_edges", *(x.cpu().numpy() for x in edge["rays"]),
+        t_edge, edge["tris"], 0, t_edge_r, sample=False)
+    check(bool(np.isfinite(t_edge[[374, 2843, 4003]]).all()),
+          "shared edges: rays 374, 2843 or 4003 missed")
     sid_u, dist_u = near_upd
     sid_e, dist_e = near_static_ee
     moved10 = churn["10pct"]["verts"]
@@ -2859,6 +2948,7 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     refit1 = churn["1pct"]["refit"]
     rows_f = trace_rows(fo_dev, fd_dev, "morton")
     rows_q = rows_r[:, :1 << 18].contiguous()
+    rows_e = trace_rows(*edge["rays"], None)  # unsorted
 
     def wide_f(sc, rows, **kw):
         return wide_mod.wide_trace(records(sc, dev), sc.groups, rows, W,
@@ -2882,7 +2972,11 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         "wide_trace_frame/refit_1pct_random": (wide_f, wide_fp, refit1,
                                                 rows_q),
         "tight_trace_frame/lbvh_aimed": (tight_f, tight_fp, l_sc, rows_a),
-        "tight_trace_frame/lbvh_far": (tight_f, tight_fp, l_sc, rows_f)}
+        "tight_trace_frame/lbvh_far": (tight_f, tight_fp, l_sc, rows_f),
+        "wide_trace_frame/shared_edges": (wide_f, wide_fp, edge["scene"],
+                                          rows_e),
+        "tight_trace_frame/shared_edges": (tight_f, tight_fp, edge["scene"],
+                                           rows_e)}
     frame_err = {"wide_trace_frame": 0.0, "tight_trace_frame": 0.0}
     frame_holds = {}
     for case, (kf, pf, sc, rows) in frame_cases.items():
@@ -2903,6 +2997,10 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         frame_holds[f"{name_}_count/aimed"] = hold_counting_build(
             f"{name_}_count/aimed", kf(sc, rows_a, counts=True),
             kf(sc, rows_a), pf(sc, rows_a, counts=True))
+        frame_holds[f"{name_}_count/shared_edges"] = hold_counting_build(
+            f"{name_}_count/shared_edges", kf(edge["scene"], rows_e,
+                                              counts=True),
+            kf(edge["scene"], rows_e), pf(edge["scene"], rows_e, counts=True))
     # both nearest FRAME builds, timed and counting, on the far points'
     # sorted rows of the grid build
     rows_fp = near_mod.point_rows(fp_dev[sort_points_device(fp_dev)[0]],
@@ -3561,6 +3659,204 @@ def io_phase(dev, card: str, scene, tris, ao_dev, ad_dev, h_aim,
     return res
 
 
+# ---- phase 16: parallel ----------------------------------------------------
+
+N_DEPTH_RAYS = 1 << 18  # the depth and training legs' aimed rays
+LOSS_RTOL = 1e-5  # the sharded loss against the unsharded mean
+# the training leg: lr per ray (the gradient of a mean carries 1/n), at
+# which the first step moves the hit triangles' vertices, ~5e4 from the
+# origin (an ulp 0.004-0.008), by a median of ~13 ulps; the depth of a
+# miss is the aimed rays' start distance from their cube (tb.aimed_rays),
+# so a ray that passes through a crack opened between a cube's moved faces
+# costs about what a hit costs, not a residual of ~50
+TRAIN_LR_PER_RAY = 0.03
+TRAIN_BACKGROUND = 50.0
+TRAIN_MIN_MEDIAN_ULPS = 8  # the moved coordinates' median move, at least
+# loss1 against the unsharded step's: the sums' grouping differs, and a
+# vertex an ulp apart may move one ray between a hit and a miss
+TRAIN_LOSS_RTOL = 1e-4
+
+
+def parallel_phase(dev, card: str, scene, tris, o_dev, d_dev, ao_dev,
+                   ad_dev, h_aim) -> dict:
+    """Phase 16: ``bvh_tpu_torch.parallel`` at world size 1 on the card
+    (NCCL over a single-rank group): the ray-sharded traces against the
+    unsharded calls (bit for bit, timed in turns), the scaling report, and
+    the scene-sharded depth, gradients and training step against the
+    unsharded general path."""
+    import torch.distributed as dist
+
+    from bvh_tpu_torch.parallel import (make_mesh, make_multihost_mesh,
+                                        multihost_trace_closest_hit,
+                                        ray_scaling_report, shard_scene,
+                                        sharded_loss_and_grads,
+                                        sharded_render_depth,
+                                        sharded_trace_any_hit,
+                                        sharded_trace_closest_hit,
+                                        sharded_train_step)
+
+    a, b, c = tris
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size() == 1,
+          "parallel: not a one-rank NCCL mesh")
+    rays_r, rays_a = Ray.create(o_dev, d_dev), Ray.create(ao_dev, ad_dev)
+    tm = h_aim.t * 1.2  # phase 3's aimed hits: the shadow rows
+    scene_g = build_tight_scene_device(*tris_dev)
+    scene_ee = build_tight_scene(a, b, c, wide=False)
+    multi = make_multihost_mesh()
+    P = 8192
+    legs = {
+        "closest_random": (
+            lambda: sharded_trace_closest_hit(mesh, scene, rays_r, packet=P),
+            lambda: trace_closest_hit_tight(scene, rays_r, packet=P)),
+        "closest_aimed_tris": (
+            lambda: sharded_trace_closest_hit(mesh, scene, rays_a, tris=tris,
+                                              packet=P),
+            lambda: trace_closest_hit_tight(scene, rays_a, tris=tris,
+                                            packet=P)),
+        "closest_aimed_device_build": (
+            lambda: sharded_trace_closest_hit(mesh, scene_g, rays_a,
+                                              tris=tris_dev, packet=P),
+            lambda: trace_closest_hit_tight(scene_g, rays_a, tris=tris_dev,
+                                            packet=P)),
+        "any_shadow": (
+            lambda: sharded_trace_any_hit(mesh, scene, rays_a, t_max=tm,
+                                          packet=P),
+            lambda: trace_any_hit_tight(scene, rays_a, t_max=tm, packet=P)),
+        "any_shadow_entry_exit": (
+            lambda: sharded_trace_any_hit(mesh, scene_ee, rays_a, t_max=tm,
+                                          packet=P),
+            lambda: trace_any_hit_tight(scene_ee, rays_a, t_max=tm,
+                                        packet=P)),
+        "multihost_aimed": (
+            lambda: multihost_trace_closest_hit(multi, scene, rays_a,
+                                                packet=P),
+            lambda: trace_closest_hit_tight(scene, rays_a, packet=P))}
+    # the phase's main path: every count zero before, read after
+    reset_counts()
+    got = {leg: sharded() for leg, (sharded, _) in legs.items()}
+    torch.cuda.synchronize()
+    launches = {"wide_trace": wide_mod.launches,
+                "wide_trace_any": wide_mod.any_launches,
+                "wide_trace_frame": wide_mod.frame_launches,
+                "tight_trace": tight_mod.launches}
+    emit("parallel_main_path_launches", **launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on phase 16's main path")
+    equal = {}
+    for leg, (_, plain) in legs.items():
+        want = plain()
+        same = (records_equal(got[leg], want) if isinstance(want, tuple)
+                else torch.equal(got[leg], want))
+        check(same, f"parallel {leg}: the sharded result differs from the "
+                    "unsharded call's")
+        equal[leg] = same
+    check(bool(torch.isfinite(got["closest_aimed_tris"].t).float().mean()
+               >= 0.999), "parallel: aimed hit fraction below 0.999")
+    turns = {leg: in_turns({"sharded": sh, "unsharded": un}, rounds=1)
+             for leg, (sh, un) in legs.items()}
+    for v in turns.values():
+        v["ratio"] = v["sharded"]["ms"] / v["unsharded"]["ms"]
+    # where the sharded calls' extra time goes: device time by kernel and
+    # the idle share, sharded and unsharded
+    breakdown = {f"{leg}/{kind}": device_breakdown(
+        legs[leg][i], turns[leg][kind]["ms"])
+        for leg in ("closest_random", "any_shadow")
+        for i, kind in enumerate(("sharded", "unsharded"))}
+    report = ray_scaling_report(scene, rays_r, shard_counts=(1,), packet=P)
+    check(set(report) == {1} and report[1]["efficiency"] == 1.0,
+          f"parallel: scaling report {report}")
+
+    # ---- depth, gradients, training on shard_scene(..., 1) -------------
+    n = N_DEPTH_RAYS
+    rays_d = Ray(*(x[:n] for x in rays_a))
+    st, sa, sb, sc_ = shard_scene(a, b, c, 1)
+    t0 = time.perf_counter()
+    depth, gid = sharded_render_depth(mesh, st, sa, sb, sc_, rays_d)
+    flat = FlatBvh(*(torch.as_tensor(x[0]).to(dev) for x in st))
+    ref, hit = render_depth(flat, rays_d, *tris_dev)
+    single = closest_hit_triangles(flat, rays_d, *tris_dev)
+    check(bits_equal(depth, ref) and torch.equal(gid >= 0, hit)
+          and torch.equal(gid, single.shape_id),
+          "parallel: sharded_render_depth differs from render_depth")
+    bf = check_vs_brute("parallel_depth", *(x[:n].cpu().numpy()
+                                            for x in (ao_dev, ad_dev)),
+                        torch.where(hit, depth, float("inf")).cpu().numpy(),
+                        tris_dev, 70)
+    target = depth + 0.5
+    loss, grads = sharded_loss_and_grads(mesh, (sa, sb, sc_), st, rays_d,
+                                         target)
+    verts = tuple(x.clone().requires_grad_(True) for x in tris_dev)
+    d_u, _ = render_depth(flat, rays_d, *verts)
+    loss_u = ((d_u - target) ** 2).mean()
+    loss_u.backward()
+    grad_err = []
+    for g, v in zip(grads, verts):
+        scale = float(v.grad.abs().max())
+        e = float((g.reshape(-1, 3) - v.grad).abs().max())
+        grad_err.append({"max_abs_diff": e, "max_abs": scale})
+        check(e <= DIFF_GRAD_RTOL * scale,
+              f"parallel: gradients differ from the unsharded autograd's by "
+              f"{e} (largest {scale})")
+    # the two losses sum the same squares in another grouping (hits and
+    # misses apart) over 262,144 rays
+    check(abs(float(loss) - float(loss_u.detach())) <= LOSS_RTOL * float(
+        loss_u.detach()), f"parallel: loss {float(loss)} against "
+        f"{float(loss_u.detach())}")
+    # two training steps, the first held against the unsharded autograd
+    # step v - lr * grad on the same vertices
+    lr, bg, target = TRAIN_LR_PER_RAY * n, TRAIN_BACKGROUND, depth + 0.25
+    verts_s, losses, steps = (sa, sb, sc_), [], []
+    for _ in range(2):
+        lo, verts_s = sharded_train_step(mesh, verts_s, st, rays_d, target,
+                                         lr=lr, background=bg)
+        losses.append(float(lo))
+        steps.append(verts_s)
+    check(abs(losses[0] - 0.0625) <= 1e-3 * 0.0625 and losses[1] < losses[0],
+          f"parallel: training losses {losses}")
+    verts = tuple(x.clone().requires_grad_(True) for x in tris_dev)
+    d_u, _ = render_depth(flat, rays_d, *verts, background=bg)
+    ((d_u - target) ** 2).mean().backward()
+    v_u = tuple((v - lr * v.grad).detach() for v in verts)
+    v_s = tuple(x.reshape(-1, 3) for x in steps[0])
+    tol = lr * DIFF_GRAD_RTOL * max(float(v.grad.abs().max()) for v in verts)
+    v0 = torch.cat(tris_dev)
+    ulp = (torch.nextafter(v0, torch.full_like(v0, float("inf"))) - v0).abs()
+    move = (torch.cat(v_s) - v0).abs()
+    off = (torch.cat(v_s) - torch.cat(v_u)).abs()
+    moved = move > 0
+    median_ulps = float((move[moved] / ulp[moved]).median())
+    check(bool((off <= tol + ulp).all()),
+          f"parallel: the step's vertices differ from v - lr * grad of the "
+          f"unsharded autograd by up to {float(off.max())} (tolerance "
+          f"{tol} + an ulp)")
+    check(median_ulps >= TRAIN_MIN_MEDIAN_ULPS,
+          f"parallel: the step moved vertices by a median of {median_ulps} "
+          f"ulps")
+    d_u1, _ = render_depth(flat, rays_d, *v_u, background=bg)
+    loss_u1 = float(((d_u1 - target) ** 2).mean())
+    check(abs(losses[1] - loss_u1) <= TRAIN_LOSS_RTOL * loss_u1,
+          f"parallel: loss1 {losses[1]} against the unsharded step's "
+          f"{loss_u1}")
+    train = {"lr": lr, "background": bg, "losses": losses,
+             "loss1_unsharded": loss_u1,
+             "coordinates_moved": int(moved.sum()),
+             "median_move_ulps": median_ulps,
+             "max_move": float(move.max()),
+             "max_off_unsharded": float(off.max()), "tolerance": tol}
+    depth_s = time.perf_counter() - t0
+    dist.destroy_process_group()
+    return {"card": card, "launches": launches, "equal_to_unsharded": equal,
+            "in_turns": turns, "breakdown": breakdown,
+            "scaling_report": report,
+            "depth": {"rays": n, "hit_fraction": float(hit.float().mean()),
+                      "brute_force": bf, "equal_to_render_depth": True},
+            "loss": float(loss), "loss_unsharded": float(loss_u.detach()),
+            "gradients": grad_err, "train": train,
+            "depth_legs_s": depth_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3593,6 +3889,10 @@ def main() -> None:
     t0 = time.perf_counter()
     p2l = phase_legacy_kernels(dev)
     emit("legacy_kernel_vs_plain", seconds=time.perf_counter() - t0, **p2l)
+    t0 = time.perf_counter()
+    p2f = phase_frame_kernels(dev)
+    emit("frame_kernels_vs_plain", seconds=time.perf_counter() - t0,
+         legs=p2f)
 
     # ---- phase 3: main path at full width ------------------------------
     a, b, c = tb.create_n_cubes(10000)
@@ -3810,6 +4110,14 @@ def main() -> None:
     io_s = time.perf_counter() - t0
     emit("io", card=card, seconds=io_s, **io_res)
     check(io_s < 60.0, f"phase 15 took {io_s} s, over its 60 s")
+
+    # ---- phase 16: parallel -------------------------------------------------
+    t0 = time.perf_counter()
+    par = parallel_phase(dev, card, scene, (a, b, c), o_dev, d_dev, ao_dev,
+                         ad_dev, h_aim)
+    par_s = time.perf_counter() - t0
+    emit("parallel", seconds=par_s, **par)
+    check(par_s < 60.0, f"phase 16 took {par_s} s, over its 60 s")
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

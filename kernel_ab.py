@@ -18,7 +18,8 @@ one), ``ops.nearest.nearest_wide`` and ``nearest_entry_exit``, and
 ``ops.trace.trace_closest_hit``
 (the legacy walk with the ray rows before it and the hit record after it).
 ``--only`` limits the runs to one module's kernel (``wide_trace``,
-``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``), so that a copy
+``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``) or to the trace
+walks' FRAME builds (``frame``), so that a copy
 of the package with one source changed can be timed against the current
 one.
 The scenes are built once, by the current package, and the rows are the
@@ -43,12 +44,17 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
   map, un-permute) in both walks on the same points unsorted, as
   ``chip_smoke.py``'s nearest legs call it;
 * the legacy walk on the 1,048,576 aimed rays, sorted, on the
-  ``ClusterScene``.
+  ``ClusterScene``;
+* ``frame``: the FRAME builds of the group walk (a grid device build of the
+  120k scene) and of the entry/exit walk (an LBVH device build) on the
+  aimed rows, on ``far_aimed_rays`` (1,048,576, seed 17, morton) and on
+  the shared-edge case (``chip_smoke.shared_edge_case``, unsorted).
 
 Each time is ``chip_smoke.cuda_ms``. Old and new results are compared bit
 for bit: the gates and the group, entry/exit and nearest walks must agree;
 the legacy walks may
 differ where one subtracts the table's ``a_lo`` and the other does not, and
+the FRAME builds where the two form the leaf test in other precisions;
 the count is reported. Prints the card's name and power limit, then one
 JSON line.
 """
@@ -69,13 +75,15 @@ import chip_smoke as cs
 from bvh_tpu_torch import Ray
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import (build_chained_scene, build_cluster_scene,
-                               build_tight_scene, make_tracer,
-                               sort_rays_device, trace_closest_hit_chained)
+                               build_tight_scene, build_tight_scene_device,
+                               make_tracer, sort_rays_device,
+                               trace_closest_hit_chained)
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 
-MODULES = ("wide_trace", "sweep", "tight_trace", "nearest", "cluster_trace")
+MODULES = ("wide_trace", "sweep", "tight_trace", "nearest", "cluster_trace",
+           "frame")
 
 
 def import_package(root: Path, name: str):
@@ -243,6 +251,22 @@ def runs(dev, names) -> dict:
         for key, wide in (("random", None), ("random_entry_exit", False)):
             out[f"nearest_e2e/{key}"] = ("nearest", lambda ops, wide=wide: ops[
                 "nearest"].nearest_tight(scene, pts, wide=wide))
+    if "frame" in names:
+        tris_dev = tuple(torch.from_numpy(x).to(dev) for x in (a, b, c))
+        grid = build_tight_scene_device(*tris_dev)
+        lbvh = build_tight_scene_device(*tris_dev, upper="lbvh")
+        edge = cs.shared_edge_case(dev)
+        rows = {"aimed": cs.trace_rows(*(torch.from_numpy(x).to(dev)
+                                         for x in (ao, ad)), "morton"),
+                "far": cs.trace_rows(*(torch.from_numpy(x).to(dev) for x in
+                                       cs.far_aimed_rays(a, b, c, 1 << 20,
+                                                         seed=17)), "morton"),
+                "shared_edges": cs.trace_rows(*edge["rays"], None)}
+        for key, r in rows.items():
+            sc_w, sc_t = ((edge["scene"], edge["scene"]) if key ==
+                          "shared_edges" else (grid, lbvh))
+            out[f"frame/wide_{key}"] = ("frame", wide_run(sc_w, r))
+            out[f"frame/tight_{key}"] = ("frame", tight_run(sc_t, r))
     if "cluster_trace" in names:
         legacy = build_cluster_scene(a, b, c)
         rays = Ray.create(*cs.sort_legacy(ao, ad, dev)[1], device=dev)
@@ -272,7 +296,7 @@ def compare(run_set: dict, ops: dict) -> dict:
         res = {tag: fn(ops[tag]) for tag in ("old", "new")}
         torch.cuda.synchronize()
         differ = rows_differ(res["old"], res["new"])
-        if name != "cluster_trace":
+        if name not in ("cluster_trace", "frame"):
             cs.check(differ == 0, f"{key}: old and new differ on {differ} rows")
         ms = {"old": [], "new": []}
         for tag in ("old", "new", "new", "old"):

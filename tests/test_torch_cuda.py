@@ -1582,6 +1582,87 @@ def test_frame_build_matches_plain(frame_scenes, cuda, width, walk, mode):
         assert not torch.equal(_bits(t0), _bits(got[0]))
 
 
+def test_frame_build_shared_edges(cuda):
+    """The shared-edge case of the far frame (a device grid build of
+    create_n_cubes(500), 8,192 rays aimed at centroids ~1e5 away, a
+    quarter turned away, seed 17: chip_smoke.py's far_aimed_rays): both
+    walks' FRAME builds, timed and counting, bit-equal to their plain
+    versions, and rays 374, 2843 and 4003 hit triangles 1365, 2960 and
+    468, which the float32 form of tv and w missed."""
+    a, b, c = tb.create_n_cubes(500)
+    rng = np.random.default_rng(17)
+    o = rng.uniform(-60.0, 60.0, (8192, 3)).astype(np.float32)
+    d = (((a + b + c) / np.float32(3))[rng.integers(0, len(a), 8192)]
+         - o).astype(np.float32)
+    d[::4] = -d[::4]
+    sc = build_tight_scene_device(a, b, c, device="cpu")
+    rows = _ray_rows(Ray.create(o, d, device=cuda),
+                     torch.full((8192,), np.inf, device=cuda))
+    a_lo, grp = _dev(sc.a_lo, cuda), _dev(sc.groups, cuda)
+    for counts in (False, True):
+        got_w = wide_mod.wide_trace(_rec(sc, cuda), grp, rows, 16, sc.gdepth,
+                                    packet=256, counts=counts, a_lo=a_lo)
+        want_w = wide_mod.wide_trace_plain(_dev(sc.gnodes, cuda), grp, rows,
+                                           16, packet=256, counts=counts,
+                                           a_lo=a_lo)
+        got_t = tight_mod.tight_trace(_nrec(sc.smem_nodes, cuda), grp, rows,
+                                      16, packet=256, counts=counts,
+                                      a_lo=a_lo)
+        want_t = tight_mod.tight_trace_plain(_dev(sc.smem_nodes, cuda), grp,
+                                             rows, 16, packet=256,
+                                             counts=counts, a_lo=a_lo)
+        torch.cuda.synchronize()
+        for x, y in zip(got_w + got_t, want_w + want_t):
+            assert torch.equal(_bits(x), _bits(y))
+    tri_map = torch.as_tensor(sc.tri_map).to(cuda)
+    for t, lane in (got_w[:2], got_t[:2]):
+        ids = [int(tri_map[lane[i].long()]) for i in (374, 2843, 4003)]
+        assert bool(torch.isfinite(t[[374, 2843, 4003]]).all())
+        assert ids == [1365, 2960, 468]
+
+
+def test_parallel_world1_nccl(cuda):
+    """``parallel`` at world size 1 on the card: NCCL over a single-rank
+    group (an in-process store); the sharded traces and the depth pass
+    equal the unsharded calls bit for bit."""
+    import torch.distributed as dist
+
+    from bvh_tpu_torch.bvh import build_sah
+    from bvh_tpu_torch.diff import render_depth
+    from bvh_tpu_torch.parallel import (make_mesh, shard_scene,
+                                        sharded_render_depth,
+                                        sharded_trace_any_hit,
+                                        sharded_trace_closest_hit)
+
+    a, b, c = tb.create_n_cubes(300)
+    o, d = _rays(a, n=8192, seed=6)
+    rays = Ray.create(o, d, device=cuda)
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl"
+        for sc in (build_tight_scene(a, b, c),
+                   build_tight_scene_device(a, b, c, device="cpu")):
+            got = sharded_trace_closest_hit(mesh, sc, rays, tris=(a, b, c),
+                                            packet=1024)
+            want = trace_closest_hit_tight(sc, rays, tris=(a, b, c),
+                                           packet=1024)
+            for x, y in zip(got, want):
+                assert torch.equal(_bits(x), _bits(y))
+            tm = torch.where(torch.isfinite(want.t), want.t * 1.2, 100.0)
+            assert torch.equal(
+                sharded_trace_any_hit(mesh, sc, rays, t_max=tm, packet=1024),
+                trace_any_hit_tight(sc, rays, t_max=tm, packet=1024))
+        st, sa, sb, sc_ = shard_scene(a, b, c, 1)
+        depth, _ = sharded_render_depth(mesh, st, sa, sb, sc_, rays)
+        flat = build_sah(*tb.tri_aabbs(a, b, c))[0].to_device(device=cuda)
+        ref, _ = render_depth(flat, rays, *(torch.from_numpy(x).to(cuda)
+                                            for x in (a, b, c)))
+        assert torch.equal(_bits(depth), _bits(ref))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("n", [1, 31, 33, 4097])
 def test_frame_build_warp_schedule(frame_scenes, cuda, n):
     """Partial warps of the FRAME builds against the plain versions."""

@@ -765,6 +765,72 @@ def test_far_frame_rays(upper, exact_recip):
         assert np.isfinite(t[[37, 197]]).all() and not hit_j[[37, 197]].any()
 
 
+def _chunked(fn, o, d, tris, chunk: int = 512):
+    """``fn(o, d, *tris)`` -> ``(t, shape_id)`` over ``chunk`` rays at a
+    time."""
+    out = [fn(o[s:s + chunk], d[s:s + chunk], *tris)
+           for s in range(0, len(o), chunk)]
+    return tuple(np.concatenate(x) for x in zip(*out))
+
+
+@pytest.fixture(scope="module")
+def edge_case(exact_recip):
+    """The shared-edge case of the far frame: a device grid build of
+    create_n_cubes(500) and 8,192 rays from [-60, 60]^3 aimed at its
+    centroids (every fourth turned away; chip_smoke.py's far_aimed_rays,
+    seed 17), with the float64 oracle, float32 brute force and the
+    reference's trace over its equal tables."""
+    a, b, c = tb.create_n_cubes(500)
+    o, d = _aimed(a, b, c, 8192, seed=17)
+    d[::4] = -d[::4]
+    sj = db_j.build_tight_scene_device(a, b, c)
+    hj = closest_tight_j(sj, bvh_tpu.Ray.create(o, d), packet=PACKET,
+                         interpret=True)
+    return {"tris": (a, b, c), "o": o, "d": d,
+            "oracle": _chunked(_oracle64, o, d, (a, b, c)),
+            "brute": _chunked(_brute, o, d, (a, b, c)),
+            "reference": (np.asarray(hj.t), np.asarray(hj.shape_id))}
+
+
+@pytest.mark.parametrize("upper, wide", [("grid", True), ("grid", False),
+                                         ("lbvh", False)],
+                         ids=["grid-group", "grid-entry_exit",
+                              "lbvh-entry_exit"])
+def test_far_frame_shared_edges(upper, wide, edge_case):
+    """Where two triangles ~1e5 from the frame origin share an edge, the
+    FRAME leaf test (tv and w = tv x d in float64) sees the ray at one
+    place for both, so no seam opens: the hit mask equals the float64
+    oracle's on all 8,192 rays. Rays 374, 2843 and 4003, which the
+    float32 form missed (both walks), hit triangles 1365, 2960 and 468
+    (the reference's) at the oracle's t within 2e-4. Ids that differ from
+    the oracle's are of the edge class, and t is the oracle's within
+    2e-5 (float32 brute force, which misses or hits 8 rays against the
+    oracle, is no judge here). The reference's trace (its frame
+    rounded) misses or hits rays 3178, 3989, 6263 and 7390 against the
+    oracle, which sides with the port; elsewhere its mask is the
+    port's. An LBVH build has no wide table, so it takes the entry/exit
+    walk only."""
+    ec = edge_case
+    a, b, c = ec["tris"]
+    o, d = ec["o"], ec["d"]
+    st = build_tight_scene_device(a, b, c, upper=upper, device=CPU)
+    ht = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU),
+                                 packet=256, wide=wide, device=CPU)
+    t, s = ht.t.numpy(), ht.shape_id.numpy()
+    t64, s64 = ec["oracle"]
+    assert np.array_equal(np.isfinite(t), np.isfinite(t64))
+    for i, want in ((374, 1365), (2843, 2960), (4003, 468)):
+        assert s[i] == want == ec["reference"][1][i], i
+        assert abs(np.float64(t[i]) - t64[i]) <= 2e-4 * t64[i], i
+    off = np.nonzero(s != s64)[0]
+    assert_edge_class(off, o, d, (a, b, c), [(t, s), (t64, s64)])
+    hit_j = np.isfinite(ec["reference"][0])
+    assert np.array_equal(np.nonzero(hit_j != np.isfinite(t))[0],
+                          [3178, 3989, 6263, 7390])
+    hit = np.isfinite(t)
+    assert (np.abs(t[hit] - t64[hit]) <= 2e-5 * t64[hit]).all()
+
+
 def _frame_parts(case):
     """(parts, lane -> triangle id per part, vertices) of a device build,
     an LBVH build, a device chain, a refit and an update's delta parts."""

@@ -60,7 +60,7 @@ def brute_force(tris, o, d):
     return torch.cat(out).numpy()
 
 
-def assert_same_hits(ref, got, exact_rtol=EXACT_RTOL):
+def assert_same_hits(ref, got, exact_rtol=EXACT_RTOL, uv_atol=1e-4):
     """``ref``/``got``: (t, u, v, shape_id) numpy tuples in one ray order."""
     t_r, u_r, v_r, s_r = ref
     t_g, u_g, v_g, s_g = got
@@ -69,8 +69,8 @@ def assert_same_hits(ref, got, exact_rtol=EXACT_RTOL):
     assert ((s_r >= 0) == hit).all() and ((s_g >= 0) == hit).all()
     same = hit & (s_r == s_g)
     np.testing.assert_allclose(t_g[same], t_r[same], rtol=exact_rtol)
-    np.testing.assert_allclose(u_g[same], u_r[same], atol=1e-4)
-    np.testing.assert_allclose(v_g[same], v_r[same], atol=1e-4)
+    np.testing.assert_allclose(u_g[same], u_r[same], atol=uv_atol)
+    np.testing.assert_allclose(v_g[same], v_r[same], atol=uv_atol)
     diff = hit & (s_r != s_g)
     np.testing.assert_allclose(t_g[diff], t_r[diff], rtol=GRAZING_RTOL)
     assert diff.sum() <= max(8, hit.sum() // 100)

@@ -271,3 +271,18 @@ def test_deep_chain_table_matches_brute_force(deep_chain, mode):
     if mode == "closest":
         rel = (t[hit] - bt[hit]).abs() / bt[hit]
         assert float(rel.max()) <= 2 * 16 * 2.0 ** -23 + 1e-6
+
+
+def test_layout_constants_match_reference():
+    """The public layout constants: clusters a group row
+    (``ops/cluster.py::GROUP``), the default packet
+    (``ops/trace.py::PACKET``) and the group walk's stack depth
+    (``ops/trace.py::WIDE_DMAX``), the reference's values."""
+    from bvh_tpu.ops import cluster as cluster_j
+    from bvh_tpu.ops import trace as trace_j_mod
+    from bvh_tpu_torch.ops import cluster as cluster_t
+    from bvh_tpu_torch.ops import trace as trace_t
+
+    assert (cluster_t.GROUP, trace_t.PACKET, trace_t.WIDE_DMAX) == (
+        cluster_j.GROUP, trace_j_mod.PACKET, trace_j_mod.WIDE_DMAX)
+    assert trace_t.WIDE_DMAX == wide_mod.WIDE_DMAX
