@@ -2,9 +2,10 @@
 legacy cluster and chained scenes), scene builds, refits and mask+delta
 updates on the device, the coherence sorts, and the hand-written CUDA
 kernels (group walk, entry/exit walk, sweep gate, legacy cluster walk, the
-two nearest walks) with their plain PyTorch versions and counting builds
-(the visit counters), and the seeders and subtree-entry planners of the
-group walk, and the scene validators.
+two nearest walks, and the slab count of bench.py's ray_aabb_1000 leg)
+with their plain PyTorch versions and counting builds (the visit
+counters), and the seeders and subtree-entry planners of the group walk,
+and the scene validators.
 The legacy walk's wrapper is ``ops.cluster_trace.cluster_trace``: the
 module keeps the name, so the package does not re-export the function."""
 
@@ -20,6 +21,7 @@ from .nearest import (count_visits_nearest, nearest_chained, nearest_entry_exit,
                       nearest_entry_exit_plain, nearest_tight, nearest_wide,
                       nearest_wide_plain, sort_points_device)
 from .ordered import trace_k_closest, trace_k_closest_chained
+from .slab import slab_count, slab_count_plain
 from .sweep import sweep_gate, sweep_gate_plain
 from .tight import tight_trace, tight_trace_plain
 from .trace import (compute_seed_hints, count_visits_tight,
@@ -66,6 +68,8 @@ __all__ = [
     "nearest_wide_plain",
     "pack_node_table_bf16",
     "scene_from_arrays",
+    "slab_count",
+    "slab_count_plain",
     "sort_points_device",
     "sort_rays",
     "sort_rays_device",

@@ -442,8 +442,10 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
     recompute, copied to the device once. ``plan="key"``: each call plans
     the packets' subtree entries from the sorted origins
     (``make_key_planner``) and walks them first; results do not change.
-    It needs the group walk; pair it with ``sort="morton"``. ``device``:
-    where to run (None: the card).
+    It needs the group walk; ``sort="morton"`` suits it best, and with any
+    sort (the camera example's free tracer takes "octmorton") the results
+    are the unplanned tracer's bit for bit. ``device``: where to run
+    (None: the card).
     """
     if plan not in (None, "key"):
         raise ValueError(f"unknown plan {plan!r}")

@@ -1,7 +1,8 @@
 """Drives the PyTorch/CUDA port's closest-hit, any-hit, k-closest and
 nearest-triangle paths (tight, legacy cluster and chained scenes), its
 subtree-entry planners, its differentiable rendering, its dynamic scenes,
-its general pure-tensor path and its io on one NVIDIA card.
+its general pure-tensor path, its io, bench.py's scale and ray-box legs and
+the twins of the repository's five examples on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -176,8 +177,28 @@ final line):
    sharded_train_step calls towards depth + 0.25 at an lr that moves the
    vertices by many ulps (loss0 within 1e-3 of 0.0625, loss1 < loss0; the
    first step's vertices and loss1 against the unsharded autograd step's).
+17. bench.py's scales and ray_aabb_1000 legs (under 60 s): 1,200 and 12,000
+   triangles (create_n_cubes(100), (1000)), 2,097,152 rays each through
+   make_tracer(sort="octmorton", packet 8192, the sweep on the 12k scene),
+   4,096 sampled rays against brute force, the group walk (and the sweep
+   gate) against its plain version on the leg's full sorted rows (bit for
+   bit), rays/s with the device breakdown and against phase 5's 120k
+   random leg, the walk's ms beside its bound; then the slab count kernel
+   (csrc/slab_count.cu) on 131,072 rays (half aimed at box centres) x
+   1,000 boxes, its count equal to the plain version's exactly (also with
+   face-plane rays), both timed in turns, ns a test beside the bound.
+18. the examples (under 90 s): each twin of examples/
+   (bvh_tpu_torch.examples: camera_tracer, dynamic_scene, nearest_query,
+   obj_render, pathtrace) through its main() at the original's default
+   sizes, images to a temporary directory, each launching the port's
+   kernels (the rows recorded), its own checks and: the camera's depth and
+   the dynamic loop's last frame against brute force on 4,096 sampled rays,
+   the OBJ render's hit share, loss and |grad|, the path tracer's colours
+   and mean luminance.
 
-Phase 2 also holds the FRAME builds of the group and entry/exit walks
+Phase 2 also holds the group walk and the sweep gate on the 1,200-triangle
+scale scene (65,536 of its rays; the 12,000-triangle scene and its rays are
+phase 2's own), the FRAME builds of the group and entry/exit walks
 (timed and counting) on the far frame's shared-edge case (a grid device
 build of create_n_cubes(500), 8,192 far aimed rays), and the entry/exit
 kernel (closest, bounded, any, gated,
@@ -194,7 +215,9 @@ The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
 import os
 import statistics
@@ -209,7 +232,7 @@ import torch
 
 from bvh_tpu_torch import (Aabb, AabbQuery, Ball, BallQuery, Ray, RayQuery,
                            native, point_triangle_distance_squared,
-                           ray_intersects_triangle)
+                           ray_intersects_aabb, ray_intersects_triangle)
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import camera_rays as package_camera_rays
 from bvh_tpu_torch.io import (load_chained_scene, load_obj_triangles,
@@ -236,8 +259,14 @@ from bvh_tpu_torch.ops import (_build, build_chained_scene,
                                trace_closest_hit_seeded,
                                trace_closest_hit_tight, trace_k_closest,
                                trace_k_closest_chained)
+from bvh_tpu_torch.examples import camera_tracer as ex_camera
+from bvh_tpu_torch.examples import dynamic_scene as ex_dynamic
+from bvh_tpu_torch.examples import nearest_query as ex_nearest
+from bvh_tpu_torch.examples import obj_render as ex_obj
+from bvh_tpu_torch.examples import pathtrace as ex_pathtrace
 from bvh_tpu_torch.ops import cluster_trace as ct_mod
 from bvh_tpu_torch.ops import nearest as near_mod
+from bvh_tpu_torch.ops import slab as slab_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
 from bvh_tpu_torch.ops import trace as trace_mod
@@ -301,7 +330,7 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
 # templated one): "(anonymous namespace)::<name>(...)"
 PORT_KERNELS = ("wide_trace_kernel", "sweep_kernel", "tight_trace_kernel",
                 "cluster_trace_kernel", "nearest_wide_kernel",
-                "nearest_entry_exit_kernel")
+                "nearest_entry_exit_kernel", "slab_count_kernel")
 
 
 def is_port_kernel(key: str) -> bool:
@@ -316,7 +345,7 @@ def port_launches() -> int:
             + near_mod.wide_launches + near_mod.entry_exit_launches
             + ct_mod.launches + wide_mod.count_launches
             + tight_mod.count_launches + near_mod.wide_count_launches
-            + near_mod.entry_exit_count_launches)
+            + near_mod.entry_exit_count_launches + slab_mod.launches)
 
 
 def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
@@ -381,6 +410,7 @@ def reset_counts() -> None:
     tight_mod.count_launches = 0
     near_mod.wide_count_launches = 0
     near_mod.entry_exit_count_launches = 0
+    slab_mod.launches = 0
 
 
 def build_all() -> dict:
@@ -395,7 +425,8 @@ def build_all() -> dict:
 
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (wide_mod.load, sweep_mod.load, near_mod.load,
-                          tight_mod.load, ct_mod.load, native.load)]
+                          tight_mod.load, ct_mod.load, slab_mod.load,
+                          native.load)]
     t0 = time.perf_counter()
     for th in threads:
         th.start()
@@ -3857,6 +3888,286 @@ def parallel_phase(dev, card: str, scene, tris, o_dev, d_dev, ao_dev,
             "depth_legs_s": depth_s}
 
 
+# ---- phase 17: bench.py's scales and ray_aabb_1000 legs ---------------------
+
+SCALES = (100, 1000)  # create_n_cubes counts of the scale legs: 1.2k, 12k tris
+N_SCALE_RAYS = 2 << 20  # bench.py's n_rays
+N_SLAB_BOXES = 1000  # ray_aabb_1000: the boxes of the first 1,000 triangles
+N_SLAB_RAYS = 1 << 17  # of create_n_cubes(84), against 131,072 rays
+
+
+def scale_scene(nc: int):
+    """A scale leg's scene (create_n_cubes(nc), host build), its triangles
+    and bench.py's rays for it, numpy."""
+    a, b, c = tb.create_n_cubes(nc)
+    o, d = tb.create_rays(N_SCALE_RAYS, seed=tb.seed_state_after(nc))
+    return build_tight_scene(a, b, c), (a, b, c), o, d
+
+
+def phase_scales_kernels(dev, n: int = 65536) -> dict:
+    """Phase 2's scale leg: the group walk (ungated and gated at packet
+    8192) and the sweep gate against their plain versions on the first
+    ``n`` of the 1.2k scene's rays, octmorton-sorted (the 12k scene and its
+    rays are phase 2's own)."""
+    scene, _, o, d = scale_scene(SCALES[0])
+    o_dev = torch.from_numpy(o[:n]).to(dev)
+    d_dev = torch.from_numpy(d[:n]).to(dev)
+    rows = trace_rows(o_dev, d_dev, "octmorton")
+    legs, err = compare_main_shapes({"scales_1200": (rows, scene)}, scene,
+                                    {"wide_trace": 0.0, "sweep_gate": 0.0})
+    return {"legs": legs, "max_abs_err": err, "gdepth": int(scene.gdepth),
+            "groups": int(scene.gnodes.shape[1])}
+
+
+def scales_phase(dev, card: str, issue: float, random_rps: float,
+                 err: dict) -> dict:
+    """Phase 17a, bench.py's scales leg: for 1,200 and 12,000 triangles
+    (create_n_cubes(100), (1000)), 2,097,152 rays (create_rays, seeded after
+    the scene's draws) through make_tracer(sort="octmorton", packet 8192,
+    sweep on the 12k scene only): octmorton sort, trace, un-permute. Launch
+    counts of the leg's main path, 4,096 sampled rays against brute force,
+    the group walk (and the sweep gate) against its plain version on the
+    leg's full sorted rows (bit for bit), end-to-end ms (CUDA events,
+    median of 7) with the device breakdown, the walk's kernel ms beside its
+    bound (work per ray from the plain walk on every 32nd row), and the
+    rays/s against phase 5's 120k random leg (sweep off). Raises ``err``
+    to the largest |kernel - plain|."""
+    out = {}
+    for nc in SCALES:
+        scene, tris, o, d = scale_scene(nc)
+        n_tris = int(tris[0].shape[0])
+        leg = f"scales_{n_tris}"
+        sweep = nc >= 1000
+        tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
+        o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+        tracer = make_tracer(scene, packet=8192, sweep=sweep, sort="octmorton")
+        # the leg's main path: every count zero before, read after
+        reset_counts()
+        h = trace_sync(tracer, o_dev, d_dev)
+        launches = {"wide_trace": wide_mod.launches,
+                    "sweep_gate": sweep_mod.launches}
+        check(launches["wide_trace"] > 0, f"{leg}: the group walk never ran")
+        check(launches["sweep_gate"] > 0 or not sweep,
+              f"{leg}: the sweep gate never ran")
+        t = h.t
+        check(t.shape == (len(o),) and h.shape_id.shape == (len(o),),
+              f"{leg}: shape")
+        check(bool(((h.shape_id >= 0) == torch.isfinite(t)).all())
+              and bool((t[torch.isfinite(t)] > 0).all()), f"{leg}: t values")
+        bf = check_vs_brute(leg, o, d, t.cpu().numpy(), tris_dev, nc)
+        rows = trace_rows(o_dev, d_dev, "octmorton")
+        vs_plain, err = compare_main_shapes({leg: (rows, scene)},
+                                            scene if sweep else None, err)
+        ms = cuda_ms(lambda: tracer(o_dev, d_dev))
+        breakdown = device_breakdown(lambda: tracer(o_dev, d_dev), ms)
+        gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
+        rec = records(scene, dev)
+        walk_ms = cuda_ms(lambda: wide_mod.wide_trace(
+            rec, grp, rows, scene.width, scene.gdepth))
+        _, _, tests, fires = wide_mod.wide_trace_plain(
+            gn, grp, rows[:, ::32].contiguous(), scene.width, counts=True)
+        steps, fired = float(tests.float().mean()), float(fires.float().mean())
+        nbytes = (wide_mod.N_ROWS * 4 * len(o) + rec.nbytes + grp.nbytes
+                  + 8 * len(o))
+        bound = walk_bound(len(o), scene.width, steps, fired, True, nbytes,
+                           n_tris)
+        rps = len(o) / (ms * 1e-3)
+        out[leg] = {
+            "triangles": n_tris, "rays": len(o), "sweep": sweep,
+            "width": int(scene.width), "gdepth": int(scene.gdepth),
+            "groups": int(scene.gnodes.shape[1]), "launches": launches,
+            "brute_force": bf, "kernels_vs_plain": vs_plain[leg],
+            "ms": ms, "rays_per_s": rps, "ns_per_ray": ms * 1e6 / len(o),
+            "vs_120k_random": rps / random_rps, "breakdown": breakdown,
+            "walk": {"ms": walk_ms, "group_tests": steps, "leaf_fires": fired,
+                     **bound,
+                     "ops_ms_at_issue_rate": bound["ops"] / issue * 1e3}}
+    return {"card": card, "legs": out, "random_120k_rays_per_s": random_rps}
+
+
+def slab_leg(dev):
+    """bench.py's ray_aabb_1000 inputs on ``dev``: the boxes of the first
+    1,000 triangles of create_n_cubes(84) and 131,072 rays (create_rays,
+    seeded after the scene's draws), the first half aimed at the box
+    centres in turn, as ``Ray.create`` makes them."""
+    a, b, c = tb.create_n_cubes(84)
+    k = N_SLAB_BOXES
+    mn, mx = tb.tri_aabbs(a[:k], b[:k], c[:k])
+    o, d = tb.create_rays(N_SLAB_RAYS, seed=tb.seed_state_after(84))
+    half = N_SLAB_RAYS // 2
+    ctr = ((mn + mx) * 0.5)[np.arange(half) % k]
+    d = d.copy()
+    d[:half] = ctr - o[:half]
+    d[:half] /= np.linalg.norm(d[:half], axis=1, keepdims=True)
+    rays = Ray.create(o, d, device=dev)
+    return (rays, torch.from_numpy(mn).to(dev).contiguous(),
+            torch.from_numpy(mx).to(dev).contiguous())
+
+
+def face_plane_rays(mn, mx, n: int = 64):
+    """``n`` rays, ray i in the face plane x = box min x of box i mod B
+    (no x component), and those boxes: the products of a ray and its box
+    hold 0 * inf = NaN, a miss."""
+    i = torch.arange(n, device=mn.device) % mn.shape[0]
+    o = (mn[i] + mx[i]) * 0.5
+    o[:, 0] = mn[i, 0]
+    o[:, 2] -= 10.0
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    return Ray.create(o, d), mn[i], mx[i]
+
+
+def ray_aabb_phase(dev, card: str, issue: float) -> tuple[dict, dict]:
+    """Phase 17b, bench.py's ray_aabb_1000 leg: the hand-written slab count
+    (csrc/slab_count.cu) on 131,072 rays x 1,000 boxes, its count equal to
+    the plain version's exactly (also with face-plane rays), both timed in
+    turns, ns a test and tests/s, the bound. Returns the phase's record and
+    the kernel's entry."""
+    rays, mn, mx = slab_leg(dev)
+    o, inv = rays.origin.contiguous(), rays.inv_direction.contiguous()
+    # the leg's main path: every count zero before, read after
+    reset_counts()
+    count = int(slab_mod.slab_count(o, inv, mn, mx))
+    launches = slab_mod.launches
+    check(launches > 0, "slab_count was never launched on its main path")
+    plain = int(slab_mod.slab_count_plain(o, inv, mn, mx))
+    check(count == plain, f"slab_count {count} != plain {plain}")
+    face, own_mn, own_mx = face_plane_rays(mn, mx)
+    fo, finv = face.origin.contiguous(), face.inv_direction.contiguous()
+    both = (torch.cat([fo, o[:4096]]), torch.cat([finv, inv[:4096]]))
+    face_k = int(slab_mod.slab_count(*both, mn, mx))
+    face_p = int(slab_mod.slab_count_plain(*both, mn, mx))
+    face_only = int(ray_intersects_aabb(face, own_mn, own_mx).sum())
+    check(face_k == face_p, f"slab_count with face-plane rays {face_k} != "
+          f"plain {face_p}")
+    check(face_only == 0, f"{face_only} face-plane rays hit their own box")
+    torch.cuda.synchronize()
+    turns = in_turns({
+        "kernel": lambda: slab_mod.slab_count(o, inv, mn, mx),
+        "plain": lambda: slab_mod.slab_count_plain(o, inv, mn, mx)})
+    ms, plain_ms = turns["kernel"]["ms"], turns["plain"]["ms"]
+    tests = N_SLAB_RAYS * N_SLAB_BOXES
+    ops = tests * slab_mod.SLAB_COUNT_OPS
+    nbytes = 4 * 6 * (N_SLAB_RAYS + N_SLAB_BOXES) + 8
+    bound_ms, by = roofline(ops, nbytes)
+    rec = {"card": card, "rays": N_SLAB_RAYS, "boxes": N_SLAB_BOXES,
+           "tests": tests, "hits": count, "hit_share": count / tests,
+           "plain_hits": plain, "face_plane_own_box_hits": face_only,
+           "launches": launches, "in_turns": turns,
+           "ns_per_test": ms * 1e6 / tests, "tests_per_s": tests / (ms * 1e-3),
+           "plain_ns_per_test": plain_ms * 1e6 / tests, "ops": ops,
+           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": by,
+           "ops_ms_at_issue_rate": ops / issue * 1e3}
+    entry = {"name": "slab_count", "route": "cuda",
+             "source": "bvh_tpu_torch/csrc/slab_count.cu",
+             "replaces": "bench.py:579", "launches": launches,
+             "max_abs_err": float(abs(count - plain)), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+             "library_ms": plain_ms}
+    return rec, entry
+
+
+# ---- phase 18: the five examples' twins on the card -------------------------
+
+# each twin's arguments: the original's default sizes
+EXAMPLES = {
+    "camera_tracer": (ex_camera, ["--size", "256"], "camera_depth.pgm"),
+    "dynamic_scene": (ex_dynamic, ["--cubes", "1000", "--frames", "5",
+                                   "--rays", "65536", "--churn", "0.02"], None),
+    "nearest_query": (ex_nearest, ["--cubes", "1000", "--points", "65536"],
+                      None),
+    "obj_render": (ex_obj, ["--size", "512"], "obj_render.ppm"),
+    "pathtrace": (ex_pathtrace, ["--size", "256", "--bounces", "2"],
+                  "pathtrace.ppm"),
+}
+
+
+def launched_rows() -> dict:
+    """The kernel builds launched since the last ``reset_counts``, by the
+    row of PERF.md's kernel table (every count that is not 0)."""
+    counts = {
+        "1 wide_trace": wide_mod.launches, "1 any": wide_mod.any_launches,
+        "1 subtree": wide_mod.subtree_launches,
+        "1 frame": wide_mod.frame_launches,
+        "2 sweep_gate": sweep_mod.launches,
+        "3 tight_trace": tight_mod.launches, "3 any": tight_mod.any_launches,
+        "3 frame": tight_mod.frame_launches, "3 skip": tight_mod.skip_launches,
+        "4 cluster_trace": ct_mod.launches,
+        "5 nearest_entry_exit": near_mod.entry_exit_launches,
+        "5 frame": near_mod.entry_exit_frame_launches,
+        "6 nearest_wide": near_mod.wide_launches,
+        "6 frame": near_mod.wide_frame_launches,
+        "slab_count": slab_mod.launches}
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_example(name: str, out_dir: str) -> dict:
+    """One twin's ``main`` at the original's default sizes, its counts zero
+    before and read after; what it printed is kept, not echoed."""
+    mod, argv, out = EXAMPLES[name]
+    if out is not None:
+        argv = argv + ["--out", os.path.join(out_dir, out)]
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    made = port_launches()
+    check(made > 0, f"example {name} launched none of the port's kernels")
+    if out is not None:
+        check(os.path.getsize(os.path.join(out_dir, out)) > 0,
+              f"example {name} wrote no image")
+    return {"res": res, "seconds": seconds, "port_launches": made,
+            "rows": launched_rows(), "printed": printed.getvalue().splitlines()}
+
+
+def examples_phase(dev, card: str, tris_d) -> dict:
+    """Phase 18: each twin of ``examples/`` (``bvh_tpu_torch.examples``)
+    in this process at the original's default sizes, images to a temporary
+    directory; each must launch the port's kernels (the rows it launched
+    recorded) and pass its own checks and these: the camera's depth
+    against brute force on 4,096 sampled pixels and its key plan equal to
+    no plan; the dynamic loop's last frame against brute force over the
+    moved triangles on 4,096 sampled rays and against a rebuild (agreement
+    >= 0.99); the nearest query's brute-force and general-path checks; the
+    OBJ render's hit share above one half, its loss and |grad| finite and
+    |grad| above 0; the path tracer's colours finite and >= 0, its mean
+    luminance in (0, 1)."""
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            res[name] = run_example(name, tmp)
+    cam = res["camera_tracer"].pop("res")
+    outs = cam.pop("outputs")
+    check(cam["plan_equal"], "camera: the key plan changed the free rays")
+    cam["brute_force"] = check_vs_brute("example_camera", outs["o"],
+                                        outs["d"], outs["t"], tris_d, 31)
+    dyn = res["dynamic_scene"].pop("res")
+    outs = dyn.pop("outputs")
+    check(dyn["agree"] >= 0.99, f"dynamic: agreement {dyn['agree']} < 0.99")
+    moved = tuple(torch.from_numpy(x).to(dev) for x in outs["tris"])
+    dyn["brute_force"] = check_vs_brute("example_dynamic", outs["o"],
+                                        outs["d"], outs["t"], moved, 32)
+    near = res["nearest_query"].pop("res")
+    check(near["brute_ok"] and near["general_ok"],
+          "nearest: a brute-force or general-path check failed")
+    obj = res["obj_render"].pop("res")
+    check(obj["hit_fraction"] > 0.5, f"obj: hit share {obj['hit_fraction']}")
+    check(obj["finite"] and obj["grad_norm"] > 0.0,
+          f"obj: loss {obj['loss']}, |grad| {obj['grad_norm']}")
+    pt = res["pathtrace"].pop("res")
+    check(pt["finite"] and pt["non_negative"]
+          and 0.0 < pt["mean_luminance"] < 1.0,
+          f"pathtrace: colours or mean luminance {pt['mean_luminance']}")
+    for name, summary in (("camera_tracer", cam), ("dynamic_scene", dyn),
+                          ("nearest_query", near), ("obj_render", obj),
+                          ("pathtrace", pt)):
+        res[name]["summary"] = summary
+    return {"card": card, "examples": res}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3893,6 +4204,9 @@ def main() -> None:
     p2f = phase_frame_kernels(dev)
     emit("frame_kernels_vs_plain", seconds=time.perf_counter() - t0,
          legs=p2f)
+    t0 = time.perf_counter()
+    p2s = phase_scales_kernels(dev)
+    emit("scales_kernels_vs_plain", seconds=time.perf_counter() - t0, **p2s)
 
     # ---- phase 3: main path at full width ------------------------------
     a, b, c = tb.create_n_cubes(10000)
@@ -4118,6 +4432,28 @@ def main() -> None:
     par_s = time.perf_counter() - t0
     emit("parallel", seconds=par_s, **par)
     check(par_s < 60.0, f"phase 16 took {par_s} s, over its 60 s")
+
+    # ---- phase 17: bench.py's scales and ray_aabb_1000 legs ---------------
+    t0 = time.perf_counter()
+    err17 = dict(p2s["max_abs_err"])
+    sc = scales_phase(dev, card, issue, e2e["random_sweep_off"]["rays_per_s"],
+                      err17)
+    emit("scales", **sc)
+    slab_rec, slab_entry = ray_aabb_phase(dev, card, issue)
+    emit("ray_aabb_1000", **slab_rec)
+    kernels.append(slab_entry)
+    p17_s = time.perf_counter() - t0
+    emit("phase_17", seconds=p17_s, max_abs_err=err17)
+    check(p17_s < 60.0, f"phase 17 took {p17_s} s, over its 60 s")
+
+    # ---- phase 18: the five examples' twins -------------------------------
+    t0 = time.perf_counter()
+    ex = examples_phase(dev, card, tris_d)
+    p18_s = time.perf_counter() - t0
+    emit("examples", seconds=p18_s, **ex)
+    check(p18_s < 90.0, f"phase 18 took {p18_s} s, over its 90 s")
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"], err17.get(k["name"], 0.0))
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], chain_err.get(k["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

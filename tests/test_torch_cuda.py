@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from bvh_tpu_torch import Ray
+from bvh_tpu_torch import Ray, ray_intersects_aabb
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import render_depth_fast
 from bvh_tpu_torch.ops import (build_chained_scene,
@@ -1924,3 +1924,100 @@ def test_general_path_on_card_matches_cpu(cuda):
     for s in (sk.cpu()[diff].long(), sc[diff].long()):
         got = d2(pts[diff], *(x[s] for x in tris))
         assert torch.allclose(got, dc[diff] ** 2, rtol=1e-5, atol=0)
+
+
+# ---- the slab count, the scale legs' walks, the examples' twins -------------
+def _slab_inputs(n, nb, dev):
+    """``n`` rays (every eighth lying in a box's face plane, the rest half
+    aimed at box centres, half reference-random) and ``nb`` boxes of
+    create_n_cubes(250)'s triangles, on ``dev``."""
+    a, b, c = tb.create_n_cubes(250)
+    mn, mx = tb.tri_aabbs(a[:nb], b[:nb], c[:nb])
+    o, d = tb.create_rays(n, seed=tb.seed_state_after(250))
+    ctr = (mn + mx) * 0.5
+    for i in range(n):
+        k = i % nb
+        if i % 8 == 0:  # in the plane x = box min x, no x component
+            o[i] = ctr[k]
+            o[i, 0] = mn[k, 0]
+            o[i, 2] -= 10.0
+            d[i] = (0.0, 0.0, 1.0)
+        elif i % 2 == 0:
+            d[i] = ctr[k] - o[i]
+    rays = Ray.create(o, d, device="cpu")
+    return tuple(x.to(dev).contiguous() for x in
+                 (rays.origin, rays.inv_direction, torch.from_numpy(mn),
+                  torch.from_numpy(mx)))
+
+
+@pytest.mark.parametrize("nb", [1, 1000, 1001, 2049])
+@pytest.mark.parametrize("n", [1, 31, 33, 131072])
+def test_slab_count_kernel_matches_plain(cuda, n, nb):
+    """The slab count kernel equals its plain version exactly, across the
+    block's ragged edge (n), the shared-memory tile's (nb; 2049 takes three
+    tiles) and face-plane rays (NaN products, misses)."""
+    from bvh_tpu_torch.ops import slab as slab_mod
+    o, inv, mn, mx = _slab_inputs(n, nb, cuda)
+    before = slab_mod.launches
+    got = slab_mod.slab_count(o, inv, mn, mx)
+    want = slab_mod.slab_count_plain(o, inv, mn, mx)
+    torch.cuda.synchronize()
+    assert slab_mod.launches == before + 1
+    assert got.dtype == torch.int64 and int(got) == int(want)
+    # each face-plane ray misses the box in whose face plane it lies
+    own = torch.arange(0, n, 8, device=cuda) % nb
+    assert not ray_intersects_aabb(Ray(o[::8], None, inv[::8]), mn[own],
+                                   mx[own]).any()
+
+
+@pytest.mark.parametrize("nc", [100, 1000])
+def test_scale_scenes_walks_match_plain(cuda, nc):
+    """bench.py's scale scenes (1,200 and 12,000 triangles; wide tables two
+    and three levels deep): the sweep gate and the group walk, ungated and
+    gated at packet 8192, bit-equal to their plain versions on 65,536 of
+    the leg's rays, octmorton-sorted."""
+    a, b, c = tb.create_n_cubes(nc)
+    scene = build_tight_scene(a, b, c)
+    o, d = tb.create_rays(65536, seed=tb.seed_state_after(nc))
+    od, dd = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    perm, _ = sort_rays_device(od, dd, mode="octmorton", device=cuda)
+    rays = Ray.create(od, dd, device=cuda).take(perm)
+    rows = _ray_rows(rays, torch.full((65536,), float("inf"), device=cuda))
+    gn, grp = _dev(scene.gnodes, cuda), _dev(scene.groups, cuda)
+    gate = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, cuda), rows, 8192)
+    assert torch.equal(gate, sweep_mod.sweep_gate_plain(
+        _dev(scene.smem_nodes, cuda), rows, 8192))
+    for g in (None, gate):
+        kw = dict(gate=g, packet=8192)
+        got = wide_mod.wide_trace(_rec(scene, cuda), grp, rows, scene.width,
+                                  scene.gdepth, **kw)
+        want = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
+        _equal(tuple(x.cpu() for x in got), tuple(x.cpu() for x in want))
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("camera_tracer", ["--size", "64", "--res", "120"]),
+    ("dynamic_scene", ["--cubes", "150", "--rays", "4096", "--frames", "3"]),
+    ("nearest_query", ["--cubes", "150", "--points", "4096"]),
+    ("obj_render", ["--size", "64"]),
+    ("pathtrace", ["--size", "64"]),
+])
+def test_example_twin_on_card(cuda, tmp_path, name, argv):
+    """Each twin of ``examples/`` runs on the card by default at a small
+    size, launches the port's kernels and passes its own checks."""
+    import importlib
+    mod = importlib.import_module(f"bvh_tpu_torch.examples.{name}")
+    if name in ("camera_tracer", "obj_render", "pathtrace"):
+        argv = argv + ["--out", str(tmp_path / "img")]
+    counts = (wide_mod.launches + tight_mod.launches + near_mod.wide_launches
+              + near_mod.entry_exit_launches)
+    res = mod.main(argv)
+    assert res["device"].startswith("cuda")
+    assert (wide_mod.launches + tight_mod.launches + near_mod.wide_launches
+            + near_mod.entry_exit_launches) > counts
+    ok = {"camera_tracer": lambda r: r["plan_equal"],
+          "dynamic_scene": lambda r: r["agree"] > 0.99,
+          "nearest_query": lambda r: r["brute_ok"] and r["general_ok"],
+          "obj_render": lambda r: r["finite"] and r["grad_norm"] > 0,
+          "pathtrace": lambda r: r["finite"] and 0 < r["mean_luminance"] < 1}
+    assert ok[name](res)
