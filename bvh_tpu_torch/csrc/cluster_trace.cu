@@ -16,12 +16,17 @@
 //   * a fired leaf (entry < 0, meaning -(cluster+1)) is narrowphased with
 //     the ray origin in the cluster frame (smem_cc[:, c] for a relative
 //     scene, 0 otherwise) as a float pair: hi = o - cc rounded and lo its
-//     exact rounding error (TwoSum), and tv = ((hi - a') + lo) - a_lo in
-//     every triangle test, where a_lo is the part of the triangle's a - cc
-//     that the stored a' (rounded to float32) leaves out (a zero table
-//     gives the walk without it), so that the ~4e4-unit distance to a
-//     Morton cluster's centre costs no precision at the triangle's edges,
-//     neither in the ray's origin nor in the table. The cluster's winner is its
+//     exact rounding error (TwoSum), so that o - cc = hi + lo exactly in
+//     double. Each triangle test forms tv = (hi + lo) - (a' + a_lo) and
+//     w = tv x d in double and rounds each to float once (tri_key_frame),
+//     where a_lo is the part of the triangle's a - cc that the stored a'
+//     (rounded to float32) leaves out (a zero table takes a' as exact).
+//     A Morton cluster's centre lies up to ~4e4 units from the world
+//     origin, and a ray's origin may lie ~1e5 from the cluster, where
+//     float32 keeps ~0.004 of a unit: formed in float, tv and w would
+//     round on their own in each triangle, so the two triangles of an
+//     edge would see the ray apart and a seam could open between them
+//     (the crack class). The cluster's winner is its
 //     smallest key (the bits of t with the low 7 bits replaced by the lane;
 //     no hit is 0x7F000000, so a t >= 2^127 counts as no hit), and its t
 //     replaces the ray's best only when strictly smaller, so a tie goes to
@@ -33,8 +38,9 @@
 // (-1 on a miss).
 //
 // What bounds it on an H100: float32 operations. A fired leaf costs 128
-// (ray, triangle) tests of 50 operations, 97% of the work on a random ray,
-// besides p = e2 x e1 (9 a triangle, whatever the number of rays); the
+// (ray, triangle) tests of 74 operations in float32 equivalents (the
+// float64 tv and w count twice), 97% of the work on a random ray, besides
+// p = e2 x e1 (9 a triangle, whatever the number of rays); the
 // tables (7.7 MB on the 120k-triangle scene) stay in L2. One thread per ray
 // wasted most of that: lanes of a warp fire different leaves at different
 // steps, so the 128-test loop ran once for every distinct leaf a lane fired,
@@ -49,8 +55,9 @@
 // table order. When lanes fire a leaf, the warp loads the cluster's rows once,
 // coalesced, lane j taking triangles j, j+32, j+64 and j+96, and computes
 // each triangle's p = e2 x e1 once, and reads its a_lo. Then, for each fired
-// lane in ballot order, it broadcasts that ray (hi, lo, d) with __shfl_sync,
-// every lane tests its four triangles, and __reduce_min_sync takes the key
+// lane in ballot order, it broadcasts that ray (o - cc = hi + lo in double,
+// d) with __shfl_sync, every lane tests its four triangles, and
+// __reduce_min_sync takes the key
 // minimum, which does not depend on the order, so the result is the plain
 // version's.
 // All 32 lanes stay in the loop until every cursor is done (a lane past n
@@ -66,16 +73,6 @@ namespace {
 constexpr int CW = 128;                 // triangles per cluster
 constexpr int TPL = CW / 32;            // triangles per lane in a leaf test
 constexpr int LEGACY_SENT = 0x7F000000;  // the legacy kernel's "no hit" key
-
-// x - y as a float pair: hi the rounded difference, lo its rounding error
-// (Knuth's TwoSum of x and -y; ops/cluster_trace.py::two_diff).
-__device__ __forceinline__ void two_diff(float x, float y, float& hi,
-                                         float& lo) {
-  hi = x - y;
-  float bv = hi - x;
-  float av = hi - bv;
-  lo = (x - av) - (y + bv);
-}
 
 // ray rows: inv (3, unclamped), d (3), o (3), each [n]
 __global__ void __launch_bounds__(128)
@@ -127,10 +124,11 @@ __global__ void __launch_bounds__(128)
           ccy = __ldg(cc + C + c);
           ccz = __ldg(cc + 2 * C + c);
         }
-        float hx, hy, hz, lx, ly, lz;
-        two_diff(ox, ccx, hx, lx);
-        two_diff(oy, ccy, hy, ly);
-        two_diff(oz, ccz, hz, lz);
+        // o - cc exactly: the rounded difference plus its rounding error
+        // (two_diff_lo) fits a double
+        const double qx = (double)(ox - ccx) + (double)two_diff_lo(ox, ccx),
+                     qy = (double)(oy - ccy) + (double)two_diff_lo(oy, ccy),
+                     qz = (double)(oz - ccz) + (double)two_diff_lo(oz, ccz);
         const float* tile = tris + (size_t)c * 16 * CW;
         Tri tr[TPL];
         float alx[TPL], aly[TPL], alz[TPL];
@@ -146,20 +144,18 @@ __global__ void __launch_bounds__(128)
         int km = LEGACY_SENT;
         for (unsigned rest = F; rest; rest &= rest - 1) {
           const int f = __ffs(rest) - 1;
-          const float Hx = __shfl_sync(FULL, hx, f), Hy = __shfl_sync(FULL, hy, f),
-                      Hz = __shfl_sync(FULL, hz, f);
-          const float Lx = __shfl_sync(FULL, lx, f), Ly = __shfl_sync(FULL, ly, f),
-                      Lz = __shfl_sync(FULL, lz, f);
+          const double Qx = __shfl_sync(FULL, qx, f),
+                       Qy = __shfl_sync(FULL, qy, f),
+                       Qz = __shfl_sync(FULL, qz, f);
           const float Dx = __shfl_sync(FULL, dx, f), Dy = __shfl_sync(FULL, dy, f),
                       Dz = __shfl_sync(FULL, dz, f);
           int k = LEGACY_SENT;
 #pragma unroll
           for (int s = 0; s < TPL; ++s) {
-            // tv = ((hi - a') + lo) - a_lo
-            int key = tri_key(tr[s], ((Hx - tr[s].a0) + Lx) - alx[s],
-                              ((Hy - tr[s].a1) + Ly) - aly[s],
-                              ((Hz - tr[s].a2) + Lz) - alz[s], Dx, Dy, Dz, CW,
-                              lane + 32 * s, LEGACY_SENT);
+            // tv = (o - cc) - (a' + a_lo) and w = tv x d in double
+            int key = tri_key_frame(tr[s], Qx, Qy, Qz, alx[s], aly[s], alz[s],
+                                    Dx, Dy, Dz, CW, lane + 32 * s,
+                                    LEGACY_SENT);
             k = key < k ? key : k;
           }
           k = __reduce_min_sync(FULL, k);

@@ -5,7 +5,7 @@
 // and the sweep gate (sweep.cu) also share the node record of an entry/exit
 // table (read_node), and the sweep the slab test (slab_hit); the legacy
 // cluster trace (cluster_trace.cu) takes the min/max and the triangle test
-// (load_tri, tri_key).
+// in the exact cluster frame (load_tri, tri_key_frame).
 //
 // The leaf test replaces the TPU kernel's bvh_tpu/ops/trace.py::
 // _narrow_cluster: Moller-Trumbore of one ray against the W triangles of
@@ -240,7 +240,8 @@ __device__ __forceinline__ int tri_key(const Tri& t, float tvx, float tvy,
                    tvx * dy - tvy * dx, dx, dy, dz, W, j, sent);
 }
 
-// The FRAME builds' tv and w = tv x d (ops/wide.py::narrow_keys(frame64=)):
+// The FRAME builds' tv and w = tv x d (ops/wide.py::narrow_keys(frame=)),
+// and the legacy walk's:
 // o - cc as the exact double sum of the broadcast pair (o', lo), a - cc as
 // a' + a_lo, their difference and the cross product with d in double, then
 // tv and w rounded to float once each. Formed in float, tv ~ 1e5 would
@@ -318,8 +319,10 @@ __device__ __forceinline__ void fold_key(RayState& r, int km, int c, int W,
 // that of testing them one by one in the lane, bit for bit.
 //
 // FRAME (scenes that carry a_lo [G, 3, 128], laid out as the a' rows of
-// groups: device builds, their refits and update deltas, whose Morton
-// clusters may lie ~1e5 from their frame origin): the exact cluster frame.
+// groups: every scene the port builds or loads, since a ray whose origin
+// lies ~1e5 from a leaf rounds o - cc whoever built the scene, and a device
+// build's Morton cluster may lie as far from its frame origin, where a'
+// rounds too): the exact cluster frame.
 // The owner also broadcasts the rounding error lo of o - cc (two_diff), and
 // each lane forms tv = (o - cc) - (a - cc) and w = tv x d in double from the
 // pair (o', lo) and its triangle's (a', a_lo), a_lo being the part of

@@ -20,7 +20,7 @@ import torch
 from ..bvh.flat import FlatBvh
 from ..bvh.traverse import HitRecord, closest_hit_triangles
 from ..ops.trace import trace_closest_hit_tight
-from ..ray import Ray, ray_intersects_triangle
+from ..ray import Ray, _moller_trumbore, ray_intersects_triangle
 
 
 def render_hits(flat: FlatBvh, rays: Ray, tri_a, tri_b, tri_c) -> HitRecord:
@@ -62,9 +62,15 @@ def render_hits_fast(scene, rays: Ray, tri_a, tri_b, tri_c, packet: int = 2048,
     ``scene`` is built over the same triangles. The walk runs on float32
     copies of the rays on ``device`` (None: the card); the recompute runs in
     the dtype and on the device of the inputs. ``hints`` and ``start_g`` as
-    in ``trace_closest_hit_tight`` (results do not depend on them). A hit
-    the exact recompute rejects (a grazing hit the kernel's leaf test
-    accepted) is a miss. A miss has ``t`` = +inf, ``u`` = ``v`` = 0 and
+    in ``trace_closest_hit_tight`` (results do not depend on them). The
+    walk decides the hit: its leaf test runs in the scene's exact frame, so
+    on a ray that crosses near an edge it takes float64's triangle where
+    the recompute, in the inputs' dtype and world coordinates, can put the
+    ray a rounding outside that triangle; the hit stays, with the
+    recompute's (t, u, v) (u, v or 1 - u - v then a rounding below
+    0). Only a
+    recompute that culls the triangle (det < eps) or puts it behind the
+    origin makes a miss. A miss has ``t`` = +inf, ``u`` = ``v`` = 0 and
     gives no gradient."""
     with torch.no_grad():
         hard = trace_closest_hit_tight(
@@ -73,12 +79,13 @@ def render_hits_fast(scene, rays: Ray, tri_a, tri_b, tri_c, packet: int = 2048,
     sid = hard.shape_id.to(rays.origin.device)
     # one gather of the winners' nine coordinates
     g9 = torch.cat([tri_a, tri_b, tri_c], dim=1)[sid.clamp_min(0).to(torch.int64)]
-    inter = ray_intersects_triangle(rays, g9[:, 0:3], g9[:, 3:6], g9[:, 6:9])
-    hit = (sid >= 0) & torch.isfinite(inter.distance.detach())
-    inf = torch.full_like(inter.distance, float("inf"))
-    return HitRecord(torch.where(hit, inter.distance, inf),
-                     torch.where(hit, inter.u, 0.0),
-                     torch.where(hit, inter.v, 0.0),
+    cull, u, v, dist, eps = _moller_trumbore(rays, g9[:, 0:3], g9[:, 3:6],
+                                             g9[:, 6:9])
+    hit = (sid >= 0) & ~cull & (dist.detach() > eps)
+    inf = torch.full_like(dist, float("inf"))
+    return HitRecord(torch.where(hit, dist, inf),
+                     torch.where(hit, u, 0.0),
+                     torch.where(hit, v, 0.0),
                      torch.where(hit, sid, -1))
 
 

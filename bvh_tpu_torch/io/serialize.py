@@ -7,12 +7,13 @@ Writers take host or device structures; tensors are written through the
 host. Loaders return host (numpy) tables, as the port's host builds hold
 them; the trace entry points copy them to the card at first use.
 
-The exact-frame table ``a_lo`` of device-built scenes (``TightScene.a_lo``,
-``ClusterScene.a_lo``) is written under an extra key, ``a_lo`` (``p{i}_a_lo``
-for chained parts), which the JAX package's loaders, reading keys by name,
-ignore. A file without it loads as None on a tight scene or part and as
-zeros on a cluster scene (``scene_from_arrays``,
-``cluster_scene_from_arrays``).
+The exact-frame table ``a_lo`` that every scene the port builds carries
+(``TightScene.a_lo``, ``ClusterScene.a_lo``) is written under an extra key,
+``a_lo`` (``p{i}_a_lo`` for chained parts), which the JAX package's
+loaders, reading keys by name, ignore. A file without it (the JAX
+package's) loads with zeros there (``scene_from_arrays``,
+``cluster_scene_from_arrays``), so that its scenes too are traced in the
+exact cluster frame.
 """
 
 from __future__ import annotations

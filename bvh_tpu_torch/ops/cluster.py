@@ -46,15 +46,18 @@ class TightScene(NamedTuple):
     or tensors (device builds, refits, updates).
 
     The reference's ``TightScene`` fields, then ``a_lo``, the port's own:
-    None, or [G, 3, 128] float32 laid out as the a' rows of ``groups``,
-    the part of each triangle's ``a - cc`` that the stored ``a'`` (rounded
-    to float32) leaves out (0 in pad lanes). The device builds, their
-    refits and the updaters' delta parts write it, because their Morton
-    clusters may lie up to ~1e5 from the frame origin cc, where ``a'`` and
-    ``o - cc`` round at ~0.004 of a unit; the trace walks then test leaves
-    in the exact cluster frame (``ops/wide.py::narrow_keys``'s ``frame``,
-    the kernels' FRAME builds). Host builds keep their leaf boxes a few
-    units around their triangles and carry None.
+    [G, 3, 128] float32 laid out as the a' rows of ``groups``, the part of
+    each triangle's ``a - cc`` that the stored ``a'`` (rounded to float32)
+    leaves out (0 in pad lanes). Every scene the port builds or loads
+    carries it: host builds, device builds, their refits, the updaters'
+    parts and chains (``scene_from_arrays`` gives zeros to the reference's
+    arrays, which hold no vertices). A ray whose origin lies ~1e5 from a
+    leaf rounds ``o - cc`` at ~0.004 of a unit whoever built the scene, and
+    a Morton cluster of a device build may also lie that far from its
+    triangles, where ``a'`` rounds as much; the walks therefore test the
+    leaves of every scene that carries ``a_lo`` in the exact cluster frame
+    (``ops/wide.py::narrow_keys``'s ``frame``, the kernels' FRAME builds).
+    None, which a caller may set, gives the builds without FRAME.
     """
 
     smem_nodes: np.ndarray  # [8, Nn] f32: amin(3), amax(3), entry, exit
@@ -83,10 +86,10 @@ class ClusterScene(NamedTuple):
 
     ``a_lo`` [C, 3, 128] float32 is the port's own: the part of each
     triangle's ``a - cc`` that the stored ``a'`` (rounded to float32) leaves
-    out, which the walk subtracts from its origin. ``build_cluster_scene``
-    computes it; a scene carried in by ``cluster_scene_from_arrays`` from
-    the reference's arrays (which hold no vertices) gets zeros, and traces
-    as the walk without it did.
+    out, which the walk adds back to ``a'`` in its float64 leaf test.
+    ``build_cluster_scene`` computes it; a scene carried in by
+    ``cluster_scene_from_arrays`` from the reference's arrays (which hold
+    no vertices) gets zeros, which take the stored ``a'`` as exact.
     """
 
     smem_nodes: np.ndarray  # [8, Nc] f32: amin(3), amax(3), entry, exit
@@ -616,7 +619,8 @@ def build_tight_scene(
         pn = pack_node_table_bf16(smem_nodes) if packed else None
         return TightScene(smem_nodes, groups, tri_map_pad, C, nn, W,
                           sweep_nodes=sweep_nodes, packed_nodes=pn,
-                          gnodes=gnodes, gslot=gslot, gdepth=gdepth)
+                          gnodes=gnodes, gslot=gslot, gdepth=gdepth,
+                          a_lo=_host_a_lo(a, groups, tri_map_pad, cc, W))
 
     shape_ids = np.asarray(flat.shape)[leaves]  # tri id per tree leaf, DFS order
     # per-cluster contiguous triangle lists (DFS leaf order within a cluster)
@@ -655,7 +659,24 @@ def build_tight_scene(
         bgroups = pack_bgroups(blocks, C_pad, W)
     pn = pack_node_table_bf16(smem_nodes) if packed else None
     return TightScene(smem_nodes, groups, tri_map_pad, C, nn, W, bgroups,
-                      sweep_nodes, pn, gnodes, gslot, gdepth)
+                      sweep_nodes, pn, gnodes, gslot, gdepth,
+                      a_lo=_host_a_lo(a, groups, tri_map_pad, cc, W))
+
+
+def _host_a_lo(a, groups, tri_map, cc, W: int) -> np.ndarray:
+    """A host build's ``TightScene.a_lo``: ``(a - cc) - a'`` of every lane
+    of ``tri_map``, computed in float64 and rounded once to float32 (as
+    ``build_cluster_scene`` and the device builds do), as [G, 3, 128] in
+    the layout of the a' rows of ``groups``, 0 in pad lanes. Lane L holds
+    a triangle of cluster ``L // W``, whose frame origin is ``cc[L // W]``
+    (the leaf box's centre, or a packed scene's raw packed-row value)."""
+    G = groups.shape[0]
+    lanes = np.nonzero(tri_map >= 0)[0]
+    av = groups[:, 0:3, :].transpose(0, 2, 1).reshape(G * 128, 3)[lanes]
+    out = np.zeros((G * 128, 3), np.float32)
+    out[lanes] = ((a[tri_map[lanes]].astype(np.float64) - cc[lanes // W])
+                  - av).astype(np.float32)
+    return np.ascontiguousarray(out.reshape(G, 128, 3).transpose(0, 2, 1))
 
 
 def _sweep_table(flat, sweep_cut: int, config, use_native: bool,
@@ -795,7 +816,10 @@ def scene_from_arrays(fields) -> TightScene:
     npz its ``save_tight_scene`` writes (``np.load(path)``).
 
     Missing optional fields become None, 0-d arrays become ints, and
-    ``__tight_version__`` is checked, then dropped.
+    ``__tight_version__`` is checked, then dropped. Without ``a_lo`` (the
+    reference's arrays, which hold no vertices) the scene gets zeros
+    there: the stored ``a'`` is taken as exact, and the walks still form
+    ``o - cc`` exactly (the FRAME builds).
     """
     f = dict(fields)
     version = f.pop("__tight_version__", None)
@@ -815,6 +839,8 @@ def scene_from_arrays(fields) -> TightScene:
             out[name] = bool(np.asarray(val))
         else:
             out[name] = np.asarray(val)
+    if "a_lo" not in out:
+        out["a_lo"] = np.zeros((out["groups"].shape[0], 3, 128), np.float32)
     return TightScene(**out)
 
 
@@ -881,18 +907,22 @@ def _pad_wide_table(gnodes: np.ndarray, target: int) -> np.ndarray:
 
 def _repad_tight(s: TightScene, nn_t: int, G_t: int, Gn_t: int = 0) -> TightScene:
     """Pads a part's tables to the chain's common (node, group-row, wide)
-    widths. Padding a padded node table is safe: the old pad block's
-    entry/exit point at the first new pad column, which walks off the end.
-    ``num_nodes`` keeps the logical count."""
+    widths; ``a_lo`` takes zeros in the new group rows. Padding a padded
+    node table is safe: the old pad block's entry/exit point at the first
+    new pad column, which walks off the end. ``num_nodes`` keeps the
+    logical count."""
     sn = s.smem_nodes
     if sn.shape[1] < nn_t:
         sn = _pad_node_table(sn, target=nn_t)
-    g, tm = s.groups, s.tri_map
+    g, tm, al = s.groups, s.tri_map, s.a_lo
     if g.shape[0] < G_t:
         g = np.concatenate(
             [g, np.zeros((G_t - g.shape[0], 16, 128), np.float32)], axis=0)
         tm = np.concatenate(
             [tm, np.full((G_t - s.groups.shape[0]) * 128, -1, np.int32)])
+        if al is not None:
+            al = np.concatenate(
+                [al, np.zeros((G_t - al.shape[0], 3, 128), np.float32)])
     # the bf16 table is packed again only when the node table grew
     if s.packed_nodes is not None and sn is not s.smem_nodes:
         pn = pack_node_table_bf16(sn)
@@ -913,7 +943,7 @@ def _repad_tight(s: TightScene, nn_t: int, G_t: int, Gn_t: int = 0) -> TightScen
             and gn is s.gnodes):
         return s
     return s._replace(smem_nodes=sn, groups=g, tri_map=tm, packed_nodes=pn,
-                      bgroups=bg, gnodes=gn)
+                      bgroups=bg, gnodes=gn, a_lo=al)
 
 
 def build_chained_scene(a, b, c, max_part: int | None = None,

@@ -25,16 +25,20 @@ smaller, so a tie goes to the cluster visited first. The legacy "no hit"
 key is 0x7F000000, not the other kernels' 0x7F800000: a t >= 2^127 counts
 as no hit.
 
-The origin in the cluster frame is kept as a float pair: ``hi = o - cc``
-rounded and ``lo`` its exact rounding error (``two_diff``), and each
-triangle test forms ``tv = (hi - a') + lo``. A Morton cluster's centre lies
-up to ~4e4 units from the origin, where float32 keeps 2^-8 of a unit, so
-``o - cc`` alone can move a ray onto the edge two triangles share, and
-both edge tests then round outside (the crack class). The table's own
-``a' = a - cc`` is rounded the same way, so two triangles that share an
-edge may be stored 2^-8 apart; the scene carries the remainder ``a_lo =
-(a - cc) - a'`` beside the table (``ClusterScene.a_lo``), and each test
-forms ``tv = ((hi - a') + lo) - a_lo``, which closes that crack too.
+The leaf test runs in the exact cluster frame. The origin is kept as a
+float pair, ``hi = o - cc`` rounded and ``lo`` its exact rounding error
+(``two_diff``), and the scene carries the remainder ``a_lo = (a - cc) -
+a'`` of its table's rounded ``a' = a - cc`` (``ClusterScene.a_lo``). Each
+triangle test forms ``tv = (hi + lo) - (a' + a_lo)`` and ``w = tv x d`` in
+float64 and rounds each to float32 once (``wide.narrow_keys``'s ``frame``,
+the kernel's ``tri_key_frame``); the rest of the test is float32. A Morton
+cluster's centre lies up to ~4e4 units from the world origin, and a ray's
+origin may lie ~1e5 from the cluster, where float32 keeps ~0.004 of a
+unit: ``o - cc`` and ``a'`` rounded there can move a ray onto the edge two
+triangles share, and tv and w formed in float32 (``((hi - a') + lo) -
+a_lo`` here before) round on their own in each triangle, so that the two
+triangles of an edge see the ray apart and both edge tests round outside
+(the crack class). The float64 form sees the ray at one place for both.
 
 Where the per-ray walk differs from the TPU kernel's packet walk: the TPU
 kernel narrowphases every ray of a packet at a leaf that any of its rays
@@ -59,19 +63,21 @@ import torch
 
 from ._build import load_cuda_library
 from .sweep import check_nodes
-from .wide import narrow_keys, two_diff
+from .wide import FRAME_TRI_OPS, narrow_keys, two_diff
+from .wide import TRI_OPS as WIDE_TRI_OPS
 
 CW = 128  # triangles per cluster
 LEGACY_SENT = 0x7F000000  # the legacy kernel's "no hit" key
 N_ROWS = 9  # ray rows: inv (3, unclamped), d (3), o (3)
-# float32 operations per (ray, triangle) test: ``wide.TRI_OPS``, the
-# three adds of lo into tv and the three subtractions of a_lo (p = e2 x e1
-# is ``wide.TRI_ONCE_OPS``, once a triangle)
-TRI_OPS = 50
+# float32 operations (a float64 one counts two) per (ray, triangle) test:
+# ``wide.TRI_OPS`` with tv and w in float64, ``wide.FRAME_TRI_OPS`` (p =
+# e2 x e1 is ``wide.TRI_ONCE_OPS``, once a triangle)
+TRI_OPS = WIDE_TRI_OPS + FRAME_TRI_OPS
 # per fired leaf beyond its 128 triangle tests: the origin's float pair
-# (``two_diff``, 6 an axis) and the fold's two compares; a node visit costs
+# (``two_diff``, 6 an axis), o - cc = hi + lo in float64 (3, 6 conversions
+# in), d's 3 conversions and the fold's two compares; a node visit costs
 # ``wide.SLAB_OPS`` plus ``tight.STEP_OPS``, as in the entry/exit walk
-LEAF_OPS = 20
+LEAF_OPS = 35
 _INF = float("inf")
 
 launches = 0  # kernel launches, counted in ``cluster_trace``
@@ -216,7 +222,7 @@ def cluster_trace_plain(nodes: torch.Tensor, cc: torch.Tensor,
             else:
                 ccs = (zero, zero, zero)
             # the origin in the cluster frame as a float pair: o - cc
-            # rounded, and its rounding error lo
+            # rounded (narrow_keys forms it), and its rounding error lo
             lo = tuple(two_diff(rays[6 + j, r], ccs[j])[1] for j in range(3))
             km = narrow_keys(rays, tiles, CW, r, c, *ccs, sent=LEGACY_SENT,
                              row0=3, frame=(lo, alo))

@@ -30,12 +30,12 @@ The narrowphase takes d1 = e1·q and d2 = e2·q with q = p' − a' directly,
 where the TPU kernel forms e1·p' − e1·a' through a matrix product; the
 port differs from the reference at rounding level.
 
-Scenes that carry the exact-frame table ``a_lo`` (device builds, refits and
-update deltas, whose clusters may lie ~1e5 from their frame origin) run the
-kernels' FRAME builds: q = ((p' − a') + lo) − a_lo, with lo the rounding
-error of p − cc (``wide.two_diff``), as the trace walks test their leaves.
-The reference rounds p − cc there, so on such scenes the port takes float64
-brute force's triangle where the reference may take a farther one.
+Scenes that carry the exact-frame table ``a_lo`` (every scene the port
+builds or loads; a device build's clusters may lie ~1e5 from their frame
+origin) run the kernels' FRAME builds: q = ((p' − a') + lo) − a_lo, with lo
+the rounding error of p − cc (``wide.two_diff``), as the trace walks test
+their leaves. The reference rounds p − cc, so on far frames the port takes
+float64 brute force's triangle where the reference may take a farther one.
 """
 
 from __future__ import annotations
@@ -481,7 +481,7 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
 
     Masked scenes (the static part of an updater) turn off the bound
     refinement: their boxes may hold no live triangle. Packed scenes raise.
-    Scenes that carry ``a_lo`` (device builds, refits, update deltas) test
+    Scenes that carry ``a_lo`` (every scene the port builds or loads) test
     their leaves in the exact cluster frame (the kernels' FRAME builds).
     """
     if packet < 128 or packet & (packet - 1):
@@ -550,12 +550,12 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
     parts run in turn, each point's best distance so far the next part's
     radius; a part's triangle replaces the best only when strictly closer,
     so ties go to the earlier part. Each part takes its own frame: a part
-    that carries ``a_lo`` (device-built parts, update deltas) runs the
-    FRAME builds, a host-built part the others. The carried radius is the
-    winner's distance from its truncated key, so a later part's triangle
-    within that truncation of the best may be left out (the key-truncation
-    class). Ids are mapped once at the end, and the un-permute moves int32
-    bit patterns.
+    that carries ``a_lo`` runs the FRAME builds, a part whose caller set
+    it to None the others. The carried radius is the winner's distance
+    from its truncated key, so a later part's triangle within that
+    truncation of the best may be left out (the key-truncation class).
+    Ids are mapped once at the end, and the un-permute moves int32 bit
+    patterns.
     """
     _check_packet(packet)
     dev = resolve_device(device)

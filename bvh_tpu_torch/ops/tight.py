@@ -203,7 +203,7 @@ def tight_trace_plain(nodes: torch.Tensor, groups: torch.Tensor,
         c = (-table[6, node] - 1.0).to(torch.int64)
         cc = tuple(frame[:, node])
         km = narrow_keys(rays, tiles, W, r, c, *cc,
-                         frame=exact_frame(rays, r, cc, a_lo), frame64=True)
+                         frame=exact_frame(rays, r, cc, a_lo))
         fold_keys(r, km, c.to(torch.int32), bk, bc, vb, W, bounded, tmx)
 
     live = torch.arange(n if nn > 0 else 0, device=dev)

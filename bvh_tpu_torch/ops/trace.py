@@ -272,8 +272,10 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
 
 def _a_lo(scene, dev):
     """The scene's exact-frame table on ``dev`` (``TightScene.a_lo``), with
-    which the walks test leaves in the exact cluster frame; None for a
-    scene that carries none (host builds)."""
+    which the walks test leaves in the exact cluster frame (``o - cc``
+    rounds at far origins whoever built the scene; every scene the port
+    builds or loads carries the table); None for a scene whose caller set
+    none."""
     a_lo = getattr(scene, "a_lo", None)
     return None if a_lo is None else _dev(a_lo, dev).contiguous()
 

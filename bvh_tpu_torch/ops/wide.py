@@ -39,12 +39,14 @@ cluster frame, m = o×d and cc×d at 1e5, and so loses up to ~0.01 of a unit
 at triangle edges (rays hit across an edge, or through a crack between two
 triangles). The regrouped form is exact to the rounding of the triangle's
 own size; results differ from the reference only in its grazing-edge and
-near-tie classes. Scenes that carry ``a_lo`` (device builds, refits,
-update deltas, whose clusters may lie ~1e5 from their frame origin) are
-tested in the exact cluster frame by the kernel's FRAME build
-(``exact_frame``, ``narrow_keys(frame64=True)``): tv = (o' + lo) -
-(a' + a_lo) and w = tv × d in float64, with lo the rounding error of o'
-and a_lo that of a', each rounded to float32 once.
+near-tie classes. A ray whose origin lies ~1e5 from a leaf rounds o' = o
+- cc at ~0.004 of a unit whoever built the scene, and a device build's
+Morton cluster may lie as far from its frame origin, where a' rounds as
+much. So every scene that carries ``a_lo`` (every scene the port builds or
+loads) is tested in the exact cluster frame by the kernel's FRAME build
+(``exact_frame``, ``narrow_keys``'s ``frame``): tv = (o' + lo) - (a' +
+a_lo) and w = tv × d in float64, with lo the rounding error of o' and a_lo
+that of a', each rounded to float32 once.
 Output per ray: ``t`` float32 (the key's bits with the lane bits cleared,
 +inf on a miss) and ``lane_id`` int32 (cluster·W + lane, -1 on a miss).
 """
@@ -320,8 +322,7 @@ def _cross_rows(u0, u1, u2, v0, v1, v2):
 
 def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
                 r: torch.Tensor, c: torch.Tensor, ccx, ccy, ccz,
-                sent: int = SENT, row0: int = 7, frame=None,
-                frame64: bool = False):
+                sent: int = SENT, row0: int = 7, frame=None):
     """Leaf tests of the (ray ``r[i]``, cluster ``c[i]``) pairs with frame
     origins ``cc``: each pair's smallest packed key over the cluster's W
     triangles, ``sent`` where none is below it. ``tiles`` is ``groups`` as
@@ -333,13 +334,11 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     (lox, loy, loz)``, the rounding error of each pair's ``o - cc``
     (``two_diff``), and ``alo`` [G, 128, 3], the part of each
     triangle's ``a - cc`` that ``a'`` leaves out (``ClusterScene.a_lo`` or
-    ``TightScene.a_lo``, lane-major); then ``tv = ((o' - a') + lo) - alo``
-    in float32 (the legacy walk's form). ``frame64`` (the FRAME builds of
-    the group and entry/exit walks, ``csrc/trace_common.cuh::
-    tri_key_frame``): ``tv = (o' + lo) - (a' + alo)`` and ``w = tv x d`` in
-    float64, each rounded to float32 once, so that the two triangles of an
-    edge see the ray at one place; the rest of the test is float32 as
-    without it."""
+    ``TightScene.a_lo``, lane-major); then ``tv = (o' + lo) - (a' + alo)``
+    and ``w = tv x d`` are formed in float64 and each rounded to float32
+    once (``csrc/trace_common.cuh::tri_key_frame``), so that the two
+    triangles of an edge see the ray at one place; the rest of the test is
+    float32 as without it."""
     dev = rays.device
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     per_row = 128 // W
@@ -349,9 +348,9 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
     lane = (c % per_row)[:, None] * W + lanes[None, :]
     tri = tiles[(c // per_row)[:, None], lane]  # [P, W, 16]
-    a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(9))
+    a0, a1, a2 = (tri[..., j] for j in range(3))
     # the bilinear forms around tv = o' - a' (see csrc/trace_common.cuh)
-    if frame is not None and frame64:
+    if frame is not None:
         lo, alo = frame
         al = alo[(c // per_row)[:, None], lane]  # [P, W, 3]
         tv = [(op.double() + lk[:, None].double())
@@ -363,14 +362,20 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
         tvx, tvy, tvz = (x.float() for x in tv)
     else:
         tvx, tvy, tvz = opx - a0, opy - a1, opz - a2
-        if frame is not None:
-            lo, alo = frame
-            lox, loy, loz = (x[:, None] for x in lo)
-            tvx, tvy, tvz = tvx + lox, tvy + loy, tvz + loz
-            al = alo[(c // per_row)[:, None], lane]  # [P, W, 3]
-            tvx, tvy, tvz = (tvx - al[..., 0], tvy - al[..., 1],
-                             tvz - al[..., 2])
         w0, w1, w2 = _cross_rows(tvx, tvy, tvz, dx, dy, dz)  # tv x d
+    return tri_keys(tri, (tvx, tvy, tvz), (w0, w1, w2), (dx, dy, dz), W,
+                    sent)
+
+
+def tri_keys(tri: torch.Tensor, tv: tuple, w: tuple, d: tuple, W: int,
+             sent: int) -> torch.Tensor:
+    """The rest of the leaf test once tv = o - a and w = tv x d are formed
+    (``csrc/trace_common.cuh::tri_key_w``): of each pair [P] against the W
+    triangle rows ``tri`` [P, W, 16] (a', e1, e2), with tv and w [P, W]
+    and d [P, 1], the smallest packed key, ``sent`` where none is below
+    it."""
+    e10, e11, e12, e20, e21, e22 = (tri[..., j] for j in range(3, 9))
+    (tvx, tvy, tvz), (w0, w1, w2), (dx, dy, dz) = tv, w, d
     p0, p1, p2 = _cross_rows(e20, e21, e22, e10, e11, e12)  # e2 x e1
     det = (p0 * dx + p1 * dy) + p2 * dz
     udet = (e20 * w0 + e21 * w1) + e22 * w2
@@ -379,7 +384,8 @@ def narrow_keys(rays: torch.Tensor, tiles: torch.Tensor, W: int,
     ok = (~(det < _EPS) & (udet >= 0.0) & (udet <= det) & (vdet >= 0.0)
           & (udet + vdet <= det) & (tdet > _EPS * det))
     t = tdet * (1.0 / det)
-    sent = torch.full((), sent, dtype=torch.int32, device=dev)
+    lanes = torch.arange(W, dtype=torch.int32, device=tri.device)
+    sent = torch.full((), sent, dtype=torch.int32, device=tri.device)
     key = torch.where(ok, (t.view(torch.int32) & -W) | lanes[None, :], sent)
     return torch.minimum(key.amin(dim=1), sent)
 
@@ -587,7 +593,7 @@ def wide_trace_plain(gnodes: torch.Tensor, groups: torch.Tensor,
         ax, ay, az, bx, by, bz = (box[kk, j, gg] for j in range(6))
         cc = ((ax + bx) * 0.5, (ay + by) * 0.5, (az + bz) * 0.5)
         km = narrow_keys(rays, tiles, W, rr, c, *cc,
-                         frame=exact_frame(rays, rr, cc, a_lo), frame64=True)
+                         frame=exact_frame(rays, rr, cc, a_lo))
         return km, c.to(torch.int32)
 
     def narrow_hint(r, slot):

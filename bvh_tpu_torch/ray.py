@@ -113,14 +113,10 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
-def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
-    """Batched Moller-Trumbore with backface culling (3-D only; float32 or
-    float64, eps the dtype's machine epsilon).
-
-    The selects mirror the reference's branches: ``det < eps`` => miss with
-    (u, v) = (0, 0); u out of [0, 1] => miss with v = 0; v < 0 or
-    u + v > 1 => miss; dist <= eps => miss. Distance is +inf on every miss.
-    """
+def _moller_trumbore(ray: Ray, a, b, c):
+    """Moller-Trumbore's terms without its rejections: ``(cull, u, v,
+    dist, eps)``, ``cull`` where det < eps (u, v and dist are finite there
+    and meaningless), eps the dtype's machine epsilon."""
     a_to_b = b - a
     a_to_c = c - a
     u_vec = _cross(ray.direction, a_to_c)
@@ -134,13 +130,23 @@ def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
 
     a_to_origin = ray.origin - a
     u = _dot(a_to_origin, u_vec) * inv_det
-    u_bad = (u < 0.0) | (u > 1.0)
-
     v_vec = _cross(a_to_origin, a_to_b)
     v = _dot(ray.direction, v_vec) * inv_det
-    v_bad = (v < 0.0) | (u + v > 1.0)
-
     dist = _dot(a_to_c, v_vec) * inv_det
+    return cull, u, v, dist, eps
+
+
+def ray_intersects_triangle(ray: Ray, a, b, c) -> Intersection:
+    """Batched Moller-Trumbore with backface culling (3-D only; float32 or
+    float64, eps the dtype's machine epsilon).
+
+    The selects mirror the reference's branches: ``det < eps`` => miss with
+    (u, v) = (0, 0); u out of [0, 1] => miss with v = 0; v < 0 or
+    u + v > 1 => miss; dist <= eps => miss. Distance is +inf on every miss.
+    """
+    cull, u, v, dist, eps = _moller_trumbore(ray, a, b, c)
+    u_bad = (u < 0.0) | (u > 1.0)
+    v_bad = (v < 0.0) | (u + v > 1.0)
     miss = cull | u_bad | v_bad | (dist <= eps)
     distance = torch.where(miss, torch.full_like(dist, float("inf")), dist)
     zero = torch.zeros_like(u)

@@ -15,8 +15,10 @@ final line):
 2. kernels vs plain: on create_n_cubes(1000) with 65,536 reference-random
    and 65,536 aimed rays, every trace kernel against its plain PyTorch
    version on the same CUDA tensors (closest, bounded and gated walks; the
-   gate); with 65,536 points, both nearest kernels against theirs
-   (unbounded, per-point radius, no bound refinement), and their FRAME
+   gate; each walk's FRAME build, which host scenes launch, and its build
+   without FRAME); with 65,536 points, both nearest kernels against theirs
+   (unbounded, per-point radius, no bound refinement; FRAME and without),
+   and their FRAME
    builds (timed and counting) on a device grid build of the same cubes
    with 65,536 points about its triangles' centroids, sorted and unsorted;
    results must agree bit for bit.
@@ -35,7 +37,8 @@ final line):
    (the aimed leg also with sweep=False), each leg's device time by kernel
    and idle share (torch.profiler); each kernel against its plain version
    on the main path's own sorted rows (every leg, gated and ungated; bit
-   for bit), and both timed at those shapes beside the kernel's bound. The
+   for bit), and both timed at those shapes beside the kernel's bound, the
+   group walk as the path launches it (its FRAME build). The
    sweep gate's bound is the least work of any schedule (a fired packet's
    shortest walk to a fire, an unfired packet's every walk), counted on
    every ray, with the earlier bound (every ray to its own fire) beside
@@ -46,8 +49,9 @@ final line):
    mesh's surface with d_max=2.0 at W=128; 4,096 sampled points of each leg
    against brute force over all triangles.
 7. nearest timings: points/s of each leg with its device breakdown; each
-   nearest kernel against its plain version on the legs' own sorted rows
-   (bit for bit), both timed there beside the kernel's bound.
+   nearest kernel's FRAME build, which the path launches, against its plain
+   version on the legs' own sorted rows (bit for bit), both timed there
+   beside the kernel's bound.
 8. pathtrace (bench.py's pathtrace leg): the path tracer over the dense
    mesh, 1024x1024 camera in 32x32 tiles, bounces=2, packet=1024, seed 0;
    colours finite and non-negative; 4,096 sampled shadow rays of the first
@@ -134,7 +138,20 @@ final line):
    triangle the least outside the near-tie class; the same walk without
    the frame counted apart, a measurement only), both FRAME builds timed
    and counting against their plain versions, rows 5 and 6 timed with and
-   without FRAME in turns.
+   without FRAME in turns. Then the host builds' legs: every scene the
+   port builds carries a_lo, so the main path's walks are FRAME launches
+   (phases 3, 6, 8, 9 and 12 check that each of their walks is one, and
+   phases 5, 7, 8, 9, 12 and 17 hold, time and bound those builds);
+   1,048,576 far
+   aimed rays (seed 17) through the 120k host build's group walk, its
+   wide=False and packed builds, the legacy ClusterScene and the sparse_1m
+   host chain (its own far rays), 4,096 sampled against float64 brute
+   force (0 flips; the same traces without a_lo counted beside), the
+   shared-edge case's 8,192 rays on host builds of create_n_cubes(500)
+   (every ray), the counting FRAME builds on the aimed rows, and FRAME
+   against without in turns, kernel and end to end, on the random, aimed,
+   aimed_entry_exit, aimed_packed, camera W=128, nearest and sparse_1m
+   legs.
 14. the general pure-tensor path at full size (``bvh/traverse.py``,
    ``bvh/ordered.py``, ``diff/render.py``; no kernel): the 120k scene as a
    build_sah FlatBvh (239,999 nodes) on the card; closest_hit_triangles on
@@ -218,6 +235,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -539,8 +557,13 @@ def phase_kernels(dev) -> dict:
             "bounded": dict(rows=rows_b, bounded=True, gate=None),
             "gated": dict(rows=rows, bounded=False, gate=gate),
         }
-        for name, cs in cases.items():
-            kw = dict(gate=cs["gate"], packet=1024, bounded=cs["bounded"])
+        # the FRAME build, which the host scene's walks launch, and the
+        # build without FRAME (a scene whose caller set a_lo=None)
+        for (name, cs), frame in itertools.product(cases.items(),
+                                                   (True, False)):
+            kw = dict(gate=cs["gate"], packet=1024, bounded=cs["bounded"],
+                      a_lo=a_lo_of(scene, dev, frame))
+            key = name if frame else f"{name}_without_frame"
             tk, ik = wide_mod.wide_trace(rec, grp, cs["rows"], scene.width,
                                          scene.gdepth, **kw)
             tp, ip = wide_mod.wide_trace_plain(gn, grp, cs["rows"],
@@ -551,15 +574,16 @@ def phase_kernels(dev) -> dict:
             fin = torch.isfinite(tk) & torch.isfinite(tp)
             err = float((tk[fin] - tp[fin]).abs().max()) if fin.any() else 0.0
             worst["wide_trace"] = max(worst["wide_trace"], err)
-            res[f"{name}_rays_differ"] = differ
-            res[f"{name}_hits"] = int((ik >= 0).sum())
-            check(differ == 0, f"{leg}/{name}: {differ} rays differ from plain")
+            res[f"{key}_rays_differ"] = differ
+            res[f"{key}_hits"] = int((ik >= 0).sum())
+            check(differ == 0, f"{leg}/{key}: {differ} rays differ from plain")
         out[leg] = res
     # the plain versions' time at this size (the random leg)
     rows = rows_of["random"]
     plain_ms = {
         "wide_trace": cuda_ms(lambda: wide_mod.wide_trace_plain(
-            gn, grp, rows, scene.width), reps=5, warmup=1),
+            gn, grp, rows, scene.width, a_lo=a_lo_of(scene, dev)), reps=5,
+            warmup=1),
         "sweep_gate": cuda_ms(lambda: sweep_mod.sweep_gate_plain(
             sn, rows, 8192), reps=5, warmup=1),
     }
@@ -692,38 +716,47 @@ def phase_trace_modes(dev, n: int = 65536) -> dict:
             "packed_gated_hinted": (pn, grp_p, True, rows,
                                     {"gate": gate_p, "hints": hints_p}),
         }
-        for name, (table, gr, packed, rr, kw) in tight_cases.items():
+        # each FRAME build, as the host scenes launch it, and each build
+        # without FRAME
+        for (name, (table, gr, packed, rr, kw)), frame in itertools.product(
+                tight_cases.items(), (True, False)):
+            a_lo = a_lo_of(scene_p if packed else scene, dev, frame)
+            key = name if frame else f"{name}_without_frame"
             tk, ik = tight_mod.tight_trace(pr if packed else sr, gr, rr,
                                            scene.width, packed=packed,
-                                           packet=packet, **kw)
+                                           packet=packet, a_lo=a_lo, **kw)
             tp, ip = tight_mod.tight_trace_plain(table, gr, rr, scene.width,
                                                  packed=packed, packet=packet,
-                                                 **kw)
+                                                 a_lo=a_lo, **kw)
             torch.cuda.synchronize()
             differ = same_bits(tk, ik, tp, ip)
             err["tight_trace"] = max(err["tight_trace"], finite_err(tk, tp))
-            res[f"tight_{name}_rays_differ"] = differ
-            res[f"tight_{name}_hits"] = int((ik >= 0).sum())
+            res[f"tight_{key}_rays_differ"] = differ
+            res[f"tight_{key}_hits"] = int((ik >= 0).sum())
             check(differ == 0,
-                  f"{leg}/tight {name}: {differ} rays differ from plain")
+                  f"{leg}/tight {key}: {differ} rays differ from plain")
         wide_cases = {
             "any": (rows, {"mode": "any"}),
             "any_bounded": (rows_b, {"mode": "any", "bounded": True}),
             "hinted": (rows, {"hints": hints_w}),
             "any_gated": (rows, {"mode": "any", "gate": gate}),
         }
-        for name, (rr, kw) in wide_cases.items():
+        for (name, (rr, kw)), frame in itertools.product(wide_cases.items(),
+                                                         (True, False)):
+            a_lo = a_lo_of(scene, dev, frame)
+            key = name if frame else f"{name}_without_frame"
             tk, ik = wide_mod.wide_trace(rec, grp, rr, scene.width,
-                                         scene.gdepth, packet=packet, **kw)
+                                         scene.gdepth, packet=packet,
+                                         a_lo=a_lo, **kw)
             tp, ip = wide_mod.wide_trace_plain(gn, grp, rr, scene.width,
-                                               packet=packet, **kw)
+                                               packet=packet, a_lo=a_lo, **kw)
             torch.cuda.synchronize()
             differ = same_bits(tk, ik, tp, ip)
             err["wide_trace"] = max(err["wide_trace"], finite_err(tk, tp))
-            res[f"wide_{name}_rays_differ"] = differ
-            res[f"wide_{name}_hits"] = int((ik >= 0).sum())
+            res[f"wide_{key}_rays_differ"] = differ
+            res[f"wide_{key}_hits"] = int((ik >= 0).sum())
             check(differ == 0,
-                  f"{leg}/wide {name}: {differ} rays differ from plain")
+                  f"{leg}/wide {key}: {differ} rays differ from plain")
         # the SKIP build (skip_narrow), timed and counting: every ray a
         # miss, its visits the plain walk's
         skip_cases = {
@@ -788,7 +821,8 @@ def tight_plain_chunked(table, grp, rows, width: int, **kw):
 
 def compare_main_shapes(kernel_rows: dict, gated_scene, err: dict):
     """Each kernel against its plain version on the main path's own rows:
-    the group walk ungated on every leg, and gated at packet 8192 (as the
+    the group walk (its FRAME build, as the path launches it on host
+    scenes) ungated on every leg, and gated at packet 8192 (as the
     sweep=True tracers run it) on the legs of ``gated_scene``, whose gates
     are compared too. t bits, lane ids and gates must be equal. Returns the
     per-leg counts and ``err`` raised to the largest |kernel - plain|."""
@@ -809,11 +843,13 @@ def compare_main_shapes(kernel_rows: dict, gated_scene, err: dict):
                        gates=g_k.numel())
             check(bad == 0, f"{leg}: sweep gate differs from plain ({bad})")
             gates["gated"] = g_k
+        a_lo = a_lo_of(sc, rows.device)
         for case, gate in gates.items():
             tk, ik = wide_mod.wide_trace(records(sc, rows.device), r_, rows,
                                          sc.width, sc.gdepth, gate=gate,
-                                         packet=8192)
-            tp, ip = wide_plain_chunked(g_, r_, rows, sc.width, gate=gate)
+                                         packet=8192, a_lo=a_lo)
+            tp, ip = wide_plain_chunked(g_, r_, rows, sc.width, gate=gate,
+                                        a_lo=a_lo)
             differ = int(((tk.view(torch.int32) != tp.view(torch.int32))
                           | (ik != ip)).sum())
             fin = torch.isfinite(tk) & torch.isfinite(tp)
@@ -852,19 +888,21 @@ def roofline(ops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def near_a_lo(sc, dev, frame: bool):
-    """The scene's exact-frame table on ``dev`` for a FRAME build, else
-    None."""
+def a_lo_of(sc, dev, frame: bool = True):
+    """The scene's exact-frame table on ``dev`` for a FRAME build (every
+    scene the port builds carries one, so the main path's walks are FRAME
+    builds), else None (a build without FRAME, measured only)."""
     return _dev(sc.a_lo, dev).contiguous() if frame else None
 
 
 def near_kernel(kind: str, sc, rows, refine: bool = True,
-                frame: bool = False, counts: bool = False):
+                frame: bool = True, counts: bool = False):
     """One launch of the nearest kernel ``kind`` ("wide" or "entry_exit")
-    over ``sc``'s tables; ``frame``: its FRAME build (``sc.a_lo``)."""
+    over ``sc``'s tables; ``frame``: its FRAME build (``sc.a_lo``), as the
+    path launches it; False: the build without FRAME."""
     dev = rows.device
     grp = _dev(sc.groups, dev)
-    a_lo = near_a_lo(sc, dev, frame)
+    a_lo = a_lo_of(sc, dev, frame)
     if kind == "wide":
         return near_mod.nearest_wide(_dev(sc.gnodes, dev), grp, rows,
                                      sc.width, sc.gdepth, refine=refine,
@@ -875,13 +913,13 @@ def near_kernel(kind: str, sc, rows, refine: bool = True,
 
 
 def near_plain(kind: str, sc, rows, refine: bool = True,
-               counts: bool = False, frame: bool = False):
+               counts: bool = False, frame: bool = True):
     """The plain version of nearest kernel ``kind`` over chunks of
     PLAIN_CHUNK // W points (each point walks on its own), so that its
     batched narrowphase stays within a few GB at W=128."""
     dev = rows.device
     grp = _dev(sc.groups, dev)
-    a_lo = near_a_lo(sc, dev, frame)
+    a_lo = a_lo_of(sc, dev, frame)
     if kind == "wide":
         table, fn = _dev(sc.gnodes, dev), near_mod.nearest_wide_plain
     else:
@@ -894,7 +932,7 @@ def near_plain(kind: str, sc, rows, refine: bool = True,
 
 
 def near_compare(kind: str, sc, rows, refine: bool = True,
-                 frame: bool = False):
+                 frame: bool = True):
     """Nearest kernel ``kind`` against its plain version on the same rows:
     (points whose d2 bits or lane ids differ, hits, largest |kernel - plain|
     over finite d2)."""
@@ -936,13 +974,14 @@ def phase_nearest_kernels(dev) -> dict:
             "no_refine": (rows, False),
             "unsorted": (near_mod.point_rows(pts_u, None), True),
             "unsorted_radius": (rows_b[:, shuffle].contiguous(), True)}.items():
-        for kind, name in (("wide", "nearest_wide"),
-                           ("entry_exit", "nearest_tight")):
-            differ, hits, e = near_compare(kind, scene, r, refine)
+        for (kind, name), frame in itertools.product(
+                (("wide", "nearest_wide"), ("entry_exit", "nearest_tight")),
+                (True, False)):
+            differ, hits, e = near_compare(kind, scene, r, refine, frame)
             err[name] = max(err[name], e)
-            out[f"{kind}/{case}"] = {"points_differ": differ, "hits": hits}
-            check(differ == 0,
-                  f"{kind}/{case}: {differ} points differ from plain")
+            key = f"{kind}/{case}" + ("" if frame else "_without_frame")
+            out[key] = {"points_differ": differ, "hits": hits}
+            check(differ == 0, f"{key}: {differ} points differ from plain")
     # the FRAME builds: a device grid build of the same cubes (its Morton
     # clusters' frame origins lie up to ~1e5 from their triangles) and
     # 65,536 points about the triangles' centroids, sorted and unsorted
@@ -1085,9 +1124,15 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
     torch.cuda.synchronize()
     launches = {"nearest_wide": near_mod.wide_launches,
                 "nearest_tight": near_mod.entry_exit_launches}
-    emit("nearest_main_path_launches", **launches)
+    emit("nearest_main_path_launches", **launches,
+         nearest_wide_frame=near_mod.wide_frame_launches,
+         nearest_tight_frame=near_mod.entry_exit_frame_launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the nearest main path")
+    # host builds carry a_lo: every walk of the path is a FRAME launch
+    check(near_mod.wide_frame_launches == launches["nearest_wide"]
+          and near_mod.entry_exit_frame_launches == launches["nearest_tight"],
+          "a nearest walk of the main path did not take the FRAME build")
 
     for leg, (sid, dist) in res.items():
         check(sid.shape == (N_POINTS,) and dist.shape == (N_POINTS,)
@@ -1125,7 +1170,8 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
         e2e[leg] = {"ms": ms, "points_per_s": N_POINTS / (ms * 1e-3)}
     emit("nearest_breakdown", card=card, legs={
         leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
-    # each kernel on the legs' own sorted rows, against its plain version
+    # each kernel on the legs' own sorted rows, against its plain version:
+    # the FRAME builds, which the path launches on its host scenes
     rows_r, rows_s = nearest_rows(pr_dev, ps_dev)
     runs = {"nearest_wide/random": ("wide", scene, rows_r),
             "nearest_tight/random": ("entry_exit", scene, rows_r),
@@ -1153,11 +1199,12 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
                                         counts=True)
         steps_pp, fires_pp = float(steps.float().mean()), float(fires.float().mean())
         wide = kind == "wide"
-        ops = (N_POINTS * near_mod.walk_ops(wide, sc.width, steps_pp, fires_pp)
+        ops = (N_POINTS * near_mod.walk_ops(wide, sc.width, steps_pp,
+                                            fires_pp, frame=True)
                + n_tris[key.split("/")[1]] * near_mod.TRI_ONCE_OPS)
         table = sc.gnodes if wide else sc.smem_nodes
         nbytes = ((near_mod.N_ROWS * 4 + 8) * N_POINTS + table.nbytes
-                  + sc.groups.nbytes)
+                  + sc.groups.nbytes + sc.a_lo.nbytes)
         bms, by = roofline(ops, nbytes)
         work[key] = {"group_tests" if wide else "node_visits": steps_pp,
                      "leaf_fires": fires_pp}
@@ -1267,9 +1314,12 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     launches = {"wide_trace": wide_mod.launches,
                 "wide_trace_any": wide_mod.any_launches,
                 "sweep_gate": sweep_mod.launches}
-    emit("pathtrace_launches", **launches)
+    emit("pathtrace_launches", **launches,
+         wide_trace_frame=wide_mod.frame_launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the pathtrace path")
+    check(wide_mod.frame_launches == launches["wide_trace"],
+          "a group walk of the pathtrace path did not take the FRAME build")
     check(col.shape == (side * side, 3), "pathtrace colour shape")
     check(bool(torch.isfinite(col).all()) and bool((col >= 0).all()),
           "pathtrace colours must be finite and non-negative")
@@ -1298,7 +1348,8 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     gates_differ = int((g_k != g_p).sum())
     check(gates_differ == 0, f"pathtrace shadow wave: {gates_differ} sweep "
           "gates differ from plain")
-    kw = dict(packet=packet, bounded=True, mode="any", gate=g_k)
+    kw = dict(packet=packet, bounded=True, mode="any", gate=g_k,
+              a_lo=a_lo_of(scene_d, dev))
     rec = records(scene_d, dev)
     tk, ik = wide_mod.wide_trace(rec, grp, rows, W, scene_d.gdepth, **kw)
     tp, ip = wide_plain_chunked(gn, grp, rows, W, **kw)
@@ -1352,7 +1403,8 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
     n = rows.shape[1]
     b = walk_bound(n, W, tests_pr, fires_pr, True,
                    wide_mod.N_ROWS * 4 * n + rec.nbytes
-                   + scene_d.groups.nbytes + 8 * n, len(tris_np[0]))
+                   + scene_d.groups.nbytes + scene_d.a_lo.nbytes + 8 * n,
+                   len(tris_np[0]), frame=True)
     emit("pathtrace_timings", card=card, ms=ms, rays_per_s=rays / (ms * 1e-3),
          rays_counted=rays, breakdown=bd,
          wide_trace_any={"ms": kms, "plain_ms": pms, "group_tests": tests_pr,
@@ -1443,9 +1495,17 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
                 "tight_trace_skip": tight_mod.skip_launches,
                 "wide_trace_any": wide_mod.any_launches,
                 "sweep_gate": sweep_mod.launches}
-    emit("entry_exit_launches", **launches)
+    emit("entry_exit_launches", **launches,
+         tight_trace_frame=tight_mod.frame_launches,
+         wide_trace_frame=wide_mod.frame_launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the entry/exit path")
+    # host builds carry a_lo: every walk of the path with a leaf test is a
+    # FRAME launch (the SKIP build has none, and takes no table)
+    check(tight_mod.frame_launches
+          == launches["tight_trace"] - launches["tight_trace_skip"]
+          and wide_mod.frame_launches == wide_mod.launches,
+          "a walk of the entry/exit path did not take the FRAME build")
     s08 = [shadow(scene_w, 0.8), shadow(scene_nw, 0.8)]
 
     diffs, outside = classify_differences(h_aim, res["aimed_entry_exit"],
@@ -1519,13 +1579,18 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
                                          "gates": g_k.numel()}
         check(bad == 0, f"{leg}: {bad} sweep gates differ from plain")
         gates[leg] = g_k
+    # the FRAME builds, which the path launches on its host scenes
+    alo_nw, alo_pk = a_lo_of(scene_nw, dev), a_lo_of(scene_pk, dev)
     runs = {
         "aimed_entry_exit": (scene_nw.smem_nodes, scene_nw.groups, rows,
-                             {"gate": gates["aimed_entry_exit"]}),
+                             {"gate": gates["aimed_entry_exit"],
+                              "a_lo": alo_nw}),
         "aimed_packed": (scene_pk.packed_nodes, scene_pk.groups, rows,
-                         {"packed": True, "gate": gates["aimed_packed"]}),
+                         {"packed": True, "gate": gates["aimed_packed"],
+                          "a_lo": alo_pk}),
         "shadow_aimed_entry_exit": (scene_nw.smem_nodes, scene_nw.groups,
-                                    rows_sh, {"mode": "any", "bounded": True}),
+                                    rows_sh, {"mode": "any", "bounded": True,
+                                              "a_lo": alo_nw}),
     }
     kernel_ms, plain_ms, work = {}, {}, {}
     err["tight_trace"] = err.get("tight_trace", 0.0)
@@ -1568,7 +1633,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
         work[leg] = {"node_visits": v_pr, "leaf_fires": f_pr}
         b = walk_bound(n, W, v_pr, f_pr, False,
                        wide_mod.N_ROWS * 4 * n + table.nbytes + groups.nbytes
-                       + 8 * n, len(tris_np[0]))
+                       + kw["a_lo"].nbytes + 8 * n, len(tris_np[0]),
+                       frame=True)
         bounds[leg] = {**b, "ops_ms_at_issue_rate": b["ops"] / issue * 1e3}
     # the SKIP build: against its plain version on the aimed and the
     # reference rows (ungated, unbounded), timed in turns beside the full
@@ -1593,7 +1659,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
               f"skip/{leg}: {differ} rays differ from plain")
         turns = in_turns({
             "full": lambda rr=rr: tight_mod.tight_trace(rec_nw, grp_nw, rr, W,
-                                                        packet=8192),
+                                                        packet=8192,
+                                                        a_lo=alo_nw),
             "skip": lambda rr=rr: tight_mod.tight_trace(
                 rec_nw, grp_nw, rr, W, packet=8192, skip_narrow=True)})
         turns["leaf_test_ms"] = turns["full"]["ms"] - turns["skip"]["ms"]
@@ -1608,7 +1675,8 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
                                                    counts=True,
                                                    skip_narrow=True)
         _, _, v_f, f_f = tight_mod.tight_trace_plain(tab_nw, grp_nw, sample,
-                                                     W, counts=True)
+                                                     W, counts=True,
+                                                     a_lo=alo_nw)
         m = rr.shape[1]
         v_pr = float(v_s.float().mean())
         skip_work[leg] = {"node_visits_skip": v_pr,
@@ -1714,10 +1782,13 @@ def planned_phase(dev, card: str, scene, tris_np, ao, ad, ao_dev, ad_dev,
     launches = {"wide_trace": wide_mod.launches,
                 "wide_trace_subtree": wide_mod.subtree_launches,
                 "sweep_gate": sweep_mod.launches}
-    emit("planned_launches", **launches)
+    emit("planned_launches", **launches,
+         wide_trace_frame=wide_mod.frame_launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the planned aimed and "
               "diff_fwd_bwd path")
+    check(wide_mod.frame_launches == launches["wide_trace"],
+          "a group walk of the planned path did not take the FRAME build")
 
     # the planned leg equals the unplanned one and holds brute force's bounds
     check(records_equal(h_key, h_aim),
@@ -1819,11 +1890,13 @@ def planned_phase(dev, card: str, scene, tris_np, ao, ad, ao_dev, ad_dev,
     gate = sweep_mod.sweep_gate(node_recs(scene.smem_nodes, dev), rows, packet)
     rec, grp = records(scene, dev), _dev(scene.groups, dev)
     gn = _dev(scene.gnodes, dev)
-    runs = {"none_gated": {"gate": gate},
-            "key_gated": {"gate": gate, "start_g": sg_key},
+    # the FRAME builds, which the path launches on the host scene
+    alo = a_lo_of(scene, dev)
+    runs = {"none_gated": {"gate": gate, "a_lo": alo},
+            "key_gated": {"gate": gate, "start_g": sg_key, "a_lo": alo},
             "sampling_gated": {"gate": gate, "hints": hints_p,
-                               "start_g": sg_plan},
-            "none": {}, "key": {"start_g": sg_key}}
+                               "start_g": sg_plan, "a_lo": alo},
+            "none": {"a_lo": alo}, "key": {"start_g": sg_key, "a_lo": alo}}
     vs_plain = {}
     err["wide_trace_subtree"] = 0.0
     t0 = time.perf_counter()
@@ -1831,7 +1904,8 @@ def planned_phase(dev, card: str, scene, tris_np, ao, ad, ao_dev, ad_dev,
         tk, ik = wide_mod.wide_trace(rec, grp, rows, W, scene.gdepth,
                                      packet=packet, **kw)
         t0k, i0k = wide_mod.wide_trace(rec, grp, rows, W, scene.gdepth,
-                                       packet=packet, gate=kw.get("gate"))
+                                       packet=packet, gate=kw.get("gate"),
+                                       a_lo=alo)
         tp, ip = wide_plain_chunked(gn, grp, rows, W, packet=packet, **kw)
         torch.cuda.synchronize()
         differ = same_bits(tk, ik, tp, ip)
@@ -1862,7 +1936,7 @@ def planned_phase(dev, card: str, scene, tris_np, ao, ad, ao_dev, ad_dev,
         work[run] = {"group_tests": t_pr, "leaf_fires": f_pr}
         nbytes = (wide_mod.N_ROWS * 4 * n + rec.nbytes + scene.groups.nbytes
                   + 8 * n + sum(v.nbytes for v in kw.values()))
-        b = walk_bound(n, W, t_pr, f_pr, True, nbytes, len(a))
+        b = walk_bound(n, W, t_pr, f_pr, True, nbytes, len(a), frame=True)
         bounds[run] = {**b, "ops_ms_at_issue_rate": b["ops"] / issue * 1e3}
     emit("planned_timings", card=card, end_to_end=e2e,
          kernels_vs_plain={"seconds": vs_s, "runs": vs_plain},
@@ -2032,9 +2106,10 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
     # be stored 2^-8 apart, and a ray can pass between them
     # (tests/test_torch_legacy.py::test_table_crack_ray_at_a_cube_edge).
     # The walk's own origin in that frame is an exact float pair
-    # (::test_crack_ray_at_a_cube_edge), and it subtracts the part of a - cc
-    # that the stored a' leaves out (the scene's a_lo): no crack is left, and
-    # the crack class must be empty
+    # (::test_crack_ray_at_a_cube_edge), the scene carries the part of
+    # a - cc that the stored a' leaves out (a_lo), and tv and w are formed
+    # from both in float64: no crack is left, and the crack class must be
+    # empty
     back = torch.from_numpy(unsort["legacy_aimed"]).to(dev)
     h_leg = res["legacy_aimed"]
     h_leg = h_leg._replace(**{f: getattr(h_leg, f)[back]
@@ -2274,7 +2349,8 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
     nearest query on 1,048,576 points, and k=4 closest hits on the 120k
     wide scene and on the chain. Brute-force checks, the kernels against
     their plain versions on the launches of the first four legs, and
-    timings. Returns the largest |kernel - plain| by kernel."""
+    timings. Returns the largest |kernel - plain| by kernel, the chain and
+    its vertices (numpy)."""
     a, b, c = tb.create_n_cubes(n_cubes)
     t0 = time.perf_counter()
     ch = build_chained_scene(a, b, c, max_part=max_part)
@@ -2430,7 +2506,7 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
     emit("chained_timings", card=card, end_to_end=e2e)
     emit("chained_breakdown", card=card, legs={
         leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
-    return err
+    return err, ch, (a, b, c)
 
 
 # ---- phase 13: dynamic scenes and the visit counters ------------------------
@@ -2918,33 +2994,41 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     s_grp = _dev(static.groups, dev)
     s_gn, s_sn = _dev(static.gnodes, dev), _dev(static.smem_nodes, dev)
     prow = near_mod.point_rows(pts_s, None)
+    # the builds the counters launch: host builds carry a_lo (FRAME)
+    alo, ee_alo = _dev(scene.a_lo, dev), _dev(scene_ee.a_lo, dev)
+    s_alo = _dev(static.a_lo, dev)
     runs = {
         "wide_trace_count": (
             lambda: wide_mod.wide_trace(rec, grp, rows_r, W, scene.gdepth,
-                                        counts=True),
-            lambda: wide_mod.wide_trace(rec, grp, rows_r, W, scene.gdepth),
-            lambda: plain_counts("wide", (gn, grp), rows_r, W, packet=8192)),
+                                        counts=True, a_lo=alo),
+            lambda: wide_mod.wide_trace(rec, grp, rows_r, W, scene.gdepth,
+                                        a_lo=alo),
+            lambda: plain_counts("wide", (gn, grp), rows_r, W, packet=8192,
+                                 a_lo=alo)),
         "tight_trace_count": (
             lambda: tight_mod.tight_trace(ee_rec, ee_grp, rows_r, W,
-                                          counts=True),
-            lambda: tight_mod.tight_trace(ee_rec, ee_grp, rows_r, W),
+                                          counts=True, a_lo=ee_alo),
+            lambda: tight_mod.tight_trace(ee_rec, ee_grp, rows_r, W,
+                                          a_lo=ee_alo),
             lambda: plain_counts("tight", (ee_tab, ee_grp), rows_r, W,
-                                 packet=8192)),
+                                 packet=8192, a_lo=ee_alo)),
         "nearest_wide_count": (
             lambda: near_mod.nearest_wide(s_gn, s_grp, prow, W,
                                           static.gdepth, refine=False,
-                                          counts=True),
+                                          counts=True, a_lo=s_alo),
             lambda: near_mod.nearest_wide(s_gn, s_grp, prow, W,
-                                          static.gdepth, refine=False),
+                                          static.gdepth, refine=False,
+                                          a_lo=s_alo),
             lambda: plain_counts("nearest_wide", (s_gn, s_grp), prow, W,
-                                 refine=False)),
+                                 refine=False, a_lo=s_alo)),
         "nearest_tight_count": (
             lambda: near_mod.nearest_entry_exit(s_sn, s_grp, prow, W,
-                                                refine=False, counts=True),
+                                                refine=False, counts=True,
+                                                a_lo=s_alo),
             lambda: near_mod.nearest_entry_exit(s_sn, s_grp, prow, W,
-                                                refine=False),
+                                                refine=False, a_lo=s_alo),
             lambda: plain_counts("nearest_entry_exit", (s_sn, s_grp), prow,
-                                 W, refine=False))}
+                                 W, refine=False, a_lo=s_alo))}
     holds = {}
     for name, (counted, timed, plain) in runs.items():
         holds[name] = hold_counting_build(name, counted(), timed(), plain())
@@ -2953,14 +3037,17 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     rows_a = trace_rows(ao_dev, ad_dev, "morton")
     holds["wide_trace_count/aimed"] = hold_counting_build(
         "wide_trace_count/aimed",
-        wide_mod.wide_trace(rec, grp, rows_a, W, scene.gdepth, counts=True),
-        wide_mod.wide_trace(rec, grp, rows_a, W, scene.gdepth),
-        plain_counts("wide", (gn, grp), rows_a, W, packet=8192))
+        wide_mod.wide_trace(rec, grp, rows_a, W, scene.gdepth, counts=True,
+                            a_lo=alo),
+        wide_mod.wide_trace(rec, grp, rows_a, W, scene.gdepth, a_lo=alo),
+        plain_counts("wide", (gn, grp), rows_a, W, packet=8192, a_lo=alo))
     holds["tight_trace_count/aimed"] = hold_counting_build(
         "tight_trace_count/aimed",
-        tight_mod.tight_trace(ee_rec, ee_grp, rows_a, W, counts=True),
-        tight_mod.tight_trace(ee_rec, ee_grp, rows_a, W),
-        plain_counts("tight", (ee_tab, ee_grp), rows_a, W, packet=8192))
+        tight_mod.tight_trace(ee_rec, ee_grp, rows_a, W, counts=True,
+                              a_lo=ee_alo),
+        tight_mod.tight_trace(ee_rec, ee_grp, rows_a, W, a_lo=ee_alo),
+        plain_counts("tight", (ee_tab, ee_grp), rows_a, W, packet=8192,
+                     a_lo=ee_alo))
     # the counters' totals equal the counting builds' per-ray sums
     check(int(roof_w[2].sum()) == holds["wide_trace_count"]["count_total"]
           and int(roof_w[1].sum()) == holds["wide_trace_count"]["fires_total"],
@@ -3066,12 +3153,13 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         # rows 6 and 5: both nearest walks on the far points' rows
         "nearest_wide": in_turns({
             "frame": lambda: near_kernel("wide", g_sc, rows_fp, frame=True),
-            "without_frame": lambda: near_kernel("wide", g_sc, rows_fp)}),
+            "without_frame": lambda: near_kernel("wide", g_sc, rows_fp,
+                                                 frame=False)}),
         "nearest_tight": in_turns({
             "frame": lambda: near_kernel("entry_exit", g_sc, rows_fp,
                                          frame=True),
             "without_frame": lambda: near_kernel("entry_exit", g_sc,
-                                                 rows_fp)})}
+                                                 rows_fp, frame=False)})}
     for v in frame_turns.values():
         v["ratio"] = v["frame"]["ms"] / v["without_frame"]["ms"]
     frame_plain_ms = {
@@ -3155,18 +3243,21 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     bounds = {
         "wide_trace_count": walk_bound(
             n_rays, W, tests_pr, wfires_pr, True,
-            ray_bytes + rec.nbytes + grp.nbytes, n_tris),
+            ray_bytes + rec.nbytes + grp.nbytes + alo.nbytes, n_tris,
+            frame=True),
         "tight_trace_count": walk_bound(
             n_rays, W, visits_pr, tfires_pr, False,
-            ray_bytes + ee_rec.nbytes + ee_grp.nbytes, n_tris)}
+            ray_bytes + ee_rec.nbytes + ee_grp.nbytes + ee_alo.nbytes,
+            n_tris, frame=True)}
     for name, wide, table in (("nearest_wide_count", True, s_gn),
                               ("nearest_tight_count", False, s_sn)):
         steps_pp = holds[name]["count_total"] / n_near
         fires_pp = holds[name]["fires_total"] / n_near
-        ops = (n_near * near_mod.walk_ops(wide, W, steps_pp, fires_pp)
+        ops = (n_near * near_mod.walk_ops(wide, W, steps_pp, fires_pp,
+                                          frame=True)
                + n_tris * near_mod.TRI_ONCE_OPS)
         nbytes = ((near_mod.N_ROWS * 4 + 16) * n_near + table.nbytes
-                  + s_grp.nbytes)
+                  + s_grp.nbytes + s_alo.nbytes)
         bms, by = roofline(ops, nbytes)
         bounds[name] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
                         "bound_by": by, "steps_per_point": steps_pp,
@@ -3247,6 +3338,265 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
             "chain_rays": (sao_dev, sad_dev, perm_s),
             "chain_hits": h, "chain_tris": sparse_dev}
     return entries, keep
+
+
+# ---- phase 13, host builds: the exact frame on the main path ----------------
+
+N_FAR_HOST = 1 << 20  # far aimed rays of each host leg
+# the shared-edge rays the rounded frame missed, and their triangles (the
+# reference's ids) on the tight walks
+EDGE_RAYS = {374: 1365, 2843: 2960, 4003: 468}
+
+
+def rounded(sc):
+    """A scene (or chain) without its exact-frame table: the walks' builds
+    without FRAME, a measuring run and never a path."""
+    if hasattr(sc, "parts"):
+        return sc._replace(parts=tuple(p._replace(a_lo=None)
+                                       for p in sc.parts))
+    return sc._replace(a_lo=None)
+
+
+def host_frame_phase(dev, card: str, scene, scene_d, tris, o, d, ao, ad,
+                     chain, chain_tris, issue: float,
+                     n_sparse: int = 2 << 20) -> None:
+    """Phase 13's host-build legs (ROADMAP queue 3 item 9): every scene the
+    port builds carries ``a_lo``, so the walks test host builds' leaves in
+    the exact frame too, where a ray whose origin lies ~1e5 from a leaf
+    rounds ``o - cc``.
+
+    Far legs: 1,048,576 ``far_aimed_rays`` (seed 17) through the 120k host
+    build's group walk, its wide=False and packed=True builds and the
+    legacy ClusterScene, and the sparse_1m host chain's own far rays; 4,096
+    sampled of each against float64 brute force (0 flips), the same traces
+    without ``a_lo`` counted beside (the legacy walk has no build without
+    its float64 leaf test). The shared-edge case on host builds of
+    create_n_cubes(500): 8,192 rays, every ray. The trace walks' counting
+    FRAME builds on the aimed rows (against the timed build and the plain
+    version) and the bounds from their counts; FRAME against without in
+    turns, kernel and end to end, on the random, aimed, aimed_entry_exit,
+    aimed_packed, camera W=128, nearest and sparse_1m legs. Phases 5, 7
+    and 9 hold and time the FRAME builds that the main path launches."""
+    a, b, c = tris
+    tris_dev = tuple(torch.from_numpy(x).to(dev) for x in tris)
+    sparse_dev = tuple(torch.from_numpy(x).to(dev) for x in chain_tris)
+    t0 = time.perf_counter()
+    scene_ee = build_tight_scene(a, b, c, wide=False)
+    scene_pk = build_tight_scene(a, b, c, packed=True)
+    legacy = build_cluster_scene(a, b, c)
+    build_s = time.perf_counter() - t0
+    check(all(x.a_lo is not None for x in (scene, scene_d, scene_ee, scene_pk,
+                                          *chain.parts)),
+          "a host build carries no a_lo")
+    fo, fd = far_aimed_rays(a, b, c, N_FAR_HOST, seed=17)
+    so, sd = far_aimed_rays(*chain_tris, N_FAR_HOST, seed=17)
+    fo_dev, fd_dev, so_dev, sd_dev = (torch.from_numpy(x).to(dev)
+                                      for x in (fo, fd, so, sd))
+    perm_f, inv_f = sort_rays_device(fo_dev, fd_dev, mode="morton")
+    perm_s, inv_s = sort_rays_device(so_dev, sd_dev, mode="morton")
+    rays_f, rays_s = Ray.create(fo_dev, fd_dev), Ray.create(so_dev, sd_dev)
+
+    def far_legs(frame: bool) -> dict:
+        """Each far leg's t in ray order (``frame`` False: every scene
+        without ``a_lo``; the legacy leg only with it)."""
+        sc_ = (lambda x: x) if frame else rounded
+        out = {leg: make_tracer(sc_(x), packet=8192, sort="morton",
+                                tris=tris)(fo_dev, fd_dev).t
+               for leg, x in (("host_group_far", scene),
+                              ("host_entry_exit_far", scene_ee),
+                              ("host_packed_far", scene_pk))}
+        out["sparse_1m_far"] = trace_closest_hit_chained(
+            sc_(chain), rays_s, tris=sparse_dev, packet=8192,
+            perm=perm_s).t[inv_s]
+        if frame:
+            out["legacy_far"] = trace_closest_hit(
+                legacy, rays_f.take(perm_f), tris=tris_dev).t[inv_f]
+        return out
+
+    # the host legs: every count zero before, read after
+    reset_counts()
+    hits = far_legs(True)
+    torch.cuda.synchronize()
+    launches = {"wide_trace_frame": wide_mod.frame_launches,
+                "tight_trace_frame": tight_mod.frame_launches,
+                "cluster_trace": ct_mod.launches}
+    emit("host_frame_launches", **launches,
+         wide_trace=wide_mod.launches, tight_trace=tight_mod.launches)
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the host far legs")
+    check(wide_mod.frame_launches == wide_mod.launches
+          and tight_mod.frame_launches == tight_mod.launches,
+          "a host far leg's walk did not take the FRAME build")
+    t_round = {k: v.cpu().numpy() for k, v in far_legs(False).items()}
+    far = {}
+    for i, (leg, t) in enumerate(hits.items()):
+        sparse = leg.startswith("sparse")
+        far[leg] = check_far_frame(
+            leg, *((so, sd) if sparse else (fo, fd)), t.cpu().numpy(),
+            sparse_dev if sparse else tris_dev, 60 + i, t_round.get(leg))
+        if leg not in t_round:
+            far[leg]["rounded_frame_flips_vs_f64"] = None
+
+    # the shared-edge case on host builds, every ray against float64
+    ea, eb, ec = tb.create_n_cubes(500)
+    etris = tuple(torch.from_numpy(x).to(dev) for x in (ea, eb, ec))
+    eo, ed = far_aimed_rays(ea, eb, ec, 8192, seed=17)
+    e_rays = Ray.create(torch.from_numpy(eo).to(dev),
+                        torch.from_numpy(ed).to(dev))
+    e_tight = build_tight_scene(ea, eb, ec)
+    e_scenes = {"group": e_tight, "entry_exit": e_tight,
+                "packed": build_tight_scene(ea, eb, ec, packed=True),
+                "chained": build_chained_scene(ea, eb, ec, max_part=2000),
+                "legacy": build_cluster_scene(ea, eb, ec)}
+
+    def edge_trace(kind, sc):
+        if kind == "legacy":
+            return trace_closest_hit(sc, e_rays, tris=etris)
+        if kind == "chained":
+            return trace_closest_hit_chained(sc, e_rays, tris=etris,
+                                             packet=1024)
+        return trace_closest_hit_tight(sc, e_rays, tris=etris, packet=1024,
+                                       wide=kind == "group")
+
+    edges = {}
+    for kind, sc in e_scenes.items():
+        h = edge_trace(kind, sc)
+        t_r = (None if kind == "legacy"
+               else edge_trace(kind, rounded(sc)).t.cpu().numpy())
+        leg = f"host_shared_edges_{kind}"
+        edges[leg] = check_far_frame(leg, eo, ed, h.t.cpu().numpy(), etris,
+                                     0, t_r, sample=False)
+        if t_r is None:
+            edges[leg]["rounded_frame_flips_vs_f64"] = None
+        named = list(EDGE_RAYS)
+        check(bool(torch.isfinite(h.t[named]).all()),
+              f"{leg}: ray 374, 2843 or 4003 missed")
+        if kind != "legacy":
+            ids = h.shape_id[named].tolist()
+            check(ids == list(EDGE_RAYS.values()),
+                  f"{leg}: rays 374, 2843, 4003 hit {ids}")
+    emit("host_frame_far", card=card, build_s=build_s, far_legs=far,
+         shared_edges=edges)
+
+    # the host legs' rows (phases 5, 7 and 9 hold each FRAME build against
+    # its plain version on them)
+    t0 = time.perf_counter()
+    o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    ao_dev, ad_dev = torch.from_numpy(ao).to(dev), torch.from_numpy(ad).to(dev)
+    oc_dev, dc_dev = (torch.from_numpy(x).to(dev) for x in dense_camera())
+    rows_r = trace_rows(o_dev, d_dev, "octmorton")
+    rows_a = trace_rows(ao_dev, ad_dev, "morton")
+    rows_c = trace_rows(oc_dev, dc_dev, None)
+    pr = torch.from_numpy(tb.create_rays(
+        N_POINTS, seed=tb.seed_state_after(10007))[0]).to(dev)  # phase 7's
+    prow = near_mod.point_rows(pr[sort_points_device(pr)[0]], None)
+
+    def alo(sc, frame=True):
+        return _dev(sc.a_lo, dev) if frame else None
+
+    def table(sc):
+        packed = sc.packed_nodes is not None
+        return sc.packed_nodes if packed else sc.smem_nodes
+
+    def wide_k(sc, rows, frame=True, **kw):
+        return wide_mod.wide_trace(records(sc, dev), _dev(sc.groups, dev),
+                                   rows, sc.width, sc.gdepth,
+                                   a_lo=alo(sc, frame), **kw)
+
+    def wide_p(sc, rows, **kw):
+        return wide_plain_chunked(_dev(sc.gnodes, dev), _dev(sc.groups, dev),
+                                  rows, sc.width, a_lo=alo(sc), **kw)
+
+    def tight_k(sc, rows, frame=True, **kw):
+        return tight_mod.tight_trace(
+            node_recs(table(sc), dev), _dev(sc.groups, dev), rows, sc.width,
+            packed=sc.packed_nodes is not None, a_lo=alo(sc, frame), **kw)
+
+    def tight_p(sc, rows, **kw):
+        return tight_plain_chunked(
+            _dev(table(sc), dev), _dev(sc.groups, dev), rows, sc.width,
+            packed=sc.packed_nodes is not None, a_lo=alo(sc), **kw)
+
+    holds = {}
+    # the counting FRAME builds on the aimed rows, and the bounds of the
+    # aimed legs' FRAME walks from their counts
+    n_a = rows_a.shape[1]
+    bounds = {}
+    for leg, kf, pf, sc, wide_ in (
+            ("aimed", wide_k, wide_p, scene, True),
+            ("aimed_entry_exit", tight_k, tight_p, scene_ee, False),
+            ("aimed_packed", tight_k, tight_p, scene_pk, False)):
+        hold = hold_counting_build(f"{leg}/count", kf(sc, rows_a, counts=True),
+                                   kf(sc, rows_a),
+                                   pf(sc, rows_a, counts=True))
+        holds[f"{leg}_count"] = hold
+        tab = records(sc, dev) if wide_ else node_recs(table(sc), dev)
+        bounds[leg] = walk_bound(
+            n_a, sc.width, hold["count_total"] / n_a,
+            hold["fires_total"] / n_a, wide_,
+            (wide_mod.N_ROWS * 4 + 16) * n_a + tab.nbytes + sc.groups.nbytes
+            + sc.a_lo.nbytes, a.shape[0], frame=True)
+        bounds[leg]["ops_ms_at_issue_rate"] = bounds[leg]["ops"] / issue * 1e3
+    emit("host_frame_counts", card=card, seconds=time.perf_counter() - t0,
+         holds=holds, bounds=bounds)
+
+    # FRAME against without, in turns: each leg's kernel on its rows, then
+    # end to end (the same entry point over the scene without a_lo)
+    t0 = time.perf_counter()
+    kernel = {
+        leg: in_turns({"frame": lambda kf=kf, sc=sc, rows=rows: kf(sc, rows),
+                       "without_frame": lambda kf=kf, sc=sc, rows=rows: kf(
+                           sc, rows, frame=False)})
+        for leg, (kf, sc, rows) in {
+            "random": (wide_k, scene, rows_r),
+            "aimed": (wide_k, scene, rows_a),
+            "aimed_entry_exit": (tight_k, scene_ee, rows_a),
+            "aimed_packed": (tight_k, scene_pk, rows_a),
+            "camera_w128": (wide_k, scene_d, rows_c)}.items()}
+    for kind in ("wide", "entry_exit"):
+        kernel[f"nearest_{kind}"] = in_turns({
+            "frame": lambda kind=kind: near_kernel(kind, scene, prow,
+                                                   frame=True),
+            "without_frame": lambda kind=kind: near_kernel(
+                kind, scene, prow, frame=False)})
+    co, cd = tb.create_rays(n_sparse, seed=tb.seed_state_after(84000))
+    co_dev, cd_dev = torch.from_numpy(co).to(dev), torch.from_numpy(cd).to(dev)
+
+    def sparse_1m(ch):
+        perm, inv = sort_rays_device(co_dev, cd_dev, mode="octmorton")
+        od = torch.cat([co_dev, cd_dev], dim=1)[perm]
+        return trace_closest_hit_chained(
+            ch, Ray.create(od[:, 0:3], od[:, 3:6]), packet=8192,
+            sweep=False).t[inv]
+
+    def tracer_pair(sc, od, dd, **kw):
+        with_ = make_tracer(sc, **kw)
+        without = make_tracer(rounded(sc), **kw)
+        return (lambda: with_(od, dd)), (lambda: without(od, dd))
+
+    pairs = {
+        "random": tracer_pair(scene, o_dev, d_dev, packet=8192, sweep=False,
+                              sort="octmorton"),
+        "aimed": tracer_pair(scene, ao_dev, ad_dev, packet=8192,
+                             sort="morton", tris=tris),
+        "aimed_entry_exit": tracer_pair(scene_ee, ao_dev, ad_dev,
+                                        packet=8192, sort="morton", tris=tris),
+        "aimed_packed": tracer_pair(scene_pk, ao_dev, ad_dev, packet=8192,
+                                    sort="morton", tris=tris),
+        "camera_w128": tracer_pair(scene_d, oc_dev, dc_dev, packet=4096,
+                                   sweep=False, sort=None),
+        "nearest_random": (lambda: nearest_tight(scene, pr),
+                           lambda: nearest_tight(rounded(scene), pr)),
+        "sparse_1m": (lambda: sparse_1m(chain),
+                      lambda: sparse_1m(rounded(chain)))}
+    e2e = {leg: in_turns({"frame": fw, "without_frame": fo_})
+           for leg, (fw, fo_) in pairs.items()}
+    for v in list(kernel.values()) + list(e2e.values()):
+        v["ratio"] = v["frame"]["ms"] / v["without_frame"]["ms"]
+    emit("host_frame_turns", card=card, seconds=time.perf_counter() - t0,
+         kernel=kernel, end_to_end=e2e, bounds=bounds,
+         legacy="no build without the float64 leaf test: kernel_ab.py times "
+                "the earlier walk against this one")
 
 
 # ---- phase 14: the general pure-tensor path ---------------------------------
@@ -3471,13 +3821,17 @@ def general_phase(dev, card: str, scene, tris, ao, ad, h_aim, pts) -> dict:
                                   "overflowing": int((~fits).sum())}
     # render_depth against render_depth_fast: equal depth outside the
     # classes; gradients of the loss over the rays both hit on the same
-    # triangle within DIFF_GRAD_RTOL of the largest
+    # triangle within DIFF_GRAD_RTOL of the largest. render_hits_fast keeps
+    # the walk's hit where its float32 recompute puts the ray a rounding
+    # outside the triangle the exact frame took, so a ray across a shared
+    # edge is a near tie or a grazing edge here, never a miss on one side
     with torch.no_grad():
         hg = render_hits(flat, aimed, *tris_dev)
         hf = render_hits_fast(scene, aimed, *tris_dev, packet=8192)
     diffs, outside = classify_differences(hg, hf, int(scene.width))
     check(outside == 0, f"render_depth differs from render_depth_fast on "
-          f"{outside} rays outside the classes")
+          f"{outside} rays outside the classes: "
+          f"{[x for x in diffs if x['class'] == 'outside'][:8]}")
     same = hg.shape_id == hf.shape_id
     loss_g, depth_g, hit_g, grads_g = out["render_depth_fwd_bwd"]
     check(torch.equal(torch.where(hit_g, depth_g, float("inf")), hg.t),
@@ -3491,9 +3845,13 @@ def general_phase(dev, card: str, scene, tris, ao, ad, h_aim, pts) -> dict:
         check(bool(torch.isfinite(g).all()) and e <= DIFF_GRAD_RTOL * scale,
               f"render_depth: gradients differ from render_depth_fast by {e} "
               f"(largest {scale})")
-    checks["render_depth_vs_fast"] = {"differing": len(diffs),
-                                      "rays_in_gradients": int(same.sum()),
-                                      "gradients": grad_err}
+    checks["render_depth_vs_fast"] = {
+        "differing": len(diffs),
+        "classes": {k: sum(x["class"] == k for x in diffs)
+                    for k in ("near-tie", "grazing-edge")},
+        "edge_rays": [x for x in diffs
+                      if x["shape_id"][0] != x["shape_id"][1]][:32],
+        "rays_in_gradients": int(same.sum()), "gradients": grad_err}
     h64 = out["closest_hit_f64"]
     w64 = brute_force_closest_hit(rays64, *tris64)
     rel64 = float(((h64.t - w64.t).abs() / w64.t.abs())[torch.isfinite(
@@ -3961,16 +4319,18 @@ def scales_phase(dev, card: str, issue: float, random_rps: float,
         ms = cuda_ms(lambda: tracer(o_dev, d_dev))
         breakdown = device_breakdown(lambda: tracer(o_dev, d_dev), ms)
         gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
-        rec = records(scene, dev)
+        # the walk's FRAME build, which the leg launches on its host scene
+        rec, alo = records(scene, dev), a_lo_of(scene, dev)
         walk_ms = cuda_ms(lambda: wide_mod.wide_trace(
-            rec, grp, rows, scene.width, scene.gdepth))
+            rec, grp, rows, scene.width, scene.gdepth, a_lo=alo))
         _, _, tests, fires = wide_mod.wide_trace_plain(
-            gn, grp, rows[:, ::32].contiguous(), scene.width, counts=True)
+            gn, grp, rows[:, ::32].contiguous(), scene.width, counts=True,
+            a_lo=alo)
         steps, fired = float(tests.float().mean()), float(fires.float().mean())
         nbytes = (wide_mod.N_ROWS * 4 * len(o) + rec.nbytes + grp.nbytes
-                  + 8 * len(o))
+                  + alo.nbytes + 8 * len(o))
         bound = walk_bound(len(o), scene.width, steps, fired, True, nbytes,
-                           n_tris)
+                           n_tris, frame=True)
         rps = len(o) / (ms * 1e-3)
         out[leg] = {
             "triangles": n_tris, "rays": len(o), "sweep": sweep,
@@ -4241,9 +4601,13 @@ def main() -> None:
     h_cam = trace_sync(tr_cam, oc_dev, dc_dev)
     launches = {"wide_trace": wide_mod.launches,
                 "sweep_gate": sweep_mod.launches}
-    emit("main_path_launches", **launches)
+    emit("main_path_launches", **launches,
+         wide_trace_frame=wide_mod.frame_launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
+    # host builds carry a_lo: every group walk of the path is a FRAME launch
+    check(wide_mod.frame_launches == launches["wide_trace"],
+          "a group walk of the main path did not take the FRAME build")
 
     t_rand = h_rand.t.cpu().numpy()
     sid_rand = h_rand.shape_id.cpu().numpy()
@@ -4318,14 +4682,16 @@ def main() -> None:
                                              dict(p2["max_abs_err"]))
     emit("kernels_vs_plain_main_path", seconds=time.perf_counter() - t0,
          legs=main_vs_plain, max_abs_err=err)
+    # the group walk's FRAME build, which the path launches on host scenes
     kernel_ms, plain_ms = {}, {}
     for leg, (rows, sc) in kernel_rows.items():
         g_, r_ = _dev(sc.gnodes, dev), _dev(sc.groups, dev)
-        rec = records(sc, dev)
+        rec, alo = records(sc, dev), a_lo_of(sc, dev)
         kernel_ms[f"wide_trace/{leg}"] = cuda_ms(
-            lambda: wide_mod.wide_trace(rec, r_, rows, sc.width, sc.gdepth))
+            lambda: wide_mod.wide_trace(rec, r_, rows, sc.width, sc.gdepth,
+                                        a_lo=alo))
         plain_ms[f"wide_trace/{leg}"] = cuda_ms(
-            lambda: wide_plain_chunked(g_, r_, rows, sc.width),
+            lambda: wide_plain_chunked(g_, r_, rows, sc.width, a_lo=alo),
             reps=5, warmup=0)
     rows_r = kernel_rows["random"][0]
     sr = node_recs(scene.smem_nodes, dev)
@@ -4339,18 +4705,18 @@ def main() -> None:
     n = rows_r.shape[1]
     sample = rows_r[:, ::32].contiguous()
     _, _, tests, fires = wide_mod.wide_trace_plain(
-        gn, grp, sample, scene.width, counts=True)
+        gn, grp, sample, scene.width, counts=True, a_lo=a_lo_of(scene, dev))
     tests_pr, fires_pr = float(tests.float().mean()), float(fires.float().mean())
     W = scene.width
-    wide_ops = (n * (tests_pr * wide_mod.K * wide_mod.SLAB_OPS
-                     + fires_pr * (wide_mod.LEAF_OPS + W * wide_mod.TRI_OPS))
-                + a.shape[0] * wide_mod.TRI_ONCE_OPS)
-    wide_bytes = (wide_mod.N_ROWS * 4 * n + records(scene, dev).nbytes
-                  + scene.groups.nbytes + 8 * n)
+    wide_b = walk_bound(n, W, tests_pr, fires_pr, True,
+                        wide_mod.N_ROWS * 4 * n + records(scene, dev).nbytes
+                        + scene.groups.nbytes + scene.a_lo.nbytes + 8 * n,
+                        a.shape[0], frame=True)
+    wide_ops, wide_bytes = wide_b["ops"], wide_b["bytes"]
     # the sweep's least work, from every ray's walk
     sweep_b = sweep_bound(sn, rows_r, 8192)
 
-    wb, wby = roofline(wide_ops, wide_bytes)
+    wb, wby = wide_b["bound_ms"], wide_b["bound_by"]
     # the same operations at the float32 issue rate without FMA pairing
     # (the kernels are built with -fmad=false): 128 lanes per SM per clock
     issue = fp32_issue_rate()
@@ -4397,7 +4763,7 @@ def main() -> None:
     # ---- phases 10 and 11: the legacy path and chained scenes -----------
     kernels.append(legacy_phase(dev, card, (a, b, c), o, d, ao, ad, h_aim,
                                 issue, dict(p2l["max_abs_err"])))
-    chain_err = chained_phase(dev, card, scene, (a, b, c))
+    chain_err, chain, chain_tris = chained_phase(dev, card, scene, (a, b, c))
 
     # ---- phase 12: the planned aimed leg and diff_fwd_bwd, last, so that
     # its profile of a backward pass follows every other leg's -----------
@@ -4410,6 +4776,10 @@ def main() -> None:
                                   issue)
     kernels += entries
     emit("dynamic_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host_frame_phase(dev, card, scene, scene_d, (a, b, c), o, d, ao, ad,
+                     chain, chain_tris, issue)
+    emit("host_frame_phase", seconds=time.perf_counter() - t0)
 
     # ---- phase 14: the general pure-tensor path at full size ------------
     t0 = time.perf_counter()

@@ -43,8 +43,8 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
   points, and ``ops.nearest.nearest_tight`` end to end (sort, walk, id
   map, un-permute) in both walks on the same points unsorted, as
   ``chip_smoke.py``'s nearest legs call it;
-* the legacy walk on the 1,048,576 aimed rays, sorted, on the
-  ``ClusterScene``;
+* the legacy walk on the 2,097,152 random rays and the 1,048,576 aimed
+  rays, each sorted with ``sort_rays``, on the ``ClusterScene``;
 * ``frame``: the FRAME builds of the group walk (a grid device build of the
   120k scene) and of the entry/exit walk (an LBVH device build) on the
   aimed rows, on ``far_aimed_rays`` (1,048,576, seed 17, morton) and on
@@ -52,11 +52,12 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
 
 Each time is ``chip_smoke.cuda_ms``. Old and new results are compared bit
 for bit: the gates and the group, entry/exit and nearest walks must agree;
-the legacy walks may
-differ where one subtracts the table's ``a_lo`` and the other does not, and
-the FRAME builds where the two form the leaf test in other precisions;
-the count is reported. Prints the card's name and power limit, then one
-JSON line.
+the legacy walks may differ where the two form the leaf test in other
+ways (the float64 tv and w against the float32 ones), and the FRAME builds
+where the two form the leaf test in other precisions; the count is
+reported. The scenes are the current package's, so both packages' walks
+take whatever exact-frame table a scene carries. Prints the card's name
+and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -269,12 +270,14 @@ def runs(dev, names) -> dict:
             out[f"frame/tight_{key}"] = ("frame", tight_run(sc_t, r))
     if "cluster_trace" in names:
         legacy = build_cluster_scene(a, b, c)
-        rays = Ray.create(*cs.sort_legacy(ao, ad, dev)[1], device=dev)
+        for key, (lo, ld) in (("legacy_random", (o, d)),
+                              ("legacy_aimed", (ao, ad))):
+            rays = Ray.create(*cs.sort_legacy(lo, ld, dev)[1], device=dev)
 
-        def legacy_run(ops):
-            hit = ops["trace"].trace_closest_hit(legacy, rays, device=dev)
-            return hit.t, hit.shape_id
-        out["cluster_trace/legacy_aimed"] = ("cluster_trace", legacy_run)
+            def legacy_run(ops, rays=rays):
+                hit = ops["trace"].trace_closest_hit(legacy, rays, device=dev)
+                return hit.t, hit.shape_id
+            out[f"cluster_trace/{key}"] = ("cluster_trace", legacy_run)
     return out
 
 

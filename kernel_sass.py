@@ -8,15 +8,17 @@ package directory whose ``csrc/`` holds ``wide_trace.cu``, ``tight_trace.cu``,
 ``sweep.cu``, ``cluster_trace.cu`` (the includers of ``trace_common.cuh``)
 and ``nearest.cu``. Each source is compiled to a cubin with the flags
 of ``ops/_build.py::NVCC_FLAGS`` (the library flags dropped), its SASS read
-with ``cuobjdump -sass`` and its resource use with ``cuobjdump
--res-usage``. An old instantiation is paired with the new one whose
-template arguments are the old ones followed only by false (flags the
-new tree added, off); the two must have the same instructions, line for
-line, and the same registers, except a pair whose new instantiation
-matches a ``--may-differ`` pattern (a regular expression; a build a change
-alters on purpose), which is reported beside the others. The new tree's
-other instantiations (a flag on) are listed with their registers. Prints
-one JSON object and exits 1 when a pair differs.
+with ``cuobjdump -sass``, its resource use with ``cuobjdump -res-usage``
+and its spills from the compiler's own report (``-Xptxas -v``). An old
+instantiation is paired with the new one whose template arguments are the
+old ones followed only by false (flags the new tree added, off); the two
+must have the same instructions, line for line, and the same registers,
+except a pair whose new instantiation matches a ``--may-differ`` pattern
+(a regular expression; a build a change alters on purpose), which is
+reported beside the others. The new tree's
+other instantiations (a flag on) are listed with their registers. Every
+instantiation's spill stores and loads (bytes) are reported. Prints one
+JSON object and exits 1 when a pair differs.
 """
 
 from __future__ import annotations
@@ -41,11 +43,18 @@ def _tool(name: str) -> str:
     return str(Path(_nvcc()).parent / name)
 
 
-def _cubin(src: Path, out: Path) -> None:
+def _cubin(src: Path, out: Path) -> dict[str, list[int]]:
+    """Compiles ``src`` to the cubin ``out``; each kernel's (mangled name)
+    spill stores and loads in bytes, from ptxas's report."""
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                 "-fPIC")]
-    subprocess.run([_nvcc(), *flags, "-cubin", str(src), "-o", str(out)],
-                   check=True, capture_output=True, text=True)
+    log = subprocess.run([_nvcc(), *flags, "-Xptxas", "-v", "-cubin",
+                          str(src), "-o", str(out)], check=True,
+                         capture_output=True, text=True).stderr
+    return {m.group(1): [int(m.group(2)), int(m.group(3))] for m in
+            re.finditer(r"Function properties for (\S+)\s+\d+ bytes stack "
+                        r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", log)}
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -55,8 +64,9 @@ def _demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out))
 
 
-def _kernels(cubin: Path) -> dict[str, dict]:
-    """Each kernel's (template name -> instructions, registers)."""
+def _kernels(cubin: Path, spills: dict) -> dict[str, dict]:
+    """Each kernel's (template name -> instructions, registers, spill
+    stores and loads)."""
     dump = _tool("cuobjdump")
     sass = subprocess.run([dump, "-sass", str(cubin)], check=True,
                           capture_output=True, text=True).stdout
@@ -84,7 +94,8 @@ def _kernels(cubin: Path) -> dict[str, dict]:
         targs = m.group(2)
         key = (m.group(1), tuple(a.strip() for a in targs.split(","))
                if targs else ())
-        out[key] = {"sass": lines, "regs": regs.get(mangled)}
+        out[key] = {"sass": lines, "regs": regs.get(mangled),
+                    "spills": spills.get(mangled)}
     return out
 
 
@@ -102,8 +113,8 @@ def main() -> None:
             built = {}
             for tree in ("old", "new"):
                 out = Path(tmp) / f"{tree}_{src}.cubin"
-                _cubin(getattr(args, tree) / "csrc" / src, out)
-                built[tree] = _kernels(out)
+                spills = _cubin(getattr(args, tree) / "csrc" / src, out)
+                built[tree] = _kernels(out, spills)
             pairs, extra = [], []
             for (kname, targs), new in sorted(built["new"].items()):
                 old_key = None
@@ -114,7 +125,8 @@ def main() -> None:
                         break
                 if old_key is None:
                     extra.append({"kernel": f"{kname}<{', '.join(targs)}>",
-                                  "regs": new["regs"]})
+                                  "regs": new["regs"],
+                                  "spills": new["spills"]})
                     continue
                 old = built["old"][old_key]
                 same = old["sass"] == new["sass"] and old["regs"] == new["regs"]
@@ -125,7 +137,9 @@ def main() -> None:
                               "new": name, "may_differ": may,
                               "sass_equal": old["sass"] == new["sass"],
                               "instructions": len(new["sass"]),
-                              "regs_old": old["regs"], "regs_new": new["regs"]})
+                              "regs_old": old["regs"], "regs_new": new["regs"],
+                              "spills_old": old["spills"],
+                              "spills_new": new["spills"]})
             unpaired = [f"{k}<{', '.join(a)}>" for k, a in built["old"]
                         if not any(p["old"] == f"{k}<{', '.join(a)}>"
                                    for p in pairs)]

@@ -1621,6 +1621,79 @@ def test_frame_build_shared_edges(cuda):
         assert ids == [1365, 2960, 468]
 
 
+@pytest.fixture(scope="module")
+def host_frame_case(cuda):
+    """Host builds of create_n_cubes(500) (the native build, a packed build
+    and the legacy ClusterScene, each carrying ``a_lo``) and 8,192 rays
+    aimed at centroids ~1e5 from their origins, a quarter turned away
+    (seed 17: chip_smoke.py's far_aimed_rays)."""
+    a, b, c = tb.create_n_cubes(500)
+    rng = np.random.default_rng(17)
+    o = rng.uniform(-60.0, 60.0, (8192, 3)).astype(np.float32)
+    d = (((a + b + c) / np.float32(3))[rng.integers(0, len(a), 8192)]
+         - o).astype(np.float32)
+    d[::4] = -d[::4]
+    scenes = {"group": build_tight_scene(a, b, c),
+              "packed": build_tight_scene(a, b, c, packed=True),
+              "legacy": build_cluster_scene(a, b, c)}
+    scenes["entry_exit"] = scenes["group"]
+    return scenes, Ray.create(o, d, device="cpu")
+
+
+@pytest.mark.parametrize("walk", ["group", "entry_exit", "packed", "legacy"])
+def test_host_frame_far_origins(host_frame_case, cuda, walk):
+    """Far ray origins on host builds (ROADMAP queue 3 item 9): the kernel
+    the walk launches (the group and entry/exit walks' FRAME builds, the
+    legacy walk's float64 leaf test) bit-equal to its plain version on the
+    same rows, timed and counting; the entry point on the card equal to the
+    CPU's; rays 374, 2843 and 4003 hit (triangles 1365, 2960 and 468 on
+    the tight walks), which the rounded frame missed."""
+    scenes, rays = host_frame_case
+    sc = scenes[walk]
+    n = rays.origin.shape[0]
+    if walk == "legacy":
+        rows = ct_mod.ray_rows(_to(rays, cuda))
+        tables = (_dev(sc.smem_nodes, cuda), _dev(sc.smem_cc, cuda),
+                  _dev(sc.tris_rel, cuda), _dev(sc.a_lo, cuda))
+        got = ct_mod.cluster_trace(*tables, rows)
+        want = ct_mod.cluster_trace_plain(*tables, rows)
+        run = lambda r, dev: trace_closest_hit(sc, r, device=dev)
+    else:
+        rows = _ray_rows(_to(rays, cuda), torch.full((n,), np.inf,
+                                                     device=cuda))
+        a_lo, grp = _dev(sc.a_lo, cuda), _dev(sc.groups, cuda)
+        got, want = (), ()
+        for counts in (False, True):
+            if walk == "group":
+                got += wide_mod.wide_trace(_rec(sc, cuda), grp, rows,
+                                           sc.width, sc.gdepth, packet=256,
+                                           counts=counts, a_lo=a_lo)
+                want += wide_mod.wide_trace_plain(
+                    _dev(sc.gnodes, cuda), grp, rows, sc.width, packet=256,
+                    counts=counts, a_lo=a_lo)
+            else:
+                table = sc.packed_nodes if walk == "packed" else sc.smem_nodes
+                packed = walk == "packed"
+                got += tight_mod.tight_trace(_nrec(table, cuda), grp, rows,
+                                             sc.width, packed=packed,
+                                             packet=256, counts=counts,
+                                             a_lo=a_lo)
+                want += tight_mod.tight_trace_plain(
+                    _dev(table, cuda), grp, rows, sc.width, packed=packed,
+                    packet=256, counts=counts, a_lo=a_lo)
+        run = lambda r, dev: trace_closest_hit_tight(
+            sc, r, packet=256, wide=walk == "group", device=dev)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    on_card = run(_to(rays, cuda), cuda)
+    _equal(on_card, run(rays, "cpu"))
+    named = [374, 2843, 4003]
+    assert bool(torch.isfinite(on_card.t[named]).all())
+    if walk != "legacy":
+        assert on_card.shape_id[named].tolist() == [1365, 2960, 468]
+
+
 def test_parallel_world1_nccl(cuda):
     """``parallel`` at world size 1 on the card: NCCL over a single-rank
     group (an in-process store); the sharded traces and the depth pass

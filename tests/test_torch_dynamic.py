@@ -24,11 +24,12 @@ Tolerances:
   the world origin (8 ulps; 0.1 of a unit at 1e5) of an edge of the
   triangle it hit, where float32 cannot tell the two triangles of the
   edge apart, and at most max(2, 1%) of the rays are such. Two are seen:
-  ray 140 of the growth test (t = 104,439: the reference hits triangle
-  11, 0.039 of a unit from its edge, brute force 10 at 0.0073, the port
-  neither; ROADMAP queue 3 item 7) and ray 281 of the giant-churn test
-  (the port and the reference hit triangle 34 at 0.037 from its edge,
-  brute force misses).
+  ray 140 of the growth test (t = 104,439: the reference, float64 and the
+  port hit triangle 11, 0.039 of a unit from its edge, float32 brute
+  force 10 at 0.0073; the port missed both before host builds carried
+  ``a_lo``, ROADMAP queue 3 item 9, and the test now holds it to the
+  float64 oracle) and ray 281 of the giant-churn test (the port and the
+  reference hit triangle 34 at 0.037 from its edge, brute force misses).
 
 The reference's traces run at one packet (512) without the sweep (which
 changes no result), so that its compiled interpret-mode kernels serve
@@ -71,6 +72,7 @@ from bvh_tpu_torch.ops import (build_chained_scene, build_chained_scene_device,
 from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops import update as upd_t
 from test_torch_chained import GRAZING_RTOL, assert_tie_class
+from test_torch_scene import exact_a_lo
 from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
@@ -598,6 +600,13 @@ def test_updater_add_remove_growth(exact_recip):
     ht = trace_closest_hit_chained(ct, rays, packet=512, device=CPU)
     check_trace(ht, o, d, live_tris, hj)
     assert not np.isin(ht.shape_id.numpy(), removed).any()
+    # ray 140 crosses the edge of triangles 10 and 11 of the host-built
+    # static part ~1e5 from its origin: in the exact frame (the host
+    # build's a_lo) it hits 11, as float64 and the reference do
+    t64, s64 = _oracle64(o[140:141], d[140:141], *live_tris)
+    t140 = np.float64(ht.t.numpy()[140])
+    assert int(ht.shape_id[140]) == 11 == s64[0] == int(hj.shape_id[140])
+    assert abs(t140 - t64[0]) <= 2e-4 * t64[0]
     fresh = trace_closest_hit_tight(build_tight_scene(*live_tris), rays,
                                     packet=512, device=CPU)
     assert torch.equal(torch.isfinite(fresh.t), torch.isfinite(ht.t))
@@ -852,7 +861,9 @@ def _frame_parts(case):
         return [rt], [_np(rt.tri_map)], (a2, b2, c2)
     ch = make_updater(scene, max_moved=len(moved_ids), device=CPU)(
         a2, b2, c2, moved_ids.astype(np.int32))
-    assert ch.parts[0].a_lo is None
+    # the static part keeps the host build's own table (masked lanes never
+    # hit); the delta parts' tables are held below
+    assert np.array_equal(_np(ch.parts[0].a_lo), scene.a_lo)
     parts, ids = [], []
     for p, i in zip(ch.parts[1:], ch.orig_ids[1:]):
         tm = _np(p.tri_map)
@@ -868,24 +879,12 @@ def test_a_lo_is_the_exact_remainder(case):
     box centre in float32) and a' the stored row; 0 in pad lanes."""
     parts, ids, (a, b, c) = _frame_parts(case)
     for sc, tid in zip(parts, ids):
-        W = int(sc.width)
-        sn = _np(sc.smem_nodes)
-        leaf = sn[6] < 0
-        col = np.zeros(int(sc.num_clusters), np.int64)
-        col[(-sn[6, leaf] - 1).astype(np.int64)] = np.nonzero(leaf)[0]
-        rows = _np(sc.groups).transpose(0, 2, 1).reshape(-1, 16)
-        got = _np(sc.a_lo).transpose(0, 2, 1).reshape(-1, 3)
-        lanes = np.nonzero(tid >= 0)[0]
-        cc = (sn[0:3, col[lanes // W]] + sn[3:6, col[lanes // W]]).T * \
-            np.float32(0.5)
-        want = np.zeros_like(got)
-        want[lanes] = ((a[tid[lanes]].astype(np.float64) - cc)
-                       - rows[lanes, 0:3]).astype(np.float32)
+        got = _np(sc.a_lo)
         assert got.dtype == np.float32
-        assert np.array_equal(got, want)
+        assert np.array_equal(got, exact_a_lo(sc, a, tid))
         if case in ("refit", "delta"):
             # moved triangles make a - cc inexact in float32
-            assert (np.abs(got[lanes]) > 0).any()
+            assert np.abs(got).any()
 
 
 # the near-tie class of a nearest query: triangles whose float64 squared
@@ -930,10 +929,11 @@ def test_nearest_far_frame(wide):
 
 
 def test_nearest_update_takes_the_delta_frames():
-    """An update's chain (host static part without ``a_lo``, delta parts
-    with it) on create_n_cubes(40) with a third of the triangles moved:
-    ``nearest_chained`` reports float64 brute force's nearest triangle over
-    the moved scene within the near-tie class on every point, and
+    """An update's chain (the host static part with its build's ``a_lo``,
+    delta parts with theirs) on create_n_cubes(40) with a third of the
+    triangles moved: ``nearest_chained`` reports float64 brute force's
+    nearest triangle over the moved scene within the near-tie class on
+    every point, and
     ``count_visits_nearest`` on a delta part walks its frame (the counting
     plain walk with ``a_lo``)."""
     a, b, c = tb.create_n_cubes(40)
@@ -942,7 +942,7 @@ def test_nearest_update_takes_the_delta_frames():
     scene = build_tight_scene(a, b, c, use_native=False)
     ch = make_updater(scene, max_moved=len(moved_ids), device=CPU)(
         a2, b2, c2, moved_ids.astype(np.int32))
-    assert ch.parts[0].a_lo is None
+    assert np.array_equal(_np(ch.parts[0].a_lo), scene.a_lo)
     assert all(p.a_lo is not None for p in ch.parts[1:])
     rng = np.random.default_rng(31)
     centers = (a2 + b2 + c2) / np.float32(3)

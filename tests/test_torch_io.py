@@ -6,11 +6,11 @@ directions, on the same seeded inputs.
   sweep-cut and masked forms, ``ChainedScene``), with every field
   array-equal (dtype, shape, values, NaN boxes in place) to the writer's
   own structure. A file of a newer version raises ``ValueError`` in both.
-* The exact-frame table ``a_lo``: a device-built scene, chain or cluster
-  scene keeps it across a save and a load (array-equal), and traces and
-  nearest queries on the loaded scene equal those before the save bit for
-  bit; a file without it loads as None (tight scenes, chained parts) or
-  zeros (cluster scenes).
+* The exact-frame table ``a_lo``: a host-built or device-built scene,
+  chain or cluster scene keeps it across a save and a load (array-equal),
+  and traces and nearest queries on the loaded scene equal those before
+  the save bit for bit; a file without it (the reference's) loads with
+  zeros.
 * OBJ: ``load_obj_triangles`` equals the reference's loader array for
   array on ``examples/obj_render.py``'s colonnade with quads, n-gon caps
   and faces with negative indices; the colonnade loaded, built and traced
@@ -48,6 +48,7 @@ from bvh_tpu_torch.ops import (build_chained_scene, build_chained_scene_device,
                                trace_closest_hit_tight)
 from test_torch_dynamic import (_aimed, _np, _same, assert_scene_equal,
                                 exact_recip)  # noqa: F401  (fixture)
+from test_torch_scene import assert_a_lo
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples"))
@@ -131,11 +132,12 @@ def test_tight_scene_both_directions(tmp_path, writer, case):
         io_j.save_tight_scene(path, scene)
         back = io_t.load_tight_scene(path)
         assert_scene_equal(scene, back)
-        assert back.a_lo is None
+        assert_a_lo(back)  # a file without a_lo: zeros
     else:
         io_t.save_tight_scene(path, scene)
         back = io_j.load_tight_scene(path)
         assert_scene_equal(back, scene)
+        assert_a_lo(scene, a)
         _fields_equal(scene, io_t.load_tight_scene(path))
     assert back.masked == (case == "masked")
 
@@ -156,9 +158,16 @@ def test_chained_scene_both_directions(tmp_path, writer):
         back = io_j.load_chained_scene(path)
         pairs = zip(back.parts, ch.parts)
     assert len(back.parts) == len(ch.parts) == len(back.orig_ids)
-    for pj, pt in pairs:
+    again = io_t.load_chained_scene(path)
+    for i, (pj, pt) in enumerate(pairs):
         assert_scene_equal(pj, pt)
-        assert pt.a_lo is None
+        if writer == "reference":
+            assert_a_lo(pt)  # a file without a_lo: zeros
+        else:
+            # a port part carries its own vertices' remainder, kept in
+            # its file
+            assert_a_lo(pt, a[_np(ch.orig_ids[i])])
+            assert np.array_equal(again.parts[i].a_lo, pt.a_lo)
     for i0, i1 in zip(ch.orig_ids, back.orig_ids):
         assert np.array_equal(_np(i0), _np(i1))
 

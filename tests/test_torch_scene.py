@@ -1,7 +1,9 @@
 """The port's host scene build against bvh_tpu: every TightScene field
 array-equal (``equal_nan`` for the NaN-padded wide table), for the native
 and the numpy build and every leaf width; and a bvh_tpu-built scene carried
-across with ``scene_from_arrays``.
+across with ``scene_from_arrays``. The port's own field, the exact-frame
+table ``a_lo``, is held to the float64 remainder ``exact_a_lo`` on a port
+build and to zeros on a scene carried over from the reference's arrays.
 
 The reference's native builder (``bvh_tpu/native.py``) builds
 ``csrc/libbvhbuild.so`` with ``make`` on first use and, on any failure,
@@ -90,10 +92,49 @@ def reference_native():
     load_reference_native()
 
 
-def _assert_scene_equal(sj, st):
+def exact_a_lo(scene, a, tri_map=None) -> np.ndarray:
+    """The exact-frame table a port scene over vertices ``a`` must carry:
+    ``(a - cc) - a'`` of every lane of ``tri_map`` (lane -> row of ``a``,
+    -1 in pad lanes; default the scene's), in float64 rounded once to
+    float32, with cc the frame origin the walks read at the cluster's leaf
+    column (the box centre in float32, or a packed scene's raw packed-row
+    value) and a' the stored row; 0 in pad lanes; [G, 3, 128]."""
+    sn, W = np.asarray(scene.smem_nodes), int(scene.width)
+    leaf = sn[6] < 0
+    col = np.zeros(int(scene.num_clusters), np.int64)
+    col[(-sn[6, leaf] - 1).astype(np.int64)] = np.nonzero(leaf)[0]
+    if scene.packed_nodes is not None:
+        cc = np.asarray(scene.packed_nodes)[0:3, col].T
+    else:
+        cc = (sn[0:3, col] + sn[3:6, col]).T * np.float32(0.5)
+    groups = np.asarray(scene.groups)
+    tm = np.asarray(scene.tri_map if tri_map is None else tri_map)
+    G = groups.shape[0]
+    rows = groups.transpose(0, 2, 1).reshape(G * 128, 16)
+    lanes = np.nonzero(tm >= 0)[0]
+    want = np.zeros((G * 128, 3), np.float32)
+    want[lanes] = ((a[tm[lanes]].astype(np.float64) - cc[lanes // W])
+                   - rows[lanes, 0:3]).astype(np.float32)
+    return want.reshape(G, 128, 3).transpose(0, 2, 1)
+
+
+def assert_a_lo(st, a=None):
+    """``st.a_lo`` is [G, 3, 128] float32: ``exact_a_lo(st, a)`` for a port
+    build over vertices ``a``, zeros (``a`` None) for a scene carried over
+    from the reference's arrays, which hold no vertices."""
+    want = (np.zeros((st.groups.shape[0], 3, 128), np.float32) if a is None
+            else exact_a_lo(st, a))
+    got = np.asarray(st.a_lo)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+def _assert_scene_equal(sj, st, a=None):
+    """Every field of the reference's scene ``sj`` equal in the port's
+    ``st``, and ``st.a_lo`` as ``assert_a_lo(st, a)`` says."""
     assert type(st) is TightScene
     ref = tuple(f for f in sj._fields if f != "a_lo")
-    assert st._fields == ref + ("a_lo",) and st.a_lo is None
+    assert st._fields == ref + ("a_lo",)
+    assert_a_lo(st, a)
     for name in ref:
         x, y = getattr(sj, name), getattr(st, name)
         if x is None or y is None:
@@ -117,7 +158,7 @@ def test_build_tight_scene_equal(cubes, use_native, leaf_size):
     sj = build_j(a, b, c, leaf_size=leaf_size, use_native=use_native)
     st = build_tight_scene(a, b, c, leaf_size=leaf_size, use_native=use_native)
     assert st.gnodes is not None
-    _assert_scene_equal(sj, st)
+    _assert_scene_equal(sj, st, a)
 
 
 @pytest.mark.parametrize("use_native", [True, False])
@@ -125,7 +166,7 @@ def test_build_dense_mesh_equal(use_native):
     a, b, c = tb_t.create_dense_mesh(40)
     sj = build_j(a, b, c, leaf_size=64, use_native=use_native)
     st = build_tight_scene(a, b, c, leaf_size=64, use_native=use_native)
-    _assert_scene_equal(sj, st)
+    _assert_scene_equal(sj, st, a)
 
 
 @pytest.mark.parametrize("kwargs", [{"collapse": None}, {"wide": False},
@@ -135,7 +176,7 @@ def test_build_options_equal(cubes, kwargs):
     for use_native in (True, False):
         _assert_scene_equal(build_j(a, b, c, use_native=use_native, **kwargs),
                             build_tight_scene(a, b, c, use_native=use_native,
-                                              **kwargs))
+                                              **kwargs), a)
 
 
 def test_single_cluster_scene_equal():
@@ -144,7 +185,7 @@ def test_single_cluster_scene_equal():
         sj = build_j(a, b, c, use_native=use_native)
         st = build_tight_scene(a, b, c, use_native=use_native)
         assert st.num_clusters == 1 and st.gdepth == 1
-        _assert_scene_equal(sj, st)
+        _assert_scene_equal(sj, st, a)
 
 
 def test_native_sah_matches_numpy(cubes):
@@ -180,7 +221,7 @@ def test_unported_options_raise(cubes, kwargs):
              "sweep_cut": "sweep_nodes"}[next(iter(kwargs))]
     assert getattr(st, extra) is not None
     assert (st.gnodes is None) == ("packed" in kwargs)
-    _assert_scene_equal(build_j(a, b, c, **kwargs), st)
+    _assert_scene_equal(build_j(a, b, c, **kwargs), st, a)
 
 
 def test_scene_from_asdict(cubes):
@@ -221,4 +262,4 @@ def test_reference_native_recovers_from_a_failed_load(cubes, monkeypatch):
     assert native_j._LIB is not None and native_j.native_available()
     a, b, c = cubes
     _assert_scene_equal(build_j(a, b, c, use_native=True),
-                        build_tight_scene(a, b, c, use_native=True))
+                        build_tight_scene(a, b, c, use_native=True), a)

@@ -5,13 +5,21 @@ create_n_cubes(40) with reference-random, aimed and near rays.
 Tolerances:
 
 * Scene builds: every TightScene field array-equal (``equal_nan`` for the
-  NaN-padded wide table).
+  NaN-padded wide table); the port's ``a_lo`` equal to the float64
+  remainder (``test_torch_scene.exact_a_lo``; on packed scenes against the
+  raw packed-row frame origin).
 * Entry/exit walk vs the reference's ``trace_closest_hit_tight(wide=False)``
   with its reciprocal made exact (``exact_reciprocal``): hit masks equal; t
   bits equal wherever the shape ids agree, except on at most 1% of the hits
   where the two packages' t·det forms (the reference sums them from
-  m = o×d) round t across one key step, W ulps; ids differ on at most 1% of
-  the hits, and only where the two raw distances agree within
+  m = o×d) round t across one key step, W ulps, and except where the
+  reference's t lies more than a key step from a float64 oracle's (its
+  rounded ``o - cc`` at a W=32 cluster frame far from the ray; the port
+  tests every host build's leaves in the exact frame), where the port's t
+  is held to float64's within one key step instead (the count of such rays
+  asserted: 19 of 513 hits at W=32, 18 of 512 on the bmat scene, 0 at
+  W=16); ids differ on at most
+  1% of the hits, and only where the two raw distances agree within
   ``GRAZING_RTOL`` (the near-tie and grazing-edge classes, PARITY.md: the
   reference's forms may take a ray across a shared edge into the adjacent
   triangle). The port's two walks agree with each other bit for bit.
@@ -60,12 +68,18 @@ from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
 from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
+from test_torch_dynamic import _oracle64
+from test_torch_scene import assert_a_lo
 from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 N_CUBES = 40
 PACKET = 512
 GRAZING_RTOL = 3e-3
+# hits where the exact reference's t lies more than a key step from
+# float64's (its rounded o - cc), measured on the test's rays, by W
+N_FAR_REFERENCE = {16: 0, 32: 19}  # of 513 hits at W=32
+N_FAR_BMAT = {16: 0, 32: 18}  # of 512 hits at W=32
 
 
 @pytest.fixture(scope="module")
@@ -92,9 +106,12 @@ def exact_reciprocal(monkeypatch):
     jax.clear_caches()
 
 
-def _assert_scene_equal(sj, st):
+def _assert_scene_equal(sj, st, a):
+    """Every field of the reference's scene ``sj`` equal in the port's
+    ``st``, which carries the exact-frame table of vertices ``a``."""
     ref = tuple(f for f in sj._fields if f != "a_lo")
-    assert st._fields == ref + ("a_lo",) and st.a_lo is None
+    assert st._fields == ref + ("a_lo",)
+    assert_a_lo(st, a)
     for name in ref:
         x, y = getattr(sj, name), getattr(st, name)
         if x is None or y is None:
@@ -111,16 +128,31 @@ def _bits(x):
     return x.view(np.int32) if x.dtype == np.float32 else x
 
 
-def assert_tie_class(ref, got, W):
+def assert_tie_class(ref, got, W, t64=None, n_far=0):
     """``ref``/``got``: (t, shape_id) numpy pairs. Hit masks equal; where
     the ids agree, t bits equal but on at most 1% of the hits, which may
     sit one key step (W ulps) apart; ids differ on at most 1% of the hits,
-    each with t within ``GRAZING_RTOL``."""
+    each with t within ``GRAZING_RTOL``.
+
+    ``t64``: the float64 oracle's t (``test_torch_dynamic._oracle64``).
+    Where the ids agree but the reference's t lies more than a key step
+    from float64's, the reference has rounded ``o - cc`` at a cluster
+    frame far from the ray (a W=32 cluster box may span cubes ~1e5 apart),
+    which the port's exact frame does not: there the port's t is held to
+    float64's, within one key step, instead of to the reference's. There
+    must be ``n_far`` such rays, the count measured on the test's rays."""
     (t_r, s_r), (t_g, s_g) = ref, got
     hit = np.isfinite(t_r)
     assert (np.isfinite(t_g) == hit).all()
     assert ((s_r >= 0) == hit).all() and ((s_g >= 0) == hit).all()
     same = hit & (s_r == s_g)
+    far = np.zeros_like(same)
+    if t64 is not None:
+        b64 = _bits(t64.astype(np.float32)).astype(np.int64)
+        far = same & (np.abs(_bits(t_r) - b64) > W)
+        assert far.sum() == n_far
+        assert (np.abs(_bits(t_g)[far] - b64[far]) <= W).all()
+        same &= ~far
     step = np.abs(_bits(t_r)[same].astype(np.int64) - _bits(t_g)[same])
     assert (step <= W).all() and (step != 0).sum() <= max(2, hit.sum() // 100)
     diff = hit & (s_r != s_g)
@@ -139,7 +171,7 @@ def test_build_options_equal(world, use_native, kwargs):
     tris = world[0]
     sj = build_j(*tris, use_native=use_native, **kwargs)
     st = build_tight_scene(*tris, use_native=use_native, **kwargs)
-    _assert_scene_equal(sj, st)
+    _assert_scene_equal(sj, st, tris[0])
 
 
 def test_bf16_helpers_equal():
@@ -188,7 +220,8 @@ def test_entry_exit_walk_matches_reference(world, W, exact_reciprocal):
                                  packet=PACKET, device=CPU)
     assert tight_mod.launches == before  # the CPU runs the plain version
     got = (ht.t.numpy(), ht.shape_id.numpy())
-    assert_tie_class((np.asarray(hj.t), np.asarray(hj.shape_id)), got, W)
+    assert_tie_class((np.asarray(hj.t), np.asarray(hj.shape_id)), got, W,
+                     _oracle64(o, d, *tris)[0], N_FAR_REFERENCE[W])
     assert 0.4 < np.isfinite(got[0]).mean() < 0.9
     # the group walk over the same tree gives the same bits
     hw = trace_closest_hit_tight(build_tight_scene(*tris, leaf_size=W),
@@ -272,7 +305,8 @@ def test_bmat_scene_matches_default(leaf, exact_reciprocal):
                   interpret=True)
     assert np.isfinite(got.t.numpy()).mean() > 0.9
     assert_tie_class((np.asarray(ref.t), np.asarray(ref.shape_id)),
-                     (got.t.numpy(), got.shape_id.numpy()), leaf)
+                     (got.t.numpy(), got.shape_id.numpy()), leaf,
+                     _oracle64(o, d, a, b, c)[0], N_FAR_BMAT[leaf])
 
 
 def test_tight_kernel_wrapper(world):

@@ -13,7 +13,12 @@ reference-random and 4,096 aimed rays.
   interpret mode evaluates in bfloat16 (up to 2^-8 relative); the port
   takes the IEEE reciprocal. So the reference runs twice: as it ships
   (tolerance 2^-8 + 2·W·2^-23), and with the reciprocal made exact for the
-  duration of the test (tolerance 2·W·2^-23, the key truncation).
+  duration of the test (tolerance 2·W·2^-23, the key truncation). Where
+  the exact reference's t lies beyond that tolerance of a float64 oracle's
+  (its leaf test rounds ``o - cc`` at a W=32 cluster frame far from the
+  ray; the port tests every host build's leaves in the exact frame), the
+  port's t is held to float64's at the same tolerance instead (the count
+  of such rays asserted: 56 of the 4,096 aimed hits at W=32, else 0).
 * Sweep gate (``ops/sweep.py``) vs ``_sweep_tight(interpret=True)``: gates
   equal.
 """
@@ -35,6 +40,7 @@ from bvh_tpu_torch.ops import build_tight_scene, trace_closest_hit_tight
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import wide as wide_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
+from test_torch_dynamic import _oracle64
 from test_torch_scene import reference_native  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
@@ -55,16 +61,31 @@ def _ray_sets(a):
 # PARITY.md's grazing-edge class: a hit within rounding of a shared edge
 # may resolve to the adjacent triangle, t within ~0.3%
 GRAZING_RTOL = 3e-3
+# rays where the exact reference's t lies beyond the key truncation of
+# float64's, by (W, leg), measured: 56 of the 4,096 aimed hits at W=32
+N_FAR_REFERENCE = {(32, "aimed"): 56}
 
 
-def assert_matches_reference(t_j, sid_j, t_t, sid_t, tol):
+def assert_matches_reference(t_j, sid_j, t_t, sid_t, tol, t64=None,
+                             n_far=0):
     """Hit masks equal; where the shape ids agree, raw t within ``tol``;
     ids differ on at most 1% of the hits, and only in the near-tie and
-    grazing-edge classes (raw t within ``GRAZING_RTOL``)."""
+    grazing-edge classes (raw t within ``GRAZING_RTOL``). ``t64``: a
+    float64 oracle's t; where the ids agree but the reference's t lies
+    beyond ``tol`` of it (the reference rounds ``o - cc`` at a cluster
+    frame far from the ray, which the port's exact frame does not), the
+    port's t is held to float64's within ``tol`` instead, on ``n_far``
+    rays (the count measured on the test's rays)."""
     hit = np.isfinite(t_j)
     assert (np.isfinite(t_t) == hit).all()
     assert ((sid_j >= 0) == hit).all() and ((sid_t >= 0) == hit).all()
     same = hit & (sid_j == sid_t)
+    far = np.zeros_like(same)
+    if t64 is not None:
+        far[same] = np.abs(t_j[same] - t64[same]) > tol * t64[same]
+        assert far.sum() == n_far
+        np.testing.assert_allclose(t_t[far], t64[far], rtol=tol)
+        same &= ~far
     np.testing.assert_allclose(t_t[same], t_j[same], rtol=tol)
     diff = hit & (sid_j != sid_t)
     np.testing.assert_allclose(t_t[diff], t_j[diff], rtol=GRAZING_RTOL + tol)
@@ -83,7 +104,7 @@ def exact_reciprocal(monkeypatch):
     jax.clear_caches()
 
 
-def _compare_walk(cubes, W, leg, tol):
+def _compare_walk(cubes, W, leg, tol, oracle=False):
     a, b, c = cubes
     o, d = _ray_sets(a)[leg]
     sj = build_j(a, b, c, leaf_size=W)
@@ -93,8 +114,10 @@ def _compare_walk(cubes, W, leg, tol):
     ht = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU),
                                  sweep=False, device=CPU)
     assert wide_mod.launches == before  # the CPU runs the plain version
+    t64 = _oracle64(o, d, a, b, c)[0] if oracle else None
     assert_matches_reference(np.asarray(hj.t), np.asarray(hj.shape_id),
-                             ht.t.numpy(), ht.shape_id.numpy(), tol)
+                             ht.t.numpy(), ht.shape_id.numpy(), tol, t64,
+                             N_FAR_REFERENCE.get((W, leg), 0) if oracle else 0)
     if leg == "aimed":
         assert np.isfinite(ht.t.numpy()).mean() > 0.99
 
@@ -109,7 +132,7 @@ def test_plain_group_walk_matches_reference(cubes, W, leg):
 @pytest.mark.parametrize("leg", ["random", "aimed"])
 def test_plain_group_walk_matches_exact_reference(cubes, W, leg,
                                                   exact_reciprocal):
-    _compare_walk(cubes, W, leg, tol=2 * W * 2.0 ** -23)
+    _compare_walk(cubes, W, leg, tol=2 * W * 2.0 ** -23, oracle=True)
 
 
 def test_plain_group_walk_counts(cubes):
