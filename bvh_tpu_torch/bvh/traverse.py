@@ -36,17 +36,13 @@ from typing import NamedTuple
 
 import torch
 
+from .. import obs
 from ..ray import Ray, ray_intersects_triangle
 from ..tri import point_triangle_distance_squared
 from .flat import FlatBvh
 
 CHECK_EVERY = 8  # lock-step steps between host reads of the stop test
 BRUTE_ELEMENTS = 1 << 24  # (query, shape) pairs a brute-force chunk holds
-
-# lock-step steps and host reads of the walks, summed over calls (read and
-# reset by chip_smoke.py)
-steps = 0
-host_reads = 0
 
 
 class HitRecord(NamedTuple):
@@ -78,15 +74,13 @@ def _lockstep(cursor: torch.Tensor, n: int, step, done=None) -> None:
     lane's cursor is past ``n`` or ``done(idx)`` holds for it, reading the
     stop test on the host every ``CHECK_EVERY`` steps and dropping the
     finished lanes there."""
-    global steps, host_reads
-
     def finished(idx):
         out = cursor[idx] >= n
         return out if done is None else out | done(idx)
 
     idx = torch.arange(cursor.shape[0], device=cursor.device)
     idx = idx[~finished(idx)]
-    host_reads += 1
+    obs.count("traverse.host_reads")
     graphs = _Graphs() if cursor.is_cuda else None
     while idx.numel():
         if graphs is not None:
@@ -94,9 +88,9 @@ def _lockstep(cursor: torch.Tensor, n: int, step, done=None) -> None:
         else:
             for _ in range(CHECK_EVERY):
                 step(idx)
-        steps += CHECK_EVERY
+        obs.count("traverse.steps", CHECK_EVERY)
         idx = idx[~finished(idx)]
-        host_reads += 1
+        obs.count("traverse.host_reads")
 
 
 class _Graphs:

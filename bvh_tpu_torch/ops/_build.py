@@ -26,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import obs
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG_DIR / "_build"
 CUDA_SRC_DIR = PKG_DIR / "csrc"
@@ -37,10 +39,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # bit-identical to the numpy builder.
 GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-ffp-contract=off",
              "-Wall", "-shared", "-pthread"]
-
-# seconds each library took to build in this process (0.0 when it was
-# already built); read by chip_smoke.py
-BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -59,14 +57,15 @@ def build_library(name: str, sources: list[Path], cmd: list[str],
     """Compiles ``sources`` with ``cmd`` (compiler and flags, no output
     flag) into ``_build/lib<name>-<hash>.so`` unless it already exists.
     ``headers`` are hashed with the sources but not passed to the
-    compiler."""
+    compiler. Keeps the build's seconds in the counter
+    ``lib_build_s.<name>`` (0 for a library that was already built)."""
     h = hashlib.sha256(" ".join(cmd[1:]).encode())
     for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
-        BUILD_SECONDS.setdefault(name, 0.0)
+        obs.count(f"lib_build_s.{name}", 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -78,7 +77,7 @@ def build_library(name: str, sources: list[Path], cmd: list[str],
         raise RuntimeError(f"building {name} failed ({cmd[0]} exit "
                            f"{proc.returncode}):\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
+    obs.count(f"lib_build_s.{name}", time.perf_counter() - t0)
     return out
 
 

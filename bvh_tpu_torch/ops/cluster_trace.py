@@ -61,6 +61,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ._build import load_cuda_library
 from .sweep import check_nodes
 from .wide import FRAME_TRI_OPS, narrow_keys, two_diff
@@ -79,8 +80,6 @@ TRI_OPS = WIDE_TRI_OPS + FRAME_TRI_OPS
 # ``wide.SLAB_OPS`` plus ``tight.STEP_OPS``, as in the entry/exit walk
 LEAF_OPS = 35
 _INF = float("inf")
-
-launches = 0  # kernel launches, counted in ``cluster_trace``
 
 
 @functools.cache
@@ -148,7 +147,6 @@ def cluster_trace(nodes: torch.Tensor, cc: torch.Tensor, tris: torch.Tensor,
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the kernel.
     """
-    global launches
     _check(nodes, cc, tris, a_lo, rays)
     if rays.device.type == "cpu":
         return cluster_trace_plain(nodes, cc, tris, a_lo, rays,
@@ -166,7 +164,7 @@ def cluster_trace(nodes: torch.Tensor, cc: torch.Tensor, tris: torch.Tensor,
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cluster_trace kernel launch failed: CUDA error {rc}")
-    launches += 1
+    obs.launch("cluster_trace")
     return t, lane_id
 
 

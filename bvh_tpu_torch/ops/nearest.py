@@ -45,6 +45,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ..bvh.lbvh import morton_codes
 from ..device import resolve_device
 from ._build import load_cuda_library
@@ -82,16 +83,6 @@ STEP_OPS = 2
 FRAME_PAIR_OPS = 6
 # per fired leaf, lo: two_diff's five operations an axis beyond p'.
 FRAME_LEAF_OPS = 15
-
-# launches of the timed builds, counted in ``nearest_wide`` and
-# ``nearest_entry_exit`` (of those, the FRAME builds' launches, ``a_lo``),
-# and of their counting builds (``counts=True``)
-wide_launches = 0
-entry_exit_launches = 0
-wide_frame_launches = 0
-entry_exit_frame_launches = 0
-wide_count_launches = 0
-entry_exit_count_launches = 0
 
 
 def walk_ops(wide: bool, width: int, steps: float, fires: float,
@@ -179,7 +170,6 @@ def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
     launches the kernel: with ``counts`` its counting build (a debug build,
     not a timed one; its results are the timed build's bit for bit).
     """
-    global wide_launches, wide_frame_launches, wide_count_launches
     _check("gnodes", gnodes, 7 * K + 1, groups, pts, width, a_lo)
     check_depth(depth)
     if pts.device.type == "cpu":
@@ -190,10 +180,9 @@ def nearest_wide(gnodes: torch.Tensor, groups: torch.Tensor, pts: torch.Tensor,
     out = _launch(load().nearest_wide_launch, gnodes, groups, pts, width,
                   refine, counts, a_lo)
     if counts:
-        wide_count_launches += 1
+        obs.count("launch.nearest_wide_count")
     else:
-        wide_launches += 1
-        wide_frame_launches += a_lo is not None
+        obs.launch("nearest_wide", frame=a_lo is not None)
     return out
 
 
@@ -209,8 +198,6 @@ def nearest_entry_exit(smem_nodes: torch.Tensor, groups: torch.Tensor,
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the kernel (with ``counts``, its counting build).
     """
-    global entry_exit_launches, entry_exit_frame_launches
-    global entry_exit_count_launches
     _check("smem_nodes", smem_nodes, 8, groups, pts, width, a_lo)
     if pts.device.type == "cpu":
         return nearest_entry_exit_plain(smem_nodes, groups, pts, width,
@@ -221,10 +208,9 @@ def nearest_entry_exit(smem_nodes: torch.Tensor, groups: torch.Tensor,
     out = _launch(load().nearest_entry_exit_launch, smem_nodes, groups, pts,
                   width, refine, counts, a_lo)
     if counts:
-        entry_exit_count_launches += 1
+        obs.count("launch.nearest_entry_exit_count")
     else:
-        entry_exit_launches += 1
-        entry_exit_frame_launches += a_lo is not None
+        obs.launch("nearest_entry_exit", frame=a_lo is not None)
     return out
 
 
@@ -483,61 +469,75 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
     refinement: their boxes may hold no live triangle. Packed scenes raise.
     Scenes that carry ``a_lo`` (every scene the port builds or loads) test
     their leaves in the exact cluster frame (the kernels' FRAME builds).
+
+    A call is one ``obs`` span ``nearest`` with four stages: ``sort`` (the
+    Morton sort and the points' gather), ``prologue`` (the point rows),
+    ``walk`` (the walk's launch) and ``epilogue`` (the radius mask, the
+    triangle ids, the float64 root and the un-permute).
     """
     if packet < 128 or packet & (packet - 1):
         raise ValueError(f"packet must be a power of two >= 128, got {packet}")
-    dev = resolve_device(device)
-    pts = torch.as_tensor(points, dtype=torch.float32, device=dev).reshape(-1, 3)
-    r = pts.shape[0]
-    if r == 0 or scene.num_nodes == 0:
-        return (torch.full((r,), -1, dtype=torch.int32, device=dev),
-                torch.full((r,), _INF, dtype=torch.float32, device=dev))
-    if scene.packed_nodes is not None:
-        raise ValueError("nearest_tight reads f32 node tables (build with "
-                         "packed=False)")
-    if wide is None:
-        wide = scene.gnodes is not None
-    elif wide and scene.gnodes is None:
-        raise ValueError("scene built without wide tables (gnodes)")
-    dm = None
-    if d_max is not None:
-        dm = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
-        dm = dm.reshape(-1).expand(r)
-    inv = None
-    if sort and r > 128:
-        perm, inv = sort_points_device(pts, device=dev)
-        pts = pts[perm]
-        dm = None if dm is None else dm[perm]
-    rows = point_rows(pts, dm)
-    W = int(scene.width)
-    groups = _dev(scene.groups, dev)
-    a_lo = _a_lo(scene, dev)
-    if wide:
-        d2, lane_id = nearest_wide(_dev(scene.gnodes, dev), groups, rows, W,
-                                   int(scene.gdepth), refine=not scene.masked,
-                                   a_lo=a_lo)
-    else:
-        d2, lane_id = nearest_entry_exit(_dev(scene.smem_nodes, dev), groups,
-                                         rows, W, refine=not scene.masked,
-                                         a_lo=a_lo)
-    hit = torch.isfinite(d2)
-    if dm is not None:
-        # the key truncates d2 downward (lane bits), so the exact radius
-        # filters here, after the walk
-        hit = hit & (d2 < dm * dm)
-    tri_map = _dev(scene.tri_map, dev)
-    sid = torch.where(hit, tri_map[lane_id.clamp(0, tri_map.shape[0] - 1)
-                                   .to(torch.int64)], -1)
-    # the square root in float64, rounded once to float32: the correctly
-    # rounded root on every device (the card's float32 sqrt may sit 1 ulp
-    # off it)
-    root = torch.sqrt(torch.clamp_min(d2, 0.0).double()).float()
-    dist = torch.where(hit, root, _INF)
-    if inv is None:
-        return sid, dist
-    # un-permute as int32 bit patterns, so every distance moves exactly
-    comb = torch.stack([sid, dist.view(torch.int32)], dim=1)[inv]
-    return comb[:, 0].contiguous(), comb[:, 1].contiguous().view(torch.float32)
+    with obs.span("nearest"):
+        dev = resolve_device(device)
+        pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        pts = pts.reshape(-1, 3)
+        r = pts.shape[0]
+        if r == 0 or scene.num_nodes == 0:
+            return (torch.full((r,), -1, dtype=torch.int32, device=dev),
+                    torch.full((r,), _INF, dtype=torch.float32, device=dev))
+        if scene.packed_nodes is not None:
+            raise ValueError("nearest_tight reads f32 node tables (build with "
+                             "packed=False)")
+        if wide is None:
+            wide = scene.gnodes is not None
+        elif wide and scene.gnodes is None:
+            raise ValueError("scene built without wide tables (gnodes)")
+        dm = None
+        if d_max is not None:
+            dm = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
+            dm = dm.reshape(-1).expand(r)
+        with obs.span("sort"):
+            inv = None
+            if sort and r > 128:
+                perm, inv = sort_points_device(pts, device=dev)
+                pts = pts[perm]
+                dm = None if dm is None else dm[perm]
+        with obs.span("prologue"):
+            rows = point_rows(pts, dm)
+        with obs.span("walk"):
+            W = int(scene.width)
+            groups = _dev(scene.groups, dev)
+            a_lo = _a_lo(scene, dev)
+            if wide:
+                d2, lane_id = nearest_wide(_dev(scene.gnodes, dev), groups,
+                                           rows, W, int(scene.gdepth),
+                                           refine=not scene.masked, a_lo=a_lo)
+            else:
+                d2, lane_id = nearest_entry_exit(_dev(scene.smem_nodes, dev),
+                                                 groups, rows, W,
+                                                 refine=not scene.masked,
+                                                 a_lo=a_lo)
+        with obs.span("epilogue"):
+            hit = torch.isfinite(d2)
+            if dm is not None:
+                # the key truncates d2 downward (lane bits), so the exact
+                # radius filters here, after the walk
+                hit = hit & (d2 < dm * dm)
+            tri_map = _dev(scene.tri_map, dev)
+            lane = lane_id.clamp(0, tri_map.shape[0] - 1).to(torch.int64)
+            sid = torch.where(hit, tri_map[lane], -1)
+            # the square root in float64, rounded once to float32: the
+            # correctly rounded root on every device (the card's float32
+            # sqrt may sit 1 ulp off it)
+            root = torch.sqrt(torch.clamp_min(d2, 0.0).double()).float()
+            dist = torch.where(hit, root, _INF)
+            if inv is None:
+                return sid, dist
+            # un-permute as int32 bit patterns, so every distance moves
+            # exactly
+            comb = torch.stack([sid, dist.view(torch.int32)], dim=1)[inv]
+            return (comb[:, 0].contiguous(),
+                    comb[:, 1].contiguous().view(torch.float32))
 
 
 def nearest_chained(chained, points, packet: int = 2048, d_max=None,
@@ -555,7 +555,8 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
     from its truncated key, so a later part's triangle within that
     truncation of the best may be left out (the key-truncation class).
     Ids are mapped once at the end, and the un-permute moves int32 bit
-    patterns.
+    patterns. A call is one ``obs`` span ``nearest_chained``, around a
+    ``nearest`` a part.
     """
     _check_packet(packet)
     dev = resolve_device(device)
@@ -564,30 +565,33 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
     if r == 0:
         return (torch.full((0,), -1, dtype=torch.int32, device=dev),
                 torch.full((0,), _INF, dtype=torch.float32, device=dev))
-    if d_max is None:
-        best_d = torch.full((r,), _INF, dtype=torch.float32, device=dev)
-    else:
-        best_d = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
-        best_d = best_d.reshape(-1).expand(r).contiguous()
-    inv = None
-    if sort and r > 128:
-        perm, inv = sort_points_device(pts, device=dev)
-        pts, best_d = pts[perm], best_d[perm]
-    best_loc = torch.zeros(r, dtype=torch.int64, device=dev)  # 0: the -1 slot
-    off = 1
-    for part, ids in zip(chained.parts, chained.orig_ids):
-        sid, dist = nearest_tight(part, pts, packet=packet, d_max=best_d,
-                                  sort=False, device=dev)
-        closer = (sid >= 0) & (dist < best_d)
-        best_d = torch.where(closer, dist, best_d)
-        best_loc = torch.where(closer, sid.to(torch.int64) + off, best_loc)
-        off += int(ids.shape[0])
-    best_id = _chain_ids(chained, dev)[best_loc]
-    best_d = torch.where(best_id >= 0, best_d, _INF)
-    if inv is None:
-        return best_id, best_d
-    comb = torch.stack([best_id, best_d.view(torch.int32)], dim=1)[inv]
-    return comb[:, 0].contiguous(), comb[:, 1].contiguous().view(torch.float32)
+    with obs.span("nearest_chained"):
+        if d_max is None:
+            best_d = torch.full((r,), _INF, dtype=torch.float32, device=dev)
+        else:
+            best_d = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
+            best_d = best_d.reshape(-1).expand(r).contiguous()
+        inv = None
+        if sort and r > 128:
+            perm, inv = sort_points_device(pts, device=dev)
+            pts, best_d = pts[perm], best_d[perm]
+        # 0: the -1 slot
+        best_loc = torch.zeros(r, dtype=torch.int64, device=dev)
+        off = 1
+        for part, ids in zip(chained.parts, chained.orig_ids):
+            sid, dist = nearest_tight(part, pts, packet=packet, d_max=best_d,
+                                      sort=False, device=dev)
+            closer = (sid >= 0) & (dist < best_d)
+            best_d = torch.where(closer, dist, best_d)
+            best_loc = torch.where(closer, sid.to(torch.int64) + off, best_loc)
+            off += int(ids.shape[0])
+        best_id = _chain_ids(chained, dev)[best_loc]
+        best_d = torch.where(best_id >= 0, best_d, _INF)
+        if inv is None:
+            return best_id, best_d
+        comb = torch.stack([best_id, best_d.view(torch.int32)], dim=1)[inv]
+        return (comb[:, 0].contiguous(),
+                comb[:, 1].contiguous().view(torch.float32))
 
 
 def count_visits_nearest(scene, points, packet: int = 2048,

@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ..ray import Ray, ray_intersects_aabb
 from ._build import load_cuda_library
 
@@ -30,8 +31,6 @@ SLAB_COUNT_OPS = 6 + 6 + 6 + 4 + 1 + 1 + 1
 # rays x boxes a call of the plain version takes at a time: each [r, B, 3]
 # intermediate of a chunk is 48 MB
 PLAIN_CHUNK = 1 << 22
-
-launches = 0  # kernel launches, counted in ``slab_count``
 
 
 @functools.cache
@@ -63,7 +62,6 @@ def slab_count(origin: torch.Tensor, inv_direction: torch.Tensor,
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the kernel.
     """
-    global launches
     dev = origin.device
     for x, name in ((origin, "origin"), (inv_direction, "inv_direction"),
                     (box_min, "box_min"), (box_max, "box_max")):
@@ -82,7 +80,7 @@ def slab_count(origin: torch.Tensor, inv_direction: torch.Tensor,
         count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"slab_count kernel launch failed: CUDA error {rc}")
-    launches += 1
+    obs.launch("slab_count")
     return count
 
 

@@ -27,12 +27,11 @@ import functools
 
 import torch
 
+from .. import obs
 from ._build import load_cuda_library
 from .wide import N_ROWS, check_options
 
 NODE_REC = 8  # floats per node in the kernels' node-major table
-
-launches = 0  # kernel launches, counted in ``sweep_gate``
 
 
 @functools.cache
@@ -128,7 +127,6 @@ def sweep_gate(records: torch.Tensor, rays: torch.Tensor, packet: int,
     On a CPU tensor this runs the plain version (over ``node_table``); on a
     CUDA tensor it launches the kernel.
     """
-    global launches
     check_records(records, rays)
     if rays.dtype != torch.float32 or not rays.is_contiguous():
         raise ValueError("rays must be a contiguous float32 tensor")
@@ -149,7 +147,7 @@ def sweep_gate(records: torch.Tensor, rays: torch.Tensor, packet: int,
         gate.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sweep_gate kernel launch failed: CUDA error {rc}")
-    launches += 1
+    obs.launch("sweep")
     return gate
 
 

@@ -49,6 +49,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ._build import load_cuda_library
 from .sweep import NODE_REC, check_records, node_table, unpack_nodes
 from .wide import (N_ROWS, SENT, check_a_lo, check_options, count_outputs,
@@ -58,12 +59,6 @@ from .wide import (N_ROWS, SENT, check_a_lo, check_options, count_outputs,
 # float32 operations per node visit beyond its slab test (``wide.SLAB_OPS``):
 # the leaf test and the cursor select
 STEP_OPS = 2
-
-launches = 0  # launches of the timed build, counted in ``tight_trace``
-any_launches = 0  # of those, the launches in any-hit mode
-frame_launches = 0  # of those, the launches of the FRAME build (``a_lo``)
-skip_launches = 0  # of those, the launches of the SKIP build (``skip_narrow``)
-count_launches = 0  # launches of the counting build (``counts=True``)
 
 
 @functools.cache
@@ -127,8 +122,6 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
     with ``counts`` its counting build (a debug build, not a timed one; its
     ``t`` and ``lane_id`` are the timed build's bit for bit).
     """
-    global launches, any_launches, frame_launches, skip_launches
-    global count_launches
     _check(records, groups, rays, width, gate, hints, packet, a_lo)
     code = mode_code(mode, bounded)
     if skip_narrow:
@@ -158,12 +151,10 @@ def tight_trace(records: torch.Tensor, groups: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"tight_trace kernel launch failed: CUDA error {rc}")
     if counts:
-        count_launches += 1
+        obs.count("launch.tight_trace_count")
         return t, lane_id, visits.to(torch.int64), fires.to(torch.int64)
-    launches += 1
-    any_launches += code == 2
-    frame_launches += a_lo is not None
-    skip_launches += skip_narrow
+    obs.launch("tight_trace", any=code == 2, frame=a_lo is not None,
+               skip=skip_narrow)
     return t, lane_id
 
 

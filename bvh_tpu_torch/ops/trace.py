@@ -24,6 +24,14 @@ reference's Pallas-path rules:
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where every kernel's plain version runs instead.
+
+Each call of ``make_tracer``'s tracer, ``trace_closest_hit_tight`` and
+``trace_any_hit_tight`` is one ``obs`` span ``trace`` with four stages:
+``sort`` (the coherence sort and the rays' gather), ``prologue`` (the rays'
+inverse directions, the t_max fill, the kernels' ray rows), ``walk`` (the
+gates and the walk's launch) and ``epilogue`` (the bounded mask, the
+triangle ids, the winner recompute and the un-permute). The chained traces
+are a span ``trace_chained`` with a ``walk`` a part.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import obs
 from ..bvh.lbvh import morton_codes
 from ..bvh.traverse import HitRecord
 from ..device import resolve_device
@@ -67,10 +76,14 @@ def _dev(arr, device: torch.device, layout=None):
     A numpy table is copied once. A tensor stays on its device when that is
     ``device`` (no copy), and its layout is made there, once a tensor (again
     after an in-place change), so that a table made on the card never goes
-    through the host."""
+    through the host. A copy or a layout made counts one ``table_upload``
+    and its ``table_upload_bytes``."""
     tensor = torch.is_tensor(arr)
     if tensor and layout is None:
-        return arr.to(device)
+        out = arr.to(device)
+        if out is not arr:
+            _uploaded(out)
+        return out
     version = arr._version if tensor else None
     key = (id(arr), str(device), layout)
     ent = _DEVICE_TABLE_CACHE.get(key)
@@ -83,7 +96,13 @@ def _dev(arr, device: torch.device, layout=None):
         ten = torch.as_tensor(np.ascontiguousarray(host)).to(device)
     ref = weakref.ref(arr, lambda _r, k=key, c=_DEVICE_TABLE_CACHE: c.pop(k, None))
     _DEVICE_TABLE_CACHE[key] = (ref, ten, version)
+    _uploaded(ten)
     return ten
+
+
+def _uploaded(ten: torch.Tensor) -> None:
+    obs.count("table_upload")
+    obs.count("table_upload_bytes", ten.numel() * ten.element_size())
 
 
 def sort_rays_device(origins, directions, bits: int = 6, mode: str = "octant",
@@ -245,29 +264,33 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
           skip_narrow: bool = False):
     """The gate (sweep and pre-gate) and the walk over the ray rows:
     ``(t, lane_id)``; ``start_g`` (group walk) the packets' subtree
-    entries; ``skip_narrow`` the entry/exit walk's broadphase-only build."""
-    dev = rows.device
-    table, packed = _entry_exit_table(scene)
-    gate = pre_gate
-    if sweep:
-        swn = scene.sweep_nodes
-        if swn is not None:
-            gate = sweep_gate(_dev(swn, dev, node_records), rows, packet,
-                              pre_gate=pre_gate)
-        else:
-            gate = sweep_gate(_dev(table, dev, node_records), rows, packet,
-                              packed=packed, pre_gate=pre_gate)
-    a_lo = _a_lo(scene, dev)
-    if wide:
-        return wide_trace(_dev(scene.gnodes, dev, group_records),
-                          _dev(scene.groups, dev), rows, width=int(scene.width),
-                          depth=int(scene.gdepth), gate=gate, packet=packet,
-                          bounded=bounded, mode=mode, hints=hints,
-                          start_g=start_g, a_lo=a_lo)
-    return tight_trace(_dev(table, dev, node_records), _dev(scene.groups, dev),
-                       rows, width=int(scene.width), packed=packed, gate=gate,
-                       packet=packet, bounded=bounded, mode=mode, hints=hints,
-                       a_lo=a_lo, skip_narrow=skip_narrow)
+    entries; ``skip_narrow`` the entry/exit walk's broadphase-only build.
+    One span ``walk``."""
+    with obs.span("walk"):
+        dev = rows.device
+        table, packed = _entry_exit_table(scene)
+        gate = pre_gate
+        if sweep:
+            swn = scene.sweep_nodes
+            if swn is not None:
+                gate = sweep_gate(_dev(swn, dev, node_records), rows, packet,
+                                  pre_gate=pre_gate)
+            else:
+                gate = sweep_gate(_dev(table, dev, node_records), rows,
+                                  packet, packed=packed, pre_gate=pre_gate)
+        a_lo = _a_lo(scene, dev)
+        if wide:
+            return wide_trace(_dev(scene.gnodes, dev, group_records),
+                              _dev(scene.groups, dev), rows,
+                              width=int(scene.width), depth=int(scene.gdepth),
+                              gate=gate, packet=packet, bounded=bounded,
+                              mode=mode, hints=hints, start_g=start_g,
+                              a_lo=a_lo)
+        return tight_trace(_dev(table, dev, node_records),
+                           _dev(scene.groups, dev), rows,
+                           width=int(scene.width), packed=packed, gate=gate,
+                           packet=packet, bounded=bounded, mode=mode,
+                           hints=hints, a_lo=a_lo, skip_narrow=skip_narrow)
 
 
 def _a_lo(scene, dev):
@@ -304,19 +327,35 @@ def _finish(rays_s: Ray, tris9, t, sid) -> HitRecord:
     return HitRecord(t, u, v, sid)
 
 
-def _trace(scene, rays_s: Ray, tris9, packet: int, sweep: bool, tm,
-           bounded: bool, wide: bool, hints=None, pre_gate=None,
-           start_g=None, skip_narrow: bool = False) -> HitRecord:
-    """The closest-hit trace on sorted rays ``rays_s``; ``tm`` is the per-ray
-    t_max in the same order (+inf when unbounded); ``tris9`` an optional
-    [n_tris, 9] vertex table for the exact winner recompute."""
-    t, lane_id = _walk(scene, _ray_rows(rays_s, tm), packet, sweep, bounded,
-                       "closest", wide, hints, pre_gate, start_g, skip_narrow)
-    if bounded:
-        # a leaf hit at t >= t_max (the slab test prunes boxes, not
-        # triangles) is a miss
-        t = torch.where(t < tm, t, _INF)
-    return _finish(rays_s, tris9, t, _shape_ids(scene, t, lane_id))
+def _epilogue(scene, rays_s: Ray, tris9, t, lane_id, tm, bounded: bool,
+              inv=None) -> HitRecord:
+    """The closest hits of the walk's raw ``(t, lane_id)`` on sorted rays
+    ``rays_s``, as one span ``epilogue``: ``tm`` is the per-ray t_max in the
+    same order, ``tris9`` an optional [n_tris, 9] vertex table for the exact
+    winner recompute, ``inv`` an optional un-sorting permutation."""
+    with obs.span("epilogue"):
+        if bounded:
+            # a leaf hit at t >= t_max (the slab test prunes boxes, not
+            # triangles) is a miss
+            t = torch.where(t < tm, t, _INF)
+        out = _finish(rays_s, tris9, t, _shape_ids(scene, t, lane_id))
+        return out if inv is None else _unpermute(out, inv, tris9 is not None)
+
+
+def _unpermute(out: HitRecord, inv, exact: bool) -> HitRecord:
+    """``out`` in the callers' order: rows taken by ``inv`` as int32 bit
+    patterns, so every t, u, v moves exactly (u and v only where ``exact``;
+    else they are zeros and stay)."""
+    cols = [out.t.view(torch.int32), out.shape_id]
+    if exact:
+        cols += [out.u.view(torch.int32), out.v.view(torch.int32)]
+    comb = torch.stack(cols, dim=1)[inv]
+    t = comb[:, 0].contiguous().view(torch.float32)
+    if not exact:
+        return HitRecord(t, out.u, out.v, comb[:, 1].contiguous())
+    return HitRecord(t, comb[:, 2].contiguous().view(torch.float32),
+                     comb[:, 3].contiguous().view(torch.float32),
+                     comb[:, 1].contiguous())
 
 
 def _tris9(tris, device) -> torch.Tensor:
@@ -326,20 +365,24 @@ def _tris9(tris, device) -> torch.Tensor:
 
 
 def _prepare(rays: Ray, t_max, perm, dev):
-    """The rays on ``dev``, sorted by ``perm`` if given, and the per-ray
-    t_max in the same order (+inf when None)."""
-    rays = Ray(*(x.to(dev) for x in rays))
-    r = rays.origin.shape[0]
-    if t_max is None:
-        tm = torch.full((r,), _INF, dtype=torch.float32, device=dev)
-    else:
-        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
-        tm = tm.reshape(-1).expand(r).contiguous()
-    if perm is not None:
-        perm = torch.as_tensor(perm, device=dev).to(torch.int64)
-        rays = rays.take(perm)
-        tm = tm[perm]
-    return rays, tm
+    """The spans ``sort`` and ``prologue`` of a trace over rays: the rays on
+    ``dev``, sorted by ``perm`` if given, the per-ray t_max in the same
+    order (+inf when None) and the kernels' ray rows."""
+    with obs.span("sort"):
+        rays = Ray(*(x.to(dev) for x in rays))
+        r = rays.origin.shape[0]
+        tm = None
+        if t_max is not None:
+            tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+            tm = tm.reshape(-1).expand(r).contiguous()
+        if perm is not None:
+            perm = torch.as_tensor(perm, device=dev).to(torch.int64)
+            rays = rays.take(perm)
+            tm = None if tm is None else tm[perm]
+    with obs.span("prologue"):
+        if tm is None:
+            tm = torch.full((r,), _INF, dtype=torch.float32, device=dev)
+        return rays, tm, _ray_rows(rays, tm)
 
 
 def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
@@ -388,17 +431,20 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
     if r == 0:
         z = torch.zeros(0, dtype=torch.float32, device=dev)
         return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
-    hints_t = _hints(scene, hints, _traces_wide(scene), r, packet, dev)
-    if hints_t is not None and walk_wide != _traces_wide(scene):
-        # the hint format is the default walk's
-        raise ValueError("hints follow the scene's default walk; do not "
-                         "override wide= with hints")
-    sg = _start_g(scene, start_g, walk_wide, r, packet, dev)
-    pg = _pre_gate(pre_gate, r, packet, dev)
-    rays, tm = _prepare(rays, t_max, perm, dev)
-    tris9 = None if tris is None else _tris9(tris, dev)
-    return _trace(scene, rays, tris9, packet, sweep, tm, t_max is not None,
-                  walk_wide, hints_t, pg, sg, skip_narrow)
+    with obs.span("trace"):
+        hints_t = _hints(scene, hints, _traces_wide(scene), r, packet, dev)
+        if hints_t is not None and walk_wide != _traces_wide(scene):
+            # the hint format is the default walk's
+            raise ValueError("hints follow the scene's default walk; do not "
+                             "override wide= with hints")
+        sg = _start_g(scene, start_g, walk_wide, r, packet, dev)
+        pg = _pre_gate(pre_gate, r, packet, dev)
+        tris9 = None if tris is None else _tris9(tris, dev)
+        rays, tm, rows = _prepare(rays, t_max, perm, dev)
+        bounded = t_max is not None
+        t, lane_id = _walk(scene, rows, packet, sweep, bounded, "closest",
+                           walk_wide, hints_t, pg, sg, skip_narrow)
+        return _epilogue(scene, rays, tris9, t, lane_id, tm, bounded)
 
 
 def trace_any_hit_tight(scene, rays: Ray, t_max=None, packet: int = 2048,
@@ -422,13 +468,13 @@ def trace_any_hit_tight(scene, rays: Ray, t_max=None, packet: int = 2048,
     r = rays.origin.shape[0]
     if r == 0:
         return torch.zeros(0, dtype=torch.bool, device=dev)
-    pg = _pre_gate(pre_gate, r, packet, dev)
-    rays, tm = _prepare(rays, t_max, perm, dev)
-    t, _ = _walk(scene, _ray_rows(rays, tm), packet, sweep, t_max is not None,
-                 "any", walk_wide, pre_gate=pg)
-    if t_max is None:
-        return torch.isfinite(t)
-    return t < tm
+    with obs.span("trace"):
+        pg = _pre_gate(pre_gate, r, packet, dev)
+        rays, tm, rows = _prepare(rays, t_max, perm, dev)
+        t, _ = _walk(scene, rows, packet, sweep, t_max is not None, "any",
+                     walk_wide, pre_gate=pg)
+        with obs.span("epilogue"):
+            return torch.isfinite(t) if t_max is None else t < tm
 
 
 def make_tracer(scene, packet: int = 8192, sweep: bool = True,
@@ -468,35 +514,29 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
     tris9 = None if tris is None else _tris9(tris, dev)
 
     def tracer(origins, directions) -> HitRecord:
-        o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
-        d = torch.as_tensor(directions, dtype=torch.float32, device=dev)
-        if o.shape[0] == 0:
-            z = torch.zeros(0, dtype=torch.float32, device=dev)
-            return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32,
-                                                  device=dev))
-        if sort is None:
-            rays_s = Ray.create(o, d, device=dev)
-        else:
-            perm, inv = sort_rays_device(o, d, bits=bits, mode=sort, device=dev)
-            od = torch.cat([o, d], dim=1)[perm]
-            rays_s = Ray.create(od[:, 0:3], od[:, 3:6], device=dev)
-        tm = torch.full((o.shape[0],), _INF, dtype=torch.float32, device=dev)
-        sg = None if planner is None else planner(rays_s.origin)
-        out = _trace(scene, rays_s, tris9, packet, sweep, tm, False, wide,
-                     start_g=sg)
-        if sort is None:
-            return out
-        # un-permute as int32 bit patterns, so every t, u, v moves exactly
-        cols = [out.t.view(torch.int32), out.shape_id]
-        if tris9 is not None:
-            cols += [out.u.view(torch.int32), out.v.view(torch.int32)]
-        comb = torch.stack(cols, dim=1)[inv]
-        t = comb[:, 0].contiguous().view(torch.float32)
-        if tris9 is None:
-            return HitRecord(t, out.u, out.v, comb[:, 1].contiguous())
-        return HitRecord(t, comb[:, 2].contiguous().view(torch.float32),
-                         comb[:, 3].contiguous().view(torch.float32),
-                         comb[:, 1].contiguous())
+        with obs.span("trace"):
+            o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
+            d = torch.as_tensor(directions, dtype=torch.float32, device=dev)
+            if o.shape[0] == 0:
+                z = torch.zeros(0, dtype=torch.float32, device=dev)
+                return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32,
+                                                      device=dev))
+            with obs.span("sort"):
+                inv = None
+                if sort is not None:
+                    perm, inv = sort_rays_device(o, d, bits=bits, mode=sort,
+                                                 device=dev)
+                    od = torch.cat([o, d], dim=1)[perm]
+                    o, d = od[:, 0:3], od[:, 3:6]
+            with obs.span("prologue"):
+                rays_s = Ray.create(o, d, device=dev)
+                tm = torch.full((o.shape[0],), _INF, dtype=torch.float32,
+                                device=dev)
+                sg = None if planner is None else planner(rays_s.origin)
+                rows = _ray_rows(rays_s, tm)
+            t, lane_id = _walk(scene, rows, packet, sweep, False, "closest",
+                               wide, start_g=sg)
+            return _epilogue(scene, rays_s, tris9, t, lane_id, tm, False, inv)
 
     return tracer
 
@@ -1011,31 +1051,33 @@ def trace_closest_hit_chained(chained, rays: Ray, tris=None, packet: int = 2048,
     if r == 0:
         z = torch.zeros(0, dtype=torch.float32, device=dev)
         return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
-    rays_s, tm = _prepare(rays, t_max, perm, dev)
-    rows = _ray_rows(rays_s, tm)  # row 6 is each part's bound
-    # the per-ray best raw t, each part's bound: +inf where t_max is not
-    # finite, then only ever a finite hit t
-    best_t = torch.where(torch.isfinite(tm), tm, _INF)
-    best_loc = torch.zeros(r, dtype=torch.int64, device=dev)  # 0: the -1 slot
-    off = 1
-    for part, ids in zip(chained.parts, chained.orig_ids):
-        rows[6] = best_t
-        gate = _part_root_gate(rows, _dev(part.smem_nodes, dev)[:6, 0], best_t,
-                               packet)
-        t, lane_id = _walk(part, rows, packet, sweep, True, "closest",
-                           _traces_wide(part), pre_gate=gate)
-        t = torch.where(t < best_t, t, _INF)
-        sid = _shape_ids(part, t, lane_id)
-        closer = torch.isfinite(t) & (t < best_t)
-        best_t = torch.where(closer, t, best_t)
-        best_loc = torch.where(closer, sid.to(torch.int64) + off, best_loc)
-        off += int(np.shape(ids)[0])
-    best_id = _chain_ids(chained, dev)[best_loc]
-    if t_max is not None:
-        best_t = torch.where(best_t < tm, best_t, _INF)
-        best_id = torch.where(torch.isfinite(best_t), best_id, -1)
-    tris9 = None if tris is None else _tris9(tris, dev)
-    return _finish(rays_s, tris9, best_t, best_id)
+    with obs.span("trace_chained"):
+        # row 6 of the ray rows is each part's bound
+        rays_s, tm, rows = _prepare(rays, t_max, perm, dev)
+        # the per-ray best raw t, each part's bound: +inf where t_max is not
+        # finite, then only ever a finite hit t
+        best_t = torch.where(torch.isfinite(tm), tm, _INF)
+        best_loc = torch.zeros(r, dtype=torch.int64, device=dev)  # 0: -1 slot
+        off = 1
+        for part, ids in zip(chained.parts, chained.orig_ids):
+            rows[6] = best_t
+            gate = _part_root_gate(rows, _dev(part.smem_nodes, dev)[:6, 0],
+                                   best_t, packet)
+            t, lane_id = _walk(part, rows, packet, sweep, True, "closest",
+                               _traces_wide(part), pre_gate=gate)
+            t = torch.where(t < best_t, t, _INF)
+            sid = _shape_ids(part, t, lane_id)
+            closer = torch.isfinite(t) & (t < best_t)
+            best_t = torch.where(closer, t, best_t)
+            best_loc = torch.where(closer, sid.to(torch.int64) + off, best_loc)
+            off += int(np.shape(ids)[0])
+        with obs.span("epilogue"):
+            best_id = _chain_ids(chained, dev)[best_loc]
+            if t_max is not None:
+                best_t = torch.where(best_t < tm, best_t, _INF)
+                best_id = torch.where(torch.isfinite(best_t), best_id, -1)
+            tris9 = None if tris is None else _tris9(tris, dev)
+            return _finish(rays_s, tris9, best_t, best_id)
 
 
 def trace_any_hit_chained(chained, rays: Ray, t_max=None, packet: int = 2048,
@@ -1054,15 +1096,16 @@ def trace_any_hit_chained(chained, rays: Ray, t_max=None, packet: int = 2048,
     r = rays.origin.shape[0]
     if r == 0:
         return torch.zeros(0, dtype=torch.bool, device=dev)
-    rays_s, tm0 = _prepare(rays, t_max, perm, dev)
-    rows = _ray_rows(rays_s, tm0)  # row 6 is each part's bound
-    occ = torch.zeros(r, dtype=torch.bool, device=dev)
-    for part in chained.parts:
-        tm = torch.where(occ, 0.0, tm0)
-        rows[6] = tm
-        gate = _part_root_gate(rows, _dev(part.smem_nodes, dev)[:6, 0], tm,
-                               packet)
-        t, _ = _walk(part, rows, packet, sweep, True, "any", _traces_wide(part),
-                     pre_gate=gate)
-        occ = occ | (t < tm)
-    return occ
+    with obs.span("trace_chained"):
+        # row 6 of the ray rows is each part's bound
+        _, tm0, rows = _prepare(rays, t_max, perm, dev)
+        occ = torch.zeros(r, dtype=torch.bool, device=dev)
+        for part in chained.parts:
+            tm = torch.where(occ, 0.0, tm0)
+            rows[6] = tm
+            gate = _part_root_gate(rows, _dev(part.smem_nodes, dev)[:6, 0],
+                                   tm, packet)
+            t, _ = _walk(part, rows, packet, sweep, True, "any",
+                         _traces_wide(part), pre_gate=gate)
+            occ = occ | (t < tm)
+        return occ

@@ -58,6 +58,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ._build import load_cuda_library
 
 K = 16  # children per group
@@ -95,12 +96,6 @@ N_ROWS = 13  # ray rows: o*inv (3), inv (3), t_max, d (3), o (3)
 REC = 128  # floats per group in the kernel's group-major table
 
 MODES = {"closest": 0, "any": 2}  # the kernels' mode codes (1: bounded)
-
-launches = 0  # launches of the timed build, counted in ``wide_trace``
-any_launches = 0  # of those, the launches in any-hit mode
-subtree_launches = 0  # of those, the launches with subtree entries
-frame_launches = 0  # of those, the launches of the FRAME build (``a_lo``)
-count_launches = 0  # launches of the counting build (``counts=True``)
 
 
 @functools.cache
@@ -258,8 +253,6 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     (a debug build, not a timed one; its ``t`` and ``lane_id`` are the
     timed build's bit for bit).
     """
-    global launches, any_launches, subtree_launches, frame_launches
-    global count_launches
     _check(records, groups, rays, width, depth, gate, hints, packet, start_g,
            a_lo)
     code = mode_code(mode, bounded)
@@ -289,12 +282,10 @@ def wide_trace(records: torch.Tensor, groups: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"wide_trace kernel launch failed: CUDA error {rc}")
     if counts:
-        count_launches += 1
+        obs.count("launch.wide_trace_count")
         return t, lane_id, tests.to(torch.int64), fires.to(torch.int64)
-    launches += 1
-    any_launches += code == 2
-    subtree_launches += start_g is not None
-    frame_launches += a_lo is not None
+    obs.launch("wide_trace", any=code == 2, subtree=start_g is not None,
+               frame=a_lo is not None)
     return t, lane_id
 
 

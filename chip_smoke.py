@@ -251,6 +251,7 @@ import torch
 from bvh_tpu_torch import (Aabb, AabbQuery, Ball, BallQuery, Ray, RayQuery,
                            native, point_triangle_distance_squared,
                            ray_intersects_aabb, ray_intersects_triangle)
+from bvh_tpu_torch import obs
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import camera_rays as package_camera_rays
 from bvh_tpu_torch.io import (load_chained_scene, load_obj_triangles,
@@ -263,7 +264,7 @@ from bvh_tpu_torch.bvh import (FlatBvh, any_hit_triangles,
                                brute_force_collect, build_sah,
                                closest_hit_triangles, nearest_to_triangles,
                                nearest_traverse, traverse_all, update_shapes)
-from bvh_tpu_torch.ops import (_build, build_chained_scene,
+from bvh_tpu_torch.ops import (build_chained_scene,
                                build_chained_scene_device,
                                build_cluster_scene, build_tight_scene,
                                build_tight_scene_device, count_visits_nearest,
@@ -356,14 +357,17 @@ def is_port_kernel(key: str) -> bool:
     return name.split("(")[0].split("<")[0] in PORT_KERNELS
 
 
+def n_launched(kernel: str) -> int:
+    """Launches of ``kernel`` so far (its ``launch.<kernel>`` counter)."""
+    return obs.counted(f"launch.{kernel}")
+
+
 def port_launches() -> int:
-    """Launches of the port's kernels so far, over every wrapper's count
-    (the counting builds' included)."""
-    return (wide_mod.launches + sweep_mod.launches + tight_mod.launches
-            + near_mod.wide_launches + near_mod.entry_exit_launches
-            + ct_mod.launches + wide_mod.count_launches
-            + tight_mod.count_launches + near_mod.wide_count_launches
-            + near_mod.entry_exit_count_launches + slab_mod.launches)
+    """Launches of the port's kernels so far: the ``launch.<kernel>``
+    counters (the counting builds' included); a build suffix
+    (``.frame``, ``.any``, ...) counts a subset of its kernel's launches."""
+    return sum(v for k, v in obs.snapshot()["counts"].items()
+               if k.startswith("launch.") and "." not in k[len("launch."):])
 
 
 def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
@@ -409,28 +413,6 @@ def device_breakdown(fn, e2e_ms: float, attempts: int = 3) -> dict:
             "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:8]]}
 
 
-def reset_counts() -> None:
-    wide_mod.launches = 0
-    wide_mod.any_launches = 0
-    wide_mod.subtree_launches = 0
-    wide_mod.frame_launches = 0
-    sweep_mod.launches = 0
-    tight_mod.launches = 0
-    tight_mod.any_launches = 0
-    tight_mod.frame_launches = 0
-    tight_mod.skip_launches = 0
-    near_mod.wide_launches = 0
-    near_mod.entry_exit_launches = 0
-    near_mod.wide_frame_launches = 0
-    near_mod.entry_exit_frame_launches = 0
-    ct_mod.launches = 0
-    wide_mod.count_launches = 0
-    tight_mod.count_launches = 0
-    near_mod.wide_count_launches = 0
-    near_mod.entry_exit_count_launches = 0
-    slab_mod.launches = 0
-
-
 def build_all() -> dict:
     """Builds the kernel libraries and the host builder in parallel."""
     errors = []
@@ -452,7 +434,10 @@ def build_all() -> dict:
         th.join()
     if errors:
         fail("build: " + " | ".join(errors))
-    return {"wall_s": time.perf_counter() - t0, **_build.BUILD_SECONDS}
+    built = {k.removeprefix("lib_build_s."): v
+             for k, v in obs.snapshot()["counts"].items()
+             if k.startswith("lib_build_s.")}
+    return {"wall_s": time.perf_counter() - t0, **built}
 
 
 def camera_rays(eye, look_at, up, fov_deg, width, height):
@@ -994,15 +979,15 @@ def phase_nearest_kernels(dev) -> dict:
                             .astype(np.float32)).to(dev)
     pf = pf_u[sort_points_device(pf_u, device=dev)[0]]
     err.update(nearest_wide_frame=0.0, nearest_tight_frame=0.0)
-    counters = {"wide": "wide_frame_launches",
-                "entry_exit": "entry_exit_frame_launches"}
+    counters = {"wide": "launch.nearest_wide.frame",
+                "entry_exit": "launch.nearest_entry_exit.frame"}
     for case, r in {"frame": near_mod.point_rows(pf, None),
                     "frame_unsorted": near_mod.point_rows(pf_u, None)}.items():
         for kind, name in (("wide", "nearest_wide_frame"),
                            ("entry_exit", "nearest_tight_frame")):
-            before = getattr(near_mod, counters[kind])
+            before = obs.counted(counters[kind])
             differ, hits, e = near_compare(kind, dscene, r, frame=True)
-            check(getattr(near_mod, counters[kind]) == before + 1,
+            check(obs.counted(counters[kind]) == before + 1,
                   f"{kind}/{case}: the FRAME build was not launched")
             err[name] = max(err[name], e)
             out[f"{kind}/{case}"] = {"points_differ": differ, "hits": hits}
@@ -1119,19 +1104,20 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
     }
 
     # the nearest main path: every count is zero before and read after
-    reset_counts()
+    obs.reset()
     res = {leg: fn() for leg, fn in legs.items()}
     torch.cuda.synchronize()
-    launches = {"nearest_wide": near_mod.wide_launches,
-                "nearest_tight": near_mod.entry_exit_launches}
+    launches = {"nearest_wide": n_launched("nearest_wide"),
+                "nearest_tight": n_launched("nearest_entry_exit")}
     emit("nearest_main_path_launches", **launches,
-         nearest_wide_frame=near_mod.wide_frame_launches,
-         nearest_tight_frame=near_mod.entry_exit_frame_launches)
+         nearest_wide_frame=n_launched("nearest_wide.frame"),
+         nearest_tight_frame=n_launched("nearest_entry_exit.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the nearest main path")
     # host builds carry a_lo: every walk of the path is a FRAME launch
-    check(near_mod.wide_frame_launches == launches["nearest_wide"]
-          and near_mod.entry_exit_frame_launches == launches["nearest_tight"],
+    check(n_launched("nearest_wide.frame") == launches["nearest_wide"]
+          and (n_launched("nearest_entry_exit.frame")
+               == launches["nearest_tight"]),
           "a nearest walk of the main path did not take the FRAME build")
 
     for leg, (sid, dist) in res.items():
@@ -1308,17 +1294,17 @@ def pathtrace_phase(dev, card: str, scene_d, tris_np, oc_dev, dc_dev,
         return tracer(oc_dev, dc_dev, torch.Generator(device=dev).manual_seed(0))
 
     # the path tracer's main path: every count is zero before and read after
-    reset_counts()
+    obs.reset()
     col = frame()
     torch.cuda.synchronize()
-    launches = {"wide_trace": wide_mod.launches,
-                "wide_trace_any": wide_mod.any_launches,
-                "sweep_gate": sweep_mod.launches}
+    launches = {"wide_trace": n_launched("wide_trace"),
+                "wide_trace_any": n_launched("wide_trace.any"),
+                "sweep_gate": n_launched("sweep")}
     emit("pathtrace_launches", **launches,
-         wide_trace_frame=wide_mod.frame_launches)
+         wide_trace_frame=n_launched("wide_trace.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the pathtrace path")
-    check(wide_mod.frame_launches == launches["wide_trace"],
+    check(n_launched("wide_trace.frame") == launches["wide_trace"],
           "a group walk of the pathtrace path did not take the FRAME build")
     check(col.shape == (side * side, 3), "pathtrace colour shape")
     check(bool(torch.isfinite(col).all()) and bool((col >= 0).all()),
@@ -1487,24 +1473,24 @@ def entry_exit_phase(dev, card: str, scene_w, tris_np, ao, ad, ao_dev, ad_dev,
             scene_nw, rays_r, packet=8192, skip_narrow=True),
     }
     # the entry/exit main path: every count is zero before and read after
-    reset_counts()
+    obs.reset()
     res = {leg: fn() for leg, fn in legs.items()}
     torch.cuda.synchronize()
-    launches = {"tight_trace": tight_mod.launches,
-                "tight_trace_any": tight_mod.any_launches,
-                "tight_trace_skip": tight_mod.skip_launches,
-                "wide_trace_any": wide_mod.any_launches,
-                "sweep_gate": sweep_mod.launches}
+    launches = {"tight_trace": n_launched("tight_trace"),
+                "tight_trace_any": n_launched("tight_trace.any"),
+                "tight_trace_skip": n_launched("tight_trace.skip"),
+                "wide_trace_any": n_launched("wide_trace.any"),
+                "sweep_gate": n_launched("sweep")}
     emit("entry_exit_launches", **launches,
-         tight_trace_frame=tight_mod.frame_launches,
-         wide_trace_frame=wide_mod.frame_launches)
+         tight_trace_frame=n_launched("tight_trace.frame"),
+         wide_trace_frame=n_launched("wide_trace.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the entry/exit path")
     # host builds carry a_lo: every walk of the path with a leaf test is a
     # FRAME launch (the SKIP build has none, and takes no table)
-    check(tight_mod.frame_launches
+    check(n_launched("tight_trace.frame")
           == launches["tight_trace"] - launches["tight_trace_skip"]
-          and wide_mod.frame_launches == wide_mod.launches,
+          and n_launched("wide_trace.frame") == n_launched("wide_trace"),
           "a walk of the entry/exit path did not take the FRAME build")
     s08 = [shadow(scene_w, 0.8), shadow(scene_nw, 0.8)]
 
@@ -1775,19 +1761,19 @@ def planned_phase(dev, card: str, scene, tris_np, ao, ad, ao_dev, ad_dev,
         return loss.detach(), depth.detach(), hit, (av.grad, bv.grad, cv.grad)
 
     # the phase's main path: every count is zero before and read after
-    reset_counts()
+    obs.reset()
     h_key = tr_key(ao_dev, ad_dev)
     diff_out = fwd_bwd()
     torch.cuda.synchronize()
-    launches = {"wide_trace": wide_mod.launches,
-                "wide_trace_subtree": wide_mod.subtree_launches,
-                "sweep_gate": sweep_mod.launches}
+    launches = {"wide_trace": n_launched("wide_trace"),
+                "wide_trace_subtree": n_launched("wide_trace.subtree"),
+                "sweep_gate": n_launched("sweep")}
     emit("planned_launches", **launches,
-         wide_trace_frame=wide_mod.frame_launches)
+         wide_trace_frame=n_launched("wide_trace.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the planned aimed and "
               "diff_fwd_bwd path")
-    check(wide_mod.frame_launches == launches["wide_trace"],
+    check(n_launched("wide_trace.frame") == launches["wide_trace"],
           "a group walk of the planned path did not take the FRAME build")
 
     # the planned leg equals the unplanned one and holds brute force's bounds
@@ -2079,10 +2065,10 @@ def legacy_phase(dev, card: str, tris_np, o, d, ao, ad, h_aim, issue: float,
             scene, Ray.create(*rays_dev["legacy_aimed"]), tris=tris_dev),
     }
     # the legacy path: every count is zero before and read after
-    reset_counts()
+    obs.reset()
     res = {leg: fn() for leg, fn in legs.items()}
     torch.cuda.synchronize()
-    launches = {"cluster_trace": ct_mod.launches}
+    launches = {"cluster_trace": n_launched("cluster_trace")}
     emit("legacy_launches", **launches)
     check(launches["cluster_trace"] > 0,
           "cluster_trace was never launched on the legacy path")
@@ -2408,7 +2394,7 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
     # the chained path: every count is zero before and read after. The
     # launches of the four chained legs are recorded (inputs copied), to be
     # held against the plain versions below
-    reset_counts()
+    obs.reset()
     res, calls = {}, {}
     for leg, fn in legs.items():
         if leg.startswith("k_closest"):
@@ -2418,10 +2404,10 @@ def chained_phase(dev, card: str, scene_w, tris_w, n_cubes: int = 84000,
         if leg == "chained_aimed":
             t_hit["aimed"] = res[leg][0]
     torch.cuda.synchronize()
-    launches = {"wide_trace": wide_mod.launches,
-                "wide_trace_any": wide_mod.any_launches,
-                "sweep_gate": sweep_mod.launches,
-                "nearest_wide": near_mod.wide_launches}
+    launches = {"wide_trace": n_launched("wide_trace"),
+                "wide_trace_any": n_launched("wide_trace.any"),
+                "sweep_gate": n_launched("sweep"),
+                "nearest_wide": n_launched("nearest_wide")}
     emit("chained_launches", **launches)
     for k_, v in launches.items():
         check(v > 0, f"{k_} was never launched on the chained path")
@@ -2828,7 +2814,7 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
         return trace_closest_hit_tight(sc, rays, tris=tris_m, packet=1024).t
 
     # ---- the main path of phase 13: every count zero before, read after
-    reset_counts()
+    obs.reset()
     flat_new = update_shapes(flat_dev, mn2_dev, mx2_dev)
     refit_scene = refitter(*v2)
     quality = {}
@@ -2862,19 +2848,19 @@ def dynamic_phase(dev, card: str, scene, tris, o, d, ao, ad, issue: float,
     near_far = {wide: nearest_tight(dev_scenes["grid"], fp_dev, wide=wide)
                 for wide in (True, False)}
     torch.cuda.synchronize()
-    launches = {"wide_trace": wide_mod.launches,
-                "tight_trace": tight_mod.launches,
-                "sweep_gate": sweep_mod.launches,
-                "nearest_wide": near_mod.wide_launches,
-                "nearest_tight": near_mod.entry_exit_launches,
-                "wide_trace_count": wide_mod.count_launches,
-                "tight_trace_count": tight_mod.count_launches,
-                "nearest_wide_count": near_mod.wide_count_launches,
-                "nearest_tight_count": near_mod.entry_exit_count_launches,
-                "wide_trace_frame": wide_mod.frame_launches,
-                "tight_trace_frame": tight_mod.frame_launches,
-                "nearest_wide_frame": near_mod.wide_frame_launches,
-                "nearest_tight_frame": near_mod.entry_exit_frame_launches}
+    launches = {"wide_trace": n_launched("wide_trace"),
+                "tight_trace": n_launched("tight_trace"),
+                "sweep_gate": n_launched("sweep"),
+                "nearest_wide": n_launched("nearest_wide"),
+                "nearest_tight": n_launched("nearest_entry_exit"),
+                "wide_trace_count": n_launched("wide_trace_count"),
+                "tight_trace_count": n_launched("tight_trace_count"),
+                "nearest_wide_count": n_launched("nearest_wide_count"),
+                "nearest_tight_count": n_launched("nearest_entry_exit_count"),
+                "wide_trace_frame": n_launched("wide_trace.frame"),
+                "tight_trace_frame": n_launched("tight_trace.frame"),
+                "nearest_wide_frame": n_launched("nearest_wide.frame"),
+                "nearest_tight_frame": n_launched("nearest_entry_exit.frame")}
     emit("dynamic_main_path_launches", **launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on phase 13's main path")
@@ -3414,18 +3400,19 @@ def host_frame_phase(dev, card: str, scene, scene_d, tris, o, d, ao, ad,
         return out
 
     # the host legs: every count zero before, read after
-    reset_counts()
+    obs.reset()
     hits = far_legs(True)
     torch.cuda.synchronize()
-    launches = {"wide_trace_frame": wide_mod.frame_launches,
-                "tight_trace_frame": tight_mod.frame_launches,
-                "cluster_trace": ct_mod.launches}
+    launches = {"wide_trace_frame": n_launched("wide_trace.frame"),
+                "tight_trace_frame": n_launched("tight_trace.frame"),
+                "cluster_trace": n_launched("cluster_trace")}
     emit("host_frame_launches", **launches,
-         wide_trace=wide_mod.launches, tight_trace=tight_mod.launches)
+         wide_trace=n_launched("wide_trace"),
+         tight_trace=n_launched("tight_trace"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the host far legs")
-    check(wide_mod.frame_launches == wide_mod.launches
-          and tight_mod.frame_launches == tight_mod.launches,
+    check(n_launched("wide_trace.frame") == n_launched("wide_trace")
+          and n_launched("tight_trace.frame") == n_launched("tight_trace"),
           "a host far leg's walk did not take the FRAME build")
     t_round = {k: v.cpu().numpy() for k, v in far_legs(False).items()}
     far = {}
@@ -3613,11 +3600,13 @@ N_COLLECT = 256  # queries a leg checks against brute_force_collect
 def general_call(fn):
     """One call of ``fn``, synchronized: its result, and its lock-step steps
     and host reads (``bvh/traverse.py``'s counters) and seconds."""
-    trav_mod.steps = trav_mod.host_reads = 0
+    steps = obs.counted("traverse.steps")
+    reads = obs.counted("traverse.host_reads")
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, {"steps": trav_mod.steps, "host_reads": trav_mod.host_reads,
+    return out, {"steps": obs.counted("traverse.steps") - steps,
+                 "host_reads": obs.counted("traverse.host_reads") - reads,
                  "first_call_s": time.perf_counter() - t0}
 
 
@@ -3753,7 +3742,7 @@ def general_phase(dev, card: str, scene, tris, ao, ad, h_aim, pts) -> dict:
                                                          *tris64)}
     # the phase's main path: the general path launches none of the port's
     # kernels (the reference computes it outside any Pallas kernel)
-    reset_counts()
+    obs.reset()
     out, counts = {}, {}
     for leg, fn in legs.items():
         out[leg], counts[leg] = general_call(fn)
@@ -4010,13 +3999,14 @@ def io_phase(dev, card: str, scene, tris, ao_dev, ad_dev, h_aim,
         check(back_g.a_lo is not None and scenes_equal(back_g, grid),
               "io: the grid device build changed")
         fo_dev, fd_dev = keep["far_rays"]
-        before = (wide_mod.frame_launches, near_mod.wide_frame_launches)
+        before = (n_launched("wide_trace.frame"),
+                  n_launched("nearest_wide.frame"))
         h_far = make_tracer(back_g, packet=8192, sort="morton",
                             tris=tris)(fo_dev, fd_dev)
         near_far = nearest_tight(back_g, keep["far_points"])
         torch.cuda.synchronize()
-        launched = (wide_mod.frame_launches - before[0],
-                    near_mod.wide_frame_launches - before[1])
+        launched = (n_launched("wide_trace.frame") - before[0],
+                    n_launched("nearest_wide.frame") - before[1])
         check(min(launched) > 0, "io: the loaded device build did not run "
                                  "the FRAME builds")
         check(bits_equal(h_far.t, keep["far_hits"]),
@@ -4123,13 +4113,13 @@ def parallel_phase(dev, card: str, scene, tris, o_dev, d_dev, ao_dev,
                                                 packet=P),
             lambda: trace_closest_hit_tight(scene, rays_a, packet=P))}
     # the phase's main path: every count zero before, read after
-    reset_counts()
+    obs.reset()
     got = {leg: sharded() for leg, (sharded, _) in legs.items()}
     torch.cuda.synchronize()
-    launches = {"wide_trace": wide_mod.launches,
-                "wide_trace_any": wide_mod.any_launches,
-                "wide_trace_frame": wide_mod.frame_launches,
-                "tight_trace": tight_mod.launches}
+    launches = {"wide_trace": n_launched("wide_trace"),
+                "wide_trace_any": n_launched("wide_trace.any"),
+                "wide_trace_frame": n_launched("wide_trace.frame"),
+                "tight_trace": n_launched("tight_trace")}
     emit("parallel_main_path_launches", **launches)
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on phase 16's main path")
@@ -4300,10 +4290,10 @@ def scales_phase(dev, card: str, issue: float, random_rps: float,
         o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
         tracer = make_tracer(scene, packet=8192, sweep=sweep, sort="octmorton")
         # the leg's main path: every count zero before, read after
-        reset_counts()
+        obs.reset()
         h = trace_sync(tracer, o_dev, d_dev)
-        launches = {"wide_trace": wide_mod.launches,
-                    "sweep_gate": sweep_mod.launches}
+        launches = {"wide_trace": n_launched("wide_trace"),
+                    "sweep_gate": n_launched("sweep")}
         check(launches["wide_trace"] > 0, f"{leg}: the group walk never ran")
         check(launches["sweep_gate"] > 0 or not sweep,
               f"{leg}: the sweep gate never ran")
@@ -4386,9 +4376,9 @@ def ray_aabb_phase(dev, card: str, issue: float) -> tuple[dict, dict]:
     rays, mn, mx = slab_leg(dev)
     o, inv = rays.origin.contiguous(), rays.inv_direction.contiguous()
     # the leg's main path: every count zero before, read after
-    reset_counts()
+    obs.reset()
     count = int(slab_mod.slab_count(o, inv, mn, mx))
-    launches = slab_mod.launches
+    launches = n_launched("slab_count")
     check(launches > 0, "slab_count was never launched on its main path")
     plain = int(slab_mod.slab_count_plain(o, inv, mn, mx))
     check(count == plain, f"slab_count {count} != plain {plain}")
@@ -4443,21 +4433,24 @@ EXAMPLES = {
 
 
 def launched_rows() -> dict:
-    """The kernel builds launched since the last ``reset_counts``, by the
+    """The kernel builds launched since the last ``obs.reset()``, by the
     row of PERF.md's kernel table (every count that is not 0)."""
     counts = {
-        "1 wide_trace": wide_mod.launches, "1 any": wide_mod.any_launches,
-        "1 subtree": wide_mod.subtree_launches,
-        "1 frame": wide_mod.frame_launches,
-        "2 sweep_gate": sweep_mod.launches,
-        "3 tight_trace": tight_mod.launches, "3 any": tight_mod.any_launches,
-        "3 frame": tight_mod.frame_launches, "3 skip": tight_mod.skip_launches,
-        "4 cluster_trace": ct_mod.launches,
-        "5 nearest_entry_exit": near_mod.entry_exit_launches,
-        "5 frame": near_mod.entry_exit_frame_launches,
-        "6 nearest_wide": near_mod.wide_launches,
-        "6 frame": near_mod.wide_frame_launches,
-        "slab_count": slab_mod.launches}
+        "1 wide_trace": n_launched("wide_trace"),
+        "1 any": n_launched("wide_trace.any"),
+        "1 subtree": n_launched("wide_trace.subtree"),
+        "1 frame": n_launched("wide_trace.frame"),
+        "2 sweep_gate": n_launched("sweep"),
+        "3 tight_trace": n_launched("tight_trace"),
+        "3 any": n_launched("tight_trace.any"),
+        "3 frame": n_launched("tight_trace.frame"),
+        "3 skip": n_launched("tight_trace.skip"),
+        "4 cluster_trace": n_launched("cluster_trace"),
+        "5 nearest_entry_exit": n_launched("nearest_entry_exit"),
+        "5 frame": n_launched("nearest_entry_exit.frame"),
+        "6 nearest_wide": n_launched("nearest_wide"),
+        "6 frame": n_launched("nearest_wide.frame"),
+        "slab_count": n_launched("slab_count")}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -4467,7 +4460,7 @@ def run_example(name: str, out_dir: str) -> dict:
     mod, argv, out = EXAMPLES[name]
     if out is not None:
         argv = argv + ["--out", os.path.join(out_dir, out)]
-    reset_counts()
+    obs.reset()
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
@@ -4594,19 +4587,19 @@ def main() -> None:
     tr_cam = make_tracer(scene_d, packet=4096, sweep=False, sort=None)
 
     # the main path: every count is zero before and read after
-    reset_counts()
+    obs.reset()
     h_rand = trace_sync(tr_rand, o_dev, d_dev)
     h_sweep = trace_sync(tr_sweep, o_dev, d_dev)
     h_aim = trace_sync(tr_aim, ao_dev, ad_dev)
     h_cam = trace_sync(tr_cam, oc_dev, dc_dev)
-    launches = {"wide_trace": wide_mod.launches,
-                "sweep_gate": sweep_mod.launches}
+    launches = {"wide_trace": n_launched("wide_trace"),
+                "sweep_gate": n_launched("sweep")}
     emit("main_path_launches", **launches,
-         wide_trace_frame=wide_mod.frame_launches)
+         wide_trace_frame=n_launched("wide_trace.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     # host builds carry a_lo: every group walk of the path is a FRAME launch
-    check(wide_mod.frame_launches == launches["wide_trace"],
+    check(n_launched("wide_trace.frame") == launches["wide_trace"],
           "a group walk of the main path did not take the FRAME build")
 
     t_rand = h_rand.t.cpu().numpy()

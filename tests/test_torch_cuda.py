@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from bvh_tpu_torch import Ray, ray_intersects_aabb
+from bvh_tpu_torch import obs
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.diff import render_depth_fast
 from bvh_tpu_torch.ops import (build_chained_scene,
@@ -136,18 +137,18 @@ def test_nearest_kernel_matches_plain(case, cuda, walk, refine):
     grp = _dev(scene.groups, cuda)
     if walk == "wide":
         gn = _dev(scene.gnodes, cuda)
-        before = near_mod.wide_launches
+        before = obs.counted("launch.nearest_wide")
         dk, ik = near_mod.nearest_wide(gn, grp, rows, scene.width,
                                        scene.gdepth, refine=refine)
-        assert near_mod.wide_launches == before + 1
+        assert obs.counted("launch.nearest_wide") == before + 1
         dp, ip = near_mod.nearest_wide_plain(gn, grp, rows, scene.width,
                                              refine=refine)
     else:
         sn = _dev(scene.smem_nodes, cuda)
-        before = near_mod.entry_exit_launches
+        before = obs.counted("launch.nearest_entry_exit")
         dk, ik = near_mod.nearest_entry_exit(sn, grp, rows, scene.width,
                                              refine=refine)
-        assert near_mod.entry_exit_launches == before + 1
+        assert obs.counted("launch.nearest_entry_exit") == before + 1
         dp, ip = near_mod.nearest_entry_exit_plain(sn, grp, rows, scene.width,
                                                    refine=refine)
     torch.cuda.synchronize()
@@ -178,10 +179,10 @@ def test_wide_kernel_matches_plain(case, cuda, mode):
     if mode == "gated":
         gate = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, cuda), rows, 256)
     kw = dict(gate=gate, packet=256, bounded=mode == "bounded")
-    before = wide_mod.launches
+    before = obs.counted("launch.wide_trace")
     tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
                                  scene.width, scene.gdepth, **kw)
-    assert wide_mod.launches == before + 1
+    assert obs.counted("launch.wide_trace") == before + 1
     tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
     assert torch.equal(_bits(tk), _bits(tp))
@@ -195,9 +196,9 @@ def test_sweep_kernel_matches_plain(case, cuda, packet):
     sn = _dev(scene.smem_nodes, cuda)
     for t_max in (torch.full_like(tm, float("inf")), tm):
         rows = _ray_rows(rays, t_max)
-        before = sweep_mod.launches
+        before = obs.counted("launch.sweep")
         gk = sweep_mod.sweep_gate(_nrec(scene.smem_nodes, cuda), rows, packet)
-        assert sweep_mod.launches == before + 1
+        assert obs.counted("launch.sweep") == before + 1
         gp = sweep_mod.sweep_gate_plain(sn, rows, packet)
         torch.cuda.synchronize()
         assert torch.equal(gk, gp)
@@ -262,9 +263,9 @@ def test_tight_kernel_matches_plain(case, cuda, mode):
     if mode == "hinted":
         leaves = np.nonzero(scene.smem_nodes[6] < 0)[0]
         kw["hints"] = torch.from_numpy(_hints(leaves, p)).to(cuda)
-    before = tight_mod.launches
+    before = obs.counted("launch.tight_trace")
     tk, ik = tight_mod.tight_trace(rec, grp, rows, scene.width, **kw)
-    assert tight_mod.launches == before + 1
+    assert obs.counted("launch.tight_trace") == before + 1
     tp, ip = tight_mod.tight_trace_plain(table, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
     assert torch.equal(_bits(tk), _bits(tp))
@@ -284,10 +285,10 @@ def test_wide_kernel_any_and_hints_match_plain(case, cuda, mode):
     if mode == "hinted":
         p = -(-rows.shape[1] // packet)
         kw["hints"] = torch.from_numpy(_hints(scene.gslot, p)).to(cuda)
-    before = wide_mod.launches
+    before = obs.counted("launch.wide_trace")
     tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
                                  scene.width, scene.gdepth, **kw)
-    assert wide_mod.launches == before + 1
+    assert obs.counted("launch.wide_trace") == before + 1
     tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
     assert torch.equal(_bits(tk), _bits(tp))
@@ -366,9 +367,9 @@ def test_cluster_kernel_matches_plain(legacy, cuda, mode):
     tables = (_dev(scene.smem_nodes, cuda), _dev(scene.smem_cc, cuda),
               _dev(scene.tris_rel, cuda), _dev(scene.a_lo, cuda))
     kw = dict(relative=scene.relative, skip_narrow=mode == "skip_narrow")
-    before = ct_mod.launches
+    before = obs.counted("launch.cluster_trace")
     tk, ik = ct_mod.cluster_trace(*tables, rows, **kw)
-    assert ct_mod.launches == before + 1
+    assert obs.counted("launch.cluster_trace") == before + 1
     tp, ip = ct_mod.cluster_trace_plain(*tables, rows, **kw)
     torch.cuda.synchronize()
     assert torch.equal(_bits(tk), _bits(tp))
@@ -408,10 +409,11 @@ def test_closest_chained_on_card_matches_cpu(chained, cuda, case):
         perm = np.argsort(o[:, 0], kind="stable")
         kw = dict(t_max=t_max.astype(np.float32), perm=perm, tris=tris)
     rays = Ray.create(o, d, device="cpu")
-    before = (wide_mod.launches, tight_mod.launches)
+    walks = ("launch.wide_trace", "launch.tight_trace")
+    before = [obs.counted(k) for k in walks]
     got = trace_closest_hit_chained(ch, _to(rays, cuda), packet=512,
                                     device=cuda, **kw)
-    assert (wide_mod.launches, tight_mod.launches) != before
+    assert [obs.counted(k) for k in walks] != before
     ref = trace_closest_hit_chained(ch, rays, packet=512, device="cpu", **kw)
     assert torch.isfinite(ref.t).any()
     _equal(got, ref)
@@ -436,9 +438,9 @@ def test_nearest_chained_on_card_matches_cpu(chained, cuda):
     cen = (tris[0] + tris[1] + tris[2]) / 3.0
     pts = (cen[rng.integers(0, len(cen), 4096)]
            + rng.normal(scale=20.0, size=(4096, 3))).astype(np.float32)
-    before = near_mod.wide_launches
+    before = obs.counted("launch.nearest_wide")
     sid, dist = nearest_chained(ch, pts, device=cuda)
-    assert near_mod.wide_launches == before + len(ch.parts)
+    assert obs.counted("launch.nearest_wide") == before + len(ch.parts)
     sid_c, dist_c = nearest_chained(ch, pts, device="cpu")
     assert torch.equal(sid.cpu(), sid_c)
     assert torch.equal(_bits(dist.cpu()), _bits(dist_c))
@@ -570,10 +572,10 @@ def _near_rows(pts, d_max, dev):
 
 def _near_pair(scene, rows, dev, refine):
     gn, grp = _dev(scene.gnodes, dev), _dev(scene.groups, dev)
-    before = near_mod.wide_launches
+    before = obs.counted("launch.nearest_wide")
     dk, ik = near_mod.nearest_wide(gn, grp, rows, scene.width, scene.gdepth,
                                    refine=refine)
-    assert near_mod.wide_launches == before + 1
+    assert obs.counted("launch.nearest_wide") == before + 1
     dp, ip = near_mod.nearest_wide_plain(gn, grp, rows, scene.width,
                                          refine=refine)
     torch.cuda.synchronize()
@@ -629,10 +631,10 @@ def test_nearest_wide_one_lane_fires(wide_scenes, cuda, width):
 
 def _near_ee_pair(scene, rows, dev, refine):
     sn, grp = _dev(scene.smem_nodes, dev), _dev(scene.groups, dev)
-    before = near_mod.entry_exit_launches
+    before = obs.counted("launch.nearest_entry_exit")
     dk, ik = near_mod.nearest_entry_exit(sn, grp, rows, scene.width,
                                          refine=refine)
-    assert near_mod.entry_exit_launches == before + 1
+    assert obs.counted("launch.nearest_entry_exit") == before + 1
     dp, ip = near_mod.nearest_entry_exit_plain(sn, grp, rows, scene.width,
                                                refine=refine)
     torch.cuda.synchronize()
@@ -697,10 +699,10 @@ def _wide_pair(scene, rows, dev, mode, packet=128):
     if mode == "hinted":
         kw["hints"] = torch.from_numpy(
             _hints(scene.gslot, p, k=5, seed=p)).to(dev)
-    before = wide_mod.launches
+    before = obs.counted("launch.wide_trace")
     tk, ik = wide_mod.wide_trace(_rec(scene, rows.device), grp, rows,
                                  scene.width, scene.gdepth, **kw)
-    assert wide_mod.launches == before + 1
+    assert obs.counted("launch.wide_trace") == before + 1
     tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
     assert torch.equal(_bits(tk), _bits(tp))
@@ -860,10 +862,10 @@ def test_table_crack_ray_on_card(cuda):
 def _sweep_pair(table, packed, rows, dev, packet, pre_gate=None):
     """The sweep kernel against its plain version on the same rows over the
     host ``table``: returns the gate."""
-    before = sweep_mod.launches
+    before = obs.counted("launch.sweep")
     gk = sweep_mod.sweep_gate(_nrec(table, dev), rows, packet, packed=packed,
                               pre_gate=pre_gate)
-    assert sweep_mod.launches == before + 1
+    assert obs.counted("launch.sweep") == before + 1
     gp = sweep_mod.sweep_gate_plain(_dev(table, dev), rows, packet,
                                     packed=packed, pre_gate=pre_gate)
     torch.cuda.synchronize()
@@ -949,9 +951,9 @@ def _tight_pair(scene, rows, dev, mode, packet=128):
     if mode == "hinted":
         leaves = np.nonzero(host[3 if packed else 6] < 0)[0]
         kw["hints"] = torch.from_numpy(_hints(leaves, p, k=5, seed=p)).to(dev)
-    before = tight_mod.launches
+    before = obs.counted("launch.tight_trace")
     tk, ik = tight_mod.tight_trace(rec, grp, rows, scene.width, **kw)
-    assert tight_mod.launches == before + 1
+    assert obs.counted("launch.tight_trace") == before + 1
     tp, ip = tight_mod.tight_trace_plain(table, grp, rows, scene.width, **kw)
     torch.cuda.synchronize()
     assert torch.equal(_bits(tk), _bits(tp))
@@ -1073,12 +1075,12 @@ def _start_g_pair(scene, rows, dev, mode, sg, packet):
         kw["hints"] = torch.from_numpy(
             _hints(scene.gslot, p, k=5, seed=p)).to(dev)
     start = torch.from_numpy(sg).to(dev)
-    before = wide_mod.launches
+    before = obs.counted("launch.wide_trace")
     tk, ik = wide_mod.wide_trace(_rec(scene, dev), grp, rows, scene.width,
                                  scene.gdepth, start_g=start, **kw)
     t0, i0 = wide_mod.wide_trace(_rec(scene, dev), grp, rows, scene.width,
                                  scene.gdepth, **kw)
-    assert wide_mod.launches == before + 2
+    assert obs.counted("launch.wide_trace") == before + 2
     tp, ip = wide_mod.wide_trace_plain(gn, grp, rows, scene.width,
                                        start_g=start, **kw)
     torch.cuda.synchronize()
@@ -1200,9 +1202,9 @@ def test_render_depth_gradients_on_card(wide_scenes, cuda, monkeypatch,
         loss.backward()
         return depth.detach(), hit, [x.grad for x in (a, b, c, oo)]
 
-    before = wide_mod.launches
+    before = obs.counted("launch.wide_trace")
     depth, hit, grads = run()
-    assert wide_mod.launches == before + 1
+    assert obs.counted("launch.wide_trace") == before + 1
     monkeypatch.setattr(trace_mod, "wide_trace", _plain_wide)
     depth_p, hit_p, grads_p = run()
     assert torch.equal(hit, hit_p) and torch.equal(_bits(depth), _bits(depth_p))
@@ -1252,12 +1254,13 @@ def test_wide_counting_build(wide_scenes, cuda, width, packet, mode):
     kw = _walk_kw(scene, rows, cuda, mode, packet)
     rec, grp = _rec(scene, cuda), _dev(scene.groups, cuda)
     tk, ik = wide_mod.wide_trace(rec, grp, rows, width, scene.gdepth, **kw)
-    before, counted = wide_mod.launches, wide_mod.count_launches
+    before = obs.counted("launch.wide_trace")
+    counted = obs.counted("launch.wide_trace_count")
     tc, ic, tests, fires = wide_mod.wide_trace(rec, grp, rows, width,
                                                scene.gdepth, counts=True,
                                                **kw)
-    assert wide_mod.launches == before
-    assert wide_mod.count_launches == counted + 1
+    assert obs.counted("launch.wide_trace") == before
+    assert obs.counted("launch.wide_trace_count") == counted + 1
     tp, ip, tests_p, fires_p = wide_mod.wide_trace_plain(
         _dev(scene.gnodes, cuda), grp, rows, width, counts=True, **kw)
     torch.cuda.synchronize()
@@ -1284,12 +1287,13 @@ def test_tight_counting_build(wide_scenes, packed_scenes, cuda, width, mode):
     host = scene.packed_nodes if packed else scene.smem_nodes
     rec, grp = _nrec(host, cuda), _dev(scene.groups, cuda)
     tk, ik = tight_mod.tight_trace(rec, grp, rows, width, packed=packed, **kw)
-    before, counted = tight_mod.launches, tight_mod.count_launches
+    before = obs.counted("launch.tight_trace")
+    counted = obs.counted("launch.tight_trace_count")
     tc, ic, visits, fires = tight_mod.tight_trace(rec, grp, rows, width,
                                                   packed=packed, counts=True,
                                                   **kw)
-    assert tight_mod.launches == before
-    assert tight_mod.count_launches == counted + 1
+    assert obs.counted("launch.tight_trace") == before
+    assert obs.counted("launch.tight_trace_count") == counted + 1
     tp, ip, visits_p, fires_p = tight_mod.tight_trace_plain(
         _dev(host, cuda), grp, rows, width, packed=packed, counts=True, **kw)
     torch.cuda.synchronize()
@@ -1331,12 +1335,12 @@ def test_nearest_counting_build(wide_scenes, cuda, width, walk, refine):
         plain = near_mod.nearest_entry_exit_plain
         name = "entry_exit"
     dk, ik = fn(table, grp, rows, width, *args, refine=refine)
-    before = getattr(near_mod, f"{name}_launches")
-    counted = getattr(near_mod, f"{name}_count_launches")
+    before = obs.counted(f"launch.nearest_{name}")
+    counted = obs.counted(f"launch.nearest_{name}_count")
     dc, ic, steps, fires = fn(table, grp, rows, width, *args, refine=refine,
                               counts=True)
-    assert getattr(near_mod, f"{name}_launches") == before
-    assert getattr(near_mod, f"{name}_count_launches") == counted + 1
+    assert obs.counted(f"launch.nearest_{name}") == before
+    assert obs.counted(f"launch.nearest_{name}_count") == counted + 1
     dp, ip, steps_p, fires_p = plain(table, grp, rows, width, refine=refine,
                                      counts=True)
     torch.cuda.synchronize()
@@ -1541,7 +1545,7 @@ def test_frame_build_matches_plain(frame_scenes, cuda, width, walk, mode):
     """The FRAME builds of the group walk and the entry/exit walk (a scene's
     ``a_lo`` given) bit-equal to their plain versions with the same
     ``a_lo``, in every mode and in the counting builds; a timed FRAME
-    launch is counted in ``frame_launches``."""
+    launch is counted in ``launch.<kernel>.frame``."""
     scenes, rays, tm = frame_scenes
     scene = scenes[width]
     tight = walk == "tight"
@@ -1551,8 +1555,8 @@ def test_frame_build_matches_plain(frame_scenes, cuda, width, walk, mode):
                   128, tight=tight)
     counts = mode == "count"
     a_lo, grp = _dev(scene.a_lo, cuda), _dev(scene.groups, cuda)
-    mod = tight_mod if tight else wide_mod
-    before = mod.frame_launches
+    frame = f"launch.{'tight' if tight else 'wide'}_trace.frame"
+    before = obs.counted(frame)
     if tight:
         got = tight_mod.tight_trace(_nrec(scene.smem_nodes, cuda), grp, rows,
                                     width, counts=counts, a_lo=a_lo, **kw)
@@ -1567,7 +1571,7 @@ def test_frame_build_matches_plain(frame_scenes, cuda, width, walk, mode):
                                          width, counts=counts, a_lo=a_lo,
                                          **kw)
     torch.cuda.synchronize()
-    assert mod.frame_launches == before + (0 if counts else 1)
+    assert obs.counted(frame) == before + (0 if counts else 1)
     for x, y in zip(got, want):
         assert torch.equal(_bits(x), _bits(y))
     assert bool(torch.isfinite(got[0]).any())
@@ -1793,19 +1797,19 @@ def test_nearest_frame_build_matches_plain(frame_points, cuda, width, walk,
     if walk == "wide":
         table, extra = _dev(scene.gnodes, cuda), (scene.gdepth,)
         kernel, plain = near_mod.nearest_wide, near_mod.nearest_wide_plain
-        counter = "wide_frame_launches"
+        counter = "launch.nearest_wide.frame"
     else:
         table, extra = _dev(scene.smem_nodes, cuda), ()
         kernel = near_mod.nearest_entry_exit
         plain = near_mod.nearest_entry_exit_plain
-        counter = "entry_exit_frame_launches"
-    before = getattr(near_mod, counter)
+        counter = "launch.nearest_entry_exit.frame"
+    before = obs.counted(counter)
     got = kernel(table, grp, rows, width, *extra, refine=refine,
                  counts=counts, a_lo=a_lo)
     want = plain(table, grp, rows, width, refine=refine, counts=counts,
                  a_lo=a_lo)
     torch.cuda.synchronize()
-    assert getattr(near_mod, counter) == before + (0 if counts else 1)
+    assert obs.counted(counter) == before + (0 if counts else 1)
     for x, y in zip(got, want):
         assert torch.equal(_bits(x), _bits(y))
     assert bool((got[1] >= 0).any())
@@ -1852,13 +1856,13 @@ def test_nearest_frame_on_card_matches_cpu(frame_points, cuda):
 def test_skip_build_matches_plain(case, cuda, mode, counts):
     """The SKIP build (``skip_narrow``) bit-equal to its plain version, its
     visit counts included: every ray misses, no fire is counted, no hint
-    is read; a timed launch is counted in ``skip_launches``."""
+    is read; a timed launch is counted in ``launch.tight_trace.skip``."""
     scene, _, _, _, rays, tm = case
     bound = tm if mode == "bounded" else torch.full_like(tm, np.inf)
     rows = _ray_rows(rays, bound)
     kw = _walk_kw(scene, rows, cuda, mode, 1024, tight=True)
     grp = _dev(scene.groups, cuda)
-    before = tight_mod.skip_launches
+    before = obs.counted("launch.tight_trace.skip")
     got = tight_mod.tight_trace(_nrec(scene.smem_nodes, cuda), grp, rows,
                                 scene.width, counts=counts, skip_narrow=True,
                                 **kw)
@@ -1866,7 +1870,8 @@ def test_skip_build_matches_plain(case, cuda, mode, counts):
                                        rows, scene.width, counts=counts,
                                        skip_narrow=True, **kw)
     torch.cuda.synchronize()
-    assert tight_mod.skip_launches == before + (0 if counts else 1)
+    skips = obs.counted("launch.tight_trace.skip")
+    assert skips == before + (0 if counts else 1)
     for x, y in zip(got, want):
         assert torch.equal(_bits(x), _bits(y))
     assert bool(torch.isinf(got[0]).all()) and bool((got[1] == -1).all())
@@ -1899,11 +1904,11 @@ def test_skip_narrow_trace_on_card(case, cuda):
     """``trace_closest_hit_tight(skip_narrow=True)`` on the card: the SKIP
     build runs, every ray misses, and the record equals the CPU's."""
     scene, tris, _, _, rays, tm = case
-    before = tight_mod.skip_launches
+    before = obs.counted("launch.tight_trace.skip")
     got = trace_closest_hit_tight(scene, rays, tris=tris, t_max=tm,
                                   skip_narrow=True, sweep=True)
     torch.cuda.synchronize()
-    assert tight_mod.skip_launches == before + 1
+    assert obs.counted("launch.tight_trace.skip") == before + 1
     assert bool(torch.isinf(got.t).all()) and bool((got.shape_id == -1).all())
     _equal(got, trace_closest_hit_tight(scene, _to(rays, "cpu"), tris=tris,
                                         t_max=tm.cpu(), skip_narrow=True,
@@ -1936,18 +1941,18 @@ def test_device_build_round_trip_on_card(cuda, tmp_path):
          - o).astype(np.float32)
     rays = Ray.create(o, d, device=cuda)
     for wide in (None, False):
-        mod = wide_mod if wide is None else tight_mod
-        before = mod.frame_launches
+        frame = f"launch.{'wide' if wide is None else 'tight'}_trace.frame"
+        before = obs.counted(frame)
         h0 = trace_closest_hit_tight(scene, rays, wide=wide)
         h1 = trace_closest_hit_tight(back, rays, wide=wide)
         torch.cuda.synchronize()
-        assert mod.frame_launches == before + 2
+        assert obs.counted(frame) == before + 2
         _equal(h1, _cpu(h0))
     cen = ((a + b + c) / np.float32(3))[np.arange(8192) % len(a)]
     pts = torch.from_numpy(cen + o * np.float32(0.02)).to(cuda)
-    before = near_mod.wide_frame_launches
+    before = obs.counted("launch.nearest_wide.frame")
     _equal(nearest_tight(back, pts), _cpu(nearest_tight(scene, pts)))
-    assert near_mod.wide_frame_launches == before + 2
+    assert obs.counted("launch.nearest_wide.frame") == before + 2
     ch = build_chained_scene_device(*tris, max_part=1200)
     io_t.save_chained_scene(str(tmp_path / "chain.npz"), ch)
     ch_back = io_t.load_chained_scene(str(tmp_path / "chain.npz"))
@@ -2031,11 +2036,11 @@ def test_slab_count_kernel_matches_plain(cuda, n, nb):
     tiles) and face-plane rays (NaN products, misses)."""
     from bvh_tpu_torch.ops import slab as slab_mod
     o, inv, mn, mx = _slab_inputs(n, nb, cuda)
-    before = slab_mod.launches
+    before = obs.counted("launch.slab_count")
     got = slab_mod.slab_count(o, inv, mn, mx)
     want = slab_mod.slab_count_plain(o, inv, mn, mx)
     torch.cuda.synchronize()
-    assert slab_mod.launches == before + 1
+    assert obs.counted("launch.slab_count") == before + 1
     assert got.dtype == torch.int64 and int(got) == int(want)
     # each face-plane ray misses the box in whose face plane it lies
     own = torch.arange(0, n, 8, device=cuda) % nb
@@ -2082,12 +2087,12 @@ def test_example_twin_on_card(cuda, tmp_path, name, argv):
     mod = importlib.import_module(f"bvh_tpu_torch.examples.{name}")
     if name in ("camera_tracer", "obj_render", "pathtrace"):
         argv = argv + ["--out", str(tmp_path / "img")]
-    counts = (wide_mod.launches + tight_mod.launches + near_mod.wide_launches
-              + near_mod.entry_exit_launches)
+    walks = ("launch.wide_trace", "launch.tight_trace", "launch.nearest_wide",
+             "launch.nearest_entry_exit")
+    counts = sum(obs.counted(k) for k in walks)
     res = mod.main(argv)
     assert res["device"].startswith("cuda")
-    assert (wide_mod.launches + tight_mod.launches + near_mod.wide_launches
-            + near_mod.entry_exit_launches) > counts
+    assert sum(obs.counted(k) for k in walks) > counts
     ok = {"camera_tracer": lambda r: r["plan_equal"],
           "dynamic_scene": lambda r: r["agree"] > 0.99,
           "nearest_query": lambda r: r["brute_ok"] and r["general_ok"],

@@ -38,6 +38,7 @@ from bvh_tpu import bvh as bvh_j
 from bvh_tpu import diff as diff_j
 from bvh_tpu import ops as ops_j
 import bvh_tpu_torch as T
+from bvh_tpu_torch import obs
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.bvh import (FlatBvh, any_hit_triangles,
                                brute_force_closest_hit, brute_force_collect,
@@ -401,14 +402,15 @@ def test_results_do_not_depend_on_check_every(scene, monkeypatch):
     ordered = nearest_traverse(scene["ft"], rt, max_hits=16)
     for k in (1, 3):
         monkeypatch.setattr(trav_mod, "CHECK_EVERY", k)
-        trav_mod.steps = trav_mod.host_reads = 0
+        steps = obs.counted("traverse.steps")
+        reads = obs.counted("traverse.host_reads")
         for x, y in zip(closest_hit_triangles(scene["ft"], rt, *tt), base):
             assert torch.equal(x, y)
         for x, y in zip(nearest_traverse(scene["ft"], rt, max_hits=16),
                         ordered):
             assert torch.equal(x, y)
-        assert trav_mod.host_reads > 1
-        assert trav_mod.steps % k == 0
+        assert obs.counted("traverse.host_reads") - reads > 1
+        assert (obs.counted("traverse.steps") - steps) % k == 0
 
 
 def test_nearest(scene):

@@ -38,6 +38,7 @@ from bvh_tpu import tri as tri_j
 from bvh_tpu.ops.cluster import build_tight_scene as build_j
 from bvh_tpu.ops.nearest import nearest_tight as nearest_j
 from bvh_tpu.ops.nearest import sort_points_device as sort_points_j
+from bvh_tpu_torch import obs
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch import tri
 from bvh_tpu_torch.ops import (build_chained_scene_device, build_tight_scene,
@@ -215,11 +216,12 @@ def test_nearest_matches_reference(cubes120, wide, dm, sort):
     tris, sj, st, pts, d_max = cubes120
     sid_j, d_j = nearest_j(sj, pts, packet=256, d_max=d_max[dm],
                            interpret=True, wide=wide, sort=sort)
-    before = (near_mod.wide_launches, near_mod.entry_exit_launches)
+    walks = ("launch.nearest_wide", "launch.nearest_entry_exit")
+    before = [obs.counted(k) for k in walks]
     sid_t, d_t = nearest_tight(st, pts, d_max=d_max[dm], wide=wide,
                                sort=sort, device=CPU)
     # the CPU runs the plain versions
-    assert (near_mod.wide_launches, near_mod.entry_exit_launches) == before
+    assert [obs.counted(k) for k in walks] == before
     assert sid_t.dtype == torch.int32 and d_t.dtype == torch.float32
     assert_matches(np.asarray(sid_j), np.asarray(d_j), sid_t.numpy(),
                    d_t.numpy(), pts, tris)

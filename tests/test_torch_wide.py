@@ -35,6 +35,7 @@ from bvh_tpu.ops.cluster import build_tight_scene as build_j
 from bvh_tpu.ops.trace import _pack_rays_tight, _sweep_tight
 from bvh_tpu.ops.trace import trace_closest_hit_tight as trace_j
 from bvh_tpu_torch import Ray, ray_intersects_triangle
+from bvh_tpu_torch import obs
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import build_tight_scene, trace_closest_hit_tight
 from bvh_tpu_torch.ops import sweep as sweep_mod
@@ -110,10 +111,11 @@ def _compare_walk(cubes, W, leg, tol, oracle=False):
     sj = build_j(a, b, c, leaf_size=W)
     st = build_tight_scene(a, b, c, leaf_size=W)
     hj = trace_j(sj, bvh_tpu.Ray.create(o, d), interpret=True, sweep=False)
-    before = wide_mod.launches
+    before = obs.counted("launch.wide_trace")
     ht = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU),
                                  sweep=False, device=CPU)
-    assert wide_mod.launches == before  # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert obs.counted("launch.wide_trace") == before
     t64 = _oracle64(o, d, a, b, c)[0] if oracle else None
     assert_matches_reference(np.asarray(hj.t), np.asarray(hj.shape_id),
                              ht.t.numpy(), ht.shape_id.numpy(), tol, t64,
