@@ -80,6 +80,21 @@
 // the timed build's bit for bit. The timed builds are compiled without the
 // counters.
 //
+// The bound seed (nearest_seed_kernel, launched before either walk on a
+// scene that has the wide table and is not masked): one thread a point
+// descends the wide table greedily from the root, testing each group's 16
+// children with the walk's box_d2min and box_d2max and moving into the
+// child of least d2min (ties to the least d2max, then the lowest slot; a
+// NaN or +inf d2min is never taken), until the chosen child is a leaf or
+// the group has none to take. The least d2max of every child it tested
+// (NaN as +inf), one ulp up, is folded into the point's row: d_max^2 =
+// min(d_max^2, seed). Each of those boxes holds a triangle within its
+// d2max, so the nearest triangle's leaf L* has d2min(L*) <= d*^2 <= seed,
+// and the leaf still fires; the ulp keeps firing the leaf the descent ended
+// in and its ancestors, whose d2max may round to that leaf's d2min. The
+// walks, which tighten their bound only through the groups they happen to
+// enter first, then start from a bound near the answer.
+//
 // Numerics: built with -fmad=false and IEEE division, every sum written in
 // one fixed order, so the kernels agree bit for bit with their plain
 // PyTorch versions. min/max propagate NaN like torch.minimum/maximum: empty
@@ -538,6 +553,52 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The bound seed, one thread a point (no warp schedule: Morton-sorted lanes
+// of a warp mostly descend through the same groups, so the loads
+// broadcast). Reads the point's x, y, z and writes its row 3 in place;
+// steps_out, where not null, gets the groups it tested. A table is at most
+// MAX_DEPTH groups deep, so WIDE_DMAX levels always reach a leaf.
+__global__ void __launch_bounds__(128)
+    nearest_seed_kernel(const float* __restrict__ gnodes, int Gn,
+                        float* __restrict__ pts, int n,
+                        int* __restrict__ steps_out) {
+  const float inf = __int_as_float(SENT);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // plain loads: the kernel writes the rows it reads
+  Point p = {pts[i], pts[n + i], pts[2 * n + i], pts[3 * n + i], SENT, 0};
+  float seed = inf;
+  int g = 0, n_steps = 0;
+  for (int level = 0; level < WIDE_DMAX && Gn > 0; ++level) {
+    ++n_steps;
+    const float* col = gnodes + g;
+    float bmin = inf, bmax = inf;
+    int best = -1;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float* ch = col + 7 * k * Gn;
+      float ax = __ldg(ch), ay = __ldg(ch + Gn), az = __ldg(ch + 2 * Gn);
+      float bx = __ldg(ch + 3 * Gn), by = __ldg(ch + 4 * Gn),
+            bz = __ldg(ch + 5 * Gn);
+      float d2max = box_d2max(p, ax, ay, az, bx, by, bz);
+      d2max = d2max == d2max ? d2max : inf;
+      seed = fminf(seed, d2max);
+      const float d2min = box_d2min(p, ax, ay, az, bx, by, bz);
+      if (d2min < bmin || (d2min == bmin && d2max < bmax)) {
+        bmin = d2min;
+        bmax = d2max;
+        best = k;
+      }
+    }
+    if (best < 0) break;
+    if (((int)__ldg(col + 7 * K * Gn) >> best) & 1) break;  // a leaf
+    g = (int)__ldg(col + (7 * best + 6) * Gn);
+  }
+  if (seed < inf) seed = __int_as_float(__float_as_int(seed) + 1);
+  pts[3 * n + i] = nmin(p.vb, seed);
+  if (steps_out != nullptr) steps_out[i] = n_steps;
+}
+
 // The build: counting or timed, in the exact cluster frame or not.
 template <int W, bool COUNT, bool FRAME>
 void run_wide(int grid, cudaStream_t stream, const WideTables& tb,
@@ -617,6 +678,16 @@ extern "C" int nearest_wide_launch(const float* gnodes, int Gn,
                               fires_out, a_lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bound seed over the wide table gnodes [7K+1, Gn], in place on the point
+// rows pts [4, n]; steps_out: null, or each point's group tests [n].
+extern "C" int nearest_seed_launch(const float* gnodes, int Gn, float* pts,
+                                   int n, int* steps_out, void* stream) {
+  if (n <= 0) return 0;
+  nearest_seed_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      gnodes, Gn, pts, n, steps_out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int nearest_entry_exit_launch(const float* nodes, int Nn,

@@ -18,7 +18,8 @@ from .cluster import (ChainedScene, ClusterScene, TightScene,
 from .device_build import (build_chained_scene_device,
                            build_tight_scene_device, make_refitter)
 from .nearest import (count_visits_nearest, nearest_chained, nearest_entry_exit,
-                      nearest_entry_exit_plain, nearest_tight, nearest_wide,
+                      nearest_entry_exit_plain, nearest_seed,
+                      nearest_seed_plain, nearest_tight, nearest_wide,
                       nearest_wide_plain, sort_points_device)
 from .ordered import trace_k_closest, trace_k_closest_chained
 from .slab import slab_count, slab_count_plain
@@ -63,6 +64,8 @@ __all__ = [
     "nearest_chained",
     "nearest_entry_exit",
     "nearest_entry_exit_plain",
+    "nearest_seed",
+    "nearest_seed_plain",
     "nearest_tight",
     "nearest_wide",
     "nearest_wide_plain",

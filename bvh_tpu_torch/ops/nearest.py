@@ -16,6 +16,20 @@ refinement differently (the group walk fires against ``vb`` as read before
 the group, the entry/exit walk refines first), and each keeps its own
 order.
 
+The bound seed (``nearest_seed``, a kernel of its own, and
+``nearest_seed_plain``) runs before either walk where the scene has the
+wide table and is not masked: a greedy descent from the root, into the
+child of least box distance, folds the least farthest-corner distance d2max
+of every child it tested, one ulp up, into the point's radius row. Every
+box holds a triangle within its d2max, so the leaf of the nearest triangle,
+whose box lies within d*^2 of the point, still fires; the ulp keeps firing
+the leaf the descent ended in, whose two distances may round to one value.
+Unseeded, the group walk enters fired children lowest slot first and
+tightens its bound only through the groups it enters, so on sparse scenes
+it narrowphases many far leaves before it reaches the nearest one. The
+walks themselves are unchanged: a seeded call is the seed, then the walk on
+the seeded rows.
+
 Inputs: the tables ``gnodes [113, Gn]`` or ``smem_nodes [8, Nn]`` and
 ``groups [G, 16, 128]`` float32 (see ``ops/cluster.py``), and the point
 rows ``pts [4, n]`` float32: x, y, z and d_max² (+inf without a radius).
@@ -78,6 +92,10 @@ LEAF_OPS = 11
 # cursor select.
 STEP_OPS = 2
 
+# the seed's operations a group test beyond the walk's box tests: per child
+# the NaN test, the bound's min and the two compares of its choice.
+SEED_OPS = 4
+
 # the FRAME builds' extra operations: per (point, triangle) pair the add
 # of lo and the subtract of a_lo an axis (beside three loads of a_lo);
 FRAME_PAIR_OPS = 6
@@ -100,6 +118,12 @@ def walk_ops(wide: bool, width: int, steps: float, fires: float,
     return steps * step + fires * leaf
 
 
+def seed_ops(steps: float) -> float:
+    """float32 operations of one point's bound seed over ``steps`` group
+    tests."""
+    return steps * K * (BOX_OPS + D2MAX_OPS + SEED_OPS)
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Builds (first call) and loads ``csrc/nearest.cu``."""
@@ -112,6 +136,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.nearest_wide_launch, lib.nearest_entry_exit_launch):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp, vp, vp]
+    lib.nearest_seed_launch.restype = ci
+    lib.nearest_seed_launch.argtypes = [vp, ci, vp, ci, vp, vp]
     return lib
 
 
@@ -212,6 +238,100 @@ def nearest_entry_exit(smem_nodes: torch.Tensor, groups: torch.Tensor,
     else:
         obs.launch("nearest_entry_exit", frame=a_lo is not None)
     return out
+
+
+def nearest_seed(gnodes: torch.Tensor, rows: torch.Tensor,
+                 counts: bool = False):
+    """Seeds the walks' bound in place: ``rows[3] = min(rows[3], seed)``,
+    with ``seed`` one ulp above the least farthest-corner distance d2max of
+    every child a greedy descent from the root tests (the walk's box tests;
+    at each group it moves into the child of least d2min, ties to the least
+    d2max, and stops at a leaf child or a group with no child to take).
+    Returns None; with ``counts``, each point's group tests (int64).
+
+    Every box holds a triangle within its d2max, so the bound keeps every
+    leaf that can hold the answer; a masked scene's boxes may hold none, so
+    it takes no seed. On a CPU tensor this runs the plain version; on a
+    CUDA tensor it launches the kernel (its group tests written where
+    ``counts``).
+    """
+    for nm, x in (("gnodes", gnodes), ("pts", rows)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{nm} must be a contiguous float32 tensor")
+    if gnodes.device != rows.device:
+        raise ValueError(f"gnodes is on {gnodes.device}, pts on {rows.device}")
+    if gnodes.dim() != 2 or gnodes.shape[0] != 7 * K + 1:
+        raise ValueError(f"gnodes must be [{7 * K + 1}, N], got "
+                         f"{tuple(gnodes.shape)}")
+    if rows.dim() != 2 or rows.shape[0] != N_ROWS:
+        raise ValueError(f"pts must be [{N_ROWS}, n], got {tuple(rows.shape)}")
+    if rows.device.type == "cpu":
+        return nearest_seed_plain(gnodes, rows, counts=counts)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no nearest_seed kernel for device {rows.device}")
+    n = rows.shape[1]
+    steps = (torch.empty(n, dtype=torch.int32, device=rows.device)
+             if counts else None)
+    rc = load().nearest_seed_launch(
+        gnodes.data_ptr(), gnodes.shape[1], rows.data_ptr(), n,
+        0 if steps is None else steps.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nearest seed launch failed: CUDA error {rc}")
+    if counts:
+        obs.count("launch.nearest_seed_count")
+        return steps.to(torch.int64)
+    obs.launch("nearest_seed")
+    return None
+
+
+def nearest_seed_plain(gnodes: torch.Tensor, rows: torch.Tensor,
+                       counts: bool = False):
+    """The seed kernel's function in plain PyTorch (any device), in place on
+    ``rows[3]``: None, or with ``counts`` each point's group tests (int64).
+    """
+    dev = rows.device
+    n = rows.shape[1]
+    Gn = gnodes.shape[1]
+    box = gnodes[:7 * K].view(K, 7, Gn)
+    lmask_all = gnodes[7 * K].to(torch.int32)
+    seed = torch.full((n,), _INF, dtype=torch.float32, device=dev)
+    tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    slots = torch.arange(K, device=dev)[:, None]
+    live = torch.arange(n if Gn > 0 else 0, device=dev)
+    g = torch.zeros(n, dtype=torch.int64, device=dev)
+    for _ in range(WIDE_DMAX):
+        if not live.numel():
+            break
+        gl = g[live]
+        bx6 = box[:, 0:6, gl].unbind(1)  # 6 x [K, m]
+        p3 = (rows[0, live], rows[1, live], rows[2, live])
+        d2max = _d2max(*p3, *bx6)
+        d2max = torch.where(d2max == d2max, d2max, _INF)
+        seed[live] = torch.minimum(seed[live], d2max.amin(dim=0))
+        d2min = _d2min(*p3, *bx6)
+        # the least (d2min, d2max), the lowest slot of equals; a NaN or
+        # +inf d2min is never taken
+        ok = d2min < _INF
+        m1 = torch.where(ok, d2min, _INF).amin(dim=0)
+        cand = ok & (d2min == m1)
+        m2 = torch.where(cand, d2max, _INF).amin(dim=0)
+        k = torch.where(cand & (d2max == m2), slots, K).amin(dim=0)
+        tests[live] += 1
+        leaf = ((lmask_all[gl] >> k.clamp(max=K - 1)) & 1) == 1
+        down = ok.any(dim=0) & ~leaf
+        g[live[down]] = box[k[down], 6, gl[down]].to(torch.int64)
+        live = live[down]
+    bumped = torch.where(seed < _INF, torch.nextafter(
+        seed, torch.full((), _INF, device=dev)), seed)
+    rows[3] = torch.minimum(rows[3], bumped)
+    return tests if counts else None
+
+
+def _seeds(scene) -> bool:
+    """Whether the walks over ``scene`` start from the bound seed: where the
+    scene has the wide table and is not masked."""
+    return scene.gnodes is not None and not scene.masked
 
 
 def _d2min(px, py, pz, ax, ay, az, bx, by, bz):
@@ -465,15 +585,25 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
     compatibility with the reference; it does not change the per-point
     walk. ``device``: where to run (None: the card).
 
-    Masked scenes (the static part of an updater) turn off the bound
-    refinement: their boxes may hold no live triangle. Packed scenes raise.
+    Before either walk, on a scene that carries ``gnodes`` and is not
+    masked, ``nearest_seed`` folds a bound into each point's row: the least
+    farthest-corner distance over the children a greedy descent from the
+    root tests, one ulp up. Each of those boxes holds a triangle within
+    that distance, so the leaf of the nearest triangle keeps d2min <= d*^2
+    <= the bound and still fires, and the walk, which would otherwise
+    tighten its bound only through the groups it happens to enter first,
+    skips most far subtrees. Distances are the unseeded walk's; a triangle
+    may differ only where two lie at the same distance, as between the two
+    walks. Masked scenes (the static part of an updater) turn off the bound
+    refinement and take no seed (counted in ``nearest.unseeded``): their
+    boxes may hold no live triangle. Packed scenes raise.
     Scenes that carry ``a_lo`` (every scene the port builds or loads) test
     their leaves in the exact cluster frame (the kernels' FRAME builds).
 
     A call is one ``obs`` span ``nearest`` with four stages: ``sort`` (the
     Morton sort and the points' gather), ``prologue`` (the point rows),
-    ``walk`` (the walk's launch) and ``epilogue`` (the radius mask, the
-    triangle ids, the float64 root and the un-permute).
+    ``walk`` (the seed's and the walk's launches) and ``epilogue`` (the
+    radius mask, the triangle ids, the float64 root and the un-permute).
     """
     if packet < 128 or packet & (packet - 1):
         raise ValueError(f"packet must be a power of two >= 128, got {packet}")
@@ -505,6 +635,10 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
         with obs.span("prologue"):
             rows = point_rows(pts, dm)
         with obs.span("walk"):
+            if _seeds(scene):
+                nearest_seed(_dev(scene.gnodes, dev), rows)
+            else:
+                obs.count("nearest.unseeded")
             W = int(scene.width)
             groups = _dev(scene.groups, dev)
             a_lo = _a_lo(scene, dev)
@@ -601,14 +735,17 @@ def count_visits_nearest(scene, points, packet: int = 2048,
     int64 tensors [ceil(n / packet)] on ``device`` (None: the card). The
     walk is the scene's default (``wide=None``: the group walk where the
     scene has ``gnodes``), without a radius, refining its bound unless the
-    scene is masked, as ``nearest_tight`` walks it.
+    scene is masked, from the bound seed where ``nearest_tight`` takes one,
+    as ``nearest_tight`` walks it.
 
     A packet's count is the sum over its points of each point's own walk's
     count: steps are the groups whose 16 children the point tests (the
-    entry/exit walk: the nodes it tests), fires the leaves it narrowphases
-    (``nearest_*_plain(counts=True)``). The kernels walk a warp of 32
-    points over the union of their nodes; a point's count is what its own
-    walk tests, not what its warp steps through. The reference counts one
+    entry/exit walk: the nodes it tests), the seed's descent included, fires
+    the leaves it narrowphases (``nearest_seed_plain(counts=True)`` on the
+    rows, then ``nearest_*_plain(counts=True)`` on the seeded rows). The
+    kernels walk a warp of 32 points over the union of their nodes; a
+    point's count is what its own walk tests, not what its warp steps
+    through. The reference counts one
     shared cursor a packet, so its numbers are of another unit. On the card
     this launches the kernel's counting build (a debug build, never timed),
     whose results are the timed build's bit for bit."""
@@ -626,6 +763,9 @@ def count_visits_nearest(scene, points, packet: int = 2048,
     elif wide and scene.gnodes is None:
         raise ValueError("scene built without wide tables (gnodes)")
     rows = point_rows(pts, None)
+    seed_steps = 0
+    if _seeds(scene):
+        seed_steps = nearest_seed(_dev(scene.gnodes, dev), rows, counts=True)
     W = int(scene.width)
     groups = _dev(scene.groups, dev)
     a_lo = _a_lo(scene, dev)
@@ -639,4 +779,4 @@ def count_visits_nearest(scene, points, packet: int = 2048,
                                                 groups, rows, W,
                                                 refine=not scene.masked,
                                                 counts=True, a_lo=a_lo)
-    return packet_sums(steps, packet), packet_sums(fires, packet)
+    return packet_sums(steps + seed_steps, packet), packet_sums(fires, packet)

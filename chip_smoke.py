@@ -17,7 +17,8 @@ final line):
    version on the same CUDA tensors (closest, bounded and gated walks; the
    gate; each walk's FRAME build, which host scenes launch, and its build
    without FRAME); with 65,536 points, both nearest kernels against theirs
-   (unbounded, per-point radius, no bound refinement; FRAME and without),
+   (unbounded, per-point radius, no bound refinement; FRAME and without)
+   and the bound seed against its plain version (timed and with counts),
    and their FRAME
    builds (timed and counting) on a device grid build of the same cubes
    with 65,536 points about its triangles' centroids, sorted and unsorted;
@@ -48,10 +49,11 @@ final line):
    both walks (identical results), and 1,048,576 points near the dense
    mesh's surface with d_max=2.0 at W=128; 4,096 sampled points of each leg
    against brute force over all triangles.
-7. nearest timings: points/s of each leg with its device breakdown; each
-   nearest kernel's FRAME build, which the path launches, against its plain
-   version on the legs' own sorted rows (bit for bit), both timed there
-   beside the kernel's bound.
+7. nearest timings: points/s of each leg with its device breakdown; the
+   bound seed against its plain version on the legs' own sorted rows, then
+   each nearest kernel's FRAME build, which the path launches, against its
+   plain version on the seeded rows (bit for bit), each timed there beside
+   the kernel's bound.
 8. pathtrace (bench.py's pathtrace leg): the path tracer over the dense
    mesh, 1024x1024 camera in 32x32 tiles, bounces=2, packet=1024, seed 0;
    colours finite and non-negative; 4,096 sampled shadow rays of the first
@@ -349,7 +351,8 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
 # templated one): "(anonymous namespace)::<name>(...)"
 PORT_KERNELS = ("wide_trace_kernel", "sweep_kernel", "tight_trace_kernel",
                 "cluster_trace_kernel", "nearest_wide_kernel",
-                "nearest_entry_exit_kernel", "slab_count_kernel")
+                "nearest_entry_exit_kernel", "nearest_seed_kernel",
+                "slab_count_kernel")
 
 
 def is_port_kernel(key: str) -> bool:
@@ -931,6 +934,23 @@ def near_compare(kind: str, sc, rows, refine: bool = True,
     return differ, int((ik >= 0).sum()), err
 
 
+def seed_compare(sc, rows) -> tuple:
+    """The bound seed's kernel against its plain version on copies of
+    ``rows``: (points whose seeded row or group tests differ, the seeded
+    rows)."""
+    gn = _dev(sc.gnodes, rows.device)
+    got, want = rows.clone(), rows.clone()
+    tests = near_mod.nearest_seed(gn, got, counts=True)
+    timed = rows.clone()
+    near_mod.nearest_seed(gn, timed)
+    tests_p = near_mod.nearest_seed_plain(gn, want, counts=True)
+    torch.cuda.synchronize()
+    differ = ((got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
+              | (timed.view(torch.int32) != want.view(torch.int32)).any(dim=0)
+              | (tests != tests_p))
+    return int(differ.sum()), timed
+
+
 def phase_nearest_kernels(dev) -> dict:
     """Phase 2, nearest: both nearest kernels against their plain versions
     on 65,536 points of create_n_cubes(1000), half reference-random and
@@ -952,13 +972,19 @@ def phase_nearest_kernels(dev) -> dict:
     u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(3),
                    device=dev)
     rows_b = near_mod.point_rows(pts, torch.sqrt(d2) * 2.0 * u)
-    out, err = {}, {"nearest_wide": 0.0, "nearest_tight": 0.0}
+    out, err = {}, {"nearest_wide": 0.0, "nearest_tight": 0.0,
+                    "nearest_seed": 0.0}
     shuffle = torch.from_numpy(np.random.default_rng(12).permutation(n)).to(dev)
     for case, (r, refine) in {
             "unbounded": (rows, True), "radius": (rows_b, True),
             "no_refine": (rows, False),
             "unsorted": (near_mod.point_rows(pts_u, None), True),
             "unsorted_radius": (rows_b[:, shuffle].contiguous(), True)}.items():
+        if refine:
+            differ, _ = seed_compare(scene, r)
+            out[f"seed/{case}"] = {"points_differ": differ}
+            check(differ == 0, f"seed/{case}: {differ} points differ from "
+                               "plain")
         for (kind, name), frame in itertools.product(
                 (("wide", "nearest_wide"), ("entry_exit", "nearest_tight")),
                 (True, False)):
@@ -983,6 +1009,9 @@ def phase_nearest_kernels(dev) -> dict:
                 "entry_exit": "launch.nearest_entry_exit.frame"}
     for case, r in {"frame": near_mod.point_rows(pf, None),
                     "frame_unsorted": near_mod.point_rows(pf_u, None)}.items():
+        differ, _ = seed_compare(dscene, r)
+        out[f"seed/{case}"] = {"points_differ": differ}
+        check(differ == 0, f"seed/{case}: {differ} points differ from plain")
         for kind, name in (("wide", "nearest_wide_frame"),
                            ("entry_exit", "nearest_tight_frame")):
             before = obs.counted(counters[kind])
@@ -1108,7 +1137,8 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
     res = {leg: fn() for leg, fn in legs.items()}
     torch.cuda.synchronize()
     launches = {"nearest_wide": n_launched("nearest_wide"),
-                "nearest_tight": n_launched("nearest_entry_exit")}
+                "nearest_tight": n_launched("nearest_entry_exit"),
+                "nearest_seed": n_launched("nearest_seed")}
     emit("nearest_main_path_launches", **launches,
          nearest_wide_frame=n_launched("nearest_wide.frame"),
          nearest_tight_frame=n_launched("nearest_entry_exit.frame"))
@@ -1157,14 +1187,22 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
     emit("nearest_breakdown", card=card, legs={
         leg: device_breakdown(fn, e2e[leg]["ms"]) for leg, fn in legs.items()})
     # each kernel on the legs' own sorted rows, against its plain version:
-    # the FRAME builds, which the path launches on its host scenes
+    # the bound seed, then the walks' FRAME builds, which the path launches
+    # on its host scenes, on the seeded rows
     rows_r, rows_s = nearest_rows(pr_dev, ps_dev)
-    runs = {"nearest_wide/random": ("wide", scene, rows_r),
-            "nearest_tight/random": ("entry_exit", scene, rows_r),
-            "nearest_wide/surface_w128": ("wide", scene_d, rows_s)}
-    n_tris = {"random": len(tris[0]), "surface_w128": len(tris_d[0])}
     t0 = time.perf_counter()
-    vs_plain = {}
+    vs_plain, seeded = {}, {}
+    for leg, sc, rows in (("random", scene, rows_r),
+                          ("surface_w128", scene_d, rows_s)):
+        differ, seeded[leg] = seed_compare(sc, rows)
+        vs_plain[f"nearest_seed/{leg}"] = {"points_differ": differ}
+        check(differ == 0, f"nearest_seed/{leg}: {differ} points differ from "
+                           "plain")
+    runs = {"nearest_wide/random": ("wide", scene, seeded["random"]),
+            "nearest_tight/random": ("entry_exit", scene, seeded["random"]),
+            "nearest_wide/surface_w128": ("wide", scene_d,
+                                          seeded["surface_w128"])}
+    n_tris = {"random": len(tris[0]), "surface_w128": len(tris_d[0])}
     for key, (kind, sc, rows) in runs.items():
         differ, hits, e = near_compare(kind, sc, rows)
         name = key.split("/")[0]
@@ -1196,6 +1234,22 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
                      "leaf_fires": fires_pp}
         bounds[key] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
                        "bound_by": by, "ops_ms_at_issue_rate": ops / issue * 1e3}
+    # the seed on the random leg's sorted rows (it rewrites row 3 to the
+    # same values on every call)
+    key = "nearest_seed/random"
+    gn, rows = _dev(scene.gnodes, dev), rows_r.clone()
+    kernel_ms[key] = cuda_ms(lambda: near_mod.nearest_seed(gn, rows))
+    plain_ms[key] = cuda_ms(lambda: near_mod.nearest_seed_plain(gn, rows),
+                            reps=3, warmup=0)
+    steps = near_mod.nearest_seed_plain(gn, rows_r[:, ::32].clone(),
+                                        counts=True)
+    steps_pp = float(steps.float().mean())
+    ops = N_POINTS * near_mod.seed_ops(steps_pp)
+    nbytes = (near_mod.N_ROWS * 4 + 4) * N_POINTS + scene.gnodes.nbytes
+    bms, by = roofline(ops, nbytes)
+    work[key] = {"group_tests": steps_pp}
+    bounds[key] = {"ops": ops, "bytes": nbytes, "bound_ms": bms,
+                   "bound_by": by, "ops_ms_at_issue_rate": ops / issue * 1e3}
     emit("nearest_timings", card=card, end_to_end=e2e, kernel_ms=kernel_ms,
          plain_ms=plain_ms, work_per_point=work, bounds=bounds)
     return [
@@ -1209,7 +1263,8 @@ def nearest_phases(dev, card: str, scene, tris, scene_d, tris_d, issue: float,
             ("nearest_wide", "nearest_wide/random",
              "bvh_tpu/ops/nearest.py:349"),
             ("nearest_tight", "nearest_tight/random",
-             "bvh_tpu/ops/nearest.py:214"))]
+             "bvh_tpu/ops/nearest.py:214"),
+            ("nearest_seed", "nearest_seed/random", "none (port only)"))]
 
 
 CAMERA_SIDE = 1024  # the W=128 leg's camera: pixels a side
@@ -4450,6 +4505,7 @@ def launched_rows() -> dict:
         "5 frame": n_launched("nearest_entry_exit.frame"),
         "6 nearest_wide": n_launched("nearest_wide"),
         "6 frame": n_launched("nearest_wide.frame"),
+        "6 seed": n_launched("nearest_seed"),
         "slab_count": n_launched("slab_count")}
     return {k: v for k, v in counts.items() if v}
 

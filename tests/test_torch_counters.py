@@ -9,10 +9,14 @@ cursor a packet. Tolerances:
 * Against the plain walks' per-ray counts (``counts=True``) on the same
   rows: equal, summed by packet in the given order (a partial last packet
   included); the wrappers' ``t``/``d2`` and lanes equal those without
-  counting, bit for bit.
+  counting, bit for bit. ``count_visits_nearest`` counts the walk as
+  ``nearest_tight`` runs it, from the bound seed: the seed's group tests
+  and the walk's steps on the seeded rows; per packet it fires at most the
+  leaves the same walk fires unseeded.
 * Against the reference (its reciprocal made exact), on packets whose
   rays (points) are all one ray (point), where the shared cursor walks
-  what each lane walks: exactly packet x the reference's count, for the
+  what each lane walks (the port's nearest walks from unseeded rows, as
+  the reference walks): exactly packet x the reference's count, for the
   entry/exit walk's node visits, the nearest walks' steps and every
   walk's leaf fires. The reference's group-walk iterations count the
   entered groups plus one pop per frame of its mask stack, and its group
@@ -48,8 +52,9 @@ from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch.ops import (build_tight_scene, count_visits_nearest,
                                count_visits_tight, count_visits_wide,
                                make_key_planner, make_updater,
-                               nearest_entry_exit_plain, nearest_tight,
-                               nearest_wide_plain, tight_trace_plain,
+                               nearest_entry_exit_plain, nearest_seed_plain,
+                               nearest_tight, nearest_wide_plain,
+                               tight_trace_plain,
                                wide_trace_plain)
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
@@ -155,14 +160,21 @@ def test_count_visits_tight_is_the_plain_walks_sum(world, packed):
 @pytest.mark.parametrize("wide", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 def test_count_visits_nearest_is_the_plain_walks_sum(world, wide, masked):
-    """Each point's own walk, in the given order (no sort); a masked scene
-    (an updater's static part) walks without the bound refinement."""
+    """Each point's own walk, in the given order (no sort), from the bound
+    seed, whose group tests add to the steps; a masked scene (an updater's
+    static part) walks without the bound refinement and without the
+    seed."""
     tris, scene, _, _, pts = world
     if masked:
         upd = make_updater(scene, max_moved=16, device=CPU)
         scene = upd(*tris, np.arange(16, dtype=np.int32)).parts[0]
         assert scene.masked
     rows = point_rows(torch.from_numpy(pts), None)
+    seed_tests = 0
+    if not masked:
+        seed_tests = nearest_seed_plain(torch.from_numpy(scene.gnodes), rows,
+                                        counts=True)
+        assert (seed_tests == scene.gdepth).any()
     grp = _dev(scene.groups, CPU)
     if wide:
         out = nearest_wide_plain(torch.from_numpy(scene.gnodes), grp, rows,
@@ -174,7 +186,7 @@ def test_count_visits_nearest_is_the_plain_walks_sum(world, wide, masked):
     st, fi = count_visits_nearest(scene, pts, packet=PACKET, wide=wide,
                                   device=CPU)
     assert st.shape == (-(-len(pts) // PACKET),)
-    assert torch.equal(st, packet_sums(out[2], PACKET))
+    assert torch.equal(st, packet_sums(out[2] + seed_tests, PACKET))
     assert torch.equal(fi, packet_sums(out[3], PACKET))
     # the wrapper's counting option gives the same results as without
     table = (torch.from_numpy(scene.gnodes) if wide
@@ -270,8 +282,16 @@ def test_counts_equal_the_references_on_uniform_packets(walk,
         wide = walk == "nearest_wide"
         ref = count_nearest_j(sj, pts, packet=PACKET, interpret=True,
                               wide=wide)
-        port = count_visits_nearest(st, pts, packet=PACKET, wide=wide,
-                                    device=CPU)
+        # the reference walks unseeded: the port's walk on unseeded rows
+        rows = point_rows(torch.from_numpy(pts), None)
+        grp = _dev(st.groups, CPU)
+        if wide:
+            out = near_mod.nearest_wide(_dev(st.gnodes, CPU), grp, rows,
+                                        st.width, st.gdepth, counts=True)
+        else:
+            out = near_mod.nearest_entry_exit(_dev(st.smem_nodes, CPU), grp,
+                                              rows, st.width, counts=True)
+        port = [packet_sums(x, PACKET) for x in out[2:]]
         pairs = list(zip(ref, port))
     else:
         o1, d1 = tb.aimed_rays(a, 8, seed=6)
@@ -296,6 +316,26 @@ def test_counts_equal_the_references_on_uniform_packets(walk,
         ref = np.asarray(ref)
         assert ref.shape == tuple(got.shape) and (ref > 0).all()
         assert np.array_equal(PACKET * ref, got.numpy())
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_count_visits_nearest_fires_at_most_unseeded(world, wide):
+    """``count_visits_nearest`` counts the seeded walk: per packet it fires
+    at most the leaves the same walk fires from unseeded rows."""
+    _, scene, _, _, pts = world
+    rows = point_rows(torch.from_numpy(pts), None)
+    grp = _dev(scene.groups, CPU)
+    if wide:
+        *_, fires = nearest_wide_plain(torch.from_numpy(scene.gnodes), grp,
+                                       rows, scene.width, counts=True)
+    else:
+        *_, fires = nearest_entry_exit_plain(
+            torch.from_numpy(scene.smem_nodes), grp, rows, scene.width,
+            counts=True)
+    _, fi = count_visits_nearest(scene, pts, packet=PACKET, wide=wide,
+                                 device=CPU)
+    unseeded = packet_sums(fires, PACKET)
+    assert (fi <= unseeded).all() and (fi < unseeded).any()
 
 
 def test_nan_boxes_never_fire():

@@ -605,6 +605,46 @@ def test_nearest_wide_warp_schedule(wide_scenes, cuda, width, n, refine):
         assert (ik >= 0).any() and (ik < 0).any()
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_nearest_seed_kernel_matches_plain(wide_scenes, cuda, width, n):
+    """The bound seed on the card, timed and with counts, against its plain
+    version on the same rows (points near the triangles and far off,
+    unsorted, every third with a radius of 5) bit for bit; the seeded rows
+    then give the unseeded walk's d2 bit for bit."""
+    scene, (a, b, c) = wide_scenes[width]
+    rng = np.random.default_rng(n + 3 * width)
+    cen = (a + b + c) / 3.0
+    m = 65537
+    pts = np.concatenate([
+        cen[rng.integers(0, len(cen), m // 2)]
+        + rng.normal(scale=3.0, size=(m // 2, 3)),
+        rng.uniform(a.min(axis=0) - 50, a.max(axis=0) + 50,
+                    (m - m // 2, 3))]).astype(np.float32)
+    d_max = np.where(np.arange(m) % 3 == 0, 5.0, np.inf).astype(np.float32)
+    pts, d_max = _shuffled(m, pts, d_max, seed=n)
+    rows = _near_rows(pts[:n], d_max[:n], cuda)
+    gn = _dev(scene.gnodes, cuda)
+    got, got_c, want = rows.clone(), rows.clone(), rows.clone()
+    before = [obs.counted(k) for k in ("launch.nearest_seed",
+                                       "launch.nearest_seed_count")]
+    assert near_mod.nearest_seed(gn, got) is None
+    tests = near_mod.nearest_seed(gn, got_c, counts=True)
+    assert [obs.counted(k) for k in ("launch.nearest_seed",
+                                     "launch.nearest_seed_count")] == [
+        before[0] + 1, before[1] + 1]
+    tests_p = near_mod.nearest_seed_plain(gn, want, counts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got_c), _bits(want))
+    assert torch.equal(tests, tests_p)
+    assert bool((got[3] <= rows[3]).all())
+    grp = _dev(scene.groups, cuda)
+    d0, _ = near_mod.nearest_wide(gn, grp, rows, width, scene.gdepth)
+    d1, _ = near_mod.nearest_wide(gn, grp, got, width, scene.gdepth)
+    assert torch.equal(_bits(d0), _bits(d1))
+
+
 @pytest.mark.parametrize("width", [16, 32, 64, 128])
 def test_nearest_wide_one_lane_fires(wide_scenes, cuda, width):
     """Points whose radius is 0 fire no box; one lane of each warp has none
@@ -1399,6 +1439,10 @@ def test_nan_boxes_never_fire_on_card(wide_scenes, cuda):
                               counts=True)
         assert int(fires.sum()) == 0 and bool((ik == -1).all())
         assert bool(torch.isinf(d2).all())
+    # the seed finds no child to take: the root's test alone, no bound
+    seeded = prow.clone()
+    tests = near_mod.nearest_seed(delta.gnodes, seeded, counts=True)
+    assert bool((tests == 1).all()) and torch.equal(seeded, prow)
 
 
 # ---- device builds, refits and updates on the card --------------------------

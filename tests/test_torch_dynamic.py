@@ -65,7 +65,7 @@ from bvh_tpu_torch.ops import (build_chained_scene, build_chained_scene_device,
                                count_visits_nearest, count_visits_tight,
                                make_chained_updater, make_refitter,
                                make_updater, nearest_chained, nearest_tight,
-                               nearest_wide_plain,
+                               nearest_seed_plain, nearest_wide_plain,
                                trace_any_hit_chained,
                                trace_closest_hit_chained,
                                trace_closest_hit_tight)
@@ -935,7 +935,7 @@ def test_nearest_update_takes_the_delta_frames():
     nearest triangle over the moved scene within the near-tie class on
     every point, and
     ``count_visits_nearest`` on a delta part walks its frame (the counting
-    plain walk with ``a_lo``)."""
+    plain walk with ``a_lo``, from the bound seed)."""
     a, b, c = tb.create_n_cubes(40)
     a2, b2, c2, moved_ids = tb.randomly_transform_scene(a, b, c, len(a) // 3,
                                                         seed=11)
@@ -960,8 +960,12 @@ def test_nearest_update_takes_the_delta_frames():
     steps, fires = count_visits_nearest(delta, pts, packet=128, device=CPU)
     rows = torch.stack([*torch.from_numpy(pts).T,
                         torch.full((len(pts),), float("inf"))])
+    # the walk as nearest_tight runs it: from the bound seed, whose group
+    # tests add to the steps
+    assert not delta.masked
+    seed_tests = nearest_seed_plain(delta.gnodes, rows, counts=True)
     plain = nearest_wide_plain(delta.gnodes, delta.groups, rows,
                                int(delta.width), refine=not delta.masked,
                                counts=True, a_lo=delta.a_lo)
-    assert int(steps.sum()) == int(plain[2].sum())
+    assert int(steps.sum()) == int(plain[2].sum() + seed_tests.sum())
     assert int(fires.sum()) == int(plain[3].sum())

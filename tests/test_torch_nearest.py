@@ -27,7 +27,18 @@
   a device chain takes each part's own frame: every reported triangle's
   float64 squared distance is the least over all triangles in float64
   within the near-tie class (2^-20 relative).
+* The bound seed (``nearest_seed``) on the cubes120 points with ``d_max``
+  None, scalar and per point, and on the far-frame device build: its bound
+  at least float64 brute force's nearest d², the row min(d_max², seed);
+  both walks from the seeded rows give the unseeded walks' d2 bit for bit
+  and their lanes outside the tie class; the wrapper runs the plain seed
+  on CPU tensors; ``nearest_tight`` seeds exactly the scenes with
+  ``gnodes`` that are not masked; on uniform points over
+  create_n_cubes(120) no point fires more leaves seeded, and the mean
+  falls at least 5x.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,9 +53,9 @@ from bvh_tpu_torch import obs
 from bvh_tpu_torch import testbase as tb
 from bvh_tpu_torch import tri
 from bvh_tpu_torch.ops import (build_chained_scene_device, build_tight_scene,
-                               build_tight_scene_device, nearest_chained,
-                               nearest_tight, scene_from_arrays,
-                               sort_points_device)
+                               build_tight_scene_device, make_updater,
+                               nearest_chained, nearest_tight,
+                               scene_from_arrays, sort_points_device)
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops.trace import _dev
 from test_torch_scene import reference_native  # noqa: F401  (autouse)
@@ -477,3 +488,140 @@ def test_nearest_chained_takes_each_parts_frame(monkeypatch):
     inside = bd < 1.0 - 1e-3
     assert (sid_r.numpy()[inside] >= 0).all()
     assert (sid_r.numpy()[bd > 1.0 + 1e-3] == -1).all()
+
+
+# ---- the bound seed ---------------------------------------------------------
+
+def _seed_cases(cubes120):
+    """(name, triangles, scene, points, radius, frame) for the seed's tests:
+    the cubes120 scene's points with d_max None, scalar and per point, and
+    a device build of create_n_cubes(40) with ``_far_points`` and its
+    ``a_lo``."""
+    tris, _, st, pts, d_max = cubes120
+    out = [(f"cubes120/{dm}", tris, st, pts,
+            None if r is None else torch.as_tensor(r).expand(len(pts)), None)
+           for dm, r in d_max.items()]
+    far = tb.create_n_cubes(40)
+    dev_st = build_tight_scene_device(*far, device=CPU)
+    out.append(("far", far, dev_st, _far_points(far[0]), None, dev_st.a_lo))
+    return out
+
+
+def test_seed_bounds_brute_force(cubes120):
+    """The seed is at least float64 brute force's nearest d² of every
+    point; with a radius the row is min(d_max², seed)."""
+    for name, tris, st, pts, dm, _ in _seed_cases(cubes120):
+        gn = _dev(st.gnodes, CPU)
+        t = torch.from_numpy(pts)
+        rows = near_mod.point_rows(t, None)
+        tests = near_mod.nearest_seed_plain(gn, rows, counts=True)
+        best = _brute64(pts, *tris).min(axis=1)
+        assert (rows[3].double().numpy() >= best).all(), name
+        assert np.isfinite(rows[3].numpy()).all(), name
+        assert ((tests >= 1) & (tests <= st.gdepth)).all(), name
+        if dm is not None:
+            rb = near_mod.point_rows(t, dm)
+            want = torch.minimum(rb[3], rows[3])
+            assert near_mod.nearest_seed_plain(gn, rb) is None
+            assert torch.equal(rb[3], want), name
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_seeded_walks_equal_unseeded(cubes120, wide):
+    """Both walks from the seeded rows: d2 bit-equal to the same walk
+    unseeded; a lane differs only where the two triangles lie equally near
+    (the tie class of ``assert_matches``, the near-tie class on far
+    frames)."""
+    for name, tris, st, pts, dm, a_lo in _seed_cases(cubes120):
+        rows = near_mod.point_rows(torch.from_numpy(pts), dm)
+        seeded = rows.clone()
+        near_mod.nearest_seed_plain(_dev(st.gnodes, CPU), seeded)
+        assert (seeded[3] <= rows[3]).all() and (seeded[3] < rows[3]).any()
+        grp = _dev(st.groups, CPU)
+        if wide:
+            walk = functools.partial(near_mod.nearest_wide_plain,
+                                     _dev(st.gnodes, CPU))
+        else:
+            walk = functools.partial(near_mod.nearest_entry_exit_plain,
+                                     _dev(st.smem_nodes, CPU))
+        d0, i0 = walk(grp, rows, st.width, a_lo=a_lo)
+        d1, i1 = walk(grp, seeded, st.width, a_lo=a_lo)
+        assert torch.equal(d0.view(torch.int32), d1.view(torch.int32)), name
+        assert (i0 >= 0).any(), name
+        diff = (i0 != i1).numpy()
+        if diff.any():
+            tm = np.asarray(st.tri_map)
+            s0, s1 = tm[i0.numpy()[diff]], tm[i1.numpy()[diff]]
+            w0 = winner_d(pts[diff], s0, *tris)
+            w1 = winner_d(pts[diff], s1, *tris)
+            np.testing.assert_allclose(w1, w0, rtol=1e-5, atol=0)
+
+
+def test_seed_wrapper_runs_plain_on_cpu(cubes120):
+    _, _, st, pts, _ = cubes120
+    gn = _dev(st.gnodes, CPU)
+    rows = near_mod.point_rows(torch.from_numpy(pts), None)
+    want = rows.clone()
+    tests = near_mod.nearest_seed_plain(gn, want, counts=True)
+    before = [obs.counted(k) for k in ("launch.nearest_seed",
+                                       "launch.nearest_seed_count")]
+    got = rows.clone()
+    assert near_mod.nearest_seed(gn, got) is None
+    assert torch.equal(got, want)
+    got = rows.clone()
+    assert torch.equal(near_mod.nearest_seed(gn, got, counts=True), tests)
+    assert torch.equal(got, want)
+    assert [obs.counted(k) for k in ("launch.nearest_seed",
+                                     "launch.nearest_seed_count")] == before
+    with pytest.raises(ValueError, match="gnodes"):
+        near_mod.nearest_seed(_dev(st.smem_nodes, CPU), rows)
+    with pytest.raises(ValueError, match="pts"):
+        near_mod.nearest_seed(gn, rows[:3].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        near_mod.nearest_seed(gn, rows.double())
+
+
+def test_seed_only_where_the_scene_allows(cubes120, monkeypatch):
+    """``nearest_tight`` seeds a scene with ``gnodes`` that is not masked, in
+    both walks; a masked part (an updater's static part) or a scene
+    without ``gnodes`` takes no seed and counts ``nearest.unseeded``."""
+    tris, _, st, pts, _ = cubes120
+    calls = []
+    seed = near_mod.nearest_seed
+
+    def spy(gn, rows, counts=False):
+        calls.append(rows.shape[1])
+        return seed(gn, rows, counts=counts)
+
+    monkeypatch.setattr(near_mod, "nearest_seed", spy)
+    masked = make_updater(st, max_moved=16, device=CPU)(
+        *tris, np.arange(16, dtype=np.int32)).parts[0]
+    assert masked.masked and masked.gnodes is not None
+    for scene, wide, seeds in ((st, None, True), (st, False, True),
+                               (masked, None, False),
+                               (st._replace(gnodes=None), None, False)):
+        calls.clear()
+        before = obs.counted("nearest.unseeded")
+        nearest_tight(scene, pts, wide=wide, device=CPU)
+        assert calls == ([len(pts)] if seeds else [])
+        assert obs.counted("nearest.unseeded") == before + (not seeds)
+
+
+def test_seed_cuts_the_fires_on_uniform_points():
+    """On create_n_cubes(120) with points uniform in the scene's range, no
+    point fires more leaves from the seeded rows than unseeded, and the
+    mean falls at least 5x."""
+    a, b, c = tb.create_n_cubes(120)
+    st = build_tight_scene(a, b, c)
+    pts = torch.from_numpy(np.random.default_rng(9).uniform(
+        -1e5, 1e5, (1024, 3)).astype(np.float32))
+    rows = near_mod.point_rows(pts, None)
+    seeded = rows.clone()
+    near_mod.nearest_seed_plain(_dev(st.gnodes, CPU), seeded)
+    gn, grp = _dev(st.gnodes, CPU), _dev(st.groups, CPU)
+    *_, f0 = near_mod.nearest_wide_plain(gn, grp, rows, st.width,
+                                         counts=True)
+    *_, f1 = near_mod.nearest_wide_plain(gn, grp, seeded, st.width,
+                                         counts=True)
+    assert (f1 <= f0).all()
+    assert f0.double().mean() >= 5 * f1.double().mean()
