@@ -7,9 +7,11 @@ traffic mix, cell or metric is a file of its own, found by the name that
 ``BENCHMARK.json`` or another file gives it:
 
 * ``configs/<config>.json``: the scene, its maker and the build;
-* ``scenes/<maker>.py``: a scene maker, ``make(**args) -> (a, b, c)``;
+* ``scenes/<maker>.py``: a scene maker, ``make(**args) -> (a, b, c)``,
+  and ``SMALL``, the args of a scene the CPU tests run in a second;
 * ``traffic/<mix>.json``: a traffic mix's parameters;
-* ``kinds/<kind>.py``: a part of a mix, ``make(n, g, part, ctx)``;
+* ``kinds/<kind>.py``: a part of a mix, ``make(n, g, part, ctx)``, which
+  returns the part's per-row arrays;
 * ``entries/<kind>.py``: the program's timed call, with the reference and
   the comparison that judge its answers;
 * ``cells/<cell>.json``: a cell's limits;

@@ -1,6 +1,6 @@
 """One run of one cell: find the cell's files by name, build the scene with
-the program, make the pool of batches, warm up, run the closed loop (or a
-traced stretch), check a sample of the answers against the reference, and
+the program, make the pool of batches, warm up, run the closed loop (or the
+traced stretches), check a sample of the answers against the reference, and
 assemble the result line.
 
 The loop has one caller: a batch is called, then the device is
@@ -13,6 +13,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import statistics
 import sys
 import time
 from dataclasses import dataclass
@@ -29,6 +30,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "bvh_tpu")
 TRACE_SECONDS = 1.0  # the traced stretch, at most
 EVENT_PAIRS = 8192  # batches of a window whose device span is recorded
+SPAN_PAIRS = 4  # spans-off and spans-on stretches, in turns
 
 
 @dataclass
@@ -185,6 +187,42 @@ def work_sample(pool, seed: int, device):
     return tuple(torch.cat(c) for c in zip(*picks))
 
 
+def spans_stretch(call, pool, seconds: float, device) -> dict:
+    """``SPAN_PAIRS`` turns of an unprofiled stretch with the program's
+    spans off and one with them on, ``seconds`` in all: the on stretches'
+    spans a batch (path: ``self_ms``, ``total_ms``, ``n``), the counters a
+    batch, and ``tracing_on_cost_pct``, the median over the turns of the
+    on stretch's mean batch against the off one's. Turns, since the host's
+    speed drifts from one second to the next."""
+    from bvh_tpu_torch import obs
+
+    part = seconds / (2 * SPAN_PAIRS)
+
+    def stretch():
+        _, n, wall = devtrace.closed_loop(call, pool, part,
+                                          lambda: _sync(device), False)
+        return n, wall
+
+    obs.reset()
+    n_on, n_all, cost = 0, 0, []
+    for _ in range(SPAN_PAIRS):
+        n_off, wall_off = stretch()
+        with obs.tracing():
+            n, wall = stretch()
+        n_on += n
+        n_all += n_off + n
+        cost.append((wall / n) / (wall_off / n_off) - 1.0)
+    snap = obs.snapshot()
+    obs.reset()
+    # spans count in the on stretches, counters in every batch
+    return {"spans": {p: {"self_ms": r["self_s"] / n_on * 1e3,
+                          "total_ms": r["total_s"] / n_on * 1e3,
+                          "n": r["n"] / n_on}
+                      for p, r in sorted(snap["spans"].items())},
+            "counts": {k: v / n_all for k, v in sorted(snap["counts"].items())},
+            "tracing_on_cost_pct": 100.0 * statistics.median(cost)}
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, wrap=None) -> dict:
     """Runs ``cell`` once on ``device`` and returns the result line as a
@@ -210,14 +248,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.reset_peak_memory_stats()
     red = None
     if trace:
+        from bvh_tpu_torch import obs
+
         # the profiler slows the host, also after it has stopped (the aimed
         # cell: 3.4 -> 4.5 ms a batch), so the wall time a batch that the
         # idle share divides by comes from an unprofiled stretch of the
-        # same length before it
+        # same length before it, spans off as in the timed window; then
+        # stretches with spans on for the stages' host times. The
+        # labelling stretch runs with spans on, so that its trace holds the
+        # stages; the device-only stretch, whose times the kernels' metrics
+        # read, with spans off
         stretch = min(seconds, TRACE_SECONDS)
         win = _window(call, pool, stretch, device)
+        prog = spans_stretch(call, pool, stretch, device)
         red, kept, n = devtrace.profile_stretch(call, pool, stretch,
-                                                lambda: _sync(device))
+                                                lambda: _sync(device),
+                                                obs.tracing)
         if red is not None:
             red["untraced_wall_ms"] = float(np.mean(win["times"])) * 1e3
     else:
@@ -247,8 +293,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             cnt = model.counts(tree, tris, work_rows, points, cache,
                                (cell.name, seed, model.SAMPLE))
             bnd = model.bound(cnt, batch_units, tris[0].shape[0], points)
-        ctx = SimpleNamespace(trace=red, bound=bnd, window=win)
         for m in cell.per_layer:
+            # spans and stages a batch, keyed by the program's span path
+            ctx = SimpleNamespace(name=m["name"], trace=red, bound=bnd,
+                                  window=win, spans=prog["spans"],
+                                  stages=None if red is None
+                                  else red["stages"])
             v = None if red is None else reader(cell.root, m["name"])(ctx)
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
@@ -278,7 +328,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             "host_cpu": _host_cpu()}
     result = {"correct": bool(correct), "attempted": n, "failed": 0,
               "metrics": metrics, "device": dev_info}
+    if trace:
+        dev_info.update(prog)
     if trace and red is not None:
+        dev_info["stages"] = red["stages"]
         dev_info["busy_s"] = red["busy_s"]
         dev_info["window_s"] = red["window_s"]
         result["breakdown"] = {"device_ops": red["device_ops"],

@@ -1,12 +1,12 @@
 """Device operations a batch, PyTorch's and the program's, launched inside
-the program's top span of the entry (``portbench/stages.py::
-classify_stages``): ``launches.<top>`` reads the stage ``<top>``. Nothing
-where the run placed no operation by stage (``ctx.stages``)."""
+the program's top span of the entry, from its spans on the traced run's
+labelling stretch (``devtrace.classify_stages``): ``launches.<top>``
+reads the stage ``<top>``. Nothing where the run placed no operation by
+stage."""
 
 
 def read(ctx):
-    stages = getattr(ctx, "stages", None)
-    if not stages:
+    if not ctx.stages:
         return None
-    rec = stages.get(ctx.name.split(".", 1)[1])
+    rec = ctx.stages.get(ctx.name.split(".", 1)[1])
     return None if rec is None else rec["launches"]

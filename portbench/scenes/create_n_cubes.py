@@ -73,3 +73,4 @@ def create_n_cubes(n: int, seed: int = 0):
 
 
 make = create_n_cubes  # what a configuration's ``scene.args`` are passed to
+SMALL = {"n": 50, "seed": 0}  # the CPU tests' args: 600 triangles

@@ -1,7 +1,9 @@
 """CPU tests of the port's benchmark: every name resolves to its files, a
-cell is added by files and entries alone, each mix runs end to end at a
-tiny size against the reference, the control and the planted faults come
-out not correct, and nothing loads JAX or the JAX package.
+cell (with a scene, a configuration and inputs of its own) is added by
+files and entries alone, each mix runs end to end at a tiny size against
+the reference, the control and the planted faults come out not correct,
+a traced run hands its readers the program's spans and stages, and
+nothing loads JAX or the JAX package.
 
 Run: ``python -m pytest portbench/tests -q`` from the repository root.
 """
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ast
 import hashlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -20,21 +23,23 @@ from pathlib import Path
 import pytest
 import torch
 
-from portbench import harness, plugin, traffic
+from portbench import devtrace, harness, plugin, traffic
+from portbench.tests.test_portbench_work import synthetic_trace
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
-# tiny scenes for the CPU: 600 triangles of cubes
-SMALL_SCENE = {"create_n_cubes": {"n": 50, "seed": 0}}
+STAGES = ("sort", "prologue", "walk", "epilogue")
 
 
 def small_cell(name: str, root: Path = ROOT) -> harness.Cell:
-    """The cell at a size the CPU runs in a second: a tiny scene, batches of
-    1,024 rays or points, two of them, 128 checked a batch; a second part's
-    share raised to 1/8 so that its stratum holds enough rays to check."""
+    """The cell at a size the CPU runs in a second: the tiny scene its
+    maker names (``SMALL``), batches of 1,024 rays or points, two of them,
+    128 checked a batch; a second part's share raised to 1/8 so that its
+    stratum holds enough rays to check."""
     c = harness.load_cell(name, root)
-    c.config["scene"]["args"] = SMALL_SCENE[c.config["scene"]["maker"]]
+    maker = plugin(root, "scenes", c.config["scene"]["maker"])
+    c.config["scene"]["args"] = dict(maker.SMALL)
     c.traffic["batch"] = 1024
     c.traffic["pool"] = 2
     c.traffic["check"]["per_slot"] = 128
@@ -54,7 +59,8 @@ def test_every_name_finds_its_files():
         data = json.loads((ROOT / conf["file"]).read_text())
         assert data["name"] == conf["name"]
         assert data["reduced"] == conf["reduced"]
-        assert callable(plugin(ROOT, "scenes", data["scene"]["maker"]).make)
+        maker = plugin(ROOT, "scenes", data["scene"]["maker"])
+        assert callable(maker.make) and isinstance(maker.SMALL, dict)
     for m in BENCH["per_layer"]:
         assert callable(harness.reader(ROOT, m["name"])), m["name"]
     for name in CELLS:
@@ -115,14 +121,121 @@ def make(scene, tris_np, device, spec):
 """
 
 
-def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
-    """A new traffic kind, mix, entry kind and cell, each a new file, and
-    entries in BENCHMARK.json: no file that is there changes."""
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
-    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
-                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
-    pkg = tmp_path / "portbench"
-    before = _tree_hashes(pkg)
+SIERPINSKI_SCENE = """
+import numpy as np
+
+SMALL = {"depth": 3}  # 64 tetrahedra, 256 triangles
+
+# a regular tetrahedron's corners, and its faces wound outwards
+CORNERS = np.array([[1, 1, 1], [-1, -1, 1], [-1, 1, -1], [1, -1, -1]],
+                   np.float64)
+FACES = [[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]]
+
+
+def make(depth, size=1.0):
+    # a Sierpinski tetrahedron: 4**depth corner tetrahedra, 4 triangles each
+    tets = CORNERS[None] * size
+    for _ in range(depth):
+        tets = ((tets[:, :, None] + tets[:, None]) / 2).reshape(-1, 4, 3)
+    tris = tets[:, FACES].reshape(-1, 3, 3).astype(np.float32)
+    return tris[:, 0].copy(), tris[:, 1].copy(), tris[:, 2].copy()
+"""
+
+BOUNDED_KIND = """
+import torch
+
+
+def make(n, g, part, ctx):
+    # from ``dist`` away towards triangle centroids, each ray bounded at a
+    # t_max between 0.2 and 1.8 times its way to the centroid
+    a, b, c = ctx["tris"]
+    dev = ctx["device"]
+    cen = (a + b + c) / 3
+    pick = torch.randint(0, a.shape[0], (n,), generator=g, device=dev)
+    off = torch.randn((n, 3), generator=g, device=dev)
+    off = off / torch.linalg.vector_norm(off, dim=1, keepdim=True)
+    dist = float(part["dist"])
+    o = cen[pick] + dist * off
+    t_max = dist * (0.2 + 1.6 * torch.rand((n,), generator=g, device=dev))
+    return o, cen[pick] - o, t_max
+"""
+
+BOUNDED_ENTRY = """
+import math
+
+import torch
+
+from portbench.check import worst
+from portbench.reference import hits
+
+INPUTS = 3  # a batch is (origins, directions, t_max)
+WORK = None  # no work model: no bound, no roofline
+NUMBERS = ("flips", "t_err")
+
+
+def make(scene, tris_np, device, spec):
+    from bvh_tpu_torch.ops.trace import trace_closest_hit_tight
+    from bvh_tpu_torch.ray import Ray
+
+    def call(batch):
+        o, d, t_max = batch
+        h = trace_closest_hit_tight(scene, Ray.create(o, d, device=device),
+                                    t_max=t_max, device=device)
+        return h.t, h.shape_id
+    return call
+
+
+def reference(rows, tris, dtype=torch.float64):
+    t, i = hits.closest_hits(rows[0], rows[1], tris, dtype=dtype)
+    cut = t >= rows[2].to(t.dtype)
+    return torch.where(cut, math.inf, t), torch.where(cut, -1, i)
+
+
+def numbers(rows, out, tris):
+    t_ref, _ = reference(rows, tris)
+    value = out[0].double()
+    hit_p, hit_r = torch.isfinite(value), torch.isfinite(t_ref)
+    both = hit_p & hit_r
+    return {"flips": float((hit_p != hit_r).double().mean()),
+            "t_err": worst((value[both] - t_ref[both]).abs() / t_ref[both])}
+"""
+
+
+def inject_profile(mp, top: str = "trace") -> list:
+    """Puts a stand-in for ``torch.profiler.profile`` and the synthetic
+    trace of ``top`` (``devtrace._events``) in the profiler's place, so
+    that a traced run on the CPU reads a device trace. Returns the list to
+    which each profiled stretch appends whether the program's spans were
+    on in it."""
+    from bvh_tpu_torch import obs
+
+    spans_on = []
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            spans_on.append(obs._on)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    mp.setattr(torch.profiler, "profile", Profile)
+    mp.setattr(devtrace, "_events", lambda prof: synthetic_trace(top))
+    return spans_on
+
+
+def unbounded(call):
+    """Drops each ray's t_max: the third input left unread."""
+    def f(batch):
+        return call((*batch[:2], torch.full_like(batch[2], math.inf)))
+    return f
+
+
+def _add_far_cell(pkg: Path, bench: dict) -> tuple:
+    """A traffic kind, a mix and an entry kind of their own on the cubes."""
     (pkg / "kinds/far_centroids.py").write_text(FAR_KIND)
     (pkg / "entries/tracer_halves.py").write_text(HALVES_ENTRY)
     mix = json.loads((pkg / "traffic/aimed.json").read_text())
@@ -132,22 +245,74 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     # far rays: the limits of the cell whose check holds far rays
     shutil.copy(pkg / "cells/cubes120k.random.json",
                 pkg / "cells/cubes120k.far.json")
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
     bench["workloads"].append({"name": "cubes120k.far",
                                "config": "cubes120k", "traffic": "far",
                                "chips": 1, "why": "far rays, halved"})
+    return "cubes120k.far", "tracer_halves", (half,)
+
+
+def _add_scene_cell(pkg: Path, bench: dict) -> tuple:
+    """A scene maker and its configuration, a kind whose rows carry a third
+    array (t_max) and an entry that reads it, with no work model."""
+    (pkg / "scenes/sierpinski.py").write_text(SIERPINSKI_SCENE)
+    (pkg / "kinds/bounded_centroids.py").write_text(BOUNDED_KIND)
+    (pkg / "entries/bounded.py").write_text(BOUNDED_ENTRY)
+    (pkg / "configs/sierpinski6.json").write_text(json.dumps(
+        {"name": "sierpinski6", "reduced": [], "precision": "float32",
+         "scene": {"maker": "sierpinski", "args": {"depth": 6}},
+         "build": {}}))
+    (pkg / "traffic/bounded.json").write_text(json.dumps(
+        {"unit": "rays", "batch": 1048576, "pool": 8,
+         "parts": [{"kind": "bounded_centroids", "share": 1.0, "dist": 4.0}],
+         "entry": {"kind": "bounded"}, "check": {"per_slot": 512}}))
+    (pkg / "cells/sierpinski6.bounded.json").write_text(json.dumps(
+        {"limits": {"flips": 0.0005, "t_err": 0.0001}}))
+    bench["configs"].append({
+        "name": "sierpinski6",
+        "source": "https://github.com/erich666/StandardProceduralDatabases",
+        "file": "portbench/configs/sierpinski6.json", "reduced": [],
+        "why": "a Sierpinski tetrahedron"})
+    bench["workloads"].append({"name": "sierpinski6.bounded",
+                               "config": "sierpinski6", "traffic": "bounded",
+                               "chips": 1, "why": "rays bounded by t_max"})
+    return "sierpinski6.bounded", "bounded", (half, unbounded)
+
+
+@pytest.mark.parametrize("add", [_add_far_cell, _add_scene_cell],
+                         ids=["kind_mix_entry", "scene_config_inputs"])
+def test_a_cell_is_added_by_files_and_entries_alone(tmp_path, monkeypatch,
+                                                    add):
+    """New files (a traffic kind, mix, entry kind and cell; or a scene
+    maker, its configuration, a kind with a third per-row array and an
+    entry that reads it, with ``WORK = None``) and entries in
+    BENCHMARK.json: the small run is correct, planted faults are not, a
+    traced run reads a roofline only with a work model, and no file that
+    is there changes."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    pkg = tmp_path / "portbench"
+    before = _tree_hashes(pkg)
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    name, entry, faults = add(pkg, bench)
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "cubes120k.aimed" in m.get("workloads", []):
-            m["workloads"].append("cubes120k.far")
+            m["workloads"].append(name)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = small_cell("cubes120k.far", tmp_path)
-    assert cell.entry.__file__ == str(pkg / "entries/tracer_halves.py")
+    cell = small_cell(name, tmp_path)
+    assert cell.entry.__file__ == str(pkg / f"entries/{entry}.py")
     res = run_small(cell)
     assert res["correct"], res["checks"]
     assert set(res["metrics"]) == {"rays_per_s", "batch_ms_p95", "setup_s"}
     assert res["checks"]["flips"]["value"] == 0.0
-    res = run_small(cell, wrap=half)
-    assert not res["correct"], res["checks"]
+    for fault in faults:
+        res = run_small(cell, wrap=fault)
+        assert not res["correct"], (fault.__name__, res["checks"])
+    inject_profile(monkeypatch)
+    res = run_small(cell, trace=True)
+    assert res["correct"] and "span_host_ms.trace.sort" in res["metrics"]
+    assert (("trace_kernels_roofline" in res["metrics"])
+            == (cell.entry.WORK is not None))
     after = _tree_hashes(pkg)
     assert all(after[k] == v for k, v in before.items())
 
@@ -167,6 +332,95 @@ def test_a_traced_run_checks_and_reads_no_device_metric_on_the_cpu():
     res = run_small(small_cell("cubes120k.aimed"), trace=True)
     assert res["correct"], res["checks"]
     assert res["metrics"] == {} and "busy_s" not in res["device"]
+
+
+def counting(call):
+    """Counts each batch in the program's registry, as a launch counts."""
+    from bvh_tpu_torch import obs
+
+    def f(batch):
+        obs.count("batch")
+        return call(batch)
+    return f
+
+
+def test_spans_on_stretches_give_each_stage_a_call_on_the_cpu():
+    """The traced run's spans-on stretches: every stage of the entry once a
+    batch, the counters a batch (every batch counts, spans on or off), no
+    table upload, and the spans' cost; off the card no device trace, so no
+    metric and no stages."""
+    res = run_small(small_cell("cubes120k.nearest"), trace=True,
+                    wrap=counting)
+    dev = res["device"]
+    assert res["correct"] and res["metrics"] == {} and "stages" not in dev
+    spans = dev["spans"]
+    for s in ("nearest",) + tuple(f"nearest/{x}" for x in STAGES):
+        assert spans[s]["n"] == 1.0, s
+    children = sum(spans[f"nearest/{x}"]["total_ms"] for x in STAGES)
+    assert spans["nearest"]["self_ms"] == pytest.approx(
+        spans["nearest"]["total_ms"] - children)
+    assert dev["counts"]["batch"] == 1.0
+    assert dev["counts"].get("table_upload", 0) == 0
+    assert math.isfinite(dev["tracing_on_cost_pct"])
+
+
+STAGE_METRICS = [(m["name"], m["workloads"][0]) for m in BENCH["per_layer"]
+                 if m["name"].split(".")[0] in ("span_host_ms",
+                                                "span_device_ms", "launches")]
+SYNTHETIC_DEVICE_MS = {"sort": 0.010, "prologue": 0.0, "epilogue": 0.002}
+
+
+@pytest.fixture(scope="module")
+def injected():
+    """A traced CPU run of a cell with the synthetic trace of its entry's
+    top span in the profiler's place, the context each reader got, and
+    whether the spans were on in each profiled stretch."""
+    runs = {}
+
+    def run(cell: str, top: str):
+        if cell not in runs:
+            seen, plain = {}, harness.reader
+
+            def recording(root, name):
+                read = plain(root, name)
+
+                def rec(ctx):
+                    seen[name] = ctx
+                    return read(ctx)
+                return rec
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(harness, "reader", recording)
+                spans_on = inject_profile(mp, top)
+                res = run_small(small_cell(cell), trace=True)
+            runs[cell] = res, seen, spans_on
+        return runs[cell]
+    return run
+
+
+@pytest.mark.parametrize("name,cell", STAGE_METRICS)
+def test_the_traced_run_gives_readers_name_spans_and_stages(injected, name,
+                                                            cell):
+    """Each stage metric's reader gets its name and the run's spans and
+    stages a batch, keyed by the program's span path, and reads them; the
+    labelling stretch ran with the program's spans on, the device-only
+    stretch with them off."""
+    family, top, *stage = name.split(".")
+    res, seen, spans_on = injected(cell, top)
+    assert spans_on == [True, False]
+    ctx = seen[name]
+    assert ctx.name == name
+    assert ctx.spans == res["device"]["spans"]
+    assert ctx.stages == res["device"]["stages"]
+    value = res["metrics"][name]["value"]
+    path = "/".join([top, *stage])
+    if family == "span_host_ms":
+        assert value == ctx.spans[path]["self_ms"] > 0
+        assert ctx.spans[path]["n"] == 1.0
+    elif family == "span_device_ms":
+        assert value == ctx.stages[path]["device_ms"]
+        assert value == pytest.approx(SYNTHETIC_DEVICE_MS[stage[0]])
+    else:
+        assert value == ctx.stages[top]["launches"] == 3
 
 
 def test_the_pool_is_a_function_of_the_seed():

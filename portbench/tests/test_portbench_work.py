@@ -1,8 +1,12 @@
-"""CPU tests of the work model and of the trace reduction."""
+"""CPU tests of the work model and of the trace reduction: the program's
+kernels told from PyTorch's, and a synthetic Chrome trace whose device
+operations go to the innermost stage that launched them and whose idle
+gaps are named by stage."""
 
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 from pytest import approx
 
@@ -130,3 +134,66 @@ def test_the_trace_reduction_tells_the_programs_kernels_from_pytorchs():
     assert devtrace.classify(host[:4] + host[5:] + device) is None
     other = [_ev("kernel", "new_kernel", 0, 1, tid=7)]
     assert devtrace.reduce_device(device + other, labels, 1e-4, 1) is None
+
+
+def synthetic_trace(top: str = "trace"):
+    """One batch: the call around the program's ``top`` span and its four
+    stages; four operations, one of them launched before ``top``."""
+    ann = "user_annotation"
+    return [
+        _ev(ann, "portbench.batch", 0, 100),
+        _ev(ann, "portbench.call", 0, 90),
+        _ev(ann, f"bvh.{top}", 5, 80),
+        _ev(ann, f"bvh.{top}/sort", 10, 10),
+        _ev(ann, f"bvh.{top}/prologue", 22, 6),
+        _ev(ann, f"bvh.{top}/walk", 30, 30),
+        _ev(ann, f"bvh.{top}/epilogue", 65, 15),
+        _ev("cpu_op", "aten::mul", 11, 2),
+        _ev("cuda_runtime", "cudaLaunchKernel", 3, 1, correlation=4),
+        _ev("cuda_runtime", "cudaLaunchKernel", 12, 1, correlation=1),
+        _ev("cuda_runtime", "cudaLaunchKernel", 35, 1, correlation=2),
+        _ev("cuda_runtime", "cudaMemcpyAsync", 70, 1, correlation=3),
+        _ev("kernel", "outside_kernel", 4, 2, tid=7, correlation=4),
+        _ev("kernel", "sort_kernel", 14, 10, tid=7, correlation=1),
+        _ev("kernel", "walk_kernel", 36, 20, tid=7, correlation=2),
+        _ev("gpu_memcpy", "Memcpy DtoD", 72, 2, tid=7, correlation=3),
+    ]
+
+
+def test_operations_go_to_the_innermost_stage_that_launched_them():
+    got = devtrace.classify_stages(synthetic_trace())
+    st = got["stages"]
+    assert got["batches"] == 1
+    assert st["trace/sort"] == {"device_ms": 0.010, "launches": 1,
+                                "idle_ms": pytest.approx(0.008)}
+    assert st["trace/prologue"] == {"device_ms": 0.0, "launches": 0,
+                                    "idle_ms": 0.0}
+    assert st["trace/walk"] == {"device_ms": 0.020, "launches": 1,
+                                "idle_ms": pytest.approx(0.012)}
+    assert st["trace/epilogue"] == {"device_ms": 0.002, "launches": 1,
+                                    "idle_ms": 0.0}
+    # the top counts what its stages do, and the gap between them
+    assert st["trace"]["device_ms"] == pytest.approx(0.032)
+    assert st["trace"]["launches"] == 3
+    assert st["trace"]["idle_ms"] == pytest.approx(0.036)
+    # classify hands the stages on beside the kernels' owners
+    assert devtrace.classify(synthetic_trace())["stages"] == st
+
+
+def test_gaps_are_named_by_stage_and_the_rest_by_the_call():
+    gaps = dict(devtrace.classify_stages(synthetic_trace())["idle_gaps"])
+    # [0, 4] and [74, 100]: in the call, outside the program's spans
+    assert gaps["portbench.call"] == pytest.approx(30e-6)
+    assert gaps["bvh.trace/sort"] == pytest.approx(8e-6)  # [6, 14]
+    assert gaps["bvh.trace/walk"] == pytest.approx(12e-6)  # [24, 36]
+    assert gaps["bvh.trace"] == pytest.approx(16e-6)  # [56, 72]
+    assert set(gaps) == {"portbench.call", "bvh.trace/sort",
+                         "bvh.trace/walk", "bvh.trace"}
+
+
+def test_a_trace_that_lost_a_kernel_or_holds_no_batch_reads_nothing():
+    events = synthetic_trace()
+    assert devtrace.classify_stages([e for e in events
+                                     if e["name"] != "walk_kernel"]) is None
+    assert devtrace.classify_stages([e for e in events
+                                     if e["name"] != "portbench.batch"]) is None

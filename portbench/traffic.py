@@ -3,12 +3,13 @@ batches on the device out, all drawn from the run's seed by a
 ``torch.Generator`` on that device, in a few large calls.
 
 A mix's ``parts`` share each batch; each part's ``kind`` names the file
-``kinds/<kind>.py`` whose ``make(n, g, part, ctx)`` draws its ``n`` rays
-(origins, directions) with the generator ``g``, from the part's own
-parameters and ``ctx`` (``tris``: the scene's triangles on the device;
-``device``). The parts' rays are shuffled together, and a part's label is
-kept for the check's sample. A batch keeps the first ``inputs`` arrays:
-(o, d) for rays, (o,) for points.
+``kinds/<kind>.py`` whose ``make(n, g, part, ctx)`` draws its ``n`` rows
+with the generator ``g``, from the part's own parameters and ``ctx``
+(``tris``: the scene's triangles on the device; ``device``), as a tuple
+of per-row arrays: (origins, directions), or more, such as a per-ray
+t_max beside them. The parts' rows are shuffled together, and a part's
+label is kept for the check's sample. A batch keeps the first ``inputs``
+arrays: (o, d) for rays, (o,) for points, (o, d, t_max) for bounded rays.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ def part_sizes(batch: int, parts: list) -> list:
 def make_pool(mix: dict, tris, seed: int, device, inputs: int,
               root: Path = ROOT):
     """``mix["pool"]`` batches of ``mix["batch"]`` units, each a tuple of
-    ``inputs`` [n, 3] tensors, and the parts' labels of each batch (None
-    for a mix of one part)."""
+    ``inputs`` per-row tensors ([n, 3] or [n]), and the parts' labels of
+    each batch (None for a mix of one part)."""
     kinds = [plugin(root, "kinds", p["kind"]) for p in mix["parts"]]
     ctx = {"tris": tris, "device": device}
     g = _gen(seed, device)
