@@ -143,6 +143,11 @@ def disable() -> None:
     _on = False
 
 
+def enabled() -> bool:
+    """Whether spans are on."""
+    return _on
+
+
 @contextlib.contextmanager
 def tracing():
     """Spans on inside the block, and off again after it."""
