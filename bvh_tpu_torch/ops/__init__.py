@@ -2,7 +2,8 @@
 legacy cluster and chained scenes), scene builds, refits and mask+delta
 updates on the device, the coherence sorts, and the hand-written CUDA
 kernels (group walk, entry/exit walk, sweep gate, legacy cluster walk, the
-two nearest walks, and the slab count of bench.py's ray_aabb_1000 leg)
+two nearest walks, the closest-hit epilogue, and the slab count of
+bench.py's ray_aabb_1000 leg)
 with their plain PyTorch versions and counting builds (the visit
 counters), and the seeders and subtree-entry planners of the group walk,
 and the scene validators.

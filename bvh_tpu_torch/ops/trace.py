@@ -30,7 +30,8 @@ Each call of ``make_tracer``'s tracer, ``trace_closest_hit_tight`` and
 ``sort`` (the coherence sort and the rays' gather), ``prologue`` (the rays'
 inverse directions, the t_max fill, the kernels' ray rows), ``walk`` (the
 gates and the walk's launch) and ``epilogue`` (the bounded mask, the
-triangle ids, the winner recompute and the un-permute). The chained traces
+triangle ids, the winner recompute and the un-permute: one launch of
+``ops/epilogue.py``'s kernel on the card). The chained traces
 are a span ``trace_chained`` with a ``walk`` a part.
 """
 
@@ -49,6 +50,7 @@ from ..ray import Ray, ray_intersects_triangle
 from .cluster import wide_group_meta
 from .cluster_trace import check_f32, cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
+from .epilogue import closest_epilogue
 from .sweep import node_records, sweep_gate
 from .tight import tight_trace
 from .wide import WIDE_DMAX  # noqa: F401  (a public layout constant)
@@ -327,19 +329,45 @@ def _finish(rays_s: Ray, tris9, t, sid) -> HitRecord:
     return HitRecord(t, u, v, sid)
 
 
-def _epilogue(scene, rays_s: Ray, tris9, t, lane_id, tm, bounded: bool,
-              inv=None) -> HitRecord:
+def _epilogue(scene, rays_s: Ray, rows, tris, t, lane_id, tm, bounded: bool,
+              inv=None, tris9=None) -> HitRecord:
     """The closest hits of the walk's raw ``(t, lane_id)`` on sorted rays
-    ``rays_s``, as one span ``epilogue``: ``tm`` is the per-ray t_max in the
-    same order, ``tris9`` an optional [n_tris, 9] vertex table for the exact
-    winner recompute, ``inv`` an optional un-sorting permutation."""
+    ``rays_s`` (``rows`` their ray rows), as one span ``epilogue``: ``tm`` is
+    the per-ray t_max in the same order, ``tris`` optional (a, b, c) float32
+    tables on the rays' device for the exact winner recompute, ``inv`` an
+    optional un-sorting permutation, ``tris9`` the same vertices as one
+    [n_tris, 9] table where the caller keeps one (``make_tracer``, whose
+    ``tris`` are views of its columns).
+
+    On the card it launches ``ops/epilogue.py``'s kernel; on the CPU, and
+    where the recompute is to carry a gradient (a triangle table or the
+    rays require grad), the plain composition runs, over ``tris9`` or else
+    over (a, b, c) concatenated. Both give the same bits.
+    """
     with obs.span("epilogue"):
-        if bounded:
-            # a leaf hit at t >= t_max (the slab test prunes boxes, not
-            # triangles) is a miss
-            t = torch.where(t < tm, t, _INF)
-        out = _finish(rays_s, tris9, t, _shape_ids(scene, t, lane_id))
-        return out if inv is None else _unpermute(out, inv, tris9 is not None)
+        if t.device.type != "cpu" and not (torch.is_grad_enabled() and (
+                rows.requires_grad
+                or any(x.requires_grad for x in tris or ()))):
+            return closest_epilogue(rows, t, lane_id,
+                                    _dev(scene.tri_map, t.device), tris,
+                                    bounded, inv)
+        if tris9 is None and tris is not None:
+            tris9 = torch.cat(tris, dim=1)
+        return _epilogue_plain(scene, rays_s, tris9, t, lane_id, tm, bounded,
+                               inv)
+
+
+def _epilogue_plain(scene, rays_s: Ray, tris9, t, lane_id, tm, bounded: bool,
+                    inv=None) -> HitRecord:
+    """The epilogue in plain PyTorch: the bound mask, ``_shape_ids``,
+    ``_finish`` with ``tris9`` (an optional [n_tris, 9] vertex table) and
+    ``_unpermute`` by ``inv``."""
+    if bounded:
+        # a leaf hit at t >= t_max (the slab test prunes boxes, not
+        # triangles) is a miss
+        t = torch.where(t < tm, t, _INF)
+    out = _finish(rays_s, tris9, t, _shape_ids(scene, t, lane_id))
+    return out if inv is None else _unpermute(out, inv, tris9 is not None)
 
 
 def _unpermute(out: HitRecord, inv, exact: bool) -> HitRecord:
@@ -358,10 +386,18 @@ def _unpermute(out: HitRecord, inv, exact: bool) -> HitRecord:
                      comb[:, 1].contiguous())
 
 
+def _tris_on(tris, device) -> tuple:
+    """``(a, b, c)`` as float32 tensors on ``device`` with unit column
+    stride, as the epilogue kernel reads them (no copy of tensors that are
+    already so; a column-major table is copied to row-major)."""
+    out = (torch.as_tensor(x, dtype=torch.float32, device=device)
+           for x in tris)
+    return tuple(x if x.dim() != 2 or x.stride(1) == 1 else x.contiguous()
+                 for x in out)
+
+
 def _tris9(tris, device) -> torch.Tensor:
-    ta, tb, tc = (torch.as_tensor(x, dtype=torch.float32, device=device)
-                  for x in tris)
-    return torch.cat([ta, tb, tc], dim=1)
+    return torch.cat(_tris_on(tris, device), dim=1)
 
 
 def _prepare(rays: Ray, t_max, perm, dev):
@@ -439,12 +475,12 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
                              "override wide= with hints")
         sg = _start_g(scene, start_g, walk_wide, r, packet, dev)
         pg = _pre_gate(pre_gate, r, packet, dev)
-        tris9 = None if tris is None else _tris9(tris, dev)
+        tris_d = None if tris is None else _tris_on(tris, dev)
         rays, tm, rows = _prepare(rays, t_max, perm, dev)
         bounded = t_max is not None
         t, lane_id = _walk(scene, rows, packet, sweep, bounded, "closest",
                            walk_wide, hints_t, pg, sg, skip_narrow)
-        return _epilogue(scene, rays, tris9, t, lane_id, tm, bounded)
+        return _epilogue(scene, rays, rows, tris_d, t, lane_id, tm, bounded)
 
 
 def trace_any_hit_tight(scene, rays: Ray, t_max=None, packet: int = 2048,
@@ -511,7 +547,9 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
                       else (table, node_records), (scene.groups, None),
                       (scene.tri_map, None), (swn, node_records)):
         _dev(t, dev, layout)
+    # one [n_tris, 9] table, read through views of its columns
     tris9 = None if tris is None else _tris9(tris, dev)
+    tris_d = None if tris is None else tris9.split(3, dim=1)
 
     def tracer(origins, directions) -> HitRecord:
         with obs.span("trace"):
@@ -536,7 +574,8 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
                 rows = _ray_rows(rays_s, tm)
             t, lane_id = _walk(scene, rows, packet, sweep, False, "closest",
                                wide, start_g=sg)
-            return _epilogue(scene, rays_s, tris9, t, lane_id, tm, False, inv)
+            return _epilogue(scene, rays_s, rows, tris_d, t, lane_id, tm,
+                             False, inv, tris9)
 
     return tracer
 

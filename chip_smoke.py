@@ -43,7 +43,11 @@ final line):
    sweep gate's bound is the least work of any schedule (a fired packet's
    shortest walk to a fire, an unfired packet's every walk), counted on
    every ray, with the earlier bound (every ray to its own fire) beside
-   it.
+   it. The closest-hit epilogue kernel, launched once by each of phase 3's
+   four calls, against its plain composition on the aimed leg's walk
+   answers (the exact recompute and the un-sort) and the camera leg's
+   (neither), bit for bit, both timed there with their inputs cold in L2
+   (CUDA graphs over a ring of copies) beside the kernel's bound.
 6. nearest main path: 1,048,576 reference-random points (bench.py's
    nearest leg) against the 120k-triangle scene through nearest_tight in
    both walks (identical results), and 1,048,576 points near the dense
@@ -246,6 +250,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -286,6 +291,7 @@ from bvh_tpu_torch.examples import nearest_query as ex_nearest
 from bvh_tpu_torch.examples import obj_render as ex_obj
 from bvh_tpu_torch.examples import pathtrace as ex_pathtrace
 from bvh_tpu_torch.ops import cluster_trace as ct_mod
+from bvh_tpu_torch.ops import epilogue as epi_mod
 from bvh_tpu_torch.ops import nearest as near_mod
 from bvh_tpu_torch.ops import slab as slab_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
@@ -352,7 +358,7 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
 PORT_KERNELS = ("wide_trace_kernel", "sweep_kernel", "tight_trace_kernel",
                 "cluster_trace_kernel", "nearest_wide_kernel",
                 "nearest_entry_exit_kernel", "nearest_seed_kernel",
-                "slab_count_kernel")
+                "slab_count_kernel", "closest_epilogue_kernel")
 
 
 def is_port_kernel(key: str) -> bool:
@@ -429,6 +435,7 @@ def build_all() -> dict:
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (wide_mod.load, sweep_mod.load, near_mod.load,
                           tight_mod.load, ct_mod.load, slab_mod.load,
+                          epi_mod.load,
                           native.load)]
     t0 = time.perf_counter()
     for th in threads:
@@ -849,6 +856,100 @@ def compare_main_shapes(kernel_rows: dict, gated_scene, err: dict):
             check(differ == 0, f"{leg}/{case}: {differ} rays differ from plain")
         out[leg] = res
     return out, err
+
+
+L2_BYTES = 50 << 20  # the H100's L2
+
+
+def graph_ms(fn, inputs: tuple, calls: int = 24, reps: int = 5,
+             cold: bool = True) -> float:
+    """Device ms a call of ``fn(*inputs)``, its inputs cold in L2 where
+    ``cold``.
+
+    ``calls`` calls are captured as one CUDA graph and replayed: a call that
+    launches little costs the host more than the card, so events around one
+    eager call would time the host. Cold, each call takes the next of a
+    ring of copies of ``inputs`` (tensors or None) that holds at least four
+    times the L2, so what a call reads has left the L2 since its copy's
+    last call; warm, every call reads the same inputs."""
+    nbytes = sum(x.nbytes for x in inputs if x is not None)
+    copies = -(-4 * L2_BYTES // nbytes) if cold else 0
+    ring = [inputs] + [tuple(None if x is None else x.clone() for x in inputs)
+                       for _ in range(copies)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*inputs)  # loads what it runs
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for k in range(calls):
+            fn(*ring[k % len(ring)])
+    return cuda_ms(g.replay, reps=reps, warmup=1) / calls
+
+
+def epilogue_leg(scene, od, dd, sort, packet: int, sweep: bool,
+                 tris9=None) -> dict:
+    """The closest-hit epilogue's kernel (``ops/epilogue.py``) against its
+    plain composition (``ops/trace.py::_epilogue_plain``) on a leg's walk
+    answers as ``make_tracer`` hands them on: rays ``od``, ``dd`` on the
+    card sorted by ``sort`` (un-sorted after; None: as given), walked at
+    ``packet`` (``sweep``), the winners recomputed against the [n_tris, 9]
+    table ``tris9`` where given.
+
+    Bit for bit (``rows_differ``); both timed with their inputs cold in L2
+    (``graph_ms``), the kernel also warm (``ms_l2_warm``: its inputs in L2,
+    as in the pipeline, where the walk has just written t and lane); and
+    the kernel's bound: the bytes it cannot avoid at the HBM peak. Those are
+    per ray t and lane read and t, u, v, id written (24), the un-sort's
+    index (8), per hit the ray's o and d (24, with the recompute), and once
+    each tri_map entry and triangle (4 and 36) that some hit reads: a table
+    entry read by several hits comes from L2 after the first."""
+    dev = od.device
+    inv = None
+    if sort is not None:
+        perm, inv = sort_rays_device(od, dd, bits=2, mode=sort)
+        od, dd = od[perm], dd[perm]
+    rays = Ray.create(od, dd)
+    n = od.shape[0]
+    tm = torch.full((n,), float("inf"), device=dev)
+    rows = _ray_rows(rays, tm)
+    t, lane = trace_mod._walk(scene, rows, packet, sweep, False, "closest",
+                              trace_mod._traces_wide(scene))
+    tri_map = _dev(scene.tri_map, dev)
+
+    def kernel(rows, t, lane, tri_map, tris9, inv):
+        return tuple(epi_mod.closest_epilogue(
+            rows, t, lane, tri_map,
+            None if tris9 is None else tris9.split(3, dim=1), False, inv))
+
+    def plain(o, d, invd, t, lane, tri_map, tris9, inv, tm):
+        return tuple(trace_mod._epilogue_plain(
+            types.SimpleNamespace(tri_map=tri_map), Ray(o, d, invd), tris9,
+            t, lane, tm, False, inv))
+
+    got = kernel(rows, t, lane, tri_map, tris9, inv)
+    want = plain(*rays, t, lane, tri_map, tris9, inv, tm)
+    differ = int(torch.stack([
+        (x.view(torch.int32) if x.is_floating_point() else x)
+        != (y.view(torch.int32) if y.is_floating_point() else y)
+        for x, y in zip(got, want)]).any(0).sum())
+    check(differ == 0, f"epilogue: {differ} rays differ from plain")
+    hit = torch.isfinite(t)
+    hits = int(hit.sum())
+    lanes = lane[hit].clamp(0, tri_map.shape[0] - 1)
+    nbytes = (24 * n + (0 if inv is None else 8 * n)
+              + 4 * int(torch.unique(lanes).numel()))
+    if tris9 is not None:
+        ids = got[3][got[3] >= 0]
+        nbytes += 24 * hits + 36 * int(torch.unique(ids).numel())
+    k_in = (rows, t, lane, tri_map, tris9, inv)
+    return {"rays": n, "hits": hits, "rows_differ": differ,
+            "ms": graph_ms(kernel, k_in),
+            "ms_l2_warm": graph_ms(kernel, k_in, cold=False),
+            "plain_ms": graph_ms(plain, (*rays, t, lane, tri_map, tris9, inv,
+                                         tm), calls=8),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
 
 
 def fp32_issue_rate() -> float:
@@ -4649,11 +4750,14 @@ def main() -> None:
     h_aim = trace_sync(tr_aim, ao_dev, ad_dev)
     h_cam = trace_sync(tr_cam, oc_dev, dc_dev)
     launches = {"wide_trace": n_launched("wide_trace"),
-                "sweep_gate": n_launched("sweep")}
+                "sweep_gate": n_launched("sweep"),
+                "trace_epilogue": n_launched("trace_epilogue")}
     emit("main_path_launches", **launches,
          wide_trace_frame=n_launched("wide_trace.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
+    check(launches["trace_epilogue"] == 4,
+          "the main path's four calls did not launch one epilogue each")
     # host builds carry a_lo: every group walk of the path is a FRAME launch
     check(n_launched("wide_trace.frame") == launches["wide_trace"],
           "a group walk of the main path did not take the FRAME build")
@@ -4765,6 +4869,16 @@ def main() -> None:
     # the sweep's least work, from every ray's walk
     sweep_b = sweep_bound(sn, rows_r, 8192)
 
+    # the epilogue kernel on the aimed leg's walk (recompute and un-sort)
+    # and the camera leg's (neither), as make_tracer hands them on
+    t0 = time.perf_counter()
+    epi = {"aimed": epilogue_leg(scene, ao_dev, ad_dev, "morton", 8192, True,
+                                 torch.cat(tris_dev, dim=1)),
+           "camera_w128": epilogue_leg(scene_d, oc_dev, dc_dev, None, 4096,
+                                       False)}
+    emit("epilogue_vs_plain_main_path", card=card,
+         seconds=time.perf_counter() - t0, legs=epi)
+
     wb, wby = wide_b["bound_ms"], wide_b["bound_by"]
     # the same operations at the float32 issue rate without FMA pairing
     # (the kernels are built with -fmad=false): 128 lanes per SM per clock
@@ -4794,6 +4908,14 @@ def main() -> None:
          "ms": kernel_ms["sweep_gate/random"],
          "plain_ms": plain_ms["sweep_gate/random"],
          "bound_ms": sweep_b["bound_ms"], "bound_by": sweep_b["bound_by"],
+         "library_ms": None},
+        {"name": "trace_epilogue", "route": "cuda",
+         "source": "bvh_tpu_torch/csrc/epilogue.cu",
+         "replaces": "bvh_tpu/ops/trace.py:1885 (an XLA fusion)",
+         "launches": launches["trace_epilogue"],
+         "max_abs_err": 0.0,  # bit for bit (epilogue_leg's check)
+         "ms": epi["aimed"]["ms"], "plain_ms": epi["aimed"]["plain_ms"],
+         "bound_ms": epi["aimed"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]
 

@@ -18,8 +18,8 @@ one), ``ops.nearest.nearest_wide`` and ``nearest_entry_exit``, and
 ``ops.trace.trace_closest_hit``
 (the legacy walk with the ray rows before it and the hit record after it).
 ``--only`` limits the runs to one module's kernel (``wide_trace``,
-``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``) or to the trace
-walks' FRAME builds (``frame``), so that a copy
+``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``, ``epilogue``)
+or to the trace walks' FRAME builds (``frame``), so that a copy
 of the package with one source changed can be timed against the current
 one.
 The scenes are built once, by the current package, and the rows are the
@@ -50,9 +50,21 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
   aimed rows, on ``far_aimed_rays`` (1,048,576, seed 17, morton) and on
   the shared-edge case (``chip_smoke.shared_edge_case``, unsorted).
 
+* ``epilogue``: the whole closest-hit call of both packages at the two
+  shapes the benchmark's cells give the epilogue: ``make_tracer(packet=8192,
+  sort="morton", tris)`` on the aimed rays (the cell ``cubes120k.aimed``),
+  and ``trace_closest_hit_tight(tris, packet=1024)`` of a path-traced
+  frame's primary wave, 1,048,576 camera rays over SPD ``tetra`` at size
+  factor 8 (the cell ``spd_tetra8.path``; the scene and the rays from
+  ``portbench/``).
+
 The current package's bound seed (``ops.nearest.nearest_seed``) is held
 against its plain version on the sorted random points, bit for bit, and
-timed there (``held``).
+timed there (``held``); so is its epilogue kernel against its plain
+composition (``ops.trace._epilogue_plain``) on the walk's answers at the
+two ``epilogue`` shapes (``chip_smoke.epilogue_leg``: device ms a call
+over calls replayed as one CUDA graph, the inputs cold in L2 and warm,
+beside the kernel's bound, the bytes it cannot avoid at the HBM peak).
 
 Each time is ``chip_smoke.cuda_ms``. Old and new results are compared bit
 for bit: the gates and the group, entry/exit and nearest walks must agree
@@ -91,7 +103,8 @@ from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 
 MODULES = ("wide_trace", "sweep", "tight_trace", "nearest", "cluster_trace",
-           "frame")
+           "frame", "epilogue")
+ROOT = Path(__file__).resolve().parent
 
 
 def import_package(root: Path, name: str):
@@ -177,6 +190,20 @@ def seed_hold(scene, rows) -> dict:
             "ms": cs.cuda_ms(lambda: near_mod.nearest_seed(gn, work)),
             "plain_ms": cs.cuda_ms(lambda: near_mod.nearest_seed_plain(
                 gn, work), reps=3, warmup=0)}
+
+
+def path_primary(dev):
+    """The cell ``spd_tetra8.path``'s scene, its [n, 9] vertex table on
+    ``dev`` and a frame's 1,048,576 camera rays (seed 7), from
+    ``portbench/``."""
+    from portbench import plugin
+    tris_np = plugin(ROOT, "scenes", "spd_tetra").make(8)
+    o, d, _ = plugin(ROOT, "kinds", "camera").make(
+        1 << 20, torch.Generator(device=dev).manual_seed(7),
+        {"scene": "spd_tetra", "tile": 32, "bounces": 2},
+        {"device": dev, "tris": None})
+    v9 = torch.cat([torch.from_numpy(x) for x in tris_np], dim=1).to(dev)
+    return build_tight_scene(*tris_np), v9, o, d
 
 
 def runs(dev, names) -> tuple:
@@ -307,6 +334,30 @@ def runs(dev, names) -> tuple:
                           "shared_edges" else (grid, lbvh))
             out[f"frame/wide_{key}"] = ("frame", wide_run(sc_w, r))
             out[f"frame/tight_{key}"] = ("frame", tight_run(sc_t, r))
+    if "epilogue" in names:
+        ao_dev, ad_dev = (torch.from_numpy(x).to(dev) for x in (ao, ad))
+        tris9 = torch.cat([torch.from_numpy(x) for x in (a, b, c)],
+                          dim=1).to(dev)
+        held["epilogue/aimed"] = cs.epilogue_leg(scene, ao_dev, ad_dev,
+                                                 "morton", 8192, True, tris9)
+        tracers = {}
+
+        def aimed_call(ops):
+            key = ops["trace"].__name__
+            if key not in tracers:
+                tracers[key] = ops["trace"].make_tracer(
+                    scene, packet=8192, sort="morton", tris=(a, b, c),
+                    device=dev)
+            return tuple(tracers[key](ao_dev, ad_dev))
+        out["epilogue/aimed_tracer"] = ("epilogue", aimed_call)
+        scene_p, v9, po, pd = path_primary(dev)
+        held["epilogue/path_primary"] = cs.epilogue_leg(scene_p, po, pd, None,
+                                                        1024, False, v9)
+        rays_p = Ray.create(po, pd)
+        views = v9.split(3, dim=1)
+        out["epilogue/path_primary"] = ("epilogue", lambda ops: tuple(
+            ops["trace"].trace_closest_hit_tight(scene_p, rays_p, tris=views,
+                                                 packet=1024)))
     if "cluster_trace" in names:
         legacy = build_cluster_scene(a, b, c)
         for key, (lo, ld) in (("legacy_random", (o, d)),
