@@ -63,7 +63,8 @@ from .. import obs
 from ..bvh.lbvh import morton_codes
 from ..device import resolve_device
 from ._build import load_cuda_library
-from .trace import _a_lo, _chain_ids, _check_packet, _dev, packet_sums
+from .trace import (_a_lo, _chain_ids, _check_packet, _dev, _order, _take,
+                    _unsort, packet_sums)
 from .wide import (K, SENT, WIDE_DMAX, check_a_lo, check_depth, count_outputs,
                    decode_keys, dfs_walk, fired_leaves, fold_slots, two_diff)
 
@@ -544,15 +545,10 @@ def sort_points_device(points, device=None):
     """
     dev = resolve_device(device)
     pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
-    n = pts.shape[0]
-    if n == 0:
+    if pts.shape[0] == 0:
         e = torch.zeros(0, dtype=torch.int64, device=dev)
         return e, e
-    key = morton_codes(pts, pts.amin(dim=0), pts.amax(dim=0))
-    perm = torch.argsort(key, stable=True)
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n, device=dev)
-    return perm, inv
+    return _order(morton_codes(pts, pts.amin(dim=0), pts.amax(dim=0)))
 
 
 def point_rows(pts: torch.Tensor, d_max: torch.Tensor | None) -> torch.Tensor:
@@ -605,8 +601,7 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
     ``walk`` (the seed's and the walk's launches) and ``epilogue`` (the
     radius mask, the triangle ids, the float64 root and the un-permute).
     """
-    if packet < 128 or packet & (packet - 1):
-        raise ValueError(f"packet must be a power of two >= 128, got {packet}")
+    _check_packet(packet)
     with obs.span("nearest"):
         dev = resolve_device(device)
         pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
@@ -615,13 +610,6 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
         if r == 0 or scene.num_nodes == 0:
             return (torch.full((r,), -1, dtype=torch.int32, device=dev),
                     torch.full((r,), _INF, dtype=torch.float32, device=dev))
-        if scene.packed_nodes is not None:
-            raise ValueError("nearest_tight reads f32 node tables (build with "
-                             "packed=False)")
-        if wide is None:
-            wide = scene.gnodes is not None
-        elif wide and scene.gnodes is None:
-            raise ValueError("scene built without wide tables (gnodes)")
         dm = None
         if d_max is not None:
             dm = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
@@ -630,27 +618,11 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
             inv = None
             if sort and r > 128:
                 perm, inv = sort_points_device(pts, device=dev)
-                pts = pts[perm]
-                dm = None if dm is None else dm[perm]
+                pts, dm = _take(perm, pts, dm)
         with obs.span("prologue"):
             rows = point_rows(pts, dm)
         with obs.span("walk"):
-            if _seeds(scene):
-                nearest_seed(_dev(scene.gnodes, dev), rows)
-            else:
-                obs.count("nearest.unseeded")
-            W = int(scene.width)
-            groups = _dev(scene.groups, dev)
-            a_lo = _a_lo(scene, dev)
-            if wide:
-                d2, lane_id = nearest_wide(_dev(scene.gnodes, dev), groups,
-                                           rows, W, int(scene.gdepth),
-                                           refine=not scene.masked, a_lo=a_lo)
-            else:
-                d2, lane_id = nearest_entry_exit(_dev(scene.smem_nodes, dev),
-                                                 groups, rows, W,
-                                                 refine=not scene.masked,
-                                                 a_lo=a_lo)
+            d2, lane_id = _nearest_walk(scene, rows, wide)
         with obs.span("epilogue"):
             hit = torch.isfinite(d2)
             if dm is not None:
@@ -665,13 +637,37 @@ def nearest_tight(scene, points, packet: int = 2048, d_max=None,
             # sqrt may sit 1 ulp off it)
             root = torch.sqrt(torch.clamp_min(d2, 0.0).double()).float()
             dist = torch.where(hit, root, _INF)
-            if inv is None:
-                return sid, dist
-            # un-permute as int32 bit patterns, so every distance moves
-            # exactly
-            comb = torch.stack([sid, dist.view(torch.int32)], dim=1)[inv]
-            return (comb[:, 0].contiguous(),
-                    comb[:, 1].contiguous().view(torch.float32))
+            return (sid, dist) if inv is None else _unsort(inv, sid, dist)
+
+
+def _nearest_walk(scene, rows, wide: bool | None, counts: bool = False):
+    """``nearest_tight``'s walk over the point rows: the walk's choice
+    (``wide`` as there; packed scenes raise), the bound seed in place on
+    ``rows[3]`` where the scene takes one (else ``nearest.unseeded`` is
+    counted, unless ``counts``), then the group or entry/exit launch:
+    ``(d2, lane_id)``; with ``counts`` the counting builds' ``(steps,
+    fires)`` per point, the seed's group tests among the steps."""
+    if scene.packed_nodes is not None:
+        raise ValueError("nearest walks read f32 node tables (build with "
+                         "packed=False)")
+    if wide is None:
+        wide = scene.gnodes is not None
+    elif wide and scene.gnodes is None:
+        raise ValueError("scene built without wide tables (gnodes)")
+    dev = rows.device
+    seed_steps = 0
+    if _seeds(scene):
+        seed_steps = nearest_seed(_dev(scene.gnodes, dev), rows, counts=counts)
+    elif not counts:
+        obs.count("nearest.unseeded")
+    args = (_dev(scene.groups, dev), rows, int(scene.width))
+    kw = dict(refine=not scene.masked, counts=counts, a_lo=_a_lo(scene, dev))
+    if wide:
+        out = nearest_wide(_dev(scene.gnodes, dev), *args, int(scene.gdepth),
+                           **kw)
+    else:
+        out = nearest_entry_exit(_dev(scene.smem_nodes, dev), *args, **kw)
+    return (out[2] + seed_steps, out[3]) if counts else out
 
 
 def nearest_chained(chained, points, packet: int = 2048, d_max=None,
@@ -708,7 +704,7 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
         inv = None
         if sort and r > 128:
             perm, inv = sort_points_device(pts, device=dev)
-            pts, best_d = pts[perm], best_d[perm]
+            pts, best_d = _take(perm, pts, best_d)
         # 0: the -1 slot
         best_loc = torch.zeros(r, dtype=torch.int64, device=dev)
         off = 1
@@ -723,9 +719,7 @@ def nearest_chained(chained, points, packet: int = 2048, d_max=None,
         best_d = torch.where(best_id >= 0, best_d, _INF)
         if inv is None:
             return best_id, best_d
-        comb = torch.stack([best_id, best_d.view(torch.int32)], dim=1)[inv]
-        return (comb[:, 0].contiguous(),
-                comb[:, 1].contiguous().view(torch.float32))
+        return _unsort(inv, best_id, best_d)
 
 
 def count_visits_nearest(scene, points, packet: int = 2048,
@@ -755,28 +749,6 @@ def count_visits_nearest(scene, points, packet: int = 2048,
     if pts.shape[0] == 0:
         z = torch.zeros(0, dtype=torch.int64, device=dev)
         return z, z
-    if scene.packed_nodes is not None:
-        raise ValueError("nearest walks read f32 node tables (build with "
-                         "packed=False)")
-    if wide is None:
-        wide = scene.gnodes is not None
-    elif wide and scene.gnodes is None:
-        raise ValueError("scene built without wide tables (gnodes)")
-    rows = point_rows(pts, None)
-    seed_steps = 0
-    if _seeds(scene):
-        seed_steps = nearest_seed(_dev(scene.gnodes, dev), rows, counts=True)
-    W = int(scene.width)
-    groups = _dev(scene.groups, dev)
-    a_lo = _a_lo(scene, dev)
-    if wide:
-        _, _, steps, fires = nearest_wide(_dev(scene.gnodes, dev), groups,
-                                          rows, W, int(scene.gdepth),
-                                          refine=not scene.masked,
-                                          counts=True, a_lo=a_lo)
-    else:
-        _, _, steps, fires = nearest_entry_exit(_dev(scene.smem_nodes, dev),
-                                                groups, rows, W,
-                                                refine=not scene.masked,
-                                                counts=True, a_lo=a_lo)
-    return packet_sums(steps + seed_steps, packet), packet_sums(fires, packet)
+    steps, fires = _nearest_walk(scene, point_rows(pts, None), wide,
+                                 counts=True)
+    return packet_sums(steps, packet), packet_sums(fires, packet)

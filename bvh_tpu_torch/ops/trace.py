@@ -140,10 +140,44 @@ def sort_rays_device(origins, directions, bits: int = 6, mode: str = "octant",
                | (q[:, 1] << bits) | q[:, 2])
     else:
         raise ValueError(f"unknown sort mode {mode!r}")
+    return _order(key)
+
+
+def _order(key: torch.Tensor):
+    """The coherence order of a batch by its sort ``key``: ``(perm, inv)``
+    int64, ``perm`` the stable argsort (equal keys keep their input order)
+    and ``inv`` its inverse."""
     perm = torch.argsort(key, stable=True)
     inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n, device=dev)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
     return perm, inv
+
+
+def _take(perm, *cols):
+    """The batch's columns ``cols`` (float32, [n] or [n, k]; None stays None)
+    in the order ``perm``: one ``cat`` and one index where more than one
+    column moves, a plain index where one does. A gather moves every bit
+    as it is."""
+    live = [c for c in cols if c is not None]
+    if len(live) == 1:
+        moved = [live[0][perm]]
+    else:
+        flat = torch.cat([c if c.dim() == 2 else c[:, None] for c in live],
+                         dim=1)[perm]
+        parts = flat.split([c.shape[1] if c.dim() == 2 else 1 for c in live],
+                           dim=1)
+        moved = [x if c.dim() == 2 else x[:, 0] for x, c in zip(parts, live)]
+    it = iter(moved)
+    return tuple(None if c is None else next(it) for c in cols)
+
+
+def _unsort(inv, *cols):
+    """``cols`` (int32 or float32 [n]) back in the callers' order: taken by
+    ``inv`` as int32 bit patterns in one gather, so every float moves
+    exactly."""
+    comb = torch.stack([c.view(torch.int32) for c in cols], dim=1)[inv]
+    return tuple(comb[:, j].contiguous().view(c.dtype)
+                 for j, c in enumerate(cols))
 
 
 def _ray_rows(rays: Ray, tm: torch.Tensor) -> torch.Tensor:
@@ -270,29 +304,33 @@ def _walk(scene, rows, packet: int, sweep: bool, bounded: bool, mode: str,
     One span ``walk``."""
     with obs.span("walk"):
         dev = rows.device
-        table, packed = _entry_exit_table(scene)
         gate = pre_gate
         if sweep:
             swn = scene.sweep_nodes
-            if swn is not None:
-                gate = sweep_gate(_dev(swn, dev, node_records), rows, packet,
-                                  pre_gate=pre_gate)
-            else:
-                gate = sweep_gate(_dev(table, dev, node_records), rows,
-                                  packet, packed=packed, pre_gate=pre_gate)
-        a_lo = _a_lo(scene, dev)
-        if wide:
-            return wide_trace(_dev(scene.gnodes, dev, group_records),
-                              _dev(scene.groups, dev), rows,
-                              width=int(scene.width), depth=int(scene.gdepth),
-                              gate=gate, packet=packet, bounded=bounded,
-                              mode=mode, hints=hints, start_g=start_g,
-                              a_lo=a_lo)
-        return tight_trace(_dev(table, dev, node_records),
-                           _dev(scene.groups, dev), rows,
-                           width=int(scene.width), packed=packed, gate=gate,
-                           packet=packet, bounded=bounded, mode=mode,
-                           hints=hints, a_lo=a_lo, skip_narrow=skip_narrow)
+            table, packed = ((swn, False) if swn is not None
+                             else _entry_exit_table(scene))
+            gate = sweep_gate(_dev(table, dev, node_records), rows, packet,
+                              packed=packed, pre_gate=pre_gate)
+        return _launch_walk(scene, rows, wide, gate=gate, packet=packet,
+                            bounded=bounded, mode=mode, hints=hints,
+                            start_g=start_g, skip_narrow=skip_narrow)
+
+
+def _launch_walk(scene, rows, wide: bool, start_g=None,
+                 skip_narrow: bool = False, **kw):
+    """The walk's launch over the ray rows, as the kernel wrappers return
+    it: the group walk (with ``start_g``) where ``wide``, else the
+    entry/exit walk (with ``skip_narrow``) over the packed table where the
+    scene has one; ``kw`` the wrappers' other options."""
+    dev = rows.device
+    args = (_dev(scene.groups, dev), rows)
+    kw.update(width=int(scene.width), a_lo=_a_lo(scene, dev))
+    if wide:
+        return wide_trace(_dev(scene.gnodes, dev, group_records), *args,
+                          depth=int(scene.gdepth), start_g=start_g, **kw)
+    table, packed = _entry_exit_table(scene)
+    return tight_trace(_dev(table, dev, node_records), *args, packed=packed,
+                       skip_narrow=skip_narrow, **kw)
 
 
 def _a_lo(scene, dev):
@@ -371,19 +409,18 @@ def _epilogue_plain(scene, rays_s: Ray, tris9, t, lane_id, tm, bounded: bool,
 
 
 def _unpermute(out: HitRecord, inv, exact: bool) -> HitRecord:
-    """``out`` in the callers' order: rows taken by ``inv`` as int32 bit
-    patterns, so every t, u, v moves exactly (u and v only where ``exact``;
-    else they are zeros and stay)."""
-    cols = [out.t.view(torch.int32), out.shape_id]
+    """``out`` in the callers' order (``_unsort``), every t, u, v moved
+    exactly (u and v only where ``exact``; else they are zeros and stay)."""
     if exact:
-        cols += [out.u.view(torch.int32), out.v.view(torch.int32)]
-    comb = torch.stack(cols, dim=1)[inv]
-    t = comb[:, 0].contiguous().view(torch.float32)
-    if not exact:
-        return HitRecord(t, out.u, out.v, comb[:, 1].contiguous())
-    return HitRecord(t, comb[:, 2].contiguous().view(torch.float32),
-                     comb[:, 3].contiguous().view(torch.float32),
-                     comb[:, 1].contiguous())
+        return HitRecord(*_unsort(inv, *out))
+    t, sid = _unsort(inv, out.t, out.shape_id)
+    return out._replace(t=t, shape_id=sid)
+
+
+def _no_hits(dev) -> HitRecord:
+    """The ``HitRecord`` of an empty batch on ``dev``."""
+    z = torch.zeros(0, dtype=torch.float32, device=dev)
+    return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
 
 
 def _tris_on(tris, device) -> tuple:
@@ -406,19 +443,25 @@ def _prepare(rays: Ray, t_max, perm, dev):
     order (+inf when None) and the kernels' ray rows."""
     with obs.span("sort"):
         rays = Ray(*(x.to(dev) for x in rays))
-        r = rays.origin.shape[0]
         tm = None
         if t_max is not None:
             tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
-            tm = tm.reshape(-1).expand(r).contiguous()
+            tm = tm.reshape(-1).expand(rays.origin.shape[0]).contiguous()
         if perm is not None:
             perm = torch.as_tensor(perm, device=dev).to(torch.int64)
-            rays = rays.take(perm)
-            tm = None if tm is None else tm[perm]
+            *cols, tm = _take(perm, *rays, tm)
+            rays = Ray(*cols)
     with obs.span("prologue"):
-        if tm is None:
-            tm = torch.full((r,), _INF, dtype=torch.float32, device=dev)
-        return rays, tm, _ray_rows(rays, tm)
+        return (rays, *_prologue(rays, tm))
+
+
+def _prologue(rays: Ray, tm):
+    """The prologue of a trace over rays in walk order: ``(tm, rows)``, the
+    per-ray t_max (+inf where ``tm`` is None) and the kernels' ray rows."""
+    if tm is None:
+        tm = torch.full((rays.origin.shape[0],), _INF, dtype=torch.float32,
+                        device=rays.origin.device)
+    return tm, _ray_rows(rays, tm)
 
 
 def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
@@ -465,8 +508,7 @@ def trace_closest_hit_tight(scene, rays: Ray, tris=None, packet: int = 2048,
     dev = resolve_device(device)
     r = rays.origin.shape[0]
     if r == 0:
-        z = torch.zeros(0, dtype=torch.float32, device=dev)
-        return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
+        return _no_hits(dev)
     with obs.span("trace"):
         hints_t = _hints(scene, hints, _traces_wide(scene), r, packet, dev)
         if hints_t is not None and walk_wide != _traces_wide(scene):
@@ -556,22 +598,17 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
             o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
             d = torch.as_tensor(directions, dtype=torch.float32, device=dev)
             if o.shape[0] == 0:
-                z = torch.zeros(0, dtype=torch.float32, device=dev)
-                return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32,
-                                                      device=dev))
+                return _no_hits(dev)
             with obs.span("sort"):
                 inv = None
                 if sort is not None:
                     perm, inv = sort_rays_device(o, d, bits=bits, mode=sort,
                                                  device=dev)
-                    od = torch.cat([o, d], dim=1)[perm]
-                    o, d = od[:, 0:3], od[:, 3:6]
+                    o, d = _take(perm, o, d)
             with obs.span("prologue"):
                 rays_s = Ray.create(o, d, device=dev)
-                tm = torch.full((o.shape[0],), _INF, dtype=torch.float32,
-                                device=dev)
+                tm, rows = _prologue(rays_s, None)
                 sg = None if planner is None else planner(rays_s.origin)
-                rows = _ray_rows(rays_s, tm)
             t, lane_id = _walk(scene, rows, packet, sweep, False, "closest",
                                wide, start_g=sg)
             return _epilogue(scene, rays_s, rows, tris_d, t, lane_id, tm,
@@ -902,10 +939,7 @@ def packet_sums(x: torch.Tensor, packet: int) -> torch.Tensor:
 
 def _count_rows(rays: Ray, packet: int, dev):
     _check_packet(packet)
-    rays = Ray(*(x.to(dev) for x in rays))
-    tm = torch.full((rays.origin.shape[0],), _INF, dtype=torch.float32,
-                    device=dev)
-    return _ray_rows(rays, tm)
+    return _prologue(Ray(*(x.to(dev) for x in rays)), None)[1]
 
 
 def count_visits_tight(scene, rays: Ray, packet: int = 2048, device=None):
@@ -927,12 +961,8 @@ def count_visits_tight(scene, rays: Ray, packet: int = 2048, device=None):
     if rays.origin.shape[0] == 0:
         z = torch.zeros(0, dtype=torch.int64, device=dev)
         return z, z
-    rows = _count_rows(rays, packet, dev)
-    table, packed = _entry_exit_table(scene)
-    _, _, visits, fires = tight_trace(
-        _dev(table, dev, node_records), _dev(scene.groups, dev), rows,
-        width=int(scene.width), packed=packed, packet=packet, counts=True,
-        a_lo=_a_lo(scene, dev))
+    _, _, visits, fires = _launch_walk(scene, _count_rows(rays, packet, dev),
+                                       False, packet=packet, counts=True)
     return packet_sums(visits, packet), packet_sums(fires, packet)
 
 
@@ -966,10 +996,8 @@ def count_visits_wide(scene, rays: Ray, packet: int = 2048, start_g=None,
         return z, z, z
     rows = _count_rows(rays, packet, dev)
     sg = _start_g(scene, start_g, walk_wide, r, packet, dev)
-    _, _, tests, fires = wide_trace(
-        _dev(scene.gnodes, dev, group_records), _dev(scene.groups, dev),
-        rows, width=int(scene.width), depth=int(scene.gdepth), packet=packet,
-        start_g=sg, counts=True, a_lo=_a_lo(scene, dev))
+    _, _, tests, fires = _launch_walk(scene, rows, True, start_g=sg,
+                                      packet=packet, counts=True)
     tests, fires = packet_sums(tests, packet), packet_sums(fires, packet)
     return tests + fires, fires, tests
 
@@ -1016,8 +1044,7 @@ def trace_closest_hit(scene, rays: Ray, tris=None, packet: int = 1024,
     dev = resolve_device(device)
     r = rays.origin.shape[0]
     if r == 0:
-        z = torch.zeros(0, dtype=torch.float32, device=dev)
-        return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
+        return _no_hits(dev)
     rays = Ray(*(x.to(dev) for x in rays))
     t, lane_id = cluster_trace(_dev(scene.smem_nodes, dev),
                                _dev(scene.smem_cc, dev),
@@ -1088,8 +1115,7 @@ def trace_closest_hit_chained(chained, rays: Ray, tris=None, packet: int = 2048,
     dev = resolve_device(device)
     r = rays.origin.shape[0]
     if r == 0:
-        z = torch.zeros(0, dtype=torch.float32, device=dev)
-        return HitRecord(z, z, z, torch.zeros(0, dtype=torch.int32, device=dev))
+        return _no_hits(dev)
     with obs.span("trace_chained"):
         # row 6 of the ray rows is each part's bound
         rays_s, tm, rows = _prepare(rays, t_max, perm, dev)

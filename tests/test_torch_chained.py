@@ -348,6 +348,15 @@ def test_nearest_chained_matches_reference(world, dm, sort):
         assert hit.all()
     else:
         assert 0 < hit.sum() < len(pts)
+    # a chain of one part answers as nearest_tight over that part, bit for
+    # bit: the same sort, walk and un-sort
+    one = build_chained_scene(*tris)
+    assert len(one.parts) == 1
+    for x, y in zip(nearest_chained(one, pts, packet=PACKET, d_max=d_max,
+                                    sort=sort, device=CPU),
+                    nearest_tight(one.parts[0], pts, packet=PACKET,
+                                  d_max=d_max, sort=sort, device=CPU)):
+        assert np.array_equal(_bits(x), _bits(y))
 
 
 def test_chained_empty_inputs(world):

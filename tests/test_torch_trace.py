@@ -137,22 +137,30 @@ def test_trace_tight_tris_tmax_perm_matches_reference(world, exact_reciprocal):
     assert (got[3][keep] == free[3][keep]).all()
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
 @pytest.mark.parametrize("sort", ["octant", "morton", "octmorton", None])
 def test_results_do_not_depend_on_sort_or_sweep(world, sort):
     """Each ray walks on its own, so the coherence sort and the sweep gate
-    change no bit of the results."""
+    change no bit of the results; and the tracer's answers are
+    ``trace_closest_hit_tight(perm=)``'s under the same sort, un-sorted."""
     tris, o, d = world
     st = build_tight_scene(*tris)
-    base = trace_closest_hit_tight(st, Ray.create(o, d, device=CPU), tris=tris,
-                                   device=CPU)
+    rays = Ray.create(o, d, device=CPU)
+    base = trace_closest_hit_tight(st, rays, tris=tris, device=CPU)
     for sweep in (False, True):
         got = make_tracer(st, packet=256, sweep=sweep, sort=sort, tris=tris,
                           device=CPU)(o, d)
         for x, y in zip(base, got):
-            assert torch.equal(x.view(torch.int32) if x.is_floating_point()
-                               else x,
-                               y.view(torch.int32) if y.is_floating_point()
-                               else y)
+            assert torch.equal(_bits(x), _bits(y))
+    if sort is not None:
+        perm, inv = sort_rays_device(o, d, bits=2, mode=sort, device=CPU)
+        sorted_hits = trace_closest_hit_tight(st, rays, tris=tris, perm=perm,
+                                              packet=256, device=CPU)
+        for x, y in zip(sorted_hits, got):
+            assert torch.equal(_bits(x[inv]), _bits(y))
 
 
 def test_carried_scene_traces_identically(world):
