@@ -31,7 +31,10 @@ Each call of ``make_tracer``'s tracer, ``trace_closest_hit_tight`` and
 inverse directions, the t_max fill, the kernels' ray rows), ``walk`` (the
 gates and the walk's launch) and ``epilogue`` (the bounded mask, the
 triangle ids, the winner recompute and the un-permute: one launch of
-``ops/epilogue.py``'s kernel on the card). The chained traces
+``ops/epilogue.py``'s kernel on the card). On the card ``make_tracer``'s
+``sort`` is ``ops/order.py``'s key kernel and the argsort, and its
+``prologue`` the order's rows kernel, which gathers the rays into the rows
+and writes the un-sort. The chained traces
 are a span ``trace_chained`` with a ``walk`` a part.
 """
 
@@ -51,6 +54,8 @@ from .cluster import wide_group_meta
 from .cluster_trace import check_f32, cluster_trace
 from .cluster_trace import ray_rows as cluster_ray_rows
 from .epilogue import closest_epilogue
+from .order import MODES as SORT_MODES
+from .order import ray_key, ray_rows
 from .sweep import node_records, sweep_gate
 from .tight import tight_trace
 from .wide import WIDE_DMAX  # noqa: F401  (a public layout constant)
@@ -115,8 +120,11 @@ def sort_rays_device(origins, directions, bits: int = 6, mode: str = "octant",
     ``mode="octant"``: direction octant, then origin cell (x-major at
     ``bits`` per axis). ``mode="morton"``: origin Morton cell (512^3), then
     the octant. ``mode="octmorton"``: octant major, origin Morton cell minor.
-    The argsort is stable, so equal keys keep their input order.
+    The argsort is stable, so equal keys keep their input order. On the
+    card the key is ``ops/order.py``'s kernel (``_sort_key``).
     """
+    if mode not in SORT_MODES:
+        raise ValueError(f"unknown sort mode {mode!r}")
     dev = resolve_device(device)
     o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
     d = torch.as_tensor(directions, dtype=torch.float32, device=dev)
@@ -124,33 +132,91 @@ def sort_rays_device(origins, directions, bits: int = 6, mode: str = "octant",
     if n == 0:
         e = torch.zeros(0, dtype=torch.int64, device=dev)
         return e, e
+    return _order(_sort_key(o, d, bits, mode))
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a tensor takes the hand-written kernels (on the card) or
+    the plain composition (on the CPU)."""
+    return x.device.type != "cpu"
+
+
+def _carries_grad(*xs) -> bool:
+    """Whether any of the tensors ``xs`` is to carry a gradient."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _sort_key(o, d, bits: int, mode: str) -> torch.Tensor:
+    """The coherence sort's int32 key of rays ``o``, ``d`` ([n, 3] float32
+    on one device): ``ops/order.py``'s kernel on the card (an integer key
+    carries no gradient, so the rays go in detached), the plain composition
+    elsewhere; the same bits."""
+    if _on_card(o):
+        return ray_key(o.detach().contiguous(), d.detach().contiguous(),
+                       mode, bits)
+    return _sort_key_plain(o, d, bits, mode)
+
+
+def _sort_key_plain(o, d, bits: int, mode: str) -> torch.Tensor:
+    """The key in plain PyTorch: the octant, the origins' bounds and
+    ``morton_codes`` (or the octant key's cells)."""
     octant = ((d[:, 0] > 0).to(torch.int32) * 4
               + (d[:, 1] > 0).to(torch.int32) * 2
               + (d[:, 2] > 0).to(torch.int32))
     lo = o.amin(dim=0)
     hi = o.amax(dim=0)
     if mode == "morton":
-        key = ((morton_codes(o, lo, hi) >> 3) << 3) | octant
-    elif mode == "octmorton":
-        key = (octant << 27) | (morton_codes(o, lo, hi) >> 3)
-    elif mode == "octant":
-        scale = (2.0 ** bits - 1.0) / torch.clamp_min(hi - lo, 1e-30)
-        q = ((o - lo) * scale).to(torch.int32)
-        key = ((octant << (3 * bits)) | (q[:, 0] << (2 * bits))
-               | (q[:, 1] << bits) | q[:, 2])
-    else:
-        raise ValueError(f"unknown sort mode {mode!r}")
-    return _order(key)
+        return ((morton_codes(o, lo, hi) >> 3) << 3) | octant
+    if mode == "octmorton":
+        return (octant << 27) | (morton_codes(o, lo, hi) >> 3)
+    scale = (2.0 ** bits - 1.0) / torch.clamp_min(hi - lo, 1e-30)
+    q = ((o - lo) * scale).to(torch.int32)
+    return ((octant << (3 * bits)) | (q[:, 0] << (2 * bits))
+            | (q[:, 1] << bits) | q[:, 2])
 
 
 def _order(key: torch.Tensor):
     """The coherence order of a batch by its sort ``key``: ``(perm, inv)``
-    int64, ``perm`` the stable argsort (equal keys keep their input order)
-    and ``inv`` its inverse."""
-    perm = torch.argsort(key, stable=True)
+    int64, ``perm`` the stable argsort (``_sort_perm``) and ``inv`` its
+    inverse."""
+    perm = _sort_perm(key)
+    return perm, _inverse(perm)
+
+
+def _sort_perm(key: torch.Tensor) -> torch.Tensor:
+    """The stable argsort of a sort ``key`` (int64; equal keys keep their
+    input order): the one sort of every coherence order."""
+    return torch.argsort(key, stable=True)
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The permutation that undoes ``perm``, by a scatter."""
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-    return perm, inv
+    return inv
+
+
+def _sorted_rows(o, d, perm):
+    """``(rows, inv)``: the walk's ray rows [13, n] of rays ``o``, ``d``
+    ([n, 3] float32 on one device) taken in the order ``perm`` (None: as
+    given), directions normalised as ``Ray.create`` does it, and the
+    permutation that un-sorts them (None without ``perm``).
+    ``ops/order.py``'s rows kernel on the card (rows that carry no
+    gradient), ``_sorted_rows_plain`` elsewhere; the same bits."""
+    if _on_card(o):
+        return ray_rows(o.detach().contiguous(), d.detach().contiguous(),
+                        perm)
+    return _sorted_rows_plain(o, d, perm)
+
+
+def _sorted_rows_plain(o, d, perm):
+    """``_sorted_rows`` in plain PyTorch: ``_inverse``, ``_take``,
+    ``Ray.create`` and ``_prologue``."""
+    inv = None
+    if perm is not None:
+        inv = _inverse(perm)
+        o, d = _take(perm, o, d)
+    return _prologue(Ray.create(o, d, device=o.device), None)[1], inv
 
 
 def _take(perm, *cols):
@@ -189,6 +255,12 @@ def _ray_rows(rays: Ray, tm: torch.Tensor) -> torch.Tensor:
     inv_c = torch.clamp(inv, -1.0e30, 1.0e30)
     return torch.stack([*(o * inv_c).unbind(1), *inv_c.unbind(1), tm,
                         *d.unbind(1), *o.unbind(1)])
+
+
+def _rays_of_rows(rows: torch.Tensor) -> Ray:
+    """The rays of ray rows [13, n] (``_ray_rows``' layout) as views of
+    them: the origins, the directions and the clamped inverses."""
+    return Ray(rows[10:13].t(), rows[7:10].t(), rows[3:6].t())
 
 
 def _traces_wide(scene) -> bool:
@@ -379,13 +451,13 @@ def _epilogue(scene, rays_s: Ray, rows, tris, t, lane_id, tm, bounded: bool,
 
     On the card it launches ``ops/epilogue.py``'s kernel; on the CPU, and
     where the recompute is to carry a gradient (a triangle table or the
-    rays require grad), the plain composition runs, over ``tris9`` or else
-    over (a, b, c) concatenated. Both give the same bits.
+    sorted rays' origins or directions require grad), the plain composition
+    runs, over ``tris9`` or else over (a, b, c) concatenated. Both give the
+    same bits.
     """
     with obs.span("epilogue"):
-        if t.device.type != "cpu" and not (torch.is_grad_enabled() and (
-                rows.requires_grad
-                or any(x.requires_grad for x in tris or ()))):
+        if _on_card(t) and not _carries_grad(
+                rays_s.origin, rays_s.direction, *(tris or ())):
             return closest_epilogue(rows, t, lane_id,
                                     _dev(scene.tri_map, t.device), tris,
                                     bounded, inv)
@@ -576,7 +648,7 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
     if plan not in (None, "key"):
         raise ValueError(f"unknown plan {plan!r}")
     _check_packet(packet)
-    if sort not in (None, "octant", "morton", "octmorton"):
+    if sort is not None and sort not in SORT_MODES:
         raise ValueError(f"unknown sort mode {sort!r}")
     dev = resolve_device(device)
     wide = _traces_wide(scene)
@@ -600,18 +672,21 @@ def make_tracer(scene, packet: int = 8192, sweep: bool = True,
             if o.shape[0] == 0:
                 return _no_hits(dev)
             with obs.span("sort"):
-                inv = None
-                if sort is not None:
-                    perm, inv = sort_rays_device(o, d, bits=bits, mode=sort,
-                                                 device=dev)
-                    o, d = _take(perm, o, d)
+                perm = (None if sort is None
+                        else _sort_perm(_sort_key(o, d, bits, sort)))
             with obs.span("prologue"):
-                rays_s = Ray.create(o, d, device=dev)
-                tm, rows = _prologue(rays_s, None)
+                rows, inv = _sorted_rows(o, d, perm)
+                rays_s = _rays_of_rows(rows)
+                if (perm is None and tris9 is not None
+                        and _carries_grad(o, d) and not rows.requires_grad):
+                    # the kernel's rows carry no gradient, so the winners'
+                    # recompute reads the rays themselves (a sorted call's
+                    # un-sort moves bit patterns and carries none)
+                    rays_s = Ray.create(o, d, device=dev)
                 sg = None if planner is None else planner(rays_s.origin)
             t, lane_id = _walk(scene, rows, packet, sweep, False, "closest",
                                wide, start_g=sg)
-            return _epilogue(scene, rays_s, rows, tris_d, t, lane_id, tm,
+            return _epilogue(scene, rays_s, rows, tris_d, t, lane_id, None,
                              False, inv, tris9)
 
     return tracer

@@ -9,7 +9,7 @@ the twins of the repository's five examples on one NVIDIA card.
 Phases (each prints one JSON line; any failure exits nonzero before the
 final line):
 
-1. device: the card's name and power limit; builds the five CUDA kernel
+1. device: the card's name and power limit; builds the CUDA kernel
    sources and the host scene builder from the checkout's sources, in
    parallel.
 2. kernels vs plain: on create_n_cubes(1000) with 65,536 reference-random
@@ -47,7 +47,10 @@ final line):
    four calls, against its plain composition on the aimed leg's walk
    answers (the exact recompute and the un-sort) and the camera leg's
    (neither), bit for bit, both timed there with their inputs cold in L2
-   (CUDA graphs over a ring of copies) beside the kernel's bound.
+   (CUDA graphs over a ring of copies) beside the kernel's bound; so are
+   the order kernels (the key, and the rows with the un-sort), launched by
+   phase 3's calls (the key by the three sorted ones), on the aimed
+   (morton) and random (octmorton) legs' rays.
 6. nearest main path: 1,048,576 reference-random points (bench.py's
    nearest leg) against the 120k-triangle scene through nearest_tight in
    both walks (identical results), and 1,048,576 points near the dense
@@ -293,6 +296,7 @@ from bvh_tpu_torch.examples import pathtrace as ex_pathtrace
 from bvh_tpu_torch.ops import cluster_trace as ct_mod
 from bvh_tpu_torch.ops import epilogue as epi_mod
 from bvh_tpu_torch.ops import nearest as near_mod
+from bvh_tpu_torch.ops import order as order_mod
 from bvh_tpu_torch.ops import slab as slab_mod
 from bvh_tpu_torch.ops import sweep as sweep_mod
 from bvh_tpu_torch.ops import tight as tight_mod
@@ -358,7 +362,9 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
 PORT_KERNELS = ("wide_trace_kernel", "sweep_kernel", "tight_trace_kernel",
                 "cluster_trace_kernel", "nearest_wide_kernel",
                 "nearest_entry_exit_kernel", "nearest_seed_kernel",
-                "slab_count_kernel", "closest_epilogue_kernel")
+                "slab_count_kernel", "closest_epilogue_kernel",
+                "ray_bounds_kernel", "ray_key_kernel", "ray_rows_kernel",
+                "ray_unsort_kernel")
 
 
 def is_port_kernel(key: str) -> bool:
@@ -435,7 +441,7 @@ def build_all() -> dict:
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (wide_mod.load, sweep_mod.load, near_mod.load,
                           tight_mod.load, ct_mod.load, slab_mod.load,
-                          epi_mod.load,
+                          epi_mod.load, order_mod.load,
                           native.load)]
     t0 = time.perf_counter()
     for th in threads:
@@ -950,6 +956,56 @@ def epilogue_leg(scene, od, dd, sort, packet: int, sweep: bool,
             "plain_ms": graph_ms(plain, (*rays, t, lane, tri_map, tris9, inv,
                                          tm), calls=8),
             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
+
+
+def order_leg(od, dd, mode: str) -> dict:
+    """The tracer's order kernels (``ops/order.py``) against their plain
+    composition on a leg's rays ``od``, ``dd`` on the card, as
+    ``make_tracer(sort=mode)`` takes them: the key (``ray_key`` against
+    ``ops/trace.py::_sort_key_plain``) and the rows in the order of the
+    key's stable argsort with the un-sort beside them (``ray_rows`` against
+    ``_sorted_rows_plain``: ``_inverse``'s scatter, ``_take``,
+    ``Ray.create`` and ``_prologue``).
+
+    Bit for bit (``key_differ``, ``rows_differ``); each timed with its
+    inputs cold in L2 (``graph_ms``) and warm, beside its bound, the bytes
+    it cannot avoid at the HBM peak: the key reads o and d and writes the
+    key (24 + 4 bytes a ray), the rows (two launches: the gather, then the
+    un-sort's scatter) read ``perm``, o and d and write 13 rows and the
+    un-sort (32 + 60); and the plain composition's time."""
+    n = od.shape[0]
+
+    def key(o, d):
+        return order_mod.ray_key(o, d, mode, 2)
+
+    def key_plain(o, d):
+        return trace_mod._sort_key_plain(o, d, 2, mode)
+
+    rows, rows_plain = order_mod.ray_rows, trace_mod._sorted_rows_plain
+    k = key(od, dd)
+    key_differ = int((k != key_plain(od, dd)).sum())
+    perm = trace_mod._sort_perm(k)
+    got, want = rows(od, dd, perm), rows_plain(od, dd, perm)
+    rows_differ = int(((got[0].view(torch.int32)
+                        != want[0].view(torch.int32)).any(0)
+                       | (got[1] != want[1])).sum())
+    check(key_differ == 0, f"order: {key_differ} keys differ from plain")
+    check(rows_differ == 0, f"order: {rows_differ} rays' rows differ from "
+          "plain")
+    k_in, r_in = (od, dd), (od, dd, perm)
+    key_bytes, rows_bytes = 28 * n, 92 * n
+    return {"rays": n, "mode": mode, "key_differ": key_differ,
+            "rows_differ": rows_differ,
+            "key": {"ms": graph_ms(key, k_in),
+                    "ms_l2_warm": graph_ms(key, k_in, cold=False),
+                    "plain_ms": graph_ms(key_plain, k_in, calls=8),
+                    "bound_ms": key_bytes / PEAK_BYTES * 1e3,
+                    "bytes": key_bytes},
+            "rows": {"ms": graph_ms(rows, r_in),
+                     "ms_l2_warm": graph_ms(rows, r_in, cold=False),
+                     "plain_ms": graph_ms(rows_plain, r_in, calls=8),
+                     "bound_ms": rows_bytes / PEAK_BYTES * 1e3,
+                     "bytes": rows_bytes}}
 
 
 def fp32_issue_rate() -> float:
@@ -4751,13 +4807,19 @@ def main() -> None:
     h_cam = trace_sync(tr_cam, oc_dev, dc_dev)
     launches = {"wide_trace": n_launched("wide_trace"),
                 "sweep_gate": n_launched("sweep"),
-                "trace_epilogue": n_launched("trace_epilogue")}
+                "trace_epilogue": n_launched("trace_epilogue"),
+                "ray_key": n_launched("ray_key"),
+                "ray_rows": n_launched("ray_rows")}
     emit("main_path_launches", **launches,
          wide_trace_frame=n_launched("wide_trace.frame"))
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     check(launches["trace_epilogue"] == 4,
           "the main path's four calls did not launch one epilogue each")
+    check(launches["ray_key"] == 3 == n_launched("ray_bounds")
+          == n_launched("ray_unsort") and launches["ray_rows"] == 4,
+          "the main path's calls did not launch the key and the un-sort a "
+          "sorted call and the rows a call")
     # host builds carry a_lo: every group walk of the path is a FRAME launch
     check(n_launched("wide_trace.frame") == launches["wide_trace"],
           "a group walk of the main path did not take the FRAME build")
@@ -4878,6 +4940,13 @@ def main() -> None:
                                        False)}
     emit("epilogue_vs_plain_main_path", card=card,
          seconds=time.perf_counter() - t0, legs=epi)
+    # the order kernels on the aimed and random legs' rays, as make_tracer
+    # takes them
+    t0 = time.perf_counter()
+    order = {"aimed": order_leg(ao_dev, ad_dev, "morton"),
+             "random": order_leg(o_dev, d_dev, "octmorton")}
+    emit("order_vs_plain_main_path", card=card,
+         seconds=time.perf_counter() - t0, legs=order)
 
     wb, wby = wide_b["bound_ms"], wide_b["bound_by"]
     # the same operations at the float32 issue rate without FMA pairing
@@ -4917,6 +4986,16 @@ def main() -> None:
          "ms": epi["aimed"]["ms"], "plain_ms": epi["aimed"]["plain_ms"],
          "bound_ms": epi["aimed"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        *({"name": f"ray_{part}", "route": "cuda",
+           "source": "bvh_tpu_torch/csrc/order.cu",
+           "replaces": "bvh_tpu/ops/trace.py sort_rays_device, _ray_rows "
+                       "(XLA fusions)",
+           "launches": launches[f"ray_{part}"],
+           "max_abs_err": 0.0,  # bit for bit (order_leg's check)
+           "ms": order["aimed"][part]["ms"],
+           "plain_ms": order["aimed"][part]["plain_ms"],
+           "bound_ms": order["aimed"][part]["bound_ms"], "bound_by": "bytes",
+           "library_ms": None} for part in ("key", "rows")),
     ]
 
     # ---- phases 6 and 7: the nearest main path and its timings ----------

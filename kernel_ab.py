@@ -18,7 +18,8 @@ one), ``ops.nearest.nearest_wide`` and ``nearest_entry_exit``, and
 ``ops.trace.trace_closest_hit``
 (the legacy walk with the ray rows before it and the hit record after it).
 ``--only`` limits the runs to one module's kernel (``wide_trace``,
-``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``, ``epilogue``)
+``sweep``, ``tight_trace``, ``nearest``, ``cluster_trace``, ``epilogue``,
+``order``)
 or to the trace walks' FRAME builds (``frame``), so that a copy
 of the package with one source changed can be timed against the current
 one.
@@ -58,13 +59,22 @@ ones ``chip_smoke.py`` gives the kernels (built by its helpers):
   factor 8 (the cell ``spd_tetra8.path``; the scene and the rays from
   ``portbench/``).
 
+* ``order``: the whole closest-hit call of both packages on the two cells'
+  rays and sorts, ``make_tracer(packet=8192, sort="morton", tris)`` on the
+  aimed rays (``cubes120k.aimed``) and ``make_tracer(packet=8192,
+  sweep=False, sort="octmorton")`` on the random rays
+  (``cubes120k.random``).
+
 The current package's bound seed (``ops.nearest.nearest_seed``) is held
 against its plain version on the sorted random points, bit for bit, and
 timed there (``held``); so is its epilogue kernel against its plain
 composition (``ops.trace._epilogue_plain``) on the walk's answers at the
 two ``epilogue`` shapes (``chip_smoke.epilogue_leg``: device ms a call
 over calls replayed as one CUDA graph, the inputs cold in L2 and warm,
-beside the kernel's bound, the bytes it cannot avoid at the HBM peak).
+beside the kernel's bound, the bytes it cannot avoid at the HBM peak), and
+its order kernels (``ops/order.py``: the key and the rows) against their
+plain composition on the aimed and random rays (``chip_smoke.order_leg``,
+timed the same way).
 
 Each time is ``chip_smoke.cuda_ms``. Old and new results are compared bit
 for bit: the gates and the group, entry/exit and nearest walks must agree
@@ -103,7 +113,7 @@ from bvh_tpu_torch.ops import trace as trace_mod
 from bvh_tpu_torch.ops.trace import _dev, _ray_rows
 
 MODULES = ("wide_trace", "sweep", "tight_trace", "nearest", "cluster_trace",
-           "frame", "epilogue")
+           "frame", "epilogue", "order")
 ROOT = Path(__file__).resolve().parent
 
 
@@ -358,6 +368,27 @@ def runs(dev, names) -> tuple:
         out["epilogue/path_primary"] = ("epilogue", lambda ops: tuple(
             ops["trace"].trace_closest_hit_tight(scene_p, rays_p, tris=views,
                                                  packet=1024)))
+    if "order" in names:
+        o_dev, d_dev, ao_dev, ad_dev = (torch.from_numpy(x).to(dev)
+                                        for x in (o, d, ao, ad))
+        held["order/aimed"] = cs.order_leg(ao_dev, ad_dev, "morton")
+        held["order/random"] = cs.order_leg(o_dev, d_dev, "octmorton")
+        order_tracers = {}
+
+        def tracer_call(ops, leg):
+            key = (ops["trace"].__name__, leg)
+            if key not in order_tracers:
+                make = ops["trace"].make_tracer
+                order_tracers[key] = (
+                    make(scene, packet=8192, sort="morton", tris=(a, b, c),
+                         device=dev) if leg == "aimed"
+                    else make(scene, packet=8192, sweep=False,
+                              sort="octmorton", device=dev))
+            rays = (ao_dev, ad_dev) if leg == "aimed" else (o_dev, d_dev)
+            return tuple(order_tracers[key](*rays))
+        for leg in ("aimed", "random"):
+            out[f"order/{leg}_tracer"] = (
+                "order", lambda ops, leg=leg: tracer_call(ops, leg))
     if "cluster_trace" in names:
         legacy = build_cluster_scene(a, b, c)
         for key, (lo, ld) in (("legacy_random", (o, d)),
